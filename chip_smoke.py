@@ -1,0 +1,481 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA card (H100).
+
+    python3 chip_smoke.py        # from the root of a checkout, one card
+
+Phases, each of which must pass or the script exits non-zero:
+
+1. device  — the card's name and power limit, as nvidia-smi reports them;
+2. build   — the CUDA kernels of ``src/repro_torch/kernels/csrc`` built with
+             nvcc (``repro_torch.kernels.build``);
+3. kernels — each kernel against its plain PyTorch version on the card, at
+             the serving path's shapes and at edge cases (window, softcap, an
+             empty slot, a pad-only tile, ragged lengths, GQA rep 1 and 8,
+             f32, head_dim 256), with its time, the plain version's time, one
+             PyTorch call's time (``scaled_dot_product_attention`` with an
+             explicit mask, a yardstick the port never calls) and its bound;
+4. engine  — the port's serving engine on full-width qwen2.5-3b with random
+             bf16 weights: 16 requests (prompts of 4..384 tokens, so chunked
+             prefill runs), greedy, 32 new tokens each, with the launch count
+             of each kernel during that run;
+5. logits  — packed prefill plus 4 decode steps at full width with
+             ``impl="flash"`` against ``impl="ref"``;
+6. profile — torch.profiler over 4 full-pool decode steps: device busy
+             time and kernels launched per step (read, not checked).
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits 1
+and prints no result.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+TOL = {"torch.bfloat16": 1e-2, "torch.float32": 2e-5}
+ARCH, MAX_BATCH, KV_LEN, NEW_TOKENS, N_REQUESTS = "qwen2.5-3b", 8, 1024, 32, 16
+DEVICE = "cuda"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok, msg):
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def device_ms(fn, iters, warmup=3):
+    """Mean device time of one call (ms): the kernel time torch.profiler
+    records over ``iters`` calls, summed and divided by ``iters`` — what
+    the card spends on a call, without the host's gaps between launches
+    (CUDA events around a loop of calls this small would time the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    check(busy_us > 0, "the profiler recorded no device time")
+    return busy_us / 1e3 / iters
+
+
+def bound(nbytes, flops, dtype):
+    """Least time on the card (ms) and what sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+def decode_case(torch, rng, *, B=8, Skv=1024, Hq=16, Hkv=2, hd=128, lens=None,
+                window=0, softcap=0.0, ring=False, empty=(), dtype=None, copies=1):
+    """Inputs of one decode call; ``copies`` distinct K/V pools (to time
+    with a cold L2, as each layer's pool is)."""
+    dtype = dtype or torch.bfloat16
+    dev = DEVICE
+    lens = rng.integers(64, Skv + 1, B) if lens is None else np.asarray(lens)
+    kv_pos = np.full((B, Skv), -1, np.int32)
+    for b, n in enumerate(lens):
+        if b in empty:
+            continue
+        if ring:                       # a wrapped ring, scrambled, with holes
+            n = Skv + int(n)
+            s = np.arange(Skv)
+            kv_pos[b] = n - 1 - ((n - 1 - s) % Skv)
+            kv_pos[b, rng.choice(Skv, Skv // 8, replace=False)] = -1
+        else:
+            kv_pos[b, :n] = np.arange(n)
+    q_pos = np.maximum(kv_pos.max(axis=1, keepdims=True), 0).astype(np.int32)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    q = torch.randn((B, 1, Hq, hd), generator=g, device=dev).to(dtype)
+    pools = [(torch.randn((B, Skv, Hkv, hd), generator=g, device=dev).to(dtype),
+              torch.randn((B, Skv, Hkv, hd), generator=g, device=dev).to(dtype))
+             for _ in range(copies)]
+    return dict(q=q, pools=pools, q_pos=torch.from_numpy(q_pos).to(dev),
+                kv_pos=torch.from_numpy(kv_pos).to(dev), window=window,
+                softcap=softcap, kv_pos_np=kv_pos, q_pos_np=q_pos)
+
+
+def prefill_case(torch, rng, *, S=128, Hq=16, Hkv=2, hd=128, lens=(37, 50, 20),
+                 window=0, softcap=0.0, segmented=True, dtype=None):
+    dtype = dtype or torch.bfloat16
+    dev = DEVICE
+    seg = np.full((1, S), -1, np.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        seg[0, off:off + n] = i
+        off += n
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    q = torch.randn((1, Hq, S, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((1, Hkv, S, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, Hkv, S, hd), generator=g, device=dev).to(dtype)
+    return dict(q=q, k=k, v=v, window=window, softcap=softcap,
+                segments=torch.from_numpy(seg).to(dev) if segmented else None,
+                seg_np=seg if segmented else None)
+
+
+def run_kernel_checks(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.decode import (flash_decode_fwd,
+                                                            flash_decode_plain)
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_fwd,
+                                                            flash_attention_plain)
+    rng = np.random.default_rng(0)
+    records = {}
+
+    # -- decode ---------------------------------------------------------------
+    cases = {
+        "main B8 Skv1024 Hq16 Hkv2 hd128": dict(),
+        "window256 softcap50": dict(window=256, softcap=50.0),
+        "empty slots 0,5": dict(empty=(0, 5)),
+        "ring scrambled with holes": dict(ring=True),
+        "Skv1000 (not a multiple of 128)": dict(Skv=1000),
+        "rep1 Hq8 Hkv8": dict(Hq=8, Hkv=8),
+        "rep8 hd256 Skv300": dict(Hq=16, Hkv=2, hd=256, Skv=300),
+        "f32 B3 Skv200 rep4": dict(B=3, Skv=200, Hq=8, Hkv=2, dtype=torch.float32),
+    }
+    errs = []
+    for name, kw in cases.items():
+        c = decode_case(torch, rng, **kw)
+        k, v = c["pools"][0]
+        args = dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"], window=c["window"],
+                    softcap=c["softcap"])
+        out = flash_decode_fwd(c["q"], k, v, **args)
+        ref = flash_decode_plain(c["q"], k, v, **args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL[str(c["q"].dtype)]
+        empty_ok = all(bool((out[b] == 0).all()) for b in kw.get("empty", ()))
+        print(f"kernel flash_decode case={name!r} max_abs_err={err:.3e} tol={tol:g}"
+              f" empty_slots_zero={empty_ok}")
+        check(np.isfinite(err) and err <= tol and empty_ok,
+              f"decode kernel disagrees with its plain version ({name})")
+        errs.append({"case": name, "max_abs_err": err, "tol": tol})
+
+    c = decode_case(torch, rng, copies=8)       # 8 pools x 8 MiB > the 50 MB L2
+    B, Skv, Hkv, hd = c["pools"][0][0].shape
+    Hq = c["q"].shape[2]
+    it = iter(range(1 << 30))
+
+    def pool():
+        return c["pools"][next(it) % len(c["pools"])]
+
+    args = dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"])
+    ms = device_ms(lambda: flash_decode_fwd(c["q"], *pool(), **args), 200)
+    plain_ms = device_ms(lambda: flash_decode_plain(c["q"], *pool(), **args), 20)
+    mask = (c["kv_pos"] >= 0) & (c["kv_pos"] <= c["q_pos"])
+    qt = c["q"].transpose(1, 2)
+    lib_pools = [(k.transpose(1, 2), v.transpose(1, 2)) for k, v in c["pools"]]
+    lib_mask = mask[:, None, None, :]
+    it2 = iter(range(1 << 30))
+
+    def library():
+        k, v = lib_pools[next(it2) % len(lib_pools)]
+        return F.scaled_dot_product_attention(qt, k, v, attn_mask=lib_mask,
+                                              enable_gqa=True)
+    library_ms = device_ms(library, 100)
+    valid = int((c["kv_pos_np"] >= 0).sum())
+    esz = c["q"].element_size()
+    nbytes = (2 * B * Hq * hd * esz                       # q in, out
+              + 2 * valid * Hkv * hd * esz                # valid K and V rows
+              + c["kv_pos_np"].nbytes + c["q_pos_np"].nbytes)
+    flops = 4 * valid * Hq * hd                           # QK^T and PV
+    b_ms, b_by = bound(nbytes, flops, str(c["q"].dtype))
+    records["flash_decode"] = {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode.cu",
+        "replaces": "src/repro/kernels/flash_attention/decode.py:113",
+        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms, "shape": [B, Skv, Hq, Hkv, hd],
+        "valid_entries": valid, "cases": errs}
+    print(f"kernel flash_decode timing ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+
+    # -- packed prefill -------------------------------------------------------
+    cases = {
+        "main S128 Hq16 Hkv2 hd128, 3 prompts + pad": dict(),
+        "window32 softcap50": dict(window=32, softcap=50.0),
+        "pad-only tiles (70 real of 128)": dict(lens=(40, 30)),
+        "S100 (not a multiple of 32)": dict(S=100, lens=(60, 33)),
+        "rep1 Hq16 Hkv16": dict(Hkv=16),
+        "rep8 hd256": dict(Hq=8, Hkv=1, hd=256),
+        "f32 rep4": dict(Hq=8, Hkv=2, dtype=torch.float32),
+        "no segments, causal S256": dict(S=256, segmented=False),
+    }
+    errs = []
+    for name, kw in cases.items():
+        c = prefill_case(torch, rng, **kw)
+        args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"])
+        out = flash_attention_fwd(c["q"], c["k"], c["v"], **args)
+        ref = flash_attention_plain(c["q"], c["k"], c["v"], **args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL[str(c["q"].dtype)]
+        pad_ok = True
+        if c["seg_np"] is not None:
+            pad = torch.from_numpy(c["seg_np"][0] < 0).to(DEVICE)
+            pad_ok = bool((out[:, :, pad] == 0).all())
+        print(f"kernel flash_prefill case={name!r} max_abs_err={err:.3e} tol={tol:g}"
+              f" pad_rows_zero={pad_ok}")
+        check(np.isfinite(err) and err <= tol and pad_ok,
+              f"prefill kernel disagrees with its plain version ({name})")
+        errs.append({"case": name, "max_abs_err": err, "tol": tol})
+
+    c = prefill_case(torch, rng)
+    _, Hq, S, hd = c["q"].shape
+    Hkv = c["k"].shape[1]
+    args = dict(segments=c["segments"])
+    ms = device_ms(lambda: flash_attention_fwd(c["q"], c["k"], c["v"], **args), 200)
+    plain_ms = device_ms(lambda: flash_attention_plain(c["q"], c["k"], c["v"], **args), 20)
+    seg = c["segments"][0]
+    idx = torch.arange(S, device=DEVICE)
+    lib_mask = ((seg[:, None] == seg[None, :]) & (seg[:, None] >= 0)
+                & (idx[None, :] <= idx[:, None]))[None, None]
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        c["q"], c["k"], c["v"], attn_mask=lib_mask, enable_gqa=True), 200)
+    pairs = int(lib_mask.sum().item())                     # attended (q, k) pairs
+    esz = c["q"].element_size()
+    nbytes = (2 * Hq * S * hd + 2 * Hkv * S * hd) * esz + c["seg_np"].nbytes
+    flops = 4 * pairs * Hq * hd
+    b_ms, b_by = bound(nbytes, flops, str(c["q"].dtype))
+    records["flash_prefill"] = {
+        "name": "flash_prefill", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/prefill.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:123",
+        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms, "shape": [1, S, Hq, Hkv, hd],
+        "attended_pairs": pairs, "cases": errs}
+    print(f"kernel flash_prefill timing ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+    return records
+
+
+# ---------------------------------------------------------------------------
+# engine and logits at full width
+# ---------------------------------------------------------------------------
+
+def run_engine(torch, cfg, params):
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    ecfg = EngineConfig(max_batch=MAX_BATCH, kv_len=KV_LEN,
+                        max_new_tokens=NEW_TOKENS, impl="flash")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
+               for n in rng.integers(4, 385, N_REQUESTS)]
+
+    # warm-up: cuBLAS handles, allocator pools, kernel modules
+    warm = ServingEngine(cfg, params, EngineConfig(
+        max_batch=MAX_BATCH, kv_len=KV_LEN, max_new_tokens=2, impl="flash"),
+        device=DEVICE)
+    for p in prompts[:2]:
+        warm.submit(p)
+    warm.run_until_drained()
+    del warm
+    torch.cuda.synchronize()
+
+    engine = ServingEngine(cfg, params, ecfg, device=DEVICE)
+    torch.cuda.synchronize()
+    flash_decode_fwd.launches = 0
+    flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    for p in prompts:
+        engine.submit(p)
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_decode": flash_decode_fwd.launches,
+                "flash_prefill": flash_attention_fwd.launches}
+    st = engine.stats()
+    print(f"engine arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"finished={st['finished']}/{N_REQUESTS} tokens={st['tokens']} "
+          f"tokens_per_s={st['tokens_per_s']:.2f} mean_ttft_s={st['mean_ttft_s']:.4f} "
+          f"ttft_p95_s={st['ttft_p95_s']:.4f} mean_tpot_s={st['mean_tpot_s']:.5f} "
+          f"decode_steps={st['decode_steps']} prefill_calls={st['prefill_calls']} "
+          f"prefill_tokens={st['prefill_tokens']} wall_s={wall:.3f} "
+          f"launches={json.dumps(launches)}")
+    check(st["finished"] == N_REQUESTS and st["failed"] == 0,
+          f"engine finished {st['finished']} of {N_REQUESTS}")
+    outs = [r.output for r in engine.finished]
+    check(all(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o)
+              for o in outs), "engine produced malformed token streams")
+    check(launches["flash_decode"] == st["decode_steps"] * cfg.n_layers,
+          f"decode launches {launches['flash_decode']} != decode steps "
+          f"{st['decode_steps']} x {cfg.n_layers} layers")
+    check(launches["flash_prefill"] > 0 and
+          launches["flash_prefill"] % cfg.n_layers == 0,
+          f"prefill kernel launches {launches['flash_prefill']}")
+    check(any(n > 128 for n in st["prompt_lens"]), "no chunked prefill ran")
+    return st, launches, wall
+
+
+def run_profile(torch, cfg, params, steps=4):
+    """Where a decode step's time goes: torch.profiler over ``steps`` fused
+    steps with every slot decoding — device busy time (the sum of kernel
+    times), the number of kernels a step launches, and the largest kernels.
+    The profiler slows the host, so the wall time here is not the engine's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    engine = ServingEngine(cfg, params, EngineConfig(
+        max_batch=MAX_BATCH, kv_len=KV_LEN, max_new_tokens=steps + 8,
+        impl="flash"), device=DEVICE)
+    rng = np.random.default_rng(2)
+    for _ in range(MAX_BATCH):        # 8 x 16 tokens: one packed stream
+        engine.submit(rng.integers(0, cfg.vocab_size, size=16))
+    engine.step()                     # admission (one packed prefill) + a step
+    engine.step()
+    check(len(engine.pool.decoding()) == MAX_BATCH, "profile: pool not full")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"profile decode_step busy_ms={busy_ms:.3f} wall_ms_profiled={wall_ms:.3f} "
+          f"kernels_per_step={launches:.0f} top=" + json.dumps(
+              [[e.key[:60], round(e.self_device_time_total / 1e3 / steps, 4), e.count // steps]
+               for e in top]))
+    return busy_ms, launches
+
+
+def run_logits(torch, cfg, params):
+    """Packed prefill + 4 teacher-forced decode steps at full width,
+    impl="flash" against impl="ref", each on its own slot pool."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.executor import Executor
+    from repro_torch.serving.pool import SlotPool
+
+    rng = np.random.default_rng(1)
+    B, C, lens = 4, 128, (30, 61, 17)
+    toks = np.zeros((1, C), np.int32)
+    seg = np.full((1, C), -1, np.int32)
+    pos = np.zeros((1, C), np.int32)
+    gather = np.zeros((B,), np.int32)
+    seg_len = np.zeros((B,), np.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        toks[0, off:off + n] = rng.integers(0, cfg.vocab_size, n)
+        seg[0, off:off + n], pos[0, off:off + n] = i, np.arange(n)
+        gather[i], seg_len[i] = off + n - 1, n
+        off += n
+    active = np.arange(B) < len(lens)
+    steps = rng.integers(0, cfg.vocab_size, (4, B)).astype(np.int32)
+    dev = lambda a: torch.from_numpy(np.asarray(a)).to(DEVICE)  # noqa: E731
+
+    results = {}
+    for impl in ("flash", "ref"):
+        ecfg = EngineConfig(max_batch=B, kv_len=256, impl=impl)
+        ex = Executor(cfg, params, ecfg, device=torch.device(DEVICE))
+        pool = SlotPool(cfg, ecfg, device=torch.device(DEVICE))
+        with torch.no_grad():
+            logits, pc = T.prefill_packed(params, cfg, dev(toks), dev(pos), dev(seg),
+                                          dev(gather), impl=impl)
+            ex.packed_insert(pool.cache, pc["stack"], dev(seg), dev(pos),
+                              dev(seg_len), dev(active))
+            out = [logits.float()]
+            for s in range(4):
+                p = np.where(active, seg_len + s, -1).astype(np.int32)
+                logits, _ = T.decode_step(params, cfg, pool.cache, dev(steps[s]),
+                                          dev(p), impl=impl)
+                out.append(logits.float()[: len(lens)])
+        results[impl] = out
+    names = ["prefill"] + [f"decode{s}" for s in range(4)]
+    scale = max(float(r.abs().max()) for r in results["ref"])
+    # bound: the oracle rounds its probabilities to bf16 before the value
+    # product and the kernels do not; over 36 bf16 layers of random weights
+    # that difference may grow to a few bf16 ulps of the logits' scale
+    limit = 5e-2 * max(1.0, scale)
+    diffs = {n: float((a - b).abs().max()) for n, a, b in
+             zip(names, results["flash"], results["ref"])}
+    finite = all(bool(torch.isfinite(r).all()) for r in results["flash"])
+    print(f"logits arch={cfg.name} max_abs_diff={json.dumps(diffs)} "
+          f"bound={limit:.4f} ref_scale={scale:.4f} finite={finite}")
+    check(finite and max(diffs.values()) <= limit,
+          "flash and ref logits disagree beyond the bound")
+    return diffs, limit
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, SRC)
+    from repro_torch.config import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(f"device: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    b = build.build()
+    ptxas = [ln.strip() for ln in b.log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"build: {b.seconds:.2f} s, libraries {sorted(b.libs)}")
+    for ln in ptxas:
+        print(f"build ptxas: {ln}")
+
+    records = run_kernel_checks(torch)
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                           device=DEVICE, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"params: {n_params} in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    st, launches, _ = run_engine(torch, cfg, params)
+    run_logits(torch, cfg, params)
+    run_profile(torch, cfg, params)
+    print(f"peak_memory_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+    for name, rec in records.items():
+        rec["launches"] = launches[name]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [
+        {**{k: rec[k] for k in keys}, **{k: v for k, v in rec.items() if k not in keys}}
+        for rec in records.values()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,166 @@
+"""Attention layers: MHA/GQA/MQA with global or local (sliding-window,
+ring-buffer cache) attention (counterpart of the reference's
+``models/attention.py``, fp pool, self-attention).
+
+Serving modes:
+
+- ``mode="prefill"`` with ``segments=`` — **packed ragged prefill**:
+  several prompts in one token stream, per-token prompt ids, no
+  cross-prompt attention.  Returns the *raw per-token* cache; the serving
+  engine scatters each segment into its KV slot;
+- ``mode="chunk"`` — **chunked prefill continuation**: S tokens per batch
+  row are written into the KV cache at explicit positions (``pos < 0`` =
+  pad, dropped) and attend to the pre-write cache plus the chunk;
+- ``mode="decode"`` — one token per slot, written at ``pos`` (``-1`` =
+  dead slot, dropped), attending to the post-write cache.
+
+The reference's functional cache update becomes an **in-place** update
+of the pool tensors here: ``chunk``/``decode`` write into ``cache`` and
+return it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.ops import attention as flash_attention
+from repro_torch.models.modules import apply_rope, dense_init
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_attention(generator, cfg, *, repeats, dtype, device):
+    D = cfg.d_model
+    Hq, Hkv, hd, hdv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
+    R = repeats
+    p = {
+        "wq": dense_init(generator, (R, D, Hq * hd), dtype, device),
+        "wk": dense_init(generator, (R, D, Hkv * hd), dtype, device),
+        "wv": dense_init(generator, (R, D, Hkv * hdv), dtype, device),
+        "wo": dense_init(generator, (R, Hq * hdv, D), dtype, device, fan_in=Hq * hdv),
+    }
+    if cfg.qkv_bias:
+        f32 = dict(dtype=torch.float32, device=device)
+        p["bq"] = torch.zeros((R, Hq * hd), **f32)
+        p["bk"] = torch.zeros((R, Hkv * hd), **f32)
+        p["bv"] = torch.zeros((R, Hkv * hdv), **f32)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg, kind: str, batch: int, kv_len: int, dtype, device):
+    Hkv, hd, hdv = cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
+    cap = kv_len if kind == "global" else min(cfg.window, kv_len)
+    return {
+        "k": torch.zeros((batch, cap, Hkv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, cap, Hkv, hdv), dtype=dtype, device=device),
+        "pos": torch.full((batch, cap), -1, dtype=torch.int32, device=device),
+    }
+
+
+def ring_positions(length, cap: int):
+    """Position held by each slot of a ``cap``-entry ring cache after
+    prefilling ``length`` tokens: slot ``s`` holds ``p ≡ s (mod cap)``,
+    ``p ∈ [length-cap, length)``; ``p < 0`` = empty.  ``length`` (B, 1)
+    gives (B, cap).  For global caches (cap >= length) this is the
+    identity layout."""
+    s_idx = torch.arange(cap, dtype=torch.int32, device=length.device)
+    return length - 1 - torch.remainder(length - 1 - s_idx, cap)
+
+
+def _ring_write(cache, new_leaves: dict, pos):
+    """Write S tokens at per-(row, token) ``pos`` into the cache in place
+    (ring for local, direct for global).  ``pos < 0`` entries are dropped:
+    dead pool slots and chunk pads never touch the cache.  Within one call
+    only the last ``cap`` positions of a row survive the ring, so those are
+    the only ones written (each row's targets stay unique)."""
+    cap = cache["pos"].shape[1]
+    B, S = pos.shape
+    row_max = torch.where(pos >= 0, pos, -1).amax(dim=1, keepdim=True)
+    valid = (pos >= 0) & (pos > row_max - cap)
+    slot = torch.remainder(pos, cap)
+    leaves = dict(new_leaves, pos=pos)
+    if S == 1:
+        # one target per row: a row without a valid write rewrites what
+        # its target holds, so the drop needs no host round trip
+        bidx = torch.arange(B, device=pos.device)
+        s = torch.where(valid[:, 0], slot[:, 0], 0)
+        for name, leaf in leaves.items():
+            pool = cache[name]
+            keep = valid[:, 0].reshape((B,) + (1,) * (pool.dim() - 2))
+            pool[bidx, s] = torch.where(keep, leaf[:, 0].to(pool.dtype), pool[bidx, s])
+    else:
+        bi, si = valid.nonzero(as_tuple=True)
+        for name, leaf in leaves.items():
+            pool = cache[name]
+            pool[bi, slot[bi, si]] = leaf[bi, si].to(pool.dtype)
+    return cache
+
+
+def _commit_kv(cache, new_k, new_v, pos):
+    """Commit fresh K/V rows into the slot pool (in place)."""
+    return _ring_write(cache, {"k": new_k, "v": new_v}, pos)
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
+                    impl: str = "flash", segments=None):
+    """x (B, S, D); pos (B, S) int32 (decode: (B, 1); chunk: -1 = pad).
+    Returns (out (B, S, D), cache)."""
+    if kind not in ("global", "local"):
+        raise NotImplementedError(f"layer kind {kind!r} has no port yet")
+    if mode not in ("prefill", "chunk", "decode") or \
+            (mode == "prefill" and segments is None):
+        raise NotImplementedError(
+            f"attention mode {mode!r} (segments={segments is not None}) has no "
+            f"port yet: serving runs packed prefill, chunk and decode")
+    B, S, D = x.shape
+    Hq, Hkv, hd, hdv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
+    dt = x.dtype
+    window = cfg.window if kind == "local" else 0
+    theta = cfg.rope_theta_local if (kind == "local" and cfg.rope_theta_local) \
+        else cfg.rope_theta
+
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    q = apply_rope(q.reshape(B, S, Hq, hd), pos, theta)
+    k = apply_rope(k.reshape(B, S, Hkv, hd), pos, theta)
+    v = v.reshape(B, S, Hkv, hdv)
+
+    if mode == "prefill":
+        out = flash_attention(q, k, v, causal=True, window=window,
+                              softcap=cfg.attn_softcap, impl=impl,
+                              segments=segments)
+        # packed ragged prefill: raw per-token cache; the serving engine
+        # scatters each segment into its KV slot
+        new_cache = {"k": k, "v": v, "pos": torch.where(segments >= 0, pos, -1)}
+    else:
+        if mode == "chunk":
+            # attend to the PRE-write cache plus the in-stream chunk: the
+            # chunk write may evict ring entries that early chunk queries
+            # still need, and cache positions are all < the chunk's.  The
+            # concatenation is a copy, taken before the in-place commit.
+            kc = torch.cat([cache["k"].to(dt), k], dim=1)
+            vc = torch.cat([cache["v"].to(dt), v], dim=1)
+            kv_pos = torch.cat([cache["pos"], pos], dim=1)
+        new_cache = _commit_kv(cache, k, v, pos)
+        if mode == "decode":
+            kc, vc, kv_pos = new_cache["k"], new_cache["v"], new_cache["pos"]
+        out = flash_attention(
+            q, kc, vc, q_pos=pos, kv_pos=kv_pos, kv_valid=kv_pos >= 0,
+            causal=True, window=window, softcap=cfg.attn_softcap, impl=impl)
+
+    out = out.reshape(B, S, Hq * hdv) @ p["wo"].to(dt)
+    return out, new_cache

@@ -1,0 +1,263 @@
+"""Model assembly: grouped layer stacks, embeddings and the serving entry points
+(counterpart of the reference's ``models/transformer.py``).
+
+The parameters are an ``nn.Module`` (:class:`Transformer`) whose names
+follow the reference's parameter tree: ``embed.tok``,
+``stack.<group>.u<i>.attn.wq``, ``final_norm.scale``...  Each group's
+leaves keep the reference's leading ``(repeats, ...)`` axis and every
+weight its ``(K, N)`` layout, used as ``x @ W`` (no ``nn.Linear``).  Where
+the reference scans a group, the port loops over its repeats in Python.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.config import ModelConfig
+from repro_torch.models import modules as M
+from repro_torch.models.attention import (apply_attention, init_attention,
+                                          init_kv_cache)
+
+
+# ---------------------------------------------------------------------------
+# group derivation
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    units: tuple[str, ...]   # layer kind of each unit of one pattern period
+    repeats: int
+
+
+def build_groups(cfg: ModelConfig) -> list[GroupSpec]:
+    """One group per maximal run of identical pattern periods, plus a
+    remainder group — the reference's grouping, so group and unit indices
+    (and hence parameter names) match."""
+    units = cfg.layer_kinds
+    period = len(cfg.pattern)
+    n = len(units)
+    groups: list[GroupSpec] = []
+    full = n // period
+    periods = [units[i * period:(i + 1) * period] for i in range(full)]
+    i = 0
+    while i < len(periods):
+        j = i
+        while j < len(periods) and periods[j] == periods[i]:
+            j += 1
+        groups.append(GroupSpec(periods[i], j - i))
+        i = j
+    rem = units[full * period:]
+    if rem:
+        groups.append(GroupSpec(rem, 1))
+    return groups
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _as_module(tree):
+    """Nested dict/list of tensors -> ModuleDict/ModuleList/ParameterDict
+    with the same keys (frozen parameters: the port serves, it does not
+    train)."""
+    if isinstance(tree, list):
+        return nn.ModuleList([_as_module(t) for t in tree])
+    if all(isinstance(t, torch.Tensor) for t in tree.values()):
+        return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+                                 for k, t in tree.items()})
+    return nn.ModuleDict({k: _as_module(t) for k, t in tree.items()})
+
+
+class Transformer(nn.ModuleDict):
+    """The parameters of one model, indexed like the reference's tree:
+    ``params["stack"][g]["u0"]["attn"]["wq"]``."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict):
+        super().__init__({k: _as_module(t) for k, t in tree.items()})
+        self.cfg = cfg
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise on what this slice of the port does not run: untied
+    embeddings, a final-logit softcap, an MLP other than the SiLU GLU."""
+    if not cfg.tie_embeddings or cfg.final_softcap or cfg.act != "silu" \
+            or not cfg.glu:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs tied embeddings, no final softcap and "
+            f"the SiLU GLU MLP so far")
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
+                device=None, dtype=torch.bfloat16) -> Transformer:
+    """Random parameters with the reference's distributions, drawn with
+    ``generator`` (on the generator's device) and stored on ``device``.
+    Weights and the embedding are stored in ``dtype``; biases and norm
+    scales in f32, cast at use.  ``generator=None`` with ``device="meta"``
+    builds only the names and shapes."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    if generator is None and device.type != "meta":
+        raise ValueError("init_params draws with an explicit torch.Generator")
+    tree = {"embed": {"tok": M.embed_init(
+        generator, (cfg.vocab_size, cfg.d_model), dtype, device)}}
+    stack = []
+    for spec in build_groups(cfg):
+        blk = {}
+        for ui in range(len(spec.units)):
+            blk[f"u{ui}"] = {
+                "ln1": M.init_norm((spec.repeats, cfg.d_model), device),
+                "attn": init_attention(generator, cfg, repeats=spec.repeats,
+                                       dtype=dtype, device=device),
+                "ln2": M.init_norm((spec.repeats, cfg.d_model), device),
+                "mlp": M.init_mlp(generator, cfg, repeats=spec.repeats,
+                                  dtype=dtype, device=device),
+            }
+        stack.append(blk)
+    tree["stack"] = stack
+    tree["final_norm"] = M.init_norm((cfg.d_model,), device)
+    return Transformer(cfg, tree)
+
+
+def _layer(tree, r: int):
+    """Views of repeat ``r`` of a group's stacked leaves (or pool)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[r]
+    return {k: _layer(t, r) for k, t in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# stack runner
+# ---------------------------------------------------------------------------
+
+def _apply_layer(p, x, *, cfg, kind, mode, pos, cache, impl, segments):
+    h = M.rmsnorm(x, p["ln1"]["scale"])
+    out, c = apply_attention(p["attn"], h, cfg=cfg, kind=kind, mode=mode,
+                             pos=pos, cache=None if cache is None else cache["attn"],
+                             impl=impl, segments=segments)
+    x = x + out
+    h = M.rmsnorm(x, p["ln2"]["scale"])
+    x = x + M.apply_mlp(p["mlp"], h)
+    return x, {"attn": c}
+
+
+def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
+              impl="flash", segments=None):
+    """Run every layer.  ``prefill`` returns the per-layer raw caches
+    stacked as ``(repeats, ...)`` per group; ``chunk``/``decode`` update the
+    pool ``caches`` in place and return them."""
+    new_caches = []
+    for gi, spec in enumerate(groups):
+        gp = stack[gi]
+        gc = None if caches is None else caches[gi]
+        outs = []
+        for r in range(spec.repeats):
+            p_blk = _layer(gp, r)
+            c_blk = None if gc is None else _layer(gc, r)
+            c_out = {}
+            for ui, kind in enumerate(spec.units):
+                x, c_out[f"u{ui}"] = _apply_layer(
+                    p_blk[f"u{ui}"], x, cfg=cfg, kind=kind, mode=mode, pos=pos,
+                    cache=None if c_blk is None else c_blk[f"u{ui}"],
+                    impl=impl, segments=segments)
+            outs.append(c_out)
+        new_caches.append(gc if gc is not None else _stack_trees(outs))
+    return x, new_caches
+
+
+def _stack_trees(trees):
+    if isinstance(trees[0], torch.Tensor):
+        return torch.stack(trees)
+    return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+
+
+# ---------------------------------------------------------------------------
+# embeddings / logits
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, cfg, tokens, dtype):
+    return params["embed"]["tok"][tokens].to(dtype)
+
+
+def unembed(params, cfg, h):
+    """Logits from the tied embedding table."""
+    return h @ params["embed"]["tok"].to(h.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def prefill_packed(params, cfg: ModelConfig, tokens, positions, segments,
+                   gather_idx, *, impl="flash", compute_dtype=torch.bfloat16):
+    """Packed ragged prefill: several prompts in one ``(1, C)`` stream.
+
+    ``positions`` are within-prompt positions (RoPE), ``segments`` per-token
+    prompt ids (-1 = pad) — a query never attends across a prompt
+    boundary.  ``gather_idx`` (n_seg,) picks the packed index of each
+    prompt's last token; returns (logits (n_seg, V), raw per-token cache) —
+    cache k/v/pos leaves keep the packed stream layout, the caller scatters
+    segments into KV slots."""
+    h = embed_tokens(params, cfg, tokens, compute_dtype)
+    h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
+                          mode="prefill", pos=positions, impl=impl,
+                          segments=segments)
+    h = M.rmsnorm(h, params["final_norm"]["scale"])
+    last = h[0][gather_idx][:, None]                    # (n_seg, 1, D)
+    logits = unembed(params, cfg, last)[:, 0]
+    return logits, {"stack": caches}
+
+
+def chunk_prefill_step(params, cfg: ModelConfig, cache, tokens, pos, take_idx,
+                       *, impl="flash", compute_dtype=torch.bfloat16):
+    """One chunked-prefill continuation step over the slot pool.
+
+    ``tokens`` (B, C): next chunk per row (right-padded); ``pos`` (B, C):
+    absolute positions, -1 = pad / inactive row; ``take_idx`` (B,): index
+    of each row's last real chunk token.  The chunk's K/V is written into
+    each row's cache in place, and the chunk attends to the whole cache.
+    Returns (logits (B, V) at take_idx, cache)."""
+    h = embed_tokens(params, cfg, tokens, compute_dtype)
+    h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
+                          mode="chunk", pos=pos, caches=cache["stack"], impl=impl)
+    h = M.rmsnorm(h, params["final_norm"]["scale"])
+    idx = take_idx.long()[:, None, None].expand(-1, 1, h.shape[-1])
+    last = torch.gather(h, 1, idx)                      # (B, 1, D)
+    logits = unembed(params, cfg, last)[:, 0]
+    return logits, {"stack": caches}
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
+                compute_dtype=torch.bfloat16):
+    """One decode step.  tokens (B,), pos (B,) -> (logits (B, V), cache);
+    the cache is updated in place."""
+    pos2 = pos[:, None]
+    h = embed_tokens(params, cfg, tokens[:, None], compute_dtype)
+    h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
+                          mode="decode", pos=pos2, caches=cache["stack"], impl=impl)
+    h = M.rmsnorm(h, params["final_norm"]["scale"])
+    logits = unembed(params, cfg, h)[:, 0]
+    return logits, {"stack": caches}
+
+
+# ---------------------------------------------------------------------------
+# cache init (serving engine)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, kv_len: int, *,
+               dtype=torch.bfloat16, device=None):
+    """The slot pool: per group, per unit, ``{"attn": {"k", "v", "pos"}}``
+    leaves with a leading ``repeats`` axis."""
+    device = resolve_device(device)
+    caches = []
+    for spec in build_groups(cfg):
+        blk = {}
+        for ui, kind in enumerate(spec.units):
+            one = init_kv_cache(cfg, kind, batch, kv_len, dtype, device)
+            blk[f"u{ui}"] = {"attn": {
+                k: t[None].repeat((spec.repeats,) + (1,) * t.dim())
+                for k, t in one.items()}}
+        caches.append(blk)
+    return {"stack": caches}

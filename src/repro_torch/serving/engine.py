@@ -1,0 +1,492 @@
+"""Batched serving engine: the wiring layer of the serving stack
+(counterpart of the reference's ``serving/engine.py``).
+
+Policy, device execution and slot lifecycle live in three sibling layers::
+
+    scheduler.py   admission policy (Scheduler protocol; FIFO default)
+    executor.py    the device programs (fused decode step, packed ragged
+                   prefill, chunked continuation) + the single
+                   device→host transfer point
+    pool.py        the slotted KV cache, per-slot decode state, slot
+                   lifecycle
+
+``ServingEngine`` owns the request queue, terminal bookkeeping and the
+iteration loop.  Each iteration runs:
+
+1. **admission** — the scheduler picks queued requests; all picked
+   prompts pack back-to-back into one ragged ``(1, C)`` stream and prefill
+   in a **single** call, with one multi-slot scatter insert.  Prompts
+   longer than ``C`` contribute their first ``≤ C`` tokens and enter the
+   *prefilling* state;
+2. **chunked-prefill continuation** — every prefilling slot advances by at
+   most one ``C``-token chunk per iteration;
+3. **decode** — one fused step over the full slot pool; the only
+   device→host traffic per iteration is one packed ``(K, 3, max_batch)``
+   int32 of ``(next_token, done, anomaly)``.
+
+This slice ports the fp, FIFO, packed, fused path.  ``EngineConfig``
+fields of the reference that it does not implement raise
+``NotImplementedError`` when the engine is built (see ``ROADMAP.md``).
+The engine runs on ``"cuda"`` unless ``device="cpu"`` is passed.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config import ModelConfig
+from repro_torch.serving.executor import Executor
+from repro_torch.serving.pool import SlotPool
+from repro_torch.serving.scheduler import FifoScheduler, Scheduler
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    max_batch: int = 8            # KV slot pool size
+    kv_len: int = 256             # per-slot KV depth
+    max_new_tokens: int = 32
+    temperature: float = 0.0      # 0 → greedy
+    eos_token: int = -1           # -1 → never stops early
+    impl: str = "flash"           # attention impl ("flash" → the CUDA kernels)
+    seed: int = 0
+    fused: bool = True
+    packed: bool = True
+    prefill_chunk: int = 0        # packed-stream / chunk budget in tokens
+    #   (0 → min(128, kv_len))
+    decode_chunk: int = 1         # decode iterations per step()
+    weight_bits: int = 0
+    weight_group: int = 0
+    kv_bits: int = 0
+    deadline_ms: float = 0.0
+    max_queue: int = 0
+    anomaly_retries: int = 1      # NaN/inf-logit quarantine: a slot whose
+    #   logits go non-finite is frozen and retried this many times before
+    #   only that request is failed
+    spec_k: int = 0
+    clock: Callable[[], float] = time.monotonic
+    #   the engine's time source for request timestamps
+    trace: bool = False
+
+
+# fields of the reference's EngineConfig this slice does not implement, with
+# the value that means "off"
+_NOT_PORTED = {"fused": True, "packed": True, "weight_bits": 0,
+               "weight_group": 0, "kv_bits": 0, "deadline_ms": 0.0,
+               "max_queue": 0, "spec_k": 0, "trace": False}
+
+
+class EngineStallError(RuntimeError):
+    """``run_until_drained`` exhausted ``max_iters`` with requests still in
+    flight; every stranded request was marked ``FAILED_MAX_ITERS`` first."""
+
+
+# Request terminal states (Request.status)
+QUEUED = "queued"
+ACTIVE = "active"
+DONE = "done"
+FAILED_ANOMALY = "failed_anomaly"      # non-finite logits past the retries
+FAILED_MAX_ITERS = "failed_max_iters"  # stranded at max_iters exhaustion
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray                       # (prompt_len,) int32
+    max_new_tokens: Optional[int] = None
+    priority: int = 0
+    # -- filled by the engine -------------------------------------------------
+    output: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    status: str = QUEUED
+    t_enqueue: float = 0.0
+    t_admit: float = 0.0
+    t_first_token: float = 0.0
+    t_done: float = 0.0
+
+
+def _percentiles(xs) -> tuple:
+    """(p50, p95, p99) of a sample list; an empty class is (None,)*3."""
+    if not xs:
+        return (None, None, None)
+    p = np.percentile(np.asarray(xs, np.float64), (50.0, 95.0, 99.0))
+    return (float(p[0]), float(p[1]), float(p[2]))
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params, ecfg: Optional[EngineConfig] = None,
+                 *, device=None, scheduler: Optional[Scheduler] = None, mesh=None):
+        self.cfg = cfg
+        self.ecfg = ecfg = ecfg if ecfg is not None else EngineConfig()
+        for name, off in _NOT_PORTED.items():
+            if getattr(ecfg, name) != off:
+                raise NotImplementedError(
+                    f"EngineConfig.{name}={getattr(ecfg, name)!r} has no port yet")
+        if mesh is not None:
+            raise NotImplementedError("a mesh (sharded serving) has no port yet")
+        self.device = resolve_device(device)
+        pdev = next(params.parameters()).device
+        if pdev.type != self.device.type:
+            raise ValueError(f"parameters on {pdev}, engine on {self.device}")
+
+        self.scheduler: Scheduler = scheduler if scheduler is not None \
+            else FifoScheduler()
+        self.executor = Executor(cfg, params, ecfg, device=self.device)
+        self.pool = SlotPool(cfg, ecfg, device=self.device)
+
+        self.queue: collections.deque[Request] = collections.deque()
+        self.finished: list[Request] = []
+        self.failed: list[Request] = []
+        self._uid = 0
+
+        # prefill / schedule accounting
+        self.decode_steps = 0
+        self.prefill_tokens = 0
+        self.prefill_time = 0.0
+        self.prefill_calls = 0
+        self.max_stall_tokens = 0
+        self._stall_tokens = 0
+        # {n_active: decode iterations at that occupancy}
+        self.active_slot_hist: collections.Counter = collections.Counter()
+
+        S = ecfg.kv_len
+        self._chunk = min(ecfg.prefill_chunk or min(128, S), S)
+
+    @property
+    def host_transfers(self):
+        return self.executor.host_transfers
+
+    @property
+    def host_bytes(self):
+        return self.executor.host_bytes
+
+    def _now(self) -> float:
+        return self.ecfg.clock()
+
+    def _fetch(self, x) -> np.ndarray:
+        return self.executor.fetch(x)
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr).to(self.device)
+
+    # -- public API -------------------------------------------------------------
+    def submit(self, prompt: np.ndarray, max_new_tokens: Optional[int] = None,
+               *, priority: int = 0) -> Request:
+        """Validate and enqueue one request (malformed inputs raise
+        ``ValueError`` here, not inside a device step)."""
+        arr = np.asarray(prompt)
+        if arr.ndim != 1:
+            raise ValueError(f"prompt must be 1-D, got ndim={arr.ndim}")
+        if arr.size == 0:
+            raise ValueError("prompt must hold at least one token")
+        if arr.dtype.kind not in "iu":
+            raise ValueError(f"prompt must be integer token ids, got dtype={arr.dtype}")
+        if arr.size + 1 >= self.ecfg.kv_len:
+            raise ValueError(
+                f"prompt ({arr.size}) ≥ kv_len ({self.ecfg.kv_len}): no room "
+                f"for even one generated token in the KV budget")
+        if max_new_tokens is not None and max_new_tokens < 0:
+            raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
+        req = Request(uid=self._uid, prompt=arr.astype(np.int32),
+                      max_new_tokens=max_new_tokens, priority=int(priority),
+                      t_enqueue=self._now())
+        self._uid += 1
+        self.queue.append(req)
+        return req
+
+    def _fail(self, req: Request, status: str, now: Optional[float] = None):
+        req.status = status
+        req.t_done = now if now is not None else self._now()
+        self.failed.append(req)
+
+    # -- scheduler seams -------------------------------------------------------
+    def _prefill_allowed(self) -> bool:
+        if not (self.queue or self.pool.prefilling):
+            return True
+        decoding = self.pool.decoding()
+        if not decoding:
+            return True
+        return self.scheduler.allow_prefill(decoding, self._now())
+
+    def _pop_admissible(self) -> Optional[tuple]:
+        """Pop the scheduler's next admissible queued request.  Requests
+        asking for 0 tokens finish immediately."""
+        while self.queue:
+            idx = self.scheduler.select(self.queue, self._now())
+            if idx is None:
+                return None
+            req = self.queue[idx]
+            del self.queue[idx]
+            budget = req.max_new_tokens if req.max_new_tokens is not None \
+                else self.ecfg.max_new_tokens
+            if budget <= 0:
+                req.done = True
+                req.status = DONE
+                req.t_admit = req.t_first_token = req.t_done = self._now()
+                self.finished.append(req)
+                continue
+            return req, len(req.prompt), budget
+        return None
+
+    # -- iteration loop --------------------------------------------------------
+    def step(self) -> int:
+        """One engine iteration: (scheduler-gated) admission + chunked
+        prefill continuation + one fused decode step over the slot pool.
+        Returns the number of occupied slots."""
+        t0 = time.perf_counter()
+        calls0 = self.prefill_calls
+        if self._prefill_allowed():
+            self._admit_packed()
+        dt = time.perf_counter() - t0
+        self.prefill_time += dt
+        if self.prefill_calls > calls0:
+            self.scheduler.observe_prefill(dt)
+        occupied = self.pool.occupied()
+        if occupied == len(self.pool.prefilling):
+            # no live slot: nothing to decode
+            self._stall_tokens = 0
+            return occupied
+        self.pool.cache, self.pool.state, packed = self.executor.fused_step(
+            self.pool.cache, self.pool.state)
+        arr = self._fetch(packed)                 # ONE d2h transfer
+        self.decode_steps += arr.shape[0]
+        self.max_stall_tokens = max(self.max_stall_tokens, self._stall_tokens)
+        self._stall_tokens = 0
+        now = self._now()
+        for it in range(arr.shape[0]):            # decode_chunk iterations
+            self.active_slot_hist[int((arr[it, 0] >= 0).sum())] += 1
+            for i, req in enumerate(self.pool.slot_req):
+                if req is None or i in self.pool.prefilling:
+                    continue
+                if arr[it, 2, i]:                 # non-finite logits: frozen
+                    self.pool.anomalies[i] += 1
+                    if self.pool.anomalies[i] > self.ecfg.anomaly_retries:
+                        self._fail(req, FAILED_ANOMALY, now)
+                        self.pool.kill(i)
+                    continue
+                if arr[it, 0, i] < 0:
+                    continue
+                self.pool.anomalies[i] = 0
+                tok = int(arr[it, 0, i])
+                if not req.output:
+                    req.t_first_token = now
+                req.output.append(tok)
+                if arr[it, 1, i]:
+                    req.done = True
+                    req.status = DONE
+                    req.t_done = now
+                    self.finished.append(req)
+                    self.pool.release(i)     # slot freed → continuous batching
+        return self.pool.occupied()
+
+    def run_until_drained(self, max_iters: int = 10_000) -> list[Request]:
+        """Step until every request reaches a terminal state; exhausting
+        ``max_iters`` marks the stranded requests and raises
+        ``EngineStallError``."""
+        it = 0
+        while self.queue or any(r is not None for r in self.pool.slot_req):
+            self.step()
+            it += 1
+            if it > max_iters:
+                now = self._now()
+                stranded = list(self.queue) + [r for r in self.pool.slot_req
+                                               if r is not None]
+                for req in self.queue:
+                    self._fail(req, FAILED_MAX_ITERS, now)
+                self.queue.clear()
+                for i, req in enumerate(self.pool.slot_req):
+                    if req is not None:
+                        self._fail(req, FAILED_MAX_ITERS, now)
+                        self.pool.kill(i)
+                raise EngineStallError(
+                    f"engine did not drain in {max_iters} iterations; "
+                    f"{len(stranded)} request(s) marked {FAILED_MAX_ITERS}")
+        return self.finished
+
+    # -- admission: packed ragged prefill + chunked continuation ---------------
+    def _admit_packed(self):
+        B, C = self.ecfg.max_batch, self._chunk
+        if self.pool.prefilling:
+            self._continue_chunks()
+        free = self.pool.free_slots()
+        if not free or not self.queue:
+            return
+
+        segs = []                      # (req, slot, off, take, final, budget)
+        used = 0
+        while free and used < C:
+            nxt = self._pop_admissible()
+            if nxt is None:
+                break
+            req, plen, budget = nxt
+            if plen > C - used and used > 0:
+                # the whole prompt doesn't fit the rest of the stream: don't
+                # fragment it — re-queue at the head, admit next iteration
+                self.queue.appendleft(req)
+                break
+            take = min(plen, C - used)
+            slot = free.pop(0)
+            segs.append((req, slot, used, take, take == plen, budget))
+            used += take
+        if not segs:
+            return
+
+        toks = np.zeros((1, C), np.int32)
+        seg = np.full((1, C), -1, np.int32)
+        pos = np.zeros((1, C), np.int32)
+        gather = np.zeros((B,), np.int32)
+        len_v = np.zeros((B,), np.int32)
+        fin_v = np.zeros((B,), bool)
+        bud_v = np.ones((B,), np.int32)
+        act_v = np.zeros((B,), bool)
+        t_adm = self._now()
+        for req, slot, off, take, final, budget in segs:
+            req.t_admit = t_adm
+            toks[0, off:off + take] = req.prompt[:take]
+            seg[0, off:off + take] = slot
+            pos[0, off:off + take] = np.arange(take)
+            gather[slot] = off + take - 1
+            len_v[slot] = take
+            fin_v[slot], bud_v[slot], act_v[slot] = final, budget, True
+
+        self.pool.cache, self.pool.state, first = self.executor.packed_prefill(
+            self.pool.cache, self.pool.state, self._dev(toks), self._dev(pos),
+            self._dev(seg), self._dev(gather), self._dev(len_v),
+            self._dev(fin_v), self._dev(bud_v), self._dev(act_v))
+        arr = self._fetch(first)                  # one d2h per admission burst
+        self.prefill_tokens += used
+        self.prefill_calls += 1
+        self._stall_tokens += used
+        now = self._now()
+        for req, slot, off, take, final, budget in segs:
+            req.status = ACTIVE
+            if final:
+                req.output = [int(arr[slot])]
+                req.t_first_token = now
+                if budget == 1:     # the prefill sample was the whole budget
+                    req.done = True
+                    req.status = DONE
+                    req.t_done = now
+                    self.finished.append(req)
+                    continue
+                self.pool.slot_req[slot] = req
+            else:                   # long prompt: first chunk only
+                self.pool.slot_req[slot] = req
+                self.pool.prefilling[slot] = (take, budget)
+
+    def _continue_chunks(self):
+        """Advance every mid-prefill slot by one <= C-token chunk (one
+        batched call), activating rows whose prompt completed."""
+        B, C = self.ecfg.max_batch, self._chunk
+        toks = np.zeros((B, C), np.int32)
+        pos = np.full((B, C), -1, np.int32)
+        take_idx = np.zeros((B,), np.int32)
+        fin_v = np.zeros((B,), bool)
+        bud_v = np.ones((B,), np.int32)
+        plan = []                                  # (slot, start, c, budget)
+        for slot, (start, budget) in self.pool.prefilling.items():
+            req = self.pool.slot_req[slot]
+            plen = len(req.prompt)
+            c = min(plen - start, C)
+            toks[slot, :c] = req.prompt[start:start + c]
+            pos[slot, :c] = start + np.arange(c)
+            take_idx[slot] = c - 1
+            fin_v[slot] = start + c == plen
+            bud_v[slot] = budget
+            plan.append((slot, start, c, budget))
+
+        self.pool.cache, self.pool.state, first = self.executor.chunk_step(
+            self.pool.cache, self.pool.state, self._dev(toks), self._dev(pos),
+            self._dev(take_idx), self._dev(fin_v), self._dev(bud_v))
+        arr = self._fetch(first)
+        self.prefill_tokens += sum(c for _, _, c, _ in plan)
+        self.prefill_calls += 1
+        self._stall_tokens += C                    # one batched chunk call
+        now = self._now()
+        for slot, start, c, budget in plan:
+            req = self.pool.slot_req[slot]
+            if start + c == len(req.prompt):       # prompt complete
+                del self.pool.prefilling[slot]
+                req.output = [int(arr[slot])]
+                req.t_first_token = now
+                if budget == 1:
+                    req.done = True
+                    req.status = DONE
+                    req.t_done = now
+                    self.finished.append(req)
+                    self.pool.release(slot)
+            else:
+                self.pool.prefilling[slot] = (start + c, budget)
+
+    # -- stats ---------------------------------------------------------------
+    def _failure_stats(self) -> dict:
+        by_status = collections.Counter(r.status for r in self.failed)
+        return {
+            "failed": len(self.failed),
+            "failed_anomaly": by_status.get(FAILED_ANOMALY, 0),
+            "failed_max_iters": by_status.get(FAILED_MAX_ITERS, 0),
+            # the reference's bounded queue, deadlines and checkpoints have
+            # no port yet: their counters stay 0, kept for key parity
+            "rejected": 0,
+            "failed_deadline": 0,
+            "checkpoints_written": 0,
+            "restores": 0,
+            "replayed_requests": 0,
+        }
+
+    def stats(self) -> dict:
+        done = self.finished
+        if not done:
+            return {"finished": 0, **self._failure_stats()}
+        lat = [r.t_done - r.t_enqueue for r in done]
+        ttft = [r.t_first_token - r.t_enqueue for r in done]
+        tpot = [(r.t_done - r.t_first_token) / (len(r.output) - 1)
+                for r in done if len(r.output) > 1]
+        qwait = [r.t_admit - r.t_enqueue for r in done if r.t_admit > 0.0]
+        lat_p, ttft_p = _percentiles(lat), _percentiles(ttft)
+        tpot_p, qwait_p = _percentiles(tpot), _percentiles(qwait)
+        toks = sum(len(r.output) for r in done)
+        span = max(r.t_done for r in done) - min(r.t_enqueue for r in done)
+        return {
+            "finished": len(done),
+            "tokens": toks,
+            "tokens_per_s": toks / max(span, 1e-9),
+            "mean_latency_s": float(np.mean(lat)),
+            "mean_ttft_s": float(np.mean(ttft)),
+            "mean_tpot_s": float(np.mean(tpot)) if tpot else None,
+            "mean_queue_wait_s": float(np.mean(qwait)) if qwait else None,
+            "latency_p50_s": lat_p[0],
+            "latency_p95_s": lat_p[1],
+            "latency_p99_s": lat_p[2],
+            "ttft_p50_s": ttft_p[0],
+            "ttft_p95_s": ttft_p[1],
+            "ttft_p99_s": ttft_p[2],
+            "tpot_p50_s": tpot_p[0],
+            "tpot_p95_s": tpot_p[1],
+            "tpot_p99_s": tpot_p[2],
+            "queue_wait_p50_s": qwait_p[0],
+            "queue_wait_p95_s": qwait_p[1],
+            "queue_wait_p99_s": qwait_p[2],
+            "decode_steps": self.decode_steps,
+            "host_transfers": self.host_transfers,
+            "host_bytes": self.host_bytes,
+            "host_bytes_per_token": self.host_bytes / max(toks, 1),
+            "prefill_tokens": self.prefill_tokens,
+            "prefill_calls": self.prefill_calls,
+            "prefill_time_s": self.prefill_time,
+            "prefill_tokens_per_s": self.prefill_tokens / max(self.prefill_time, 1e-9),
+            "max_stall_tokens": self.max_stall_tokens,
+            "prompt_lens": [len(r.prompt) for r in done],
+            "gen_lens": [len(r.output) for r in done],
+            "prefill_chunk": self._chunk,
+            "max_batch": self.ecfg.max_batch,
+            "weight_bits": 16,
+            "kv_bits": 16,
+            "active_slots_hist": dict(sorted(self.active_slot_hist.items())),
+            **self._failure_stats(),
+        }

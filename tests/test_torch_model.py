@@ -1,0 +1,260 @@
+"""The port's model against the reference's, live, on a reduced qwen2.5-3b.
+
+The reference's f32 parameter tree (``repro.models.transformer.init_params``)
+goes through ``repro_torch.convert``; both sides then run packed prefill,
+two chunked-prefill continuations and a teacher-forced run of decode steps
+on the same numpy inputs.  Logits and every cache leaf are compared after
+each call — ``pos`` exactly, including the writes dropped at ``pos=-1``
+(a dead slot, chunk pads).
+
+Tolerances: f32 to 2e-5 (the reference's kernel pin).  bf16 to 1e-2 of
+each tensor's scale (its largest magnitude, at least 1): a bf16 value of
+magnitude m moves by up to m/128 on one rounding flip, the two sides sum the
+attention in different orders, and RoPE rotates the error of a large
+component into a small one, so an elementwise relative bound would
+measure the rotation, not the port.  In bf16 both sides run
+``impl="flash"``: the reference's Pallas kernels in interpret mode, the
+port's kernel wrappers (their plain versions on CPU).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_config as jax_get_config
+from repro.config import reduce_config as jax_reduce_config
+from repro.models import transformer as TJ
+from repro_torch.config import get_config, reduce_config
+from repro_torch.convert import params_from_jax
+from repro_torch.models import transformer as TT
+
+CASES = {"f32-ref": (np.float32, "ref"), "f32-flash": (np.float32, "flash"),
+         "bf16-flash": ("bf16", "flash")}
+B, KV_LEN, C = 3, 48, 16
+
+
+@pytest.fixture(scope="module")
+def models():
+    cfg_j = jax_reduce_config(jax_get_config("qwen2.5-3b"))
+    cfg_t = reduce_config(get_config("qwen2.5-3b"))
+    tree = jax.device_get(TJ.init_params(cfg_j, jax.random.PRNGKey(0),
+                                         param_dtype=jnp.float32))
+    return cfg_j, cfg_t, tree
+
+
+def _dtypes(dtype):
+    return ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+            else (jnp.float32, torch.float32))
+
+
+def _close(got, want, tol, what):
+    want = np.asarray(want, np.float32)
+    if tol > 1e-3:                       # bf16: relative to the tensor's scale
+        atol, rtol = tol * max(1.0, float(np.abs(want).max())), 0.0
+    else:
+        atol = rtol = tol
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=rtol,
+                               err_msg=what)
+
+
+def _compare_cache(ct, cj, tol, what):
+    for gi, (gt, gj) in enumerate(zip(ct["stack"], cj["stack"])):
+        for unit in gj:
+            for name, leaf in gj[unit]["attn"].items():
+                got = gt[unit]["attn"][name]
+                where = f"{what}: stack[{gi}].{unit}.attn.{name}"
+                assert tuple(got.shape) == leaf.shape, where
+                if name == "pos":
+                    np.testing.assert_array_equal(got.numpy(), np.asarray(leaf),
+                                                  err_msg=where)
+                else:
+                    _close(got, leaf, tol, where)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_prefill_chunk_decode_match_reference(models, case):
+    dtype, impl = CASES[case]
+    tol = 1e-2 if dtype == "bf16" else 2e-5
+    jdt, tdt = _dtypes(dtype)
+    cfg_j, cfg_t, tree = models
+    pt = params_from_jax(tree, cfg_t, device="cpu", dtype=tdt)
+    rng = np.random.default_rng(1)
+    V = cfg_t.vocab_size
+    T = lambda x: torch.from_numpy(np.asarray(x))  # noqa: E731
+
+    # -- packed prefill: 3 prompts + a pad tail in one (1, 2C) stream ------
+    S, lens = 2 * C, [7, 12, 5]
+    toks = rng.integers(0, V, (1, S)).astype(np.int32)
+    seg = np.full((1, S), -1, np.int32)
+    pos = np.zeros((1, S), np.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        seg[0, off:off + n], pos[0, off:off + n] = i, np.arange(n)
+        off += n
+    gather = np.cumsum(lens).astype(np.int32) - 1
+    lj, cj = TJ.prefill_packed(tree, cfg_j, toks, pos, seg, gather, impl=impl,
+                               compute_dtype=jdt)
+    lt, ct = TT.prefill_packed(pt, cfg_t, T(toks), T(pos), T(seg), T(gather),
+                               impl=impl, compute_dtype=tdt)
+    _close(lt, lj, tol, "packed prefill logits")
+    _compare_cache(ct, cj, tol, "packed prefill cache")
+
+    # -- chunked continuation: row 0 full chunks, row 1 a padded chunk, row 2
+    #    inactive (all pads: every write dropped) ---------------------------
+    cache_j = TJ.init_cache(cfg_j, B, KV_LEN, dtype=jdt)
+    cache_t = TT.init_cache(cfg_t, B, KV_LEN, dtype=tdt, device="cpu")
+    starts = [0, 0]
+    for step, takes in enumerate([(C, 10), (C, 6)]):
+        toks = rng.integers(0, V, (B, C)).astype(np.int32)
+        cpos = np.full((B, C), -1, np.int32)
+        for r, c in enumerate(takes):
+            cpos[r, :c] = starts[r] + np.arange(c)
+            starts[r] += c
+        take = np.array([takes[0] - 1, takes[1] - 1, 0], np.int32)
+        lj, cache_j = TJ.chunk_prefill_step(tree, cfg_j, cache_j, toks, cpos, take,
+                                            impl=impl, compute_dtype=jdt)
+        lt, cache_t = TT.chunk_prefill_step(pt, cfg_t, cache_t, T(toks), T(cpos),
+                                            T(take), impl=impl, compute_dtype=tdt)
+        _close(lt, lj, tol, f"chunk {step} logits")
+        _compare_cache(cache_t, cache_j, tol, f"chunk {step} cache")
+
+    # -- teacher-forced decode: row 2 is a dead slot (pos -1, write dropped)
+    for step in range(3):
+        toks = rng.integers(0, V, (B,)).astype(np.int32)
+        dpos = np.array([starts[0] + step, starts[1] + step, -1], np.int32)
+        lj, cache_j = TJ.decode_step(tree, cfg_j, cache_j, toks, dpos, impl=impl,
+                                     compute_dtype=jdt)
+        lt, cache_t = TT.decode_step(pt, cfg_t, cache_t, T(toks), T(dpos),
+                                     impl=impl, compute_dtype=tdt)
+        _close(lt, lj, tol, f"decode {step} logits")
+        _compare_cache(cache_t, cache_j, tol, f"decode {step} cache")
+    assert torch.all(cache_t["stack"][0]["u0"]["attn"]["pos"][:, 2] == -1)
+
+
+@pytest.mark.parametrize("change", [dict(tie_embeddings=False), dict(final_softcap=30.0),
+                                    dict(act="gelu"), dict(glu=False)])
+def test_model_options_without_a_port_raise(models, change):
+    import dataclasses
+    cfg = dataclasses.replace(models[1], **change)
+    with pytest.raises(NotImplementedError):
+        TT.init_params(cfg, torch.Generator(), device="cpu")
+
+
+def test_convert_rejects_a_foreign_tree(models):
+    _, cfg_t, tree = models
+    bad = dict(tree, stack=[{"u0": dict(tree["stack"][0]["u0"], extra={"w": np.zeros(3)})}])
+    with pytest.raises(ValueError, match="does not match"):
+        params_from_jax(bad, cfg_t, device="cpu")
+
+
+def test_params_keep_the_reference_names_and_layout(models):
+    cfg_j, cfg_t, tree = models
+    pt = params_from_jax(tree, cfg_t, device="cpu", dtype=torch.bfloat16)
+    flat = {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    names = {n.replace(".", "/"): p for n, p in pt.named_parameters()}
+    assert set(names) == set(flat)
+    for n, leaf in flat.items():
+        assert tuple(names[n].shape) == leaf.shape, n
+        assert names[n].dtype == (torch.float32 if n.rsplit("/", 1)[-1] in
+                                  ("bq", "bk", "bv", "scale") else torch.bfloat16), n
+    # the port's own init draws the same names, shapes and spreads
+    own = TT.init_params(cfg_t, torch.Generator().manual_seed(0), device="cpu",
+                         dtype=torch.float32)
+    for n, p in own.named_parameters():
+        ref = flat[n.replace(".", "/")]
+        assert tuple(p.shape) == ref.shape, n
+        np.testing.assert_allclose(p.std().item(), np.std(ref), rtol=0.1, atol=1e-6,
+                                   err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# local (sliding-window, ring-buffer) caches, on reduced gemma2-9b's
+# attention geometry: window 16 = ring capacity, softcap 50
+# ---------------------------------------------------------------------------
+
+def _gemma_cfgs():
+    import dataclasses
+    from repro_torch.config import ModelConfig
+    cfg_j = jax_reduce_config(jax_get_config("gemma2-9b"))
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    return cfg_j, ModelConfig(**{f: getattr(cfg_j, f) for f in fields})
+
+
+def test_local_ring_attention_matches_reference():
+    """Chunks that wrap the 16-entry ring (with pads and an idle row), then
+    decode steps, through the local attention layer of both packages."""
+    from repro.models.attention import apply_attention as jax_apply
+    from repro.models.attention import init_attention as jax_init
+    from repro.models.attention import init_kv_cache as jax_cache
+    from repro_torch.models.attention import apply_attention, init_kv_cache
+    cfg_j, cfg_t = _gemma_cfgs()
+    pj = jax_init(jax.random.PRNGKey(3), cfg_j)
+    pt = {k: torch.from_numpy(np.array(v)) for k, v in pj.items()}
+    B, C, D = 2, 12, cfg_t.d_model
+    cj = jax_cache(cfg_j, "local", B, 48, jnp.float32)
+    ct = init_kv_cache(cfg_t, "local", B, 48, torch.float32, "cpu")
+    assert tuple(ct["pos"].shape) == (B, cfg_t.window)
+    rng = np.random.default_rng(4)
+    steps = []
+    for start, n1 in [(0, 7), (12, 0), (24, 0)]:         # row 1 idles after 7
+        pos = np.full((B, C), -1, np.int32)
+        pos[0] = start + np.arange(C)
+        pos[1, :n1] = np.arange(n1)
+        steps.append(("chunk", pos))
+    for t in range(3):
+        steps.append(("decode", np.array([[36 + t], [7 + t]], np.int32)))
+    for mode, pos in steps:
+        x = rng.standard_normal((B, pos.shape[1], D)).astype(np.float32)
+        oj, cj = jax_apply(pj, jnp.asarray(x), cfg=cfg_j, kind="local", mode=mode,
+                           pos=jnp.asarray(pos), cache=cj, impl="flash")
+        ot, ct = apply_attention(pt, torch.from_numpy(x), cfg=cfg_t, kind="local",
+                                 mode=mode, pos=torch.from_numpy(pos), cache=ct,
+                                 impl="flash")
+        np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=2e-5, rtol=2e-5,
+                                   err_msg=mode)
+        np.testing.assert_array_equal(ct["pos"].numpy(), np.asarray(cj["pos"]))
+        for name in ("k", "v"):
+            np.testing.assert_allclose(ct[name].numpy(), np.asarray(cj[name]),
+                                       atol=2e-5, rtol=2e-5, err_msg=name)
+
+
+def test_packed_insert_into_ring_and_global_caches_matches_reference():
+    """The engine's multi-slot scatter of a packed stream: a 20-token
+    segment overflows the 16-entry local ring (only its last 16 tokens
+    stay), a 9-token one fits; slot 1 is inactive."""
+    from repro.serving.engine import EngineConfig as JaxEngineConfig
+    from repro.serving.executor import Executor as JaxExecutor
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.executor import Executor
+    cfg_j, cfg_t = _gemma_cfgs()
+    B, S, C = 3, 48, 32
+    cache_j = TJ.init_cache(cfg_j, B, S, dtype=jnp.float32)
+    cache_t = TT.init_cache(cfg_t, B, S, dtype=torch.float32, device="cpu")
+    seg = np.full((1, C), -1, np.int32)
+    pos = np.zeros((1, C), np.int32)
+    seg[0, :20], pos[0, :20] = 0, np.arange(20)
+    seg[0, 20:29], pos[0, 20:29] = 2, np.arange(9)
+    seg_len = np.array([20, 0, 9], np.int32)
+    active = np.array([True, False, True])
+    rng = np.random.default_rng(5)
+    Hkv, hd = cfg_t.n_kv_heads, cfg_t.head_dim
+    pstack = [{u: {"attn": {
+        "k": rng.standard_normal((1, 1, C, Hkv, hd)).astype(np.float32),
+        "v": rng.standard_normal((1, 1, C, Hkv, hd)).astype(np.float32),
+        "pos": np.where(seg >= 0, pos, -1)[None]}} for u in ("u0", "u1")}]
+    jex = JaxExecutor(cfg_j, None, JaxEngineConfig(max_batch=B, kv_len=S))
+    new_j = jex._packed_insert(cache_j, jax.tree_util.tree_map(jnp.asarray, pstack),
+                               jnp.asarray(seg), jnp.asarray(pos),
+                               jnp.asarray(seg_len), jnp.asarray(active))
+    ex = Executor(cfg_t, None, EngineConfig(max_batch=B, kv_len=S), device="cpu")
+    T = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    ex.packed_insert(cache_t, [{u: {"attn": {k: T(a) for k, a in c["attn"].items()}}
+                                for u, c in pstack[0].items()}],
+                     T(seg), T(pos), T(seg_len), T(active))
+    for u in ("u0", "u1"):
+        for name in ("k", "v", "pos"):
+            np.testing.assert_array_equal(
+                cache_t["stack"][0][u]["attn"][name].numpy(),
+                np.asarray(new_j["stack"][0][u]["attn"][name]), err_msg=f"{u}.{name}")

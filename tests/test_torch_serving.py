@@ -1,0 +1,92 @@
+"""The port's serving engine against the reference's, live, on the CPU.
+
+Both engines serve the same prompts with the same weights (the reference's
+f32 tree, carried over by ``repro_torch.convert`` into bf16 — the values
+the reference's bf16 compute casts them to), greedy, ``impl="flash"``:
+``max_batch=3``, ``kv_len=64``, ``prefill_chunk=16``, one prompt longer
+than the chunk so chunked continuation runs.
+
+The schedule must match exactly.  Token streams must match too, except
+where greedy decoding meets a near-tie: at the first token where a stream
+diverges, the reference's top-1 minus top-2 logit margin must be below
+twice the bf16 logit tolerance (2 x 1e-2), or the test fails.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_config as jax_get_config
+from repro.config import reduce_config as jax_reduce_config
+from repro.models import transformer as TJ
+from repro.serving.engine import EngineConfig as JaxEngineConfig
+from repro.serving.engine import ServingEngine as JaxServingEngine
+from repro_torch.config import get_config, reduce_config
+from repro_torch.convert import params_from_jax
+from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+SETTINGS = dict(max_batch=3, kv_len=64, prefill_chunk=16, max_new_tokens=8,
+                impl="flash")
+PROMPT_LENS = [5, 23, 9, 12, 3, 17]
+BF16_LOGIT_TOL = 1e-2
+SCHEDULE_KEYS = ("finished", "prefill_calls", "prefill_tokens", "decode_steps",
+                 "gen_lens", "prompt_lens", "active_slots_hist",
+                 "max_stall_tokens", "host_transfers", "host_bytes")
+
+
+def _margin(params, cfg, prompt, out, t):
+    """The reference's top-1 minus top-2 logit margin for token ``t`` of a
+    stream (bf16 compute, the engine's precision)."""
+    seq = np.concatenate([prompt, np.asarray(out[:t], np.int32)])[None]
+    logits, _ = TJ.prefill(params, cfg, {"tokens": jnp.asarray(seq)}, impl="ref",
+                           compute_dtype=jnp.bfloat16)
+    top = np.sort(np.asarray(logits[0], np.float32))[-2:]
+    return float(top[1] - top[0])
+
+
+def test_engine_matches_reference_engine():
+    cfg_j = jax_reduce_config(jax_get_config("qwen2.5-3b"))
+    cfg_t = reduce_config(get_config("qwen2.5-3b"))
+    params_j = TJ.init_params(cfg_j, jax.random.PRNGKey(0), param_dtype=jnp.float32)
+    params_t = params_from_jax(jax.device_get(params_j), cfg_t, device="cpu",
+                               dtype=torch.bfloat16)
+    eng_j = JaxServingEngine(cfg_j, params_j, JaxEngineConfig(**SETTINGS))
+    eng_t = ServingEngine(cfg_t, params_t, EngineConfig(**SETTINGS), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg_t.vocab_size, size=n) for n in PROMPT_LENS]
+    for p in prompts:
+        eng_j.submit(p)
+        eng_t.submit(p)
+    eng_j.run_until_drained()
+    eng_t.run_until_drained()
+
+    sj, st = eng_j.stats(), eng_t.stats()
+    assert set(st) == {k for k in sj if not k.startswith(("spec_", "trace_"))}
+    for key in SCHEDULE_KEYS:
+        assert st[key] == sj[key], key
+    assert st["finished"] == len(PROMPT_LENS)
+
+    out_j = {r.uid: r.output for r in eng_j.finished}
+    out_t = {r.uid: r.output for r in eng_t.finished}
+    for uid, prompt in enumerate(prompts):
+        a, b = out_j[uid], out_t[uid]
+        assert len(a) == len(b) == SETTINGS["max_new_tokens"]
+        diverged = [t for t in range(len(a)) if a[t] != b[t]]
+        if diverged:
+            t = diverged[0]
+            margin = _margin(params_j, cfg_j, prompt, a, t)
+            assert margin < 2 * BF16_LOGIT_TOL, (
+                f"request {uid} diverges at token {t} ({a[t]} vs {b[t]}) "
+                f"with a reference margin of {margin:.4f}: not a near-tie")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("spec_k", 2), ("weight_bits", 8), ("kv_bits", 8), ("packed", False),
+    ("fused", False), ("deadline_ms", 5.0), ("max_queue", 4), ("trace", True)])
+def test_unported_engine_options_raise(field, value):
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    from repro_torch.models.transformer import init_params
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match=field):
+        ServingEngine(cfg, params, EngineConfig(**{field: value}), device="cpu")
