@@ -8,20 +8,28 @@ Phases, each of which must pass or the script exits non-zero:
 1. device  — the card's name and power limit, as nvidia-smi reports them;
 2. build   — the CUDA kernels of ``src/repro_torch/kernels/csrc`` built with
              nvcc (``repro_torch.kernels.build``);
-3. kernels — each kernel against its plain PyTorch version on the card, at
-             the serving path's shapes and at edge cases (window, softcap, an
-             empty slot, a pad-only tile, ragged lengths, GQA rep 1 and 8,
-             f32, head_dim 256), with its time, the plain version's time, one
-             PyTorch call's time (``scaled_dot_product_attention`` with an
-             explicit mask, a yardstick the port never calls) and its bound;
+3. kernels — each of the five kernels against its plain PyTorch version on
+             the card, at the serving path's shapes and at edge cases
+             (window, softcap, an empty slot, a pad-only tile, ragged
+             lengths and shapes, GQA rep 1 and 8, f32, head_dim 256, int8 and
+             int4, per-channel and per-group scales), with its time, the plain
+             version's time, one PyTorch call's time (a yardstick the port
+             never calls: ``scaled_dot_product_attention`` with an explicit
+             mask for attention, ``torch.matmul`` with the dequantised bf16
+             weights for the matmuls) and its bound;
 4. engine  — the port's serving engine on full-width qwen2.5-3b with random
-             bf16 weights: 16 requests (prompts of 4..384 tokens, so chunked
-             prefill runs), greedy, 32 new tokens each, with the launch count
-             of each kernel during that run;
-5. logits  — packed prefill plus 4 decode steps at full width with
-             ``impl="flash"`` against ``impl="ref"``;
-6. profile — torch.profiler over 4 full-pool decode steps: device busy
-             time and kernels launched per step (read, not checked).
+             bf16 weights, fp and then quantised (``w8kv8``, ``w4kv4``): 16
+             requests (prompts of 4..384 tokens, so chunked prefill runs),
+             greedy, 32 new tokens each, with the launch count of each kernel
+             during each run, checked against the run's steps and calls;
+5. crossbar — the PIM-MVM entry point ``pim_mvm`` on the shapes of
+             ``benchmarks/kernel_micro.py``, against its oracle and the fp
+             product, with the kernel's launch count;
+6. logits  — packed prefill plus 4 decode steps at full width with
+             ``impl="flash"`` against ``impl="ref"``, fp and ``w8kv8``;
+7. profile — torch.profiler over 4 full-pool decode steps, fp and
+             ``w8kv8``: device busy time and kernels launched per step (read,
+             not checked).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits 1
@@ -37,8 +45,15 @@ import numpy as np
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
+L2_BYTES = 50e6                    # H100 SXM L2
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 TOL = {"torch.bfloat16": 1e-2, "torch.float32": 2e-5}
+# dequant-matmul: error relative to the plain version's largest magnitude
+# (bf16: one output rounding after a long f32 sum in another order)
+MATMUL_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-5}
+QUANT_RUNS = {"fp": dict(), "w8kv8": dict(weight_bits=8, kv_bits=8),
+              "w4kv4": dict(weight_bits=4, kv_bits=4)}
+PROJECTIONS = 7                     # wq, wk, wv, wo, w_gate, w_up, w_down
 ARCH, MAX_BATCH, KV_LEN, NEW_TOKENS, N_REQUESTS = "qwen2.5-3b", 8, 1024, 32, 16
 DEVICE = "cuda"
 
@@ -169,7 +184,8 @@ def run_kernel_checks(torch):
               f"decode kernel disagrees with its plain version ({name})")
         errs.append({"case": name, "max_abs_err": err, "tol": tol})
 
-    c = decode_case(torch, rng, copies=8)       # 8 pools x 8 MiB > the 50 MB L2
+    pool_bytes = 2 * 8 * 1024 * 2 * 128 * 2     # K + V: B 8, Skv 1024, Hkv 2, hd 128, bf16
+    c = decode_case(torch, rng, copies=cold_copies(pool_bytes))
     B, Skv, Hkv, hd = c["pools"][0][0].shape
     Hq = c["q"].shape[2]
     it = iter(range(1 << 30))
@@ -269,24 +285,288 @@ def run_kernel_checks(torch):
     return records
 
 
+def cold_copies(nbytes):
+    """Distinct copies of an operand of ``nbytes`` to cycle over so that
+    the copies span twice the L2: each call then reads its operand from
+    HBM, as a layer's weights and pool are read once a step."""
+    return max(2, -(-int(2 * L2_BYTES) // int(nbytes)))
+
+
+def cycler(items):
+    """A function returning the next of ``items`` on each call (to time
+    with a cold L2: each layer's weights and pool are read once a step)."""
+    it = iter(range(1 << 30))
+    return lambda: items[next(it) % len(items)]
+
+
+def run_quant_decode_checks(torch):
+    """The quantised-pool decode kernel, kv8 and kv4, against its plain
+    version; timed at the main shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.decode import (flash_decode_quant_fwd,
+                                                            flash_decode_quant_plain)
+    from repro_torch.quant.core import dequantize_kv, quantize_kv
+    rng = np.random.default_rng(3)
+
+    def quant_case(bits, copies=1, **kw):
+        c = decode_case(torch, rng, copies=copies, **kw)
+        c["qpools"] = [(*quantize_kv(k, bits), *quantize_kv(v, bits))
+                       for k, v in c.pop("pools")]
+        return c
+
+    cases = {
+        "main B8 Skv1024 Hq16 Hkv2 hd128": dict(),
+        "window256 softcap50": dict(window=256, softcap=50.0),
+        "empty slots 0,5": dict(empty=(0, 5)),
+        "ring scrambled with holes": dict(ring=True),
+        "Skv1000 (not a multiple of 128)": dict(Skv=1000),
+        "rep1 Hq8 Hkv8": dict(Hq=8, Hkv=8),
+        "rep8 hd256 Skv300": dict(Hq=16, Hkv=2, hd=256, Skv=300),
+        "f32 B3 Skv200 rep4": dict(B=3, Skv=200, Hq=8, Hkv=2, dtype=torch.float32),
+    }
+    errs = []
+    for bits in (8, 4):
+        for name, kw in cases.items():
+            c = quant_case(bits, **kw)
+            k_q, k_s, v_q, v_s = c["qpools"][0]
+            args = dict(kv_bits=bits, q_pos=c["q_pos"], kv_pos=c["kv_pos"],
+                        window=c["window"], softcap=c["softcap"])
+            out = flash_decode_quant_fwd(c["q"], k_q, k_s, v_q, v_s, **args)
+            ref = flash_decode_quant_plain(c["q"], k_q, k_s, v_q, v_s, **args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = TOL[str(c["q"].dtype)]
+            empty_ok = all(bool((out[b] == 0).all()) for b in kw.get("empty", ()))
+            print(f"kernel flash_decode_quant kv{bits} case={name!r} max_abs_err={err:.3e} "
+                  f"tol={tol:g} empty_slots_zero={empty_ok}")
+            check(np.isfinite(err) and err <= tol and empty_ok,
+                  f"quantised decode kernel disagrees with its plain version "
+                  f"(kv{bits}, {name})")
+            errs.append({"case": f"kv{bits} {name}", "max_abs_err": err, "tol": tol})
+
+    timing = {}
+    for bits in (8, 4):
+        pool_bytes = 2 * 8 * 1024 * 2 * (128 * bits // 8 + 4)  # K + V codes and scales
+        c = quant_case(bits, copies=cold_copies(pool_bytes))
+        B, Skv, Hkv, hdq = c["qpools"][0][0].shape
+        Hq, hd = c["q"].shape[2], c["q"].shape[3]
+        args = dict(kv_bits=bits, q_pos=c["q_pos"], kv_pos=c["kv_pos"])
+        nxt = cycler(c["qpools"])
+        ms = device_ms(lambda: flash_decode_quant_fwd(c["q"], *nxt(), **args), 200)
+        plain_ms = device_ms(lambda: flash_decode_quant_plain(c["q"], *nxt(), **args), 20)
+        valid = int((c["kv_pos_np"] >= 0).sum())
+        esz = c["q"].element_size()
+        nbytes = (2 * B * Hq * hd * esz                     # q in, out
+                  + 2 * valid * Hkv * (hdq + 4)             # K and V codes + scales
+                  + c["kv_pos_np"].nbytes + c["q_pos_np"].nbytes)
+        flops = 4 * valid * Hq * hd
+        timing[bits] = dict(ms=ms, plain_ms=plain_ms, bound=bound(nbytes, flops,
+                                                                   str(c["q"].dtype)))
+        if bits == 8:
+            # yardstick: scaled_dot_product_attention over the pools
+            # dequantised to bf16 (an fp pool, which quantisation replaces)
+            mask = ((c["kv_pos"] >= 0) & (c["kv_pos"] <= c["q_pos"]))[:, None, None, :]
+            qt = c["q"].transpose(1, 2)
+            lib_pools = [(dequantize_kv(kq, ks, bits).to(c["q"].dtype).transpose(1, 2),
+                          dequantize_kv(vq, vs, bits).to(c["q"].dtype).transpose(1, 2))
+                         for kq, ks, vq, vs in c["qpools"]]
+            nxt_lib = cycler(lib_pools)
+            timing[bits]["library_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(qt, *nxt_lib(), attn_mask=mask,
+                                                       enable_gqa=True), 100)
+            shape, valid8 = [B, Skv, Hq, Hkv, hd], valid
+    t8, t4 = timing[8], timing[4]
+    print(f"kernel flash_decode_quant timing kv8 ms={t8['ms']:.4f} "
+          f"plain_ms={t8['plain_ms']:.4f} library_ms={t8['library_ms']:.4f} "
+          f"bound_ms={t8['bound'][0]:.5f} ({t8['bound'][1]}); kv4 ms={t4['ms']:.4f} "
+          f"plain_ms={t4['plain_ms']:.4f} bound_ms={t4['bound'][0]:.5f}")
+    return {"flash_decode_quant": {
+        "name": "flash_decode_quant", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_quant.cu",
+        "replaces": "src/repro/kernels/flash_attention/decode.py:226",
+        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        "ms": t8["ms"], "plain_ms": t8["plain_ms"], "bound_ms": t8["bound"][0],
+        "bound_by": t8["bound"][1], "library_ms": t8["library_ms"],
+        "library": "scaled_dot_product_attention over the pools dequantised to bf16",
+        "shape": shape, "kv_bits": 8, "valid_entries": valid8,
+        "kv4": {"ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound"][0]},
+        "cases": errs}}
+
+
+def matmul_record(name, source, replaces, errs, ms, plain_ms, library_ms, nbytes,
+                  flops, dtype, **extra):
+    """A dequant-matmul kernel's JSON record.  Its bound takes the peak of
+    x's dtype: the codes are exact in bf16, so a bf16 tensor-core product
+    of x and the codes, f32 accumulation and the scales applied per column,
+    group or tile compute the same function (this kernel dequantises to
+    f32 on CUDA cores instead)."""
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    print(f"kernel {name} timing ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+          + " ".join(f"{k}={v}" for k, v in extra.items()))
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": max(e["max_abs_err"] for e in errs), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms,
+            "library": "torch.matmul of x with the weights dequantised to bf16",
+            **extra, "cases": errs}
+
+
+def check_matmul(torch, label, name, fwd, plain, x, *args, **kw):
+    out = fwd(x, *args, **kw)
+    ref = plain(x, *args, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = max(ref.float().abs().max().item(), 1e-30)
+    tol = MATMUL_TOL[str(x.dtype)]
+    print(f"kernel {label} case={name!r} max_abs_err={err:.3e} "
+          f"rel_to_max={err / scale:.3e} tol={tol:g}")
+    check(out.dtype == x.dtype and out.shape == ref.shape and np.isfinite(err)
+          and err <= tol * scale, f"{label} kernel disagrees with its plain version ({name})")
+    return {"case": name, "max_abs_err": err, "rel_to_max": err / scale, "tol": tol}
+
+
+def run_matmul_checks(torch):
+    """The dequant-matmul kernel through both of its wrappers."""
+    from repro_torch.kernels.pim_mvm.kernel import pim_mvm_fwd, pim_mvm_plain
+    from repro_torch.quant.core import dequantize, quantize, quantize_weights
+    from repro_torch.quant.kernel import quant_matmul_fwd, quant_matmul_plain
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+
+    def operands(M, K, N, dtype=torch.bfloat16):
+        x = torch.randn((M, K), generator=g, device=DEVICE).to(dtype)
+        w = torch.randn((K, N), generator=g, device=DEVICE) / K ** 0.5
+        return x, w
+
+    cases = {
+        "int8 per-channel (8, 2048, 11008) decode": (8, 2048, 11008, 8, 0, None),
+        "int4 per-channel (8, 11008, 2048) w_down": (8, 11008, 2048, 4, 0, None),
+        "int8 group128 (128, 2048, 2048)": (128, 2048, 2048, 8, 128, None),
+        "int4 group128 (128, 2048, 2048)": (128, 2048, 2048, 4, 128, None),
+        "int8 (1024, 2048, 256) chunk-step wk": (1024, 2048, 256, 8, 0, None),
+        "ragged int8 (3, 48, 50)": (3, 48, 50, 8, 0, None),
+        "ragged int4 group32 (100, 96, 200)": (100, 96, 200, 4, 32, None),
+        "f32 x int8 (8, 2048, 2048)": (8, 2048, 2048, 8, 0, torch.float32),
+        "f32 x int4 group128 (64, 2048, 2048)": (64, 2048, 2048, 4, 128, torch.float32),
+    }
+    errs = []
+    for name, (M, K, N, bits, group, dtype) in cases.items():
+        x, w = operands(M, K, N, dtype or torch.bfloat16)
+        qt = quantize(w, bits, group=group)
+        errs.append(check_matmul(torch, "quant_matmul", name, quant_matmul_fwd,
+                                 quant_matmul_plain, x, qt.q, qt.scale, bits=bits,
+                                 group=group))
+
+    def timed(M, K, N, bits):
+        x, _ = operands(M, K, N)
+        copies = cold_copies(K * N * bits // 8)
+        qts = [quantize(operands(1, K, N)[1], bits) for _ in range(copies)]
+        nxt = cycler(qts)
+        args = lambda: (lambda qt: (qt.q, qt.scale))(nxt())  # noqa: E731
+        kw = dict(bits=bits)
+        ms = device_ms(lambda: quant_matmul_fwd(x, *args(), **kw), 100)
+        plain_ms = device_ms(lambda: quant_matmul_plain(x, *args(), **kw), 10)
+        lib = [dequantize(qt).to(torch.bfloat16) for qt in qts]
+        nxt_lib = cycler(lib)
+        library_ms = device_ms(lambda: torch.matmul(x, nxt_lib()), 100)
+        nbytes = qts[0].q.numel() + qts[0].scale.numel() * 4 + (M * K + M * N) * 2
+        return ms, plain_ms, library_ms, nbytes, 2 * M * K * N, copies
+
+    # serving's decode shape at int8, w_down at int4, the chunk step's w_up
+    ms, plain_ms, library_ms, nbytes, flops, copies = timed(8, 2048, 11008, 8)
+    int4 = timed(8, 11008, 2048, 4)
+    chunk = timed(1024, 2048, 11008, 8)
+    bf16 = str(torch.bfloat16)
+    records = {"quant_matmul": matmul_record(
+        "quant_matmul", "src/repro_torch/kernels/csrc/qmatmul.cu",
+        "src/repro/quant/kernel.py:59", errs, ms, plain_ms, library_ms, nbytes, flops,
+        bf16, shape=[8, 2048, 11008], weight_bits=8, copies=copies,
+        int4_w_down={"shape": [8, 11008, 2048], "ms": int4[0], "plain_ms": int4[1],
+                     "library_ms": int4[2], "bound_ms": bound(int4[3], int4[4], bf16)[0],
+                     "bound_by": bound(int4[3], int4[4], bf16)[1], "copies": int4[5]},
+        chunk_step={"shape": [1024, 2048, 11008], "ms": chunk[0], "plain_ms": chunk[1],
+                    "library_ms": chunk[2], "bound_ms": bound(chunk[3], chunk[4], bf16)[0],
+                    "bound_by": bound(chunk[3], chunk[4], bf16)[1], "copies": chunk[5]})}
+
+    # -- the crossbar layout --------------------------------------------------
+    cases = {"kernel_micro (256, 1024, 512)": (256, 1024, 512, None),
+             "kernel_micro (512, 2048, 1024)": (512, 2048, 1024, None),
+             "decode (8, 2048, 11008)": (8, 2048, 11008, None),
+             "f32 x (256, 1024, 512)": (256, 1024, 512, torch.float32)}
+    errs = []
+    for name, (M, K, N, dtype) in cases.items():
+        x, w = operands(M, K, N, dtype or torch.bfloat16)
+        wq, sc = quantize_weights(w)
+        errs.append(check_matmul(torch, "pim_mvm", name, pim_mvm_fwd, pim_mvm_plain,
+                                 x, wq, sc))
+    M, K, N = 512, 2048, 1024
+    x, _ = operands(M, K, N)
+    planes = [quantize_weights(operands(1, K, N)[1]) for _ in range(cold_copies(K * N))]
+    nxt = cycler(planes)
+    ms = device_ms(lambda: pim_mvm_fwd(x, *nxt()), 100)
+    plain_ms = device_ms(lambda: pim_mvm_plain(x, *nxt()), 10)
+    from repro_torch.kernels.pim_mvm.ref import dequantize_ref
+    lib = [dequantize_ref(wq, sc).to(torch.bfloat16) for wq, sc in planes]
+    nxt_lib = cycler(lib)
+    library_ms = device_ms(lambda: torch.matmul(x, nxt_lib()), 100)
+    nbytes = K * N + planes[0][1].numel() * 4 + (M * K + M * N) * 2
+    records["pim_mvm"] = matmul_record(
+        "pim_mvm", "src/repro_torch/kernels/csrc/qmatmul.cu",
+        "src/repro/kernels/pim_mvm/kernel.py:60", errs, ms, plain_ms, library_ms,
+        nbytes, 2 * M * K * N, str(x.dtype), shape=[M, K, N], copies=len(planes))
+    return records
+
+
 # ---------------------------------------------------------------------------
 # engine and logits at full width
 # ---------------------------------------------------------------------------
 
-def run_engine(torch, cfg, params):
-    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
+def kernel_counters():
+    """Every kernel wrapper of the port, by the name of its JSON record."""
+    from repro_torch.kernels.flash_attention.decode import (flash_decode_fwd,
+                                                            flash_decode_quant_fwd)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.pim_mvm.kernel import pim_mvm_fwd
+    from repro_torch.quant.kernel import quant_matmul_fwd
+    return {"flash_decode": flash_decode_fwd, "flash_prefill": flash_attention_fwd,
+            "flash_decode_quant": flash_decode_quant_fwd,
+            "quant_matmul": quant_matmul_fwd, "pim_mvm": pim_mvm_fwd}
+
+
+def reset_launches():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def tensor_bytes(tree):
+    """Bytes of the tensors in a nested dict/list (a slot pool)."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(t) for t in tree.values())
+    return sum(tensor_bytes(t) for t in tree)
+
+
+def run_engine(torch, cfg, params, run="fp"):
+    """One drain of the 16 requests, fp or quantised (``QUANT_RUNS``), with
+    every kernel's launches counted over that drain alone."""
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
+    bits = QUANT_RUNS[run]
     ecfg = EngineConfig(max_batch=MAX_BATCH, kv_len=KV_LEN,
-                        max_new_tokens=NEW_TOKENS, impl="flash")
+                        max_new_tokens=NEW_TOKENS, impl="flash", **bits)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
                for n in rng.integers(4, 385, N_REQUESTS)]
 
     # warm-up: cuBLAS handles, allocator pools, kernel modules
     warm = ServingEngine(cfg, params, EngineConfig(
-        max_batch=MAX_BATCH, kv_len=KV_LEN, max_new_tokens=2, impl="flash"),
+        max_batch=MAX_BATCH, kv_len=KV_LEN, max_new_tokens=2, impl="flash", **bits),
         device=DEVICE)
     for p in prompts[:2]:
         warm.submit(p)
@@ -294,42 +574,95 @@ def run_engine(torch, cfg, params):
     del warm
     torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     engine = ServingEngine(cfg, params, ecfg, device=DEVICE)
     torch.cuda.synchronize()
-    flash_decode_fwd.launches = 0
-    flash_attention_fwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for p in prompts:
         engine.submit(p)
     engine.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_decode": flash_decode_fwd.launches,
-                "flash_prefill": flash_attention_fwd.launches}
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    qp = engine.executor.params
+    params_gb = sum(tensor_bytes(t) for t in (*qp.parameters(), *qp.buffers())) / 1e9
+    pool_gb = tensor_bytes(engine.pool.cache) / 1e9
     st = engine.stats()
-    print(f"engine arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+    print(f"engine run={run} arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"weight_bits={st['weight_bits']} kv_bits={st['kv_bits']} "
           f"finished={st['finished']}/{N_REQUESTS} tokens={st['tokens']} "
           f"tokens_per_s={st['tokens_per_s']:.2f} mean_ttft_s={st['mean_ttft_s']:.4f} "
           f"ttft_p95_s={st['ttft_p95_s']:.4f} mean_tpot_s={st['mean_tpot_s']:.5f} "
           f"decode_steps={st['decode_steps']} prefill_calls={st['prefill_calls']} "
           f"prefill_tokens={st['prefill_tokens']} wall_s={wall:.3f} "
-          f"launches={json.dumps(launches)}")
+          f"peak_memory_gib={peak_gib:.2f} params_gb={params_gb:.3f} "
+          f"pool_gb={pool_gb:.4f} launches={json.dumps(launches)}")
     check(st["finished"] == N_REQUESTS and st["failed"] == 0,
-          f"engine finished {st['finished']} of {N_REQUESTS}")
+          f"engine ({run}) finished {st['finished']} of {N_REQUESTS}")
     outs = [r.output for r in engine.finished]
     check(all(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o)
-              for o in outs), "engine produced malformed token streams")
-    check(launches["flash_decode"] == st["decode_steps"] * cfg.n_layers,
-          f"decode launches {launches['flash_decode']} != decode steps "
-          f"{st['decode_steps']} x {cfg.n_layers} layers")
+              for o in outs), f"engine ({run}) produced malformed token streams")
+    check(any(n > 128 for n in st["prompt_lens"]), "no chunked prefill ran")
+    steps = st["decode_steps"] * cfg.n_layers
+    quant_kv, quant_w = bool(bits.get("kv_bits")), bool(bits.get("weight_bits"))
+    want_decode = {"flash_decode": 0 if quant_kv else steps,
+                   "flash_decode_quant": steps if quant_kv else 0}
+    for name, n in want_decode.items():
+        check(launches[name] == n, f"{run}: {name} launches {launches[name]} != {n}")
+    # every projection of every forward call (decode step, packed prefill,
+    # chunk step) went through the dequant-matmul kernel
+    calls = st["decode_steps"] + st["prefill_calls"]
+    want_mm = PROJECTIONS * cfg.n_layers * calls if quant_w else 0
+    check(launches["quant_matmul"] == want_mm,
+          f"{run}: quant_matmul launches {launches['quant_matmul']} != {want_mm}")
     check(launches["flash_prefill"] > 0 and
           launches["flash_prefill"] % cfg.n_layers == 0,
-          f"prefill kernel launches {launches['flash_prefill']}")
-    check(any(n > 128 for n in st["prompt_lens"]), "no chunked prefill ran")
-    return st, launches, wall
+          f"{run}: prefill kernel launches {launches['flash_prefill']}")
+    check(launches["pim_mvm"] == 0, f"{run}: the crossbar kernel ran in serving")
+    return {"stats": st, "launches": launches, "wall_s": wall, "peak_gib": peak_gib,
+            "params_gb": params_gb, "pool_gb": pool_gb}
 
 
-def run_profile(torch, cfg, params, steps=4):
+def run_crossbar(torch):
+    """The PIM-MVM entry point as ``examples/quickstart.py`` and
+    ``benchmarks/kernel_micro.py`` drive it: program the crossbars
+    (``quantize_weights``), then ``pim_mvm``; checked against the oracle
+    and against the fp product (quantisation error, as kernel_micro
+    reports it)."""
+    from repro_torch.kernels.pim_mvm.ops import pim_mvm, quantize_weights
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    shapes = [(256, 1024, 512), (512, 2048, 1024)]
+    inputs = []
+    for M, K, N in shapes:
+        x = torch.randn((M, K), generator=g, device=DEVICE)
+        w = torch.randn((K, N), generator=g, device=DEVICE) / K ** 0.5
+        inputs.append((x, w, *quantize_weights(w)))
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = [pim_mvm(x, wq, sc) for x, _, wq, sc in inputs]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    rels = []
+    for (M, K, N), (x, w, wq, sc), out in zip(shapes, inputs, outs):
+        ref = pim_mvm(x, wq, sc, impl="ref")
+        fp = x @ w
+        err = float((out - ref).abs().max() / ref.abs().max())
+        rel = float((out - fp).abs().max() / fp.abs().max())
+        print(f"crossbar shape={M}x{K}x{N} rel_err_vs_oracle={err:.3e} "
+              f"rel_err_vs_fp={rel:.3e}")
+        check(np.isfinite(err) and err <= MATMUL_TOL["torch.float32"] and rel < 3e-2,
+              f"pim_mvm {M}x{K}x{N} disagrees (oracle {err:.3e}, fp {rel:.3e})")
+        rels.append(rel)
+    print(f"crossbar launches={json.dumps(launches)}")
+    check(launches["pim_mvm"] == len(shapes) and
+          sum(launches.values()) == launches["pim_mvm"],
+          f"crossbar launches {launches}")
+    return launches
+
+
+def run_profile(torch, cfg, params, run="fp", steps=4):
     """Where a decode step's time goes: torch.profiler over ``steps`` fused
     steps with every slot decoding — device busy time (the sum of kernel
     times), the number of kernels a step launches, and the largest kernels.
@@ -340,7 +673,7 @@ def run_profile(torch, cfg, params, steps=4):
 
     engine = ServingEngine(cfg, params, EngineConfig(
         max_batch=MAX_BATCH, kv_len=KV_LEN, max_new_tokens=steps + 8,
-        impl="flash"), device=DEVICE)
+        impl="flash", **QUANT_RUNS[run]), device=DEVICE)
     rng = np.random.default_rng(2)
     for _ in range(MAX_BATCH):        # 8 x 16 tokens: one packed stream
         engine.submit(rng.integers(0, cfg.vocab_size, size=16))
@@ -358,16 +691,19 @@ def run_profile(torch, cfg, params, steps=4):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profile decode_step busy_ms={busy_ms:.3f} wall_ms_profiled={wall_ms:.3f} "
+    print(f"profile run={run} decode_step busy_ms={busy_ms:.3f} wall_ms_profiled={wall_ms:.3f} "
           f"kernels_per_step={launches:.0f} top=" + json.dumps(
               [[e.key[:60], round(e.self_device_time_total / 1e3 / steps, 4), e.count // steps]
                for e in top]))
     return busy_ms, launches
 
 
-def run_logits(torch, cfg, params):
+def run_logits(torch, cfg, params, run="fp"):
     """Packed prefill + 4 teacher-forced decode steps at full width,
-    impl="flash" against impl="ref", each on its own slot pool."""
+    impl="flash" against impl="ref", each on its own slot pool.  Quantised
+    (``QUANT_RUNS``), "ref" is the attention oracle over the pool
+    dequantised to bf16 plus the reference's dequantise-then-matmul, whose
+    weights are rounded to bf16; the kernels keep them in f32."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.executor import Executor
@@ -392,20 +728,21 @@ def run_logits(torch, cfg, params):
 
     results = {}
     for impl in ("flash", "ref"):
-        ecfg = EngineConfig(max_batch=B, kv_len=256, impl=impl)
+        ecfg = EngineConfig(max_batch=B, kv_len=256, impl=impl, **QUANT_RUNS[run])
         ex = Executor(cfg, params, ecfg, device=torch.device(DEVICE))
         pool = SlotPool(cfg, ecfg, device=torch.device(DEVICE))
         with torch.no_grad():
-            logits, pc = T.prefill_packed(params, cfg, dev(toks), dev(pos), dev(seg),
-                                          dev(gather), impl=impl)
+            logits, pc = T.prefill_packed(ex.params, cfg, dev(toks), dev(pos), dev(seg),
+                                          dev(gather), impl=impl, kv_bits=ecfg.kv_bits)
             ex.packed_insert(pool.cache, pc["stack"], dev(seg), dev(pos),
                               dev(seg_len), dev(active))
             out = [logits.float()]
             for s in range(4):
                 p = np.where(active, seg_len + s, -1).astype(np.int32)
-                logits, _ = T.decode_step(params, cfg, pool.cache, dev(steps[s]),
+                logits, _ = T.decode_step(ex.params, cfg, pool.cache, dev(steps[s]),
                                           dev(p), impl=impl)
                 out.append(logits.float()[: len(lens)])
+        del ex
         results[impl] = out
     names = ["prefill"] + [f"decode{s}" for s in range(4)]
     scale = max(float(r.abs().max()) for r in results["ref"])
@@ -416,10 +753,10 @@ def run_logits(torch, cfg, params):
     diffs = {n: float((a - b).abs().max()) for n, a, b in
              zip(names, results["flash"], results["ref"])}
     finite = all(bool(torch.isfinite(r).all()) for r in results["flash"])
-    print(f"logits arch={cfg.name} max_abs_diff={json.dumps(diffs)} "
+    print(f"logits run={run} arch={cfg.name} max_abs_diff={json.dumps(diffs)} "
           f"bound={limit:.4f} ref_scale={scale:.4f} finite={finite}")
     check(finite and max(diffs.values()) <= limit,
-          "flash and ref logits disagree beyond the bound")
+          f"flash and ref logits ({run}) disagree beyond the bound")
     return diffs, limit
 
 
@@ -450,6 +787,8 @@ def main():
         print(f"build ptxas: {ln}")
 
     records = run_kernel_checks(torch)
+    records.update(run_quant_decode_checks(torch))
+    records.update(run_matmul_checks(torch))
 
     cfg = get_config(ARCH)
     t0 = time.perf_counter()
@@ -459,13 +798,20 @@ def main():
     n_params = sum(p.numel() for p in params.parameters())
     print(f"params: {n_params} in {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    st, launches, _ = run_engine(torch, cfg, params)
-    run_logits(torch, cfg, params)
-    run_profile(torch, cfg, params)
-    print(f"peak_memory_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    runs = {run: run_engine(torch, cfg, params, run) for run in QUANT_RUNS}
+    crossbar = run_crossbar(torch)
+    for run in ("fp", "w8kv8"):
+        run_logits(torch, cfg, params, run)
+    for run in ("fp", "w8kv8"):
+        run_profile(torch, cfg, params, run)
 
+    # launches: each main-path run, counted from 0 just before it
+    by_run = {run: r["launches"] for run, r in runs.items()}
+    by_run["crossbar"] = crossbar
     for name, rec in records.items():
-        rec["launches"] = launches[name]
+        rec["launches"] = sum(n[name] for n in by_run.values())
+        rec["launches_by_run"] = {run: n[name] for run, n in by_run.items() if n[name]}
+        check(rec["launches"] > 0, f"kernel {name} never launched on its path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -88,7 +88,7 @@ def build() -> Build:
 def bind(lib: str, fn: str, argtypes: tuple):
     """The C function ``fn`` of ``lib<lib>.so`` with its argument types
     declared (``c_void_p`` for every pointer and the stream) and an ``int``
-    result: the ``cudaError_t`` of the launch."""
+    result: the ``cudaError_t`` of a launch, or the number a query returns."""
     f = getattr(ctypes.CDLL(str(build().libs[lib])), fn)
     f.argtypes = list(argtypes)
     f.restype = ctypes.c_int

@@ -1,11 +1,15 @@
 """Decode attention: one query token per KV slot (counterpart of the
-reference's ``kernels/flash_attention/decode.py::flash_decode_fwd``).
+reference's ``kernels/flash_attention/decode.py::flash_decode_fwd`` and
+``flash_decode_quant_fwd``).
 
-:func:`flash_decode_fwd` is the wrapper of the CUDA kernel in
-``kernels/csrc/decode.cu`` (the note there says what bounds it and how it
-is laid out).  On a CUDA tensor it launches the kernel or raises; on a CPU
-tensor it runs :func:`flash_decode_plain`, the plain PyTorch version with
-the same numerics (f32 throughout, one cast at the end).
+:func:`flash_decode_fwd` (fp pool) and :func:`flash_decode_quant_fwd`
+(int8 / packed-int4 pool with per-(entry, head) scales) wrap the CUDA
+kernels in ``kernels/csrc/decode.cu`` and ``decode_quant.cu`` (the notes
+there say what bounds them and how they are laid out), each with its own
+launch counter.  On a CUDA tensor each launches its kernel or raises; on
+a CPU tensor it runs its plain PyTorch version with the same numerics
+(f32 throughout, one cast at the end; the quantised pool dequantised as
+``float(code) * scale``).
 
 Positions are explicit: ``kv_pos`` is the token position of each pool
 entry (``-1`` = empty) and ``q_pos`` the query position of each slot.
@@ -22,9 +26,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.common import (
     DTYPE_CODES, MAX_HEAD_DIM, NEG_INF, check_cuda)
+from repro_torch.quant.core import dequantize_kv
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = ((_P,) * 6 + (_I,) * 6 + (_L,) * 13 + (_I, _F, _F, _I, _P))
+_QUANT_ARGTYPES = ((_P,) * 8 + (_I,) * 6 + (_L,) * 2 + (_P,) + (_L,) * 5
+                   + (_I, _F, _F, _I, _I, _P))
 
 
 def flash_decode_plain(q, k, v, *, q_pos, kv_pos, window: int = 0,
@@ -94,3 +101,87 @@ def flash_decode_fwd(q, k, v, *, q_pos, kv_pos, window: int = 0,
 
 
 flash_decode_fwd.launches = 0
+
+
+def flash_decode_quant_plain(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos,
+                             window: int = 0, softcap: float = 0.0,
+                             scale: float | None = None):
+    """The plain PyTorch version of the quantised-pool decode kernel: the
+    fp plain version over the f32-dequantised pool."""
+    return flash_decode_plain(q, dequantize_kv(k_q, k_s, kv_bits),
+                              dequantize_kv(v_q, v_s, kv_bits), q_pos=q_pos,
+                              kv_pos=kv_pos, window=window, softcap=softcap,
+                              scale=scale)
+
+
+def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos,
+                           window: int = 0, softcap: float = 0.0,
+                           scale: float | None = None):
+    """q (B, 1, Hq, hd); codes k_q/v_q (B, Skv, Hkv, hd/pack) int8 (two int4
+    codes a byte, packed along the head dim, for ``kv_bits=4``); scales
+    k_s/v_s (B, Skv, Hkv) f32; q_pos (B, 1) and kv_pos (B, Skv) int32 ->
+    (B, 1, Hq, hdv) in q's dtype."""
+    if kv_bits not in (4, 8):
+        raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
+    pack = 2 if kv_bits == 4 else 1
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, hdq = k_q.shape
+    hdv = v_q.shape[-1] * pack
+    if Sq != 1:
+        raise ValueError(f"decode kernel needs Sq == 1, got {Sq}")
+    if hdq * pack != hd:
+        raise ValueError(f"codes head dim {hdq} != {hd} at {kv_bits} bits")
+    if Hq % Hkv:
+        raise ValueError(f"Hq ({Hq}) must be a multiple of Hkv ({Hkv})")
+    if tuple(v_q.shape[:3]) != (B, Skv, Hkv) or tuple(k_s.shape) != (B, Skv, Hkv) \
+            or tuple(v_s.shape) != (B, Skv, Hkv) or tuple(q_pos.shape) != (B, 1) \
+            or tuple(kv_pos.shape) != (B, Skv):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k_q {tuple(k_q.shape)} "
+                         f"k_s {tuple(k_s.shape)} v_q {tuple(v_q.shape)} "
+                         f"v_s {tuple(v_s.shape)} q_pos {tuple(q_pos.shape)} "
+                         f"kv_pos {tuple(kv_pos.shape)}")
+    args = dict(kv_bits=kv_bits, q_pos=q_pos, kv_pos=kv_pos, window=window,
+                softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return flash_decode_quant_plain(q, k_q, k_s, v_q, v_s, **args)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention kernels run on CUDA or CPU tensors, got {q.device}")
+    for t in (k_q, k_s, v_q, v_s, q_pos, kv_pos):
+        if t.device != q.device:
+            raise ValueError(f"tensors on {t.device} and {q.device}")
+    if q.dtype not in DTYPE_CODES or q.stride(-1) != 1:
+        raise ValueError(f"q must be one of {list(DTYPE_CODES)} with a contiguous "
+                         f"last dimension, got {q.dtype}")
+    if k_q.dtype != torch.int8 or v_q.dtype != torch.int8 \
+            or k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
+        raise ValueError("codes must be int8 and scales f32")
+    if q_pos.dtype != torch.int32 or kv_pos.dtype != torch.int32:
+        raise ValueError("positions must be int32")
+    if k_q.stride(-1) != 1 or v_q.stride(-1) != 1:
+        raise ValueError("code planes need a contiguous last dimension")
+    if max(hd, hdv) > MAX_HEAD_DIM or hd % (16 * pack) or hdv % 8:
+        raise ValueError(f"head dims must be multiples of {16 * pack} (K) and 8 (V) "
+                         f"up to {MAX_HEAD_DIM}, got {hd}/{hdv}")
+    # the kernel reads a K row of codes in 16-byte loads
+    if k_q.data_ptr() % 16 or any(s % 16 for s in k_q.stride()[:3]):
+        raise ValueError("the decode kernel needs 16-byte aligned K code rows")
+    scale = scale if scale is not None else hd ** -0.5
+    out = torch.empty((B, 1, Hq, hdv), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*k_q.stride()[:3], *v_q.stride()[:3],
+                                       *k_s.stride(), *v_s.stride())
+    fn = build.bind("decode_quant", "repro_decode_attention_quant", _QUANT_ARGTYPES)
+    err = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+             v_s.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
+             B, Skv, Hq, Hkv, hd, hdv, q.stride(0), q.stride(2),
+             ctypes.cast(strides, ctypes.c_void_p), q_pos.stride(0),
+             kv_pos.stride(0), kv_pos.stride(1), out.stride(0), out.stride(2),
+             int(window), float(softcap), float(scale), kv_bits, DTYPE_CODES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"quantised decode attention kernel launch failed: "
+                           f"cudaError {err}")
+    flash_decode_quant_fwd.launches += 1
+    return out
+
+
+flash_decode_quant_fwd.launches = 0

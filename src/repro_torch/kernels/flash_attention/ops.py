@@ -1,5 +1,5 @@
 """Dispatch wrapper for attention (counterpart of the reference's
-``kernels/flash_attention/ops.py``, fp branch).
+``kernels/flash_attention/ops.py``).
 
 ``impl``:
   - ``flash``  the kernels: the CUDA kernels on CUDA tensors, their plain
@@ -15,6 +15,13 @@ Routing under ``flash`` follows the reference:
   prefill kernel :func:`.kernel.flash_attention_fwd`;
 - everything else (chunked prefill: ``Sq > 1`` with explicit positions) —
   the oracle, on the card too, as the reference does on a TPU.
+
+``k_scale``/``v_scale`` switch K/V to the quantised pool: ``k``/``v``
+carry int8 codes (two int4 codes a byte along the head dim for
+``kv_bits=4``) with per-(entry, head) f32 scales.  Under ``flash`` the
+decode-shaped call goes to :func:`.decode.flash_decode_quant_fwd`, which
+dequantises inside the kernel; every other route dequantises up front to
+q's dtype and proceeds as fp.
 """
 from __future__ import annotations
 
@@ -22,9 +29,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.decode import flash_decode_fwd
+from repro_torch.kernels.flash_attention.decode import (flash_decode_fwd,
+                                                        flash_decode_quant_fwd)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.quant.core import dequantize_kv
 
 
 def attention(
@@ -36,6 +45,9 @@ def attention(
     kv_pos: Optional[torch.Tensor] = None,
     kv_valid: Optional[torch.Tensor] = None,
     segments: Optional[torch.Tensor] = None,   # (B, S) packed prompt ids, -1 pad
+    k_scale: Optional[torch.Tensor] = None,    # (B, Skv, Hkv) quantised-KV scales
+    v_scale: Optional[torch.Tensor] = None,
+    kv_bits: int = 0,                          # 8 | 4 with k_scale/v_scale
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
@@ -46,10 +58,22 @@ def attention(
         raise ValueError(f"unknown attention impl {impl!r}")
     Sq, Hq = q.shape[1], q.shape[2]
     Skv, Hkv = k.shape[1], k.shape[2]
+    decode = impl == "flash" and Hq % Hkv == 0 and causal and Sq == 1 \
+        and q_pos is not None and kv_pos is not None
+    if decode and kv_valid is not None:                 # fold the mask into kv_pos
+        kv_pos, kv_valid = torch.where(kv_valid, kv_pos, -1), None
+    if k_scale is not None:
+        if kv_bits not in (4, 8):
+            raise ValueError(f"quantised KV needs kv_bits 4 or 8, got {kv_bits}")
+        if decode:
+            return flash_decode_quant_fwd(
+                q, k, k_scale, v, v_scale, kv_bits=kv_bits, q_pos=q_pos, kv_pos=kv_pos,
+                window=window, softcap=softcap, scale=scale)
+        k = dequantize_kv(k, k_scale, kv_bits).to(q.dtype)
+        v = dequantize_kv(v, v_scale, kv_bits).to(q.dtype)
     if impl == "flash" and Hq % Hkv == 0:
-        if causal and Sq == 1 and q_pos is not None and kv_pos is not None:
-            kp = kv_pos if kv_valid is None else torch.where(kv_valid, kv_pos, -1)
-            return flash_decode_fwd(q, k, v, q_pos=q_pos, kv_pos=kp,
+        if decode:
+            return flash_decode_fwd(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                     window=window, softcap=softcap, scale=scale)
         if q_pos is None and kv_pos is None and kv_valid is None \
                 and (segments is None or Sq == Skv):

@@ -24,6 +24,12 @@ def main(argv=None):
                     help="attention impl (flash = the CUDA kernels)")
     ap.add_argument("--decode-chunk", type=int, default=1,
                     help="decode iterations per host sync")
+    ap.add_argument("--weight-bits", type=int, default=0, choices=[0, 4, 8],
+                    help="weight-only quantisation (0 = native fp)")
+    ap.add_argument("--weight-group", type=int, default=0,
+                    help="rows of K per weight scale (0 = one per channel)")
+    ap.add_argument("--kv-bits", type=int, default=0, choices=[0, 4, 8],
+                    help="quantised slot-pool KV cache (0 = fp pool)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -42,8 +48,9 @@ def main(argv=None):
     engine = ServingEngine(cfg, params, EngineConfig(
         max_batch=args.max_batch, kv_len=args.kv_len,
         max_new_tokens=args.max_new_tokens, temperature=args.temperature,
-        seed=args.seed, impl=args.impl, decode_chunk=args.decode_chunk),
-        device=device)
+        seed=args.seed, impl=args.impl, decode_chunk=args.decode_chunk,
+        weight_bits=args.weight_bits, weight_group=args.weight_group,
+        kv_bits=args.kv_bits), device=device)
 
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
@@ -52,7 +59,9 @@ def main(argv=None):
 
     engine.run_until_drained()
     stats = engine.stats()
-    print(f"arch={cfg.name} device={device} requests={stats['finished']} "
+    bits = (f"w{args.weight_bits or 'fp'}/kv{args.kv_bits or 'fp'} "
+            if (args.weight_bits or args.kv_bits) else "")
+    print(f"arch={cfg.name} device={device} {bits}requests={stats['finished']} "
           f"tokens={stats['tokens']} "
           f"throughput={stats['tokens_per_s']:.1f} tok/s "
           f"ttft={stats['mean_ttft_s']*1e3:.0f}ms "

@@ -1,6 +1,13 @@
 """Attention layers: MHA/GQA/MQA with global or local (sliding-window,
 ring-buffer cache) attention (counterpart of the reference's
-``models/attention.py``, fp pool, self-attention).
+``models/attention.py``, self-attention).
+
+The slot pool is fp (``k``/``v``) or, with ``kv_bits`` 8 or 4, quantised:
+int8 code planes ``k_q``/``v_q`` (two int4 codes a byte along the head
+dim) with per-(entry, head) f32 scales ``k_s``/``v_s``, quantised on
+commit and dequantised on read.  Every projection goes through
+:func:`repro_torch.quant.ops.qdense`, so a quantised weight runs the
+dequant-matmul.
 
 Serving modes:
 
@@ -24,6 +31,9 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import attention as flash_attention
 from repro_torch.models.modules import apply_rope, dense_init
+from repro_torch.quant.core import (dequantize_kv, kv_cache_bits, quantize_kv,
+                                    quantize_kv_cache)
+from repro_torch.quant.ops import qdense
 
 
 # ---------------------------------------------------------------------------
@@ -52,9 +62,26 @@ def init_attention(generator, cfg, *, repeats, dtype, device):
 # KV caches
 # ---------------------------------------------------------------------------
 
-def init_kv_cache(cfg, kind: str, batch: int, kv_len: int, dtype, device):
+def init_kv_cache(cfg, kind: str, batch: int, kv_len: int, dtype, device,
+                  kv_bits: int = 0):
+    """``kv_bits`` 0 keeps the fp pool; 8/4 allocate the quantised pool."""
     Hkv, hd, hdv = cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
     cap = kv_len if kind == "global" else min(cfg.window, kv_len)
+    if kv_bits in (4, 8):
+        pack = 2 if kv_bits == 4 else 1
+        if hd % pack or hdv % pack:
+            raise ValueError(f"int4 KV needs even head dims, got {hd}/{hdv}")
+        i8 = dict(dtype=torch.int8, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        return {
+            "k_q": torch.zeros((batch, cap, Hkv, hd // pack), **i8),
+            "k_s": torch.zeros((batch, cap, Hkv), **f32),
+            "v_q": torch.zeros((batch, cap, Hkv, hdv // pack), **i8),
+            "v_s": torch.zeros((batch, cap, Hkv), **f32),
+            "pos": torch.full((batch, cap), -1, dtype=torch.int32, device=device),
+        }
+    if kv_bits:
+        raise ValueError(f"kv_bits must be 0, 4 or 8, got {kv_bits}")
     return {
         "k": torch.zeros((batch, cap, Hkv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, cap, Hkv, hdv), dtype=dtype, device=device),
@@ -74,7 +101,9 @@ def ring_positions(length, cap: int):
 
 def _ring_write(cache, new_leaves: dict, pos):
     """Write S tokens at per-(row, token) ``pos`` into the cache in place
-    (ring for local, direct for global).  ``pos < 0`` entries are dropped:
+    (ring for local, direct for global).  ``new_leaves`` maps cache leaf
+    names to the (B, S, ...) values to commit: k/v, or the code and scale
+    planes.  ``pos < 0`` entries are dropped:
     dead pool slots and chunk pads never touch the cache.  Within one call
     only the last ``cap`` positions of a row survive the ring, so those are
     the only ones written (each row's targets stay unique)."""
@@ -102,7 +131,14 @@ def _ring_write(cache, new_leaves: dict, pos):
 
 
 def _commit_kv(cache, new_k, new_v, pos):
-    """Commit fresh K/V rows into the slot pool (in place)."""
+    """Commit fresh K/V rows into the slot pool (in place): a quantised pool
+    quantises them on commit (one scale per (token, head) row), so an fp
+    copy of the pool never exists between steps."""
+    if "k_q" in cache:
+        bits = kv_cache_bits(cache, new_k.shape[-1])
+        k_q, k_s = quantize_kv(new_k, bits)
+        v_q, v_s = quantize_kv(new_v, bits)
+        return _ring_write(cache, {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}, pos)
     return _ring_write(cache, {"k": new_k, "v": new_v}, pos)
 
 
@@ -111,9 +147,10 @@ def _commit_kv(cache, new_k, new_v, pos):
 # ---------------------------------------------------------------------------
 
 def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
-                    impl: str = "flash", segments=None):
+                    impl: str = "flash", segments=None, kv_bits: int = 0):
     """x (B, S, D); pos (B, S) int32 (decode: (B, 1); chunk: -1 = pad).
-    Returns (out (B, S, D), cache)."""
+    ``kv_bits`` (packed prefill) returns a quantised raw cache.  Returns
+    (out (B, S, D), cache)."""
     if kind not in ("global", "local"):
         raise NotImplementedError(f"layer kind {kind!r} has no port yet")
     if mode not in ("prefill", "chunk", "decode") or \
@@ -128,9 +165,9 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
     theta = cfg.rope_theta_local if (kind == "local" and cfg.rope_theta_local) \
         else cfg.rope_theta
 
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    q = qdense(x, p["wq"], dt, impl=impl)
+    k = qdense(x, p["wk"], dt, impl=impl)
+    v = qdense(x, p["wv"], dt, impl=impl)
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -146,21 +183,37 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
         # packed ragged prefill: raw per-token cache; the serving engine
         # scatters each segment into its KV slot
         new_cache = {"k": k, "v": v, "pos": torch.where(segments >= 0, pos, -1)}
+        if kv_bits:
+            # the engine's quantised pool takes these rows as codes + scales
+            new_cache = quantize_kv_cache(new_cache, kv_bits)
     else:
+        quant = "k_q" in cache
+        bits = kv_cache_bits(cache, hd) if quant else 0
+        qkw = {}
         if mode == "chunk":
             # attend to the PRE-write cache plus the in-stream chunk: the
             # chunk write may evict ring entries that early chunk queries
             # still need, and cache positions are all < the chunk's.  The
-            # concatenation is a copy, taken before the in-place commit.
-            kc = torch.cat([cache["k"].to(dt), k], dim=1)
-            vc = torch.cat([cache["v"].to(dt), v], dim=1)
+            # concatenation is a copy, taken before the in-place commit; a
+            # quantised pool is dequantised for it (the chunk attends at fp)
+            if quant:
+                ck = dequantize_kv(cache["k_q"], cache["k_s"], bits)
+                cv = dequantize_kv(cache["v_q"], cache["v_s"], bits)
+            else:
+                ck, cv = cache["k"], cache["v"]
+            kc = torch.cat([ck.to(dt), k], dim=1)
+            vc = torch.cat([cv.to(dt), v], dim=1)
             kv_pos = torch.cat([cache["pos"], pos], dim=1)
         new_cache = _commit_kv(cache, k, v, pos)
-        if mode == "decode":
+        if mode == "decode" and quant:
+            # codes and scales go to the kernel route, dequantised inside it
+            kc, vc, kv_pos = new_cache["k_q"], new_cache["v_q"], new_cache["pos"]
+            qkw = dict(k_scale=new_cache["k_s"], v_scale=new_cache["v_s"], kv_bits=bits)
+        elif mode == "decode":
             kc, vc, kv_pos = new_cache["k"], new_cache["v"], new_cache["pos"]
         out = flash_attention(
             q, kc, vc, q_pos=pos, kv_pos=kv_pos, kv_valid=kv_pos >= 0,
-            causal=True, window=window, softcap=cfg.attn_softcap, impl=impl)
+            causal=True, window=window, softcap=cfg.attn_softcap, impl=impl, **qkw)
 
-    out = out.reshape(B, S, Hq * hdv) @ p["wo"].to(dt)
+    out = qdense(out.reshape(B, S, Hq * hdv), p["wo"], dt, impl=impl)
     return out, new_cache

@@ -7,6 +7,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.quant.ops import qdense
+
 # ---------------------------------------------------------------------------
 # init helpers — the reference's distributions: truncated normal on
 # [-2, 2] scaled by 1/sqrt(fan_in) (dense) or by 0.02 (embeddings).  A
@@ -87,7 +89,8 @@ def init_mlp(generator, cfg, *, repeats, dtype, device):
     }
 
 
-def apply_mlp(p, x):
+def apply_mlp(p, x, impl: str = "flash"):
+    """Each projection through ``qdense``: fp or a quantised weight."""
     dt = x.dtype
-    h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    return h @ p["w_down"].to(dt)
+    h = F.silu(qdense(x, p["w_gate"], dt, impl=impl)) * qdense(x, p["w_up"], dt, impl=impl)
+    return qdense(h, p["w_down"], dt, impl=impl)

@@ -7,6 +7,10 @@ follow the reference's parameter tree: ``embed.tok``,
 leaves keep the reference's leading ``(repeats, ...)`` axis and every
 weight its ``(K, N)`` layout, used as ``x @ W`` (no ``nn.Linear``).  Where
 the reference scans a group, the port loops over its repeats in Python.
+A quantised weight (a leaf of the tree that
+:func:`repro_torch.quant.core.quantize_params` returns) sits in the module
+as a :class:`QuantWeight`, whose code and scale planes are
+buffers: ``stack.<group>.u<i>.attn.wq.q`` and ``...wq.scale``.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import modules as M
 from repro_torch.models.attention import (apply_attention, init_attention,
                                           init_kv_cache)
+from repro_torch.quant.core import QuantTensor
 
 
 # ---------------------------------------------------------------------------
@@ -59,15 +64,32 @@ def build_groups(cfg: ModelConfig) -> list[GroupSpec]:
 # parameters
 # ---------------------------------------------------------------------------
 
+class QuantWeight(nn.Module):
+    """A :class:`QuantTensor` held by the parameter module: its code and
+    scale planes are buffers (not parameters), ``bits``/``group`` plain
+    attributes."""
+
+    def __init__(self, qt: QuantTensor):
+        super().__init__()
+        self.register_buffer("q", qt.q)
+        self.register_buffer("scale", qt.scale)
+        self.bits, self.group = qt.bits, qt.group
+
+    def tensor(self) -> QuantTensor:
+        return QuantTensor(self.q, self.scale, self.bits, self.group)
+
+
 def _as_module(tree):
-    """Nested dict/list of tensors -> ModuleDict/ModuleList/ParameterDict
-    with the same keys (frozen parameters: the port serves, it does not
-    train)."""
+    """Nested dict/list of tensors and QuantTensors -> ModuleDict/ModuleList/
+    ParameterDict with the same keys (frozen parameters: the port serves,
+    it does not train).  A ParameterDict holds a QuantWeight beside the
+    tensors of its dict (``wq`` beside ``bq``)."""
     if isinstance(tree, list):
         return nn.ModuleList([_as_module(t) for t in tree])
-    if all(isinstance(t, torch.Tensor) for t in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
-                                 for k, t in tree.items()})
+    if all(isinstance(t, (torch.Tensor, QuantTensor)) for t in tree.values()):
+        return nn.ParameterDict({
+            k: QuantWeight(t) if isinstance(t, QuantTensor)
+            else nn.Parameter(t, requires_grad=False) for k, t in tree.items()})
     return nn.ModuleDict({k: _as_module(t) for k, t in tree.items()})
 
 
@@ -122,9 +144,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
 
 
 def _layer(tree, r: int):
-    """Views of repeat ``r`` of a group's stacked leaves (or pool)."""
+    """Views of repeat ``r`` of a group's stacked leaves (or pool); a
+    quantised weight gives its codes and scales of repeat ``r`` together."""
     if isinstance(tree, torch.Tensor):
         return tree[r]
+    if isinstance(tree, QuantWeight):
+        return tree.tensor()[r]
     return {k: _layer(t, r) for k, t in tree.items()}
 
 
@@ -132,22 +157,23 @@ def _layer(tree, r: int):
 # stack runner
 # ---------------------------------------------------------------------------
 
-def _apply_layer(p, x, *, cfg, kind, mode, pos, cache, impl, segments):
+def _apply_layer(p, x, *, cfg, kind, mode, pos, cache, impl, segments, kv_bits):
     h = M.rmsnorm(x, p["ln1"]["scale"])
     out, c = apply_attention(p["attn"], h, cfg=cfg, kind=kind, mode=mode,
                              pos=pos, cache=None if cache is None else cache["attn"],
-                             impl=impl, segments=segments)
+                             impl=impl, segments=segments, kv_bits=kv_bits)
     x = x + out
     h = M.rmsnorm(x, p["ln2"]["scale"])
-    x = x + M.apply_mlp(p["mlp"], h)
+    x = x + M.apply_mlp(p["mlp"], h, impl=impl)
     return x, {"attn": c}
 
 
 def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
-              impl="flash", segments=None):
+              impl="flash", segments=None, kv_bits=0):
     """Run every layer.  ``prefill`` returns the per-layer raw caches
-    stacked as ``(repeats, ...)`` per group; ``chunk``/``decode`` update the
-    pool ``caches`` in place and return them."""
+    stacked as ``(repeats, ...)`` per group (quantised with ``kv_bits``);
+    ``chunk``/``decode`` update the pool ``caches`` in place and return
+    them."""
     new_caches = []
     for gi, spec in enumerate(groups):
         gp = stack[gi]
@@ -161,7 +187,7 @@ def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
                 x, c_out[f"u{ui}"] = _apply_layer(
                     p_blk[f"u{ui}"], x, cfg=cfg, kind=kind, mode=mode, pos=pos,
                     cache=None if c_blk is None else c_blk[f"u{ui}"],
-                    impl=impl, segments=segments)
+                    impl=impl, segments=segments, kv_bits=kv_bits)
             outs.append(c_out)
         new_caches.append(gc if gc is not None else _stack_trees(outs))
     return x, new_caches
@@ -191,19 +217,21 @@ def unembed(params, cfg, h):
 # ---------------------------------------------------------------------------
 
 def prefill_packed(params, cfg: ModelConfig, tokens, positions, segments,
-                   gather_idx, *, impl="flash", compute_dtype=torch.bfloat16):
+                   gather_idx, *, impl="flash", compute_dtype=torch.bfloat16,
+                   kv_bits: int = 0):
     """Packed ragged prefill: several prompts in one ``(1, C)`` stream.
 
     ``positions`` are within-prompt positions (RoPE), ``segments`` per-token
     prompt ids (-1 = pad) — a query never attends across a prompt
     boundary.  ``gather_idx`` (n_seg,) picks the packed index of each
     prompt's last token; returns (logits (n_seg, V), raw per-token cache) —
-    cache k/v/pos leaves keep the packed stream layout, the caller scatters
-    segments into KV slots."""
+    cache leaves keep the packed stream layout (k/v, or with ``kv_bits`` the
+    code and scale planes, and pos), the caller scatters segments into KV
+    slots."""
     h = embed_tokens(params, cfg, tokens, compute_dtype)
     h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
                           mode="prefill", pos=positions, impl=impl,
-                          segments=segments)
+                          segments=segments, kv_bits=kv_bits)
     h = M.rmsnorm(h, params["final_norm"]["scale"])
     last = h[0][gather_idx][:, None]                    # (n_seg, 1, D)
     logits = unembed(params, cfg, last)[:, 0]
@@ -247,15 +275,17 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int, *,
-               dtype=torch.bfloat16, device=None):
+               dtype=torch.bfloat16, device=None, kv_bits: int = 0):
     """The slot pool: per group, per unit, ``{"attn": {"k", "v", "pos"}}``
-    leaves with a leading ``repeats`` axis."""
+    leaves (with ``kv_bits`` 8/4: ``{"k_q", "k_s", "v_q", "v_s", "pos"}``)
+    with a leading ``repeats`` axis."""
     device = resolve_device(device)
     caches = []
     for spec in build_groups(cfg):
         blk = {}
         for ui, kind in enumerate(spec.units):
-            one = init_kv_cache(cfg, kind, batch, kv_len, dtype, device)
+            one = init_kv_cache(cfg, kind, batch, kv_len, dtype, device,
+                                kv_bits=kv_bits)
             blk[f"u{ui}"] = {"attn": {
                 k: t[None].repeat((spec.repeats,) + (1,) * t.dim())
                 for k, t in one.items()}}

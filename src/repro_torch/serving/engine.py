@@ -24,8 +24,9 @@ iteration loop.  Each iteration runs:
    device→host traffic per iteration is one packed ``(K, 3, max_batch)``
    int32 of ``(next_token, done, anomaly)``.
 
-This slice ports the fp, FIFO, packed, fused path.  ``EngineConfig``
-fields of the reference that it does not implement raise
+The port runs the FIFO, packed, fused path, fp or quantised
+(``weight_bits``/``weight_group``/``kv_bits``).  ``EngineConfig`` fields
+of the reference that it does not implement raise
 ``NotImplementedError`` when the engine is built (see ``ROADMAP.md``).
 The engine runs on ``"cuda"`` unless ``device="cpu"`` is passed.
 """
@@ -60,9 +61,10 @@ class EngineConfig:
     prefill_chunk: int = 0        # packed-stream / chunk budget in tokens
     #   (0 → min(128, kv_len))
     decode_chunk: int = 1         # decode iterations per step()
-    weight_bits: int = 0
-    weight_group: int = 0
-    kv_bits: int = 0
+    weight_bits: int = 0          # 0 = native fp; 8/4 = weight-only
+    #   quantisation of the dense projections (dequant-matmul kernel)
+    weight_group: int = 0         # rows of K per scale group (0 = per-channel)
+    kv_bits: int = 0              # 0 = fp pool; 8/4 = quantised slot-pool KV
     deadline_ms: float = 0.0
     max_queue: int = 0
     anomaly_retries: int = 1      # NaN/inf-logit quarantine: a slot whose
@@ -76,8 +78,7 @@ class EngineConfig:
 
 # fields of the reference's EngineConfig this slice does not implement, with
 # the value that means "off"
-_NOT_PORTED = {"fused": True, "packed": True, "weight_bits": 0,
-               "weight_group": 0, "kv_bits": 0, "deadline_ms": 0.0,
+_NOT_PORTED = {"fused": True, "packed": True, "deadline_ms": 0.0,
                "max_queue": 0, "spec_k": 0, "trace": False}
 
 
@@ -123,6 +124,10 @@ class ServingEngine:
                  *, device=None, scheduler: Optional[Scheduler] = None, mesh=None):
         self.cfg = cfg
         self.ecfg = ecfg = ecfg if ecfg is not None else EngineConfig()
+        if ecfg.weight_bits not in (0, 4, 8):
+            raise ValueError(f"weight_bits must be 0, 4 or 8, got {ecfg.weight_bits}")
+        if ecfg.kv_bits not in (0, 4, 8):
+            raise ValueError(f"kv_bits must be 0, 4 or 8, got {ecfg.kv_bits}")
         for name, off in _NOT_PORTED.items():
             if getattr(ecfg, name) != off:
                 raise NotImplementedError(
@@ -485,8 +490,8 @@ class ServingEngine:
             "gen_lens": [len(r.output) for r in done],
             "prefill_chunk": self._chunk,
             "max_batch": self.ecfg.max_batch,
-            "weight_bits": 16,
-            "kv_bits": 16,
+            "weight_bits": self.ecfg.weight_bits or 16,
+            "kv_bits": self.ecfg.kv_bits or 16,
             "active_slots_hist": dict(sorted(self.active_slot_hist.items())),
             **self._failure_stats(),
         }

@@ -22,12 +22,17 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import ring_positions
+from repro_torch.quant.core import quantize_params
 
 
 class Executor:
     def __init__(self, cfg: ModelConfig, params, ecfg, *, device):
         self.cfg, self.ecfg = cfg, ecfg
         self.params = params
+        if ecfg.weight_bits:
+            # weight-only quantisation, once, of the engine's own copy
+            self.params = T.Transformer(cfg, quantize_params(
+                params, ecfg.weight_bits, group=ecfg.weight_group))
         self.generator = torch.Generator(device=device).manual_seed(ecfg.seed)
         # host-transfer accounting
         self.host_transfers = 0
@@ -98,7 +103,8 @@ class Executor:
         prompt completed in this stream (non-final = first chunk of a long
         prompt, which only inserts KV)."""
         logits, pcache = T.prefill_packed(self.params, self.cfg, tokens, positions,
-                                          seg, gather_idx, impl=self.ecfg.impl)
+                                          seg, gather_idx, impl=self.ecfg.impl,
+                                          kv_bits=self.ecfg.kv_bits)
         nxt = self._sample(logits)
         self.packed_insert(cache, pcache["stack"], seg, positions, seg_len, active)
         fin = active & final
@@ -114,8 +120,9 @@ class Executor:
         """Scatter each packed segment into its KV slot, in place.  Validity
         is governed by the ``pos`` leaves, so those rows are rebuilt per
         active slot (ring slot ``s`` of a cap-``c`` cache holds position
-        ``p ≡ s (mod c)``, ``p ∈ [len-c, len)``), while k/v scatter the
-        packed tokens straight to their (slot, ring index) targets."""
+        ``p ≡ s (mod c)``, ``p ∈ [len-c, len)``), while every other leaf
+        (k/v, or the code and scale planes) scatters the packed tokens
+        straight to their (slot, ring index) targets."""
         seg1, pos1 = seg[0], positions[0]                 # (C,) slot id / pos
         for pool_g, packed_g in zip(cache["stack"], pstack):
             for unit, pc in packed_g.items():
@@ -130,8 +137,9 @@ class Executor:
                     (pos1 >= seg_len[seg1.clamp(min=0).long()] - cap)
                 idx = keep.nonzero()[:, 0]
                 row, ring = seg1[idx].long(), torch.remainder(pos1[idx], cap).long()
-                for name in ("k", "v"):
-                    pool[name][:, row, ring] = packed[name][:, 0, idx].to(pool[name].dtype)
+                for name in pool:
+                    if name != "pos":
+                        pool[name][:, row, ring] = packed[name][:, 0, idx].to(pool[name].dtype)
 
     @torch.no_grad()
     def chunk_step(self, cache, state, tokens, pos, take_idx, final, budget):

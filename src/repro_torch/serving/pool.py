@@ -3,7 +3,8 @@ the slotted KV cache, the per-slot decode state, and the slot lifecycle.
 
 One :class:`SlotPool` owns everything whose lifetime is "a slot":
 
-- the device KV cache built by ``models.transformer.init_cache`` (bf16);
+- the device KV cache built by ``models.transformer.init_cache`` (bf16,
+  or int8 codes with f32 scales under ``kv_bits``);
 - the fused-path device state: last token, position, budget and liveness
   per slot;
 - host bookkeeping: which ``Request`` occupies each slot, chunked-prefill
@@ -25,7 +26,8 @@ class SlotPool:
     def __init__(self, cfg: ModelConfig, ecfg, *, device):
         B, S = ecfg.max_batch, ecfg.kv_len
         self.ecfg = ecfg
-        self.cache = T.init_cache(cfg, B, S, dtype=torch.bfloat16, device=device)
+        self.cache = T.init_cache(cfg, B, S, dtype=torch.bfloat16, device=device,
+                                  kv_bits=ecfg.kv_bits)
         i32 = dict(dtype=torch.int32, device=device)
         self.state = {
             "tokens": torch.zeros((B,), **i32),

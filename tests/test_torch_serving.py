@@ -10,6 +10,13 @@ The schedule must match exactly.  Token streams must match too, except
 where greedy decoding meets a near-tie: at the first token where a stream
 diverges, the reference's top-1 minus top-2 logit margin must be below
 twice the bf16 logit tolerance (2 x 1e-2), or the test fails.
+
+The quantised engines (the reference's golden cases ``kv8``, ``w8kv8``,
+``w4kv4``) run the same comparison.  Both engines quantise their own copy
+of the weights at construction; the port gets the f32 values (stored f32,
+cast at use), so the two quantise the same numbers into the same codes.
+The near-tie margin is then the reference model's own on its quantised
+weights (``fake_quantize_params``).
 """
 import jax
 import jax.numpy as jnp
@@ -20,6 +27,7 @@ import torch
 from repro.config import get_config as jax_get_config
 from repro.config import reduce_config as jax_reduce_config
 from repro.models import transformer as TJ
+from repro.quant.core import fake_quantize_params
 from repro.serving.engine import EngineConfig as JaxEngineConfig
 from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro_torch.config import get_config, reduce_config
@@ -45,14 +53,22 @@ def _margin(params, cfg, prompt, out, t):
     return float(top[1] - top[0])
 
 
-def test_engine_matches_reference_engine():
+# the reference's golden quantised cases (tests/test_layering.py)
+QUANT_CASES = {"kv8": dict(kv_bits=8), "w8kv8": dict(weight_bits=8, kv_bits=8),
+               "w4kv4": dict(weight_bits=4, kv_bits=4)}
+
+
+def _compare_engines(**bits):
+    settings = dict(SETTINGS, **bits)
     cfg_j = jax_reduce_config(jax_get_config("qwen2.5-3b"))
     cfg_t = reduce_config(get_config("qwen2.5-3b"))
     params_j = TJ.init_params(cfg_j, jax.random.PRNGKey(0), param_dtype=jnp.float32)
+    # quantised weights: the f32 values, as the reference quantises them
     params_t = params_from_jax(jax.device_get(params_j), cfg_t, device="cpu",
-                               dtype=torch.bfloat16)
-    eng_j = JaxServingEngine(cfg_j, params_j, JaxEngineConfig(**SETTINGS))
-    eng_t = ServingEngine(cfg_t, params_t, EngineConfig(**SETTINGS), device="cpu")
+                               dtype=torch.float32 if bits.get("weight_bits")
+                               else torch.bfloat16)
+    eng_j = JaxServingEngine(cfg_j, params_j, JaxEngineConfig(**settings))
+    eng_t = ServingEngine(cfg_t, params_t, EngineConfig(**settings), device="cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg_t.vocab_size, size=n) for n in PROMPT_LENS]
     for p in prompts:
@@ -63,9 +79,11 @@ def test_engine_matches_reference_engine():
 
     sj, st = eng_j.stats(), eng_t.stats()
     assert set(st) == {k for k in sj if not k.startswith(("spec_", "trace_"))}
-    for key in SCHEDULE_KEYS:
+    for key in SCHEDULE_KEYS + ("weight_bits", "kv_bits"):
         assert st[key] == sj[key], key
     assert st["finished"] == len(PROMPT_LENS)
+    margin_params = params_j if not bits.get("weight_bits") else \
+        fake_quantize_params(params_j, bits["weight_bits"])
 
     out_j = {r.uid: r.output for r in eng_j.finished}
     out_t = {r.uid: r.output for r in eng_t.finished}
@@ -75,15 +93,34 @@ def test_engine_matches_reference_engine():
         diverged = [t for t in range(len(a)) if a[t] != b[t]]
         if diverged:
             t = diverged[0]
-            margin = _margin(params_j, cfg_j, prompt, a, t)
+            margin = _margin(margin_params, cfg_j, prompt, a, t)
             assert margin < 2 * BF16_LOGIT_TOL, (
                 f"request {uid} diverges at token {t} ({a[t]} vs {b[t]}) "
                 f"with a reference margin of {margin:.4f}: not a near-tie")
 
 
+def test_engine_matches_reference_engine():
+    _compare_engines()
+
+
+@pytest.mark.parametrize("case", sorted(QUANT_CASES))
+def test_quantised_engine_matches_reference_engine(case):
+    _compare_engines(**QUANT_CASES[case])
+
+
 @pytest.mark.parametrize("field,value", [
-    ("spec_k", 2), ("weight_bits", 8), ("kv_bits", 8), ("packed", False),
-    ("fused", False), ("deadline_ms", 5.0), ("max_queue", 4), ("trace", True)])
+    ("weight_bits", 3), ("weight_bits", 16), ("kv_bits", 2), ("kv_bits", 16)])
+def test_engine_invalid_bits_raise(field, value):
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    from repro_torch.models.transformer import init_params
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match=field):
+        ServingEngine(cfg, params, EngineConfig(**{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("spec_k", 2), ("packed", False), ("fused", False), ("deadline_ms", 5.0),
+    ("max_queue", 4), ("trace", True)])
 def test_unported_engine_options_raise(field, value):
     cfg = reduce_config(get_config("qwen2.5-3b"))
     from repro_torch.models.transformer import init_params
