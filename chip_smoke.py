@@ -12,29 +12,38 @@ Phases, each of which must pass or the script exits non-zero:
              the card, at the serving path's shapes and at edge cases
              (window, softcap, an empty slot, a pad-only tile, ragged
              lengths and shapes, GQA rep 1 and 8, f32, head_dim 256, int8 and
-             int4, per-channel and per-group scales), with its time, the plain
-             version's time, one PyTorch call's time (a yardstick the port
-             never calls: ``scaled_dot_product_attention`` with an explicit
-             mask for attention, ``torch.matmul`` with the dequantised bf16
-             weights for the matmuls) and its bound;
+             int4, per-channel and per-group scales, M from 1 to 1024), with
+             its time, the plain version's time, one PyTorch call's time (a
+             yardstick the port never calls: ``scaled_dot_product_attention``
+             with an explicit mask for attention, ``torch.matmul`` with the
+             dequantised bf16 weights for the matmuls) and its bound; each
+             dequant-matmul case prints the design of ``qmatmul.cu`` it ran
+             (tensor cores or CUDA cores) and is checked to run the one its
+             dtype and group call for; split shapes launched on two streams
+             at once must give what they give on one;
 4. engine  — the port's serving engine on full-width qwen2.5-3b with random
              bf16 weights, fp and then quantised (``w8kv8``, ``w4kv4``): 16
              requests (prompts of 4..384 tokens, so chunked prefill runs),
              greedy, 32 new tokens each, with the launch count of each kernel
-             during each run, checked against the run's steps and calls;
+             during each run, checked against the run's steps and calls, and
+             every quantised projection checked to have run on tensor cores,
+             in a kernel of ``qmatmul.cu`` that phase 3 checked;
 5. crossbar — the PIM-MVM entry point ``pim_mvm`` on the shapes of
-             ``benchmarks/kernel_micro.py``, against its oracle and the fp
-             product, with the kernel's launch count;
+             ``benchmarks/kernel_micro.py``, f32 x (as there) and bf16 x,
+             against its oracle and the fp product, with the kernel's launch
+             count, the bf16 calls checked to have run on tensor cores, in
+             kernels that phase 3 checked;
 6. logits  — packed prefill plus 4 decode steps at full width with
              ``impl="flash"`` against ``impl="ref"``, fp and ``w8kv8``;
-7. profile — torch.profiler over 4 full-pool decode steps, fp and
-             ``w8kv8``: device busy time and kernels launched per step (read,
-             not checked).
+7. profile — torch.profiler over 4 full-pool decode steps and 2 chunk
+             steps (8 rows of a 128-token chunk), fp and ``w8kv8``: device
+             busy time and kernels launched per step (read, not checked).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits 1
 and prints no result.
 """
+import functools
 import json
 import os
 import subprocess
@@ -412,18 +421,59 @@ def matmul_record(name, source, replaces, errs, ms, plain_ms, library_ms, nbytes
             **extra, "cases": errs}
 
 
+# the kernels of qmatmul.cu (repro_torch.quant.kernel.Kernel) that some
+# case of run_matmul_checks held against its plain version
+CHECKED_KERNELS = set()
+
+
+def kernel_name(k):
+    return (f"{k.design}/bm{k.bm}/int{k.bits}/{k.scales}/{k.dtype.split('.')[-1]}"
+            + ("/split" if k.split else ""))
+
+
+def ran_kernel(torch, fn):
+    """Call ``fn`` and name the kernel of ``qmatmul.cu`` it launched
+    (``repro_torch.quant.kernel.kernel_launches``)."""
+    from repro_torch.quant.kernel import kernel_launches
+    before = kernel_launches.copy()
+    out = fn()
+    ran = list((kernel_launches - before).elements())
+    check(len(ran) == 1, f"expected one dequant-matmul launch, saw {ran}")
+    return out, ran[0]
+
+
+def check_kernels_checked(what, kernels):
+    """Every kernel of qmatmul.cu that ``what`` launched was held against
+    its plain version in run_matmul_checks."""
+    missed = sorted(kernel_name(k) for k in kernels if k not in CHECKED_KERNELS)
+    check(not missed, f"{what}: dequant-matmul kernels launched but never checked: {missed}")
+
+
+def expected_design(dtype, group):
+    """Tensor cores for bf16 x with a group that is 0 or a multiple of the
+    mma depth (16); CUDA cores otherwise (qmatmul.cu's make_plan)."""
+    import torch
+    return "tensor_core" if dtype == torch.bfloat16 and group % 16 == 0 else "cuda_core"
+
+
 def check_matmul(torch, label, name, fwd, plain, x, *args, **kw):
-    out = fwd(x, *args, **kw)
+    out, kernel = ran_kernel(torch, lambda: fwd(x, *args, **kw))
+    design = kernel.design
+    CHECKED_KERNELS.add(kernel)
     ref = plain(x, *args, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     scale = max(ref.float().abs().max().item(), 1e-30)
     tol = MATMUL_TOL[str(x.dtype)]
-    print(f"kernel {label} case={name!r} max_abs_err={err:.3e} "
+    want = expected_design(x.dtype, kw.get("group", 0))
+    print(f"kernel {label} case={name!r} design={design} kernel={kernel_name(kernel)} "
+          f"max_abs_err={err:.3e} "
           f"rel_to_max={err / scale:.3e} tol={tol:g}")
     check(out.dtype == x.dtype and out.shape == ref.shape and np.isfinite(err)
           and err <= tol * scale, f"{label} kernel disagrees with its plain version ({name})")
-    return {"case": name, "max_abs_err": err, "rel_to_max": err / scale, "tol": tol}
+    check(design == want, f"{label} ({name}) ran on {design}, expected {want}")
+    return {"case": name, "design": design, "max_abs_err": err, "rel_to_max": err / scale,
+            "tol": tol}
 
 
 def run_matmul_checks(torch):
@@ -448,6 +498,22 @@ def run_matmul_checks(torch):
         "ragged int4 group32 (100, 96, 200)": (100, 96, 200, 4, 32, None),
         "f32 x int8 (8, 2048, 2048)": (8, 2048, 2048, 8, 0, torch.float32),
         "f32 x int4 group128 (64, 2048, 2048)": (64, 2048, 2048, 4, 128, torch.float32),
+        "int8 per-channel (1024, 2048, 11008) chunk-step w_up": (1024, 2048, 11008, 8, 0,
+                                                                 None),
+        "int4 group128 (1024, 11008, 2048) chunk-step w_down": (1024, 11008, 2048, 4, 128,
+                                                               None),
+        "int8 per-channel (128, 2048, 2048) packed prefill": (128, 2048, 2048, 8, 0, None),
+        "int4 per-channel (17, 2048, 256) between the tiles": (17, 2048, 256, 4, 0, None),
+        "int8 per-channel (1, 2048, 2048) one row": (1, 2048, 2048, 8, 0, None),
+        "int8 group8 (64, 256, 512) CUDA cores": (64, 256, 512, 8, 8, None),
+        "int4 per-channel (1024, 2048, 11008) chunk-step w_up": (1024, 2048, 11008, 4, 0,
+                                                                 None),
+        "int4 per-channel (1024, 11008, 2048) chunk-step w_down": (1024, 11008, 2048, 4, 0,
+                                                                   None),
+        "int8 per-channel (1024, 2048, 2048) chunk-step wq": (1024, 2048, 2048, 8, 0, None),
+        "int4 group128 (8, 2048, 2048) decode": (8, 2048, 2048, 4, 128, None),
+        "int8 group128 (1024, 2048, 11008) chunk-step w_up": (1024, 2048, 11008, 8, 128,
+                                                              None),
     }
     errs = []
     for name, (M, K, N, bits, group, dtype) in cases.items():
@@ -457,6 +523,29 @@ def run_matmul_checks(torch):
                                  quant_matmul_plain, x, qt.q, qt.scale, bits=bits,
                                  group=group))
 
+    # split shapes (a decode tile and a wide tile) launched on two streams
+    # at once give what they give alone, bit for bit: each stream's split-K
+    # tickets are its own, and the splits are added in a fixed order
+    calls = []
+    for M, K, N, bits, group in ((8, 2048, 11008, 8, 0), (128, 2048, 2048, 8, 128)):
+        x, w = operands(M, K, N)
+        qt = quantize(w, bits, group=group)
+        calls.append(functools.partial(quant_matmul_fwd, x, qt.q, qt.scale, bits=bits,
+                                       group=group))
+    alone = [f() for f in calls]
+    streams = [torch.cuda.Stream(device=DEVICE) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for r in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                j = (r + i) % 2
+                outs.append((j, calls[j]()))
+    torch.cuda.synchronize()
+    same = all(torch.equal(out, alone[j]) for j, out in outs)
+    print(f"kernel quant_matmul two_streams launches={len(outs)} identical={same}")
+    check(same, "dequant-matmul split shapes on two streams differ from one stream")
+
     def timed(M, K, N, bits):
         x, _ = operands(M, K, N)
         copies = cold_copies(K * N * bits // 8)
@@ -464,29 +553,37 @@ def run_matmul_checks(torch):
         nxt = cycler(qts)
         args = lambda: (lambda qt: (qt.q, qt.scale))(nxt())  # noqa: E731
         kw = dict(bits=bits)
+        _, kernel = ran_kernel(torch, lambda: quant_matmul_fwd(x, *args(), **kw))
         ms = device_ms(lambda: quant_matmul_fwd(x, *args(), **kw), 100)
         plain_ms = device_ms(lambda: quant_matmul_plain(x, *args(), **kw), 10)
         lib = [dequantize(qt).to(torch.bfloat16) for qt in qts]
         nxt_lib = cycler(lib)
         library_ms = device_ms(lambda: torch.matmul(x, nxt_lib()), 100)
         nbytes = qts[0].q.numel() + qts[0].scale.numel() * 4 + (M * K + M * N) * 2
-        return ms, plain_ms, library_ms, nbytes, 2 * M * K * N, copies
+        return ms, plain_ms, library_ms, nbytes, 2 * M * K * N, copies, kernel.design
 
-    # serving's decode shape at int8, w_down at int4, the chunk step's w_up
-    ms, plain_ms, library_ms, nbytes, flops, copies = timed(8, 2048, 11008, 8)
-    int4 = timed(8, 11008, 2048, 4)
-    chunk = timed(1024, 2048, 11008, 8)
     bf16 = str(torch.bfloat16)
+
+    def shape_record(M, K, N, bits):
+        t = timed(M, K, N, bits)
+        b_ms, b_by = bound(t[3], t[4], bf16)
+        print(f"kernel quant_matmul timing shape=({M}, {K}, {N}) int{bits} design={t[6]} "
+              f"ms={t[0]:.4f} plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by})")
+        return {"shape": [M, K, N], "weight_bits": bits, "design": t[6], "ms": t[0],
+                "plain_ms": t[1], "library_ms": t[2], "bound_ms": b_ms, "bound_by": b_by,
+                "copies": t[5]}
+
+    # serving's decode shape at int8 (the record's main numbers), w_down at
+    # int4, and the chunk step's w_up at int8 and w_down at int4
+    ms, plain_ms, library_ms, nbytes, flops, copies, design = timed(8, 2048, 11008, 8)
     records = {"quant_matmul": matmul_record(
         "quant_matmul", "src/repro_torch/kernels/csrc/qmatmul.cu",
         "src/repro/quant/kernel.py:59", errs, ms, plain_ms, library_ms, nbytes, flops,
-        bf16, shape=[8, 2048, 11008], weight_bits=8, copies=copies,
-        int4_w_down={"shape": [8, 11008, 2048], "ms": int4[0], "plain_ms": int4[1],
-                     "library_ms": int4[2], "bound_ms": bound(int4[3], int4[4], bf16)[0],
-                     "bound_by": bound(int4[3], int4[4], bf16)[1], "copies": int4[5]},
-        chunk_step={"shape": [1024, 2048, 11008], "ms": chunk[0], "plain_ms": chunk[1],
-                    "library_ms": chunk[2], "bound_ms": bound(chunk[3], chunk[4], bf16)[0],
-                    "bound_by": bound(chunk[3], chunk[4], bf16)[1], "copies": chunk[5]})}
+        bf16, shape=[8, 2048, 11008], weight_bits=8, design=design, copies=copies,
+        int4_w_down=shape_record(8, 11008, 2048, 4),
+        chunk_step=shape_record(1024, 2048, 11008, 8),
+        chunk_step_int4_w_down=shape_record(1024, 11008, 2048, 4))}
 
     # -- the crossbar layout --------------------------------------------------
     cases = {"kernel_micro (256, 1024, 512)": (256, 1024, 512, None),
@@ -503,6 +600,7 @@ def run_matmul_checks(torch):
     x, _ = operands(M, K, N)
     planes = [quantize_weights(operands(1, K, N)[1]) for _ in range(cold_copies(K * N))]
     nxt = cycler(planes)
+    _, kernel = ran_kernel(torch, lambda: pim_mvm_fwd(x, *nxt()))
     ms = device_ms(lambda: pim_mvm_fwd(x, *nxt()), 100)
     plain_ms = device_ms(lambda: pim_mvm_plain(x, *nxt()), 10)
     from repro_torch.kernels.pim_mvm.ref import dequantize_ref
@@ -513,7 +611,8 @@ def run_matmul_checks(torch):
     records["pim_mvm"] = matmul_record(
         "pim_mvm", "src/repro_torch/kernels/csrc/qmatmul.cu",
         "src/repro/kernels/pim_mvm/kernel.py:60", errs, ms, plain_ms, library_ms,
-        nbytes, 2 * M * K * N, str(x.dtype), shape=[M, K, N], copies=len(planes))
+        nbytes, 2 * M * K * N, str(x.dtype), shape=[M, K, N], design=kernel.design,
+        copies=len(planes))
     return records
 
 
@@ -534,12 +633,22 @@ def kernel_counters():
 
 
 def reset_launches():
+    from repro_torch.quant.kernel import kernel_launches
     for fn in kernel_counters().values():
         fn.launches = 0
+    kernel_launches.clear()
 
 
 def read_launches():
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def read_kernels():
+    """Launches of each kernel of qmatmul.cu since reset_launches(), and
+    of each of its designs."""
+    from repro_torch.quant.kernel import DESIGNS, kernel_launches
+    kernels = kernel_launches.copy()
+    return kernels, {d: sum(n for k, n in kernels.items() if k.design == d) for d in DESIGNS}
 
 
 def tensor_bytes(tree):
@@ -585,6 +694,7 @@ def run_engine(torch, cfg, params, run="fp"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    kernels, designs = read_kernels()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     qp = engine.executor.params
     params_gb = sum(tensor_bytes(t) for t in (*qp.parameters(), *qp.buffers())) / 1e9
@@ -598,7 +708,9 @@ def run_engine(torch, cfg, params, run="fp"):
           f"decode_steps={st['decode_steps']} prefill_calls={st['prefill_calls']} "
           f"prefill_tokens={st['prefill_tokens']} wall_s={wall:.3f} "
           f"peak_memory_gib={peak_gib:.2f} params_gb={params_gb:.3f} "
-          f"pool_gb={pool_gb:.4f} launches={json.dumps(launches)}")
+          f"pool_gb={pool_gb:.4f} launches={json.dumps(launches)} "
+          f"qmatmul_designs={json.dumps(designs)} "
+          f"qmatmul_kernels={json.dumps({kernel_name(k): n for k, n in kernels.items()})}")
     check(st["finished"] == N_REQUESTS and st["failed"] == 0,
           f"engine ({run}) finished {st['finished']} of {N_REQUESTS}")
     outs = [r.output for r in engine.finished]
@@ -617,58 +729,88 @@ def run_engine(torch, cfg, params, run="fp"):
     want_mm = PROJECTIONS * cfg.n_layers * calls if quant_w else 0
     check(launches["quant_matmul"] == want_mm,
           f"{run}: quant_matmul launches {launches['quant_matmul']} != {want_mm}")
+    # the engine runs bf16: every projection on tensor cores
+    check(designs == {"cuda_core": 0, "tensor_core": want_mm},
+          f"{run}: qmatmul designs {designs}, want {want_mm} on tensor cores")
+    check_kernels_checked(f"engine ({run})", kernels)
     check(launches["flash_prefill"] > 0 and
           launches["flash_prefill"] % cfg.n_layers == 0,
           f"{run}: prefill kernel launches {launches['flash_prefill']}")
     check(launches["pim_mvm"] == 0, f"{run}: the crossbar kernel ran in serving")
-    return {"stats": st, "launches": launches, "wall_s": wall, "peak_gib": peak_gib,
+    return {"stats": st, "launches": launches, "designs": designs, "wall_s": wall,
+            "peak_gib": peak_gib,
             "params_gb": params_gb, "pool_gb": pool_gb}
 
 
 def run_crossbar(torch):
     """The PIM-MVM entry point as ``examples/quickstart.py`` and
     ``benchmarks/kernel_micro.py`` drive it: program the crossbars
-    (``quantize_weights``), then ``pim_mvm``; checked against the oracle
-    and against the fp product (quantisation error, as kernel_micro
-    reports it)."""
+    (``quantize_weights``), then ``pim_mvm``, with f32 x (kernel_micro's)
+    and bf16 x; checked against the oracle and against the fp product
+    (quantisation error, as kernel_micro reports it)."""
     from repro_torch.kernels.pim_mvm.ops import pim_mvm, quantize_weights
     g = torch.Generator(device=DEVICE).manual_seed(5)
     shapes = [(256, 1024, 512), (512, 2048, 1024)]
+    dtypes = (torch.float32, torch.bfloat16)
     inputs = []
     for M, K, N in shapes:
         x = torch.randn((M, K), generator=g, device=DEVICE)
         w = torch.randn((K, N), generator=g, device=DEVICE) / K ** 0.5
-        inputs.append((x, w, *quantize_weights(w)))
+        inputs += [((M, K, N), x.to(dt), w, *quantize_weights(w)) for dt in dtypes]
     torch.cuda.synchronize()
     reset_launches()
-    outs = [pim_mvm(x, wq, sc) for x, _, wq, sc in inputs]
+    outs = [pim_mvm(x, wq, sc) for _, x, _, wq, sc in inputs]
     torch.cuda.synchronize()
-    launches = read_launches()
-    rels = []
-    for (M, K, N), (x, w, wq, sc), out in zip(shapes, inputs, outs):
-        ref = pim_mvm(x, wq, sc, impl="ref")
-        fp = x @ w
-        err = float((out - ref).abs().max() / ref.abs().max())
-        rel = float((out - fp).abs().max() / fp.abs().max())
-        print(f"crossbar shape={M}x{K}x{N} rel_err_vs_oracle={err:.3e} "
+    launches, (kernels, designs) = read_launches(), read_kernels()
+    for ((M, K, N), x, w, wq, sc), out in zip(inputs, outs):
+        ref = pim_mvm(x, wq, sc, impl="ref").float()
+        fp = x.float() @ w
+        err = float((out.float() - ref).abs().max() / ref.abs().max())
+        rel = float((out.float() - fp).abs().max() / fp.abs().max())
+        print(f"crossbar shape={M}x{K}x{N} dtype={x.dtype} rel_err_vs_oracle={err:.3e} "
               f"rel_err_vs_fp={rel:.3e}")
-        check(np.isfinite(err) and err <= MATMUL_TOL["torch.float32"] and rel < 3e-2,
-              f"pim_mvm {M}x{K}x{N} disagrees (oracle {err:.3e}, fp {rel:.3e})")
-        rels.append(rel)
-    print(f"crossbar launches={json.dumps(launches)}")
-    check(launches["pim_mvm"] == len(shapes) and
+        check(np.isfinite(err) and err <= MATMUL_TOL[str(x.dtype)] and rel < 3e-2,
+              f"pim_mvm {M}x{K}x{N} {x.dtype} disagrees (oracle {err:.3e}, fp {rel:.3e})")
+    print(f"crossbar launches={json.dumps(launches)} qmatmul_designs={json.dumps(designs)}")
+    check(launches["pim_mvm"] == len(inputs) and
           sum(launches.values()) == launches["pim_mvm"],
           f"crossbar launches {launches}")
+    check(designs == {"cuda_core": len(shapes), "tensor_core": len(shapes)},
+          f"crossbar: f32 x on CUDA cores, bf16 x on tensor cores; saw {designs}")
+    check_kernels_checked("crossbar", kernels)
     return launches
 
 
-def run_profile(torch, cfg, params, run="fp", steps=4):
-    """Where a decode step's time goes: torch.profiler over ``steps`` fused
-    steps with every slot decoding — device busy time (the sum of kernel
-    times), the number of kernels a step launches, and the largest kernels.
-    The profiler slows the host, so the wall time here is not the engine's."""
+def profiled(torch, run, what, step, steps):
+    """torch.profiler over ``steps`` calls of ``step``: device busy time
+    (the sum of kernel times) a call, kernels launched a call and the
+    largest kernels.  The profiler slows the host, so the wall time here is
+    not the engine's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"profile run={run} {what} busy_ms={busy_ms:.3f} wall_ms_profiled={wall_ms:.3f} "
+          f"kernels_per_step={launches:.0f} top=" + json.dumps(
+              [[e.key[:60], round(e.self_device_time_total / 1e3 / steps, 4), e.count // steps]
+               for e in top]))
+    return {"busy_ms": busy_ms, "kernels_per_step": launches, "wall_ms_profiled": wall_ms}
+
+
+def run_profile(torch, cfg, params, run="fp", steps=4, chunk_steps=2):
+    """Where a step's time goes, with every slot of the pool busy: ``steps``
+    fused decode steps, then ``chunk_steps`` chunked-prefill steps (the
+    executor's ``chunk_step``, as the engine calls it for long prompts:
+    all 8 rows with a 128-token chunk, M = 1024 rows a projection)."""
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     engine = ServingEngine(cfg, params, EngineConfig(
@@ -680,22 +822,24 @@ def run_profile(torch, cfg, params, run="fp", steps=4):
     engine.step()                     # admission (one packed prefill) + a step
     engine.step()
     check(len(engine.pool.decoding()) == MAX_BATCH, "profile: pool not full")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    launches = sum(e.count for e in kernels) / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profile run={run} decode_step busy_ms={busy_ms:.3f} wall_ms_profiled={wall_ms:.3f} "
-          f"kernels_per_step={launches:.0f} top=" + json.dumps(
-              [[e.key[:60], round(e.self_device_time_total / 1e3 / steps, 4), e.count // steps]
-               for e in top]))
-    return busy_ms, launches
+    decode = profiled(torch, run, "decode_step", engine.step, steps)
+
+    # chunk steps over the same pool: each row's next 128 tokens at
+    # positions 32..159, no row final (the slots' state is left as it is)
+    B, C = MAX_BATCH, engine._chunk
+    dev = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    toks = dev(rng.integers(0, cfg.vocab_size, (B, C)).astype(np.int32))
+    pos = dev(np.broadcast_to(32 + np.arange(C, dtype=np.int32), (B, C)).copy())
+    take = dev(np.full((B,), C - 1, np.int32))
+    final, budget = dev(np.zeros((B,), bool)), dev(np.ones((B,), np.int32))
+    ex, pool = engine.executor, engine.pool
+
+    def chunk_step():
+        pool.cache, pool.state, _ = ex.chunk_step(pool.cache, pool.state, toks, pos, take,
+                                                  final, budget)
+    chunk_step()                      # warm-up
+    chunk = profiled(torch, run, "chunk_step", chunk_step, chunk_steps)
+    return {"decode_step": decode, "chunk_step": chunk}
 
 
 def run_logits(torch, cfg, params, run="fp"):

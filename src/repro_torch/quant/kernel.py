@@ -1,13 +1,18 @@
 """Fused dequantise-matmul over weight-only quantised matrices (counterpart
 of the reference's ``quant/kernel.py::quant_matmul_pallas``).
 
-:func:`quant_matmul_fwd` is the wrapper of the CUDA kernel in
-``kernels/csrc/qmatmul.cu`` (the note there says what bounds it and how it
-is laid out).  On a CUDA tensor it launches the kernel or raises; on a CPU
-tensor it runs :func:`quant_matmul_plain`, the plain PyTorch version with
-the same numerics: weights dequantised in f32, f32 products and sums, one
-rounding to x's dtype.  Unlike the TPU kernel, the CUDA kernel masks
-ragged edges, so every shape runs it.
+:func:`quant_matmul_fwd` is the wrapper of the CUDA kernels in
+``kernels/csrc/qmatmul.cu`` (the note there says what bounds them and how
+they are laid out).  On a CUDA tensor it launches a kernel or raises; on a
+CPU tensor it runs :func:`quant_matmul_plain`, the plain PyTorch version
+with the same numerics: weights dequantised in f32, f32 products and
+sums, one rounding to x's dtype.  Unlike the TPU kernel, the CUDA kernels
+mask ragged edges, so every shape runs them.
+
+The source has two designs, tensor cores (bf16 x) and CUDA cores (f32 x,
+or a group that is not a multiple of 16).  :func:`plan` asks the source
+which one a call takes, with its tile and K split, and
+:data:`kernel_launches` counts the launches of each of its kernels.
 
 :func:`launch_dequant_matmul` is shared with the crossbar wrapper
 (:mod:`repro_torch.kernels.pim_mvm.kernel`): both TPU kernels are one
@@ -15,8 +20,9 @@ CUDA source whose scale layout is a parameter.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
-import math
+import functools
 
 import torch
 
@@ -25,7 +31,17 @@ from repro_torch.kernels.flash_attention.common import DTYPE_CODES
 from repro_torch.quant.core import QuantTensor, dequantize
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = (_P,) * 5 + (_I,) * 3 + (_L,) + (_I,) * 6 + (_P,)
+_ARGTYPES = (_P,) * 6 + (_I,) * 3 + (_L,) + (_I,) * 5 + (_P,)
+DESIGNS = ("cuda_core", "tensor_core")   # by the code qmatmul.cu's plan reports
+
+Plan = collections.namedtuple("Plan", "design bm bn bk k_split splits tiles")
+# one kernel of qmatmul.cu: its design and tile rows, the code bits, the
+# scale layout ("channel", "group" or "tile"), x's dtype, and whether K is
+# split (the same-launch reduction runs)
+Kernel = collections.namedtuple("Kernel", "design bm bits scales dtype split")
+
+# launches of each Kernel, through either wrapper
+kernel_launches: collections.Counter = collections.Counter()
 
 
 def quant_matmul_plain(x, q, scale, *, bits: int, group: int = 0):
@@ -50,24 +66,64 @@ def check_cuda_operands(x, q, scale):
         raise ValueError("x needs a contiguous last dim; codes and scales must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def plan(M: int, K: int, N: int, *, bits: int, group_rows: int, tile: bool,
+         dtype: torch.dtype, sms: int) -> Plan:
+    """What ``qmatmul.cu`` runs for one call (``repro_dequant_matmul_plan``):
+    its design (``DESIGNS``), tile, K step and K split, and the output
+    tiles that the split's tickets count."""
+    out = (_I * 7)()
+    err = build.bind("qmatmul", "repro_dequant_matmul_plan", (_I,) * 8 + (_P,))(
+        M, K, N, bits, group_rows, int(tile), DTYPE_CODES[dtype], sms, ctypes.addressof(out))
+    if err:
+        raise ValueError(f"dequant-matmul cannot run ({M}, {K}, {N}) at {bits} bits, "
+                         f"group rows {group_rows}, tile {tile}: cudaError {err}")
+    p = Plan(*out)
+    return p._replace(design=DESIGNS[p.design])
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_tickets: dict = {}
+
+
+def _split_tickets(device: torch.device, stream, n: int) -> torch.Tensor:
+    """The split-K tickets of one stream: zeros, which every launch leaves
+    at zero.  Launches on one stream run one after another, so they share
+    them; launches on two streams may run at once, so each stream has its
+    own."""
+    key = (device, stream.cuda_stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+    return t
+
+
 def launch_dequant_matmul(x, q, scale, *, bits: int, group_rows: int, tile: bool):
     """Launch ``kernels/csrc/qmatmul.cu`` on checked CUDA operands:
     x (M, K) · dequant(q, scale) -> (M, N) in x's dtype."""
     M, K = x.shape
     N = q.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    k_split = build.bind("qmatmul", "repro_dequant_matmul_k_split", (_I,) * 4)(M, K, N, sms)
-    splits = math.ceil(K / k_split)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) \
-        if splits > 1 else None
+    sms = _sms(x.device)
+    p = plan(M, K, N, bits=bits, group_rows=group_rows, tile=tile, dtype=x.dtype, sms=sms)
+    stream = torch.cuda.current_stream(x.device)
+    ws = tickets = None
+    if p.splits > 1:
+        ws = torch.empty((p.splits, M, N), dtype=torch.float32, device=x.device)
+        tickets = _split_tickets(x.device, stream, p.tiles)
     fn = build.bind("qmatmul", "repro_dequant_matmul", _ARGTYPES)
     err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-             None if ws is None else ws.data_ptr(), M, K, N, x.stride(0), bits,
-             group_rows, int(tile), k_split, splits, DTYPE_CODES[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
+             None if ws is None else ws.data_ptr(),
+             None if tickets is None else tickets.data_ptr(), M, K, N, x.stride(0), bits,
+             group_rows, int(tile), DTYPE_CODES[x.dtype], sms, stream.cuda_stream)
     if err:
         raise RuntimeError(f"dequant-matmul kernel launch failed: cudaError {err}")
+    scales = "tile" if tile else "group" if group_rows < K else "channel"
+    kernel_launches[Kernel(p.design, p.bm, bits, scales, str(x.dtype), p.splits > 1)] += 1
     return out
 
 

@@ -10,6 +10,7 @@ quantised decode.  The CUDA kernels themselves are held against the same
 plain versions on the card by chip_smoke.py.
 """
 import dataclasses
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -296,6 +297,107 @@ def test_pim_mvm_plain_matches_pallas_interpret():
     assert pim_kernel.pim_mvm_fwd.launches == before
     with pytest.raises(ValueError, match="crossbars"):
         pim_mvm(T(x[:, :200]), T(wq[:200]), T(sc))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core design's algebra (kernels/csrc/qmatmul.cu)
+# ---------------------------------------------------------------------------
+
+def _kernel_codes(q, bits):
+    """(K, N) integer codes decoded as qmatmul.cu decodes a code byte: int8
+    as byte ^ 0x80 = code + 128; int4 byte i of a column holding row 2i in
+    its low nibble and row 2i + 1 in its high one, each as nibble ^ 8 =
+    code + 8; then minus the bias."""
+    b = q.to(torch.int32) & 0xFF
+    if bits == 8:
+        return (b ^ 0x80) - 128
+    lo, hi = ((b & 0x0F) ^ 8) - 8, (((b >> 4) & 0x0F) ^ 8) - 8
+    return torch.stack([lo, hi], dim=1).reshape(2 * q.shape[0], q.shape[1])
+
+
+def tensor_core_rendering(x, q, scale, *, bits, group_rows, col_shift=0):
+    """The tensor-core kernel's order of operations in plain PyTorch: x and
+    the codes as bf16 (both exact), f32 sums of their products over each
+    scale block of ``group_rows`` rows of K, the block's scale applied to
+    its partial sum, the partials added in K order.  ``scale`` is
+    (K/group_rows, N >> col_shift): per channel, per group, or one per
+    128x128 crossbar tile with col_shift 7."""
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(xb.float(), x.float()), "x must be exact in bf16"
+    codes = _kernel_codes(q, bits)
+    cb = codes.to(torch.bfloat16)
+    assert torch.equal(cb.to(torch.int32), codes), "codes must be exact in bf16"
+    K = codes.shape[0]
+    cols = torch.arange(codes.shape[1]) >> col_shift
+    acc = torch.zeros((x.shape[0], codes.shape[1]), dtype=torch.float32)
+    for g0 in range(0, K, group_rows):
+        part = xb[:, g0:g0 + group_rows].float() @ cb[g0:g0 + group_rows].float()
+        acc = acc + scale[g0 // group_rows, cols] * part
+    return acc
+
+
+_TC_CASES = {  # name: (bits, layout, M, K, N)
+    f"int{b}-{lay}-{shape}": (b, lay, *dims)
+    for b in (8, 4)
+    for lay, even, ragged in (("channel", (16, 256, 256), (5, 50, 50)),
+                              ("g32", (16, 256, 256), (7, 96, 40)),
+                              ("g128", (16, 256, 256), (5, 256, 50)))
+    for shape, dims in (("even", even), ("ragged", ragged))}
+_TC_CASES.update({"int8-crossbar-even": (8, "crossbar", 16, 256, 256),
+                  "int8-crossbar-ragged-m": (8, "crossbar", 5, 384, 256)})
+
+
+@pytest.mark.parametrize("case", list(_TC_CASES))
+def test_tensor_core_rendering_matches_plain_and_pallas(case):
+    """bf16-exact x and codes, f32 partial sums per scale block, the scale
+    applied to each partial: the same function as the plain version
+    (dequantise in f32, f32 matmul) and the TPU kernel in interpret mode,
+    within f32 rounding (1e-5 of the largest output), for every scale layout, int8 and int4
+    (nibble order included) and ragged M, N and K."""
+    bits, layout, M, K, N = _TC_CASES[case]
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    x = T(rng.standard_normal((M, K)).astype(np.float32)).to(torch.bfloat16).float()
+    w = rng.standard_normal((K, N)).astype(np.float32) * rng.uniform(0.1, 2.0, (1, N))
+    w = w.astype(np.float32)
+    xj = jnp.asarray(x.numpy())
+    if layout == "crossbar":
+        wq, sc = QJ.quantize_weights(jnp.asarray(w))
+        got = tensor_core_rendering(x, T(wq), T(sc), bits=8, group_rows=128, col_shift=7)
+        plain = pim_kernel.pim_mvm_plain(x, T(wq), T(sc))
+        ref = pim_mvm_pallas(xj, wq, sc, interpret=True)
+    else:
+        group = {"channel": 0, "g32": 32, "g128": 128}[layout]
+        qj = QJ.quantize(jnp.asarray(w), bits, group=group)
+        got = tensor_core_rendering(x, T(qj.q), T(qj.scale), bits=bits,
+                                    group_rows=group or K)
+        plain = quant_matmul_fwd(x, T(qj.q), T(qj.scale), bits=bits, group=group)
+        ref = quant_matmul_pallas(xj, qj.q, qj.scale, bits=bits, group=group,
+                                  interpret=True)
+    assert got.shape == plain.shape == (M, N)
+    # sums of K products in another order: f32 rounding, bounded relative
+    # to the output's largest magnitude (as chip_smoke.py bounds the kernel)
+    for want in (plain.numpy(), np.asarray(ref)):
+        err = np.abs(got.numpy() - want).max()
+        assert err <= 1e-5 * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_codes_and_their_products_are_exact_in_bf16(bits):
+    """Every code round-trips through bf16, and its product with any bf16
+    value is exact in f32: what lets the kernel run mma on the codes."""
+    lo = -(1 << (bits - 1))
+    codes = torch.arange(lo, -lo, dtype=torch.int32)
+    assert torch.equal(codes.to(torch.bfloat16).to(torch.int32), codes)
+    rng = np.random.default_rng(bits)
+    xb = T(rng.standard_normal(4096).astype(np.float32) * 10.0 ** rng.integers(-6, 6, 4096))
+    xb = xb.to(torch.bfloat16)
+    prod = xb.float()[:, None] * codes.to(torch.bfloat16).float()[None, :]
+    exact = xb.double()[:, None] * codes.double()[None, :]
+    assert torch.equal(prod.double(), exact)
+    packed = Q.pack_int4(codes.to(torch.int8).reshape(-1, 1).expand(-1, 2).reshape(-1, 1)
+                         .contiguous(), 0) if bits == 4 else None
+    if packed is not None:       # the kernel's nibble decode of packed pairs
+        assert torch.equal(_kernel_codes(packed, 4)[:, 0], codes.repeat_interleave(2))
 
 
 # ---------------------------------------------------------------------------
