@@ -70,6 +70,7 @@ def main(names):
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.pim_mvm.kernel import pim_mvm_fwd, pim_mvm_plain
+    from repro_torch.kernels.scratch import sm_count
     from repro_torch.quant import kernel as Qk
     from repro_torch.quant.core import quantize, quantize_weights
     print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -104,7 +105,7 @@ def main(names):
             nxt = cs.cycler(planes)
             ms = cs.device_ms(lambda: fwd(x, nxt()), 50)
             p = Qk.plan(M, K, N, bits=bits, group_rows=128 if tile else (group or K), tile=tile,
-                        dtype=x.dtype, sms=Qk._sms(x.device))
+                        dtype=x.dtype, sms=sm_count(x.device))
             print(f"{tag:9s} ({M}, {K}, {N}) int{bits} group={group} tile={int(tile)} "
                   f"bm={p.bm} bn={p.bn} splits={p.splits} ms={ms:.4f} "
                   f"TFLOP/s={2 * M * K * N / ms / 1e9:.1f} "

@@ -17,17 +17,22 @@ Phases, each of which must pass or the script exits non-zero:
              yardstick the port never calls: ``scaled_dot_product_attention``
              with an explicit mask for attention, ``torch.matmul`` with the
              dequantised bf16 weights for the matmuls) and its bound; each
-             dequant-matmul case prints the design of ``qmatmul.cu`` it ran
+             dequant-matmul and prefill case prints the design it ran
              (tensor cores or CUDA cores) and is checked to run the one its
-             dtype and group call for; split shapes launched on two streams
-             at once must give what they give on one;
+             dtype, head dims and group call for; each quantised-decode case
+             prints its split count (wholly masked splits, one split, rep
+             16 among them); split shapes of the dequant-matmul and of the
+             quantised decode launched on two streams at once must give
+             what they give on one, bit for bit;
 4. engine  — the port's serving engine on full-width qwen2.5-3b with random
              bf16 weights, fp and then quantised (``w8kv8``, ``w4kv4``): 16
              requests (prompts of 4..384 tokens, so chunked prefill runs),
              greedy, 32 new tokens each, with the launch count of each kernel
              during each run, checked against the run's steps and calls, and
-             every quantised projection checked to have run on tensor cores,
-             in a kernel of ``qmatmul.cu`` that phase 3 checked;
+             every quantised projection and every prefill checked to have
+             run on tensor cores, and every kernel of ``qmatmul.cu``,
+             ``decode_quant.cu`` and ``prefill.cu`` it launched checked to
+             be one that phase 3 held against its plain version;
 5. crossbar — the PIM-MVM entry point ``pim_mvm`` on the shapes of
              ``benchmarks/kernel_micro.py``, f32 x (as there) and bf16 x,
              against its oracle and the fp product, with the kernel's launch
@@ -155,12 +160,51 @@ def prefill_case(torch, rng, *, S=128, Hq=16, Hkv=2, hd=128, lens=(37, 50, 20),
                 seg_np=seg if segmented else None)
 
 
+# the kernels of prefill.cu and decode_quant.cu (their wrappers'
+# kernel_launches / quant_kernel_launches keys) that some case of
+# run_kernel_checks / run_quant_decode_checks held against the plain version
+CHECKED_PREFILL = set()
+CHECKED_DECODE_QUANT = set()
+
+
+def ran_one(counter, fn, what):
+    """Call ``fn`` and return its output and the one kernel it launched, by
+    the key of the wrapper's launch ``counter``."""
+    before = counter.copy()
+    out = fn()
+    ran = list((counter - before).elements())
+    check(len(ran) == 1, f"expected one {what} launch, saw {ran}")
+    return out, ran[0]
+
+
+def attention_kernel_name(k):
+    dtype = k.dtype.split(".")[-1]
+    if hasattr(k, "splits"):
+        return f"int{k.bits}/{dtype}/rows{k.rows}/dims{k.dims}/splits{k.splits}"
+    return f"{k.design}/heads{k.heads}/rows{k.rows}/{dtype}"
+
+
+def expected_prefill_design(dtype, hd):
+    """Tensor cores for bf16 with head dim 64 or 128 (prefill.cu's plan);
+    CUDA cores otherwise."""
+    import torch
+    return "tensor_core" if dtype == torch.bfloat16 and hd in (64, 128) else "cuda_core"
+
+
+def check_attention_checked(what, kernels, checked):
+    """Every kernel of prefill.cu or decode_quant.cu that ``what``
+    launched was held against its plain version in phase 3."""
+    missed = sorted(attention_kernel_name(k) for k in kernels if k not in checked)
+    check(not missed, f"{what}: attention kernels launched but never checked: {missed}")
+
+
 def run_kernel_checks(torch):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.decode import (flash_decode_fwd,
                                                             flash_decode_plain)
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_fwd,
                                                             flash_attention_plain)
+    from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill_launches
     rng = np.random.default_rng(0)
     records = {}
 
@@ -244,12 +288,17 @@ def run_kernel_checks(torch):
         "rep8 hd256": dict(Hq=8, Hkv=1, hd=256),
         "f32 rep4": dict(Hq=8, Hkv=2, dtype=torch.float32),
         "no segments, causal S256": dict(S=256, segmented=False),
+        "long stream S4096 rep8": dict(S=4096, lens=(1500, 2000, 500)),
+        "rep1 S2048 Hq4": dict(S=2048, Hq=4, Hkv=4, lens=(2000,)),
+        "rep2 hd64": dict(Hq=4, Hkv=2, hd=64),
     }
     errs = []
     for name, kw in cases.items():
         c = prefill_case(torch, rng, **kw)
         args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"])
-        out = flash_attention_fwd(c["q"], c["k"], c["v"], **args)
+        out, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
+            c["q"], c["k"], c["v"], **args), "prefill")
+        CHECKED_PREFILL.add(kernel)
         ref = flash_attention_plain(c["q"], c["k"], c["v"], **args)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -258,16 +307,21 @@ def run_kernel_checks(torch):
         if c["seg_np"] is not None:
             pad = torch.from_numpy(c["seg_np"][0] < 0).to(DEVICE)
             pad_ok = bool((out[:, :, pad] == 0).all())
-        print(f"kernel flash_prefill case={name!r} max_abs_err={err:.3e} tol={tol:g}"
+        want = expected_prefill_design(c["q"].dtype, c["q"].shape[-1])
+        print(f"kernel flash_prefill case={name!r} design={kernel.design} "
+              f"kernel={attention_kernel_name(kernel)} max_abs_err={err:.3e} tol={tol:g}"
               f" pad_rows_zero={pad_ok}")
         check(np.isfinite(err) and err <= tol and pad_ok,
               f"prefill kernel disagrees with its plain version ({name})")
-        errs.append({"case": name, "max_abs_err": err, "tol": tol})
+        check(kernel.design == want, f"prefill ({name}) ran on {kernel.design}, expected {want}")
+        errs.append({"case": name, "design": kernel.design, "max_abs_err": err, "tol": tol})
 
     c = prefill_case(torch, rng)
     _, Hq, S, hd = c["q"].shape
     Hkv = c["k"].shape[1]
     args = dict(segments=c["segments"])
+    _, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
+        c["q"], c["k"], c["v"], **args), "prefill")
     ms = device_ms(lambda: flash_attention_fwd(c["q"], c["k"], c["v"], **args), 200)
     plain_ms = device_ms(lambda: flash_attention_plain(c["q"], c["k"], c["v"], **args), 20)
     seg = c["segments"][0]
@@ -288,9 +342,9 @@ def run_kernel_checks(torch):
         "max_abs_err": max(e["max_abs_err"] for e in errs),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms, "shape": [1, S, Hq, Hkv, hd],
-        "attended_pairs": pairs, "cases": errs}
-    print(f"kernel flash_prefill timing ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+        "kernel": attention_kernel_name(kernel), "attended_pairs": pairs, "cases": errs}
+    print(f"kernel flash_prefill timing kernel={attention_kernel_name(kernel)} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
     return records
 
 
@@ -312,10 +366,14 @@ def run_quant_decode_checks(torch):
     """The quantised-pool decode kernel, kv8 and kv4, against its plain
     version; timed at the main shape."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.decode import (flash_decode_quant_fwd,
-                                                            flash_decode_quant_plain)
+    from repro_torch.kernels.flash_attention.decode import (decode_splits,
+                                                            flash_decode_quant_fwd,
+                                                            flash_decode_quant_plain,
+                                                            quant_kernel_launches)
+    from repro_torch.kernels.scratch import sm_count
     from repro_torch.quant.core import dequantize_kv, quantize_kv
     rng = np.random.default_rng(3)
+    sms = sm_count(torch.device(DEVICE))
 
     def quant_case(bits, copies=1, **kw):
         c = decode_case(torch, rng, copies=copies, **kw)
@@ -332,6 +390,9 @@ def run_quant_decode_checks(torch):
         "rep1 Hq8 Hkv8": dict(Hq=8, Hkv=8),
         "rep8 hd256 Skv300": dict(Hq=16, Hkv=2, hd=256, Skv=300),
         "f32 B3 Skv200 rep4": dict(B=3, Skv=200, Hq=8, Hkv=2, dtype=torch.float32),
+        "short slots: wholly masked splits": dict(lens=[40, 90, 1, 33, 64, 100, 2, 70]),
+        "B40 Hkv4: one split": dict(B=40, Hq=16, Hkv=4),
+        "rep16 Hq16 Hkv1": dict(Hq=16, Hkv=1),
     }
     errs = []
     for bits in (8, 4):
@@ -340,18 +401,54 @@ def run_quant_decode_checks(torch):
             k_q, k_s, v_q, v_s = c["qpools"][0]
             args = dict(kv_bits=bits, q_pos=c["q_pos"], kv_pos=c["kv_pos"],
                         window=c["window"], softcap=c["softcap"])
-            out = flash_decode_quant_fwd(c["q"], k_q, k_s, v_q, v_s, **args)
+            out, kernel = ran_one(quant_kernel_launches, lambda: flash_decode_quant_fwd(
+                c["q"], k_q, k_s, v_q, v_s, **args), "quantised decode")
+            CHECKED_DECODE_QUANT.add(kernel)
             ref = flash_decode_quant_plain(c["q"], k_q, k_s, v_q, v_s, **args)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             tol = TOL[str(c["q"].dtype)]
             empty_ok = all(bool((out[b] == 0).all()) for b in kw.get("empty", ()))
-            print(f"kernel flash_decode_quant kv{bits} case={name!r} max_abs_err={err:.3e} "
+            B, Skv, Hkv = k_q.shape[:3]
+            sp = decode_splits(B, Hkv, Skv, sms)
+            # (slot, split) pairs whose every pool entry is empty
+            valid, n = c["kv_pos_np"] >= 0, sp.tiles * 32
+            masked = sum(int(not valid[b, s * n:(s + 1) * n].any())
+                         for b in range(B) for s in range(sp.splits))
+            print(f"kernel flash_decode_quant kv{bits} case={name!r} splits={sp.splits} "
+                  f"tiles_a_split={sp.tiles} wholly_masked_splits={masked} "
+                  f"kernel={attention_kernel_name(kernel)} max_abs_err={err:.3e} "
                   f"tol={tol:g} empty_slots_zero={empty_ok}")
             check(np.isfinite(err) and err <= tol and empty_ok,
                   f"quantised decode kernel disagrees with its plain version "
                   f"(kv{bits}, {name})")
-            errs.append({"case": f"kv{bits} {name}", "max_abs_err": err, "tol": tol})
+            check(kernel.splits == sp.splits, f"quantised decode ({name}) ran "
+                  f"{kernel.splits} splits, its plan {sp.splits}")
+            errs.append({"case": f"kv{bits} {name}", "splits": sp.splits,
+                         "max_abs_err": err, "tol": tol})
+
+    # the split decode launched on two streams at once gives what it gives
+    # alone, bit for bit: each stream's tickets are its own, and the splits
+    # are merged in a fixed order
+    calls = []
+    for bits in (8, 4):
+        c = quant_case(bits)
+        args = dict(kv_bits=bits, q_pos=c["q_pos"], kv_pos=c["kv_pos"])
+        calls.append(functools.partial(flash_decode_quant_fwd, c["q"], *c["qpools"][0],
+                                       **args))
+    alone = [f() for f in calls]
+    streams = [torch.cuda.Stream(device=DEVICE) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for r in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                j = (r + i) % 2
+                outs.append((j, calls[j]()))
+    torch.cuda.synchronize()
+    same = all(torch.equal(out, alone[j]) for j, out in outs)
+    print(f"kernel flash_decode_quant two_streams launches={len(outs)} identical={same}")
+    check(same, "quantised decode split shapes on two streams differ from one stream")
 
     timing = {}
     for bits in (8, 4):
@@ -361,6 +458,8 @@ def run_quant_decode_checks(torch):
         Hq, hd = c["q"].shape[2], c["q"].shape[3]
         args = dict(kv_bits=bits, q_pos=c["q_pos"], kv_pos=c["kv_pos"])
         nxt = cycler(c["qpools"])
+        _, kernel = ran_one(quant_kernel_launches, lambda: flash_decode_quant_fwd(
+            c["q"], *nxt(), **args), "quantised decode")
         ms = device_ms(lambda: flash_decode_quant_fwd(c["q"], *nxt(), **args), 200)
         plain_ms = device_ms(lambda: flash_decode_quant_plain(c["q"], *nxt(), **args), 20)
         valid = int((c["kv_pos_np"] >= 0).sum())
@@ -369,8 +468,8 @@ def run_quant_decode_checks(torch):
                   + 2 * valid * Hkv * (hdq + 4)             # K and V codes + scales
                   + c["kv_pos_np"].nbytes + c["q_pos_np"].nbytes)
         flops = 4 * valid * Hq * hd
-        timing[bits] = dict(ms=ms, plain_ms=plain_ms, bound=bound(nbytes, flops,
-                                                                   str(c["q"].dtype)))
+        timing[bits] = dict(ms=ms, plain_ms=plain_ms, kernel=attention_kernel_name(kernel),
+                            bound=bound(nbytes, flops, str(c["q"].dtype)))
         if bits == 8:
             # yardstick: scaled_dot_product_attention over the pools
             # dequantised to bf16 (an fp pool, which quantisation replaces)
@@ -385,10 +484,10 @@ def run_quant_decode_checks(torch):
                                                        enable_gqa=True), 100)
             shape, valid8 = [B, Skv, Hq, Hkv, hd], valid
     t8, t4 = timing[8], timing[4]
-    print(f"kernel flash_decode_quant timing kv8 ms={t8['ms']:.4f} "
+    print(f"kernel flash_decode_quant timing kv8 kernel={t8['kernel']} ms={t8['ms']:.4f} "
           f"plain_ms={t8['plain_ms']:.4f} library_ms={t8['library_ms']:.4f} "
-          f"bound_ms={t8['bound'][0]:.5f} ({t8['bound'][1]}); kv4 ms={t4['ms']:.4f} "
-          f"plain_ms={t4['plain_ms']:.4f} bound_ms={t4['bound'][0]:.5f}")
+          f"bound_ms={t8['bound'][0]:.5f} ({t8['bound'][1]}); kv4 kernel={t4['kernel']} "
+          f"ms={t4['ms']:.4f} plain_ms={t4['plain_ms']:.4f} bound_ms={t4['bound'][0]:.5f}")
     return {"flash_decode_quant": {
         "name": "flash_decode_quant", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_quant.cu",
@@ -397,8 +496,9 @@ def run_quant_decode_checks(torch):
         "ms": t8["ms"], "plain_ms": t8["plain_ms"], "bound_ms": t8["bound"][0],
         "bound_by": t8["bound"][1], "library_ms": t8["library_ms"],
         "library": "scaled_dot_product_attention over the pools dequantised to bf16",
-        "shape": shape, "kv_bits": 8, "valid_entries": valid8,
-        "kv4": {"ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound"][0]},
+        "shape": shape, "kv_bits": 8, "valid_entries": valid8, "kernel": t8["kernel"],
+        "kv4": {"ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound"][0],
+                "kernel": t4["kernel"]},
         "cases": errs}}
 
 
@@ -435,11 +535,7 @@ def ran_kernel(torch, fn):
     """Call ``fn`` and name the kernel of ``qmatmul.cu`` it launched
     (``repro_torch.quant.kernel.kernel_launches``)."""
     from repro_torch.quant.kernel import kernel_launches
-    before = kernel_launches.copy()
-    out = fn()
-    ran = list((kernel_launches - before).elements())
-    check(len(ran) == 1, f"expected one dequant-matmul launch, saw {ran}")
-    return out, ran[0]
+    return ran_one(kernel_launches, fn, "dequant-matmul")
 
 
 def check_kernels_checked(what, kernels):
@@ -632,11 +728,20 @@ def kernel_counters():
             "quant_matmul": quant_matmul_fwd, "pim_mvm": pim_mvm_fwd}
 
 
+def kernel_counts():
+    """The per-kernel launch counters of qmatmul.cu, prefill.cu and
+    decode_quant.cu."""
+    from repro_torch.kernels.flash_attention.decode import quant_kernel_launches
+    from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill
+    from repro_torch.quant.kernel import kernel_launches as qmatmul
+    return {"qmatmul": qmatmul, "prefill": prefill, "decode_quant": quant_kernel_launches}
+
+
 def reset_launches():
-    from repro_torch.quant.kernel import kernel_launches
     for fn in kernel_counters().values():
         fn.launches = 0
-    kernel_launches.clear()
+    for counter in kernel_counts().values():
+        counter.clear()
 
 
 def read_launches():
@@ -695,6 +800,7 @@ def run_engine(torch, cfg, params, run="fp"):
     wall = time.perf_counter() - t0
     launches = read_launches()
     kernels, designs = read_kernels()
+    attn = {k: v.copy() for k, v in kernel_counts().items() if k != "qmatmul"}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     qp = engine.executor.params
     params_gb = sum(tensor_bytes(t) for t in (*qp.parameters(), *qp.buffers())) / 1e9
@@ -710,7 +816,9 @@ def run_engine(torch, cfg, params, run="fp"):
           f"peak_memory_gib={peak_gib:.2f} params_gb={params_gb:.3f} "
           f"pool_gb={pool_gb:.4f} launches={json.dumps(launches)} "
           f"qmatmul_designs={json.dumps(designs)} "
-          f"qmatmul_kernels={json.dumps({kernel_name(k): n for k, n in kernels.items()})}")
+          f"qmatmul_kernels={json.dumps({kernel_name(k): n for k, n in kernels.items()})} "
+          + " ".join(f"{w}_kernels=" + json.dumps(
+              {attention_kernel_name(k): n for k, n in c.items()}) for w, c in attn.items()))
     check(st["finished"] == N_REQUESTS and st["failed"] == 0,
           f"engine ({run}) finished {st['finished']} of {N_REQUESTS}")
     outs = [r.output for r in engine.finished]
@@ -736,6 +844,13 @@ def run_engine(torch, cfg, params, run="fp"):
     check(launches["flash_prefill"] > 0 and
           launches["flash_prefill"] % cfg.n_layers == 0,
           f"{run}: prefill kernel launches {launches['flash_prefill']}")
+    # every packed prefill on tensor cores, in kernels that phase 3 checked
+    tc = sum(n for k, n in attn["prefill"].items() if k.design == "tensor_core")
+    check(tc == launches["flash_prefill"],
+          f"{run}: {tc} of {launches['flash_prefill']} prefill launches on tensor cores")
+    check_attention_checked(f"engine ({run}) prefill", attn["prefill"], CHECKED_PREFILL)
+    check_attention_checked(f"engine ({run}) quantised decode", attn["decode_quant"],
+                            CHECKED_DECODE_QUANT)
     check(launches["pim_mvm"] == 0, f"{run}: the crossbar kernel ran in serving")
     return {"stats": st, "launches": launches, "designs": designs, "wall_s": wall,
             "peak_gib": peak_gib,

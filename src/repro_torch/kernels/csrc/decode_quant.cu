@@ -4,277 +4,392 @@
 // flash_decode_quant_fwd (_decode_quant_kernel).  Same function as
 // decode.cu (flash_decode_fwd), but the pool holds int8 codes
 // (B, Skv, Hkv, hd), or two int4 codes a byte packed along the head dim
-// (hd/2), with one f32 scale per (entry, head): for slot b and KV head h,
-// the rep = Hq/Hkv query heads sharing h attend over the entries whose
-// kv_pos is valid (kv_pos >= 0 && kv_pos <= q_pos, and q_pos - kv_pos <
-// window when windowed), with an optional tanh softcap.  An empty slot
-// gives exact zeros (l == 0 -> 1).  Each K/V value is dequantised in
-// registers as float(code) * scale, all arithmetic is f32, and the output
-// is rounded once to q's dtype: the fp pool never exists.
+// (hd/2, dimension 2i in the low nibble of byte i, 2i + 1 in the high one),
+// with one f32 scale per (entry, head): for slot b and KV head h, the
+// rep = Hq/Hkv query heads sharing h attend over the entries whose kv_pos
+// is valid (kv_pos >= 0 && kv_pos <= q_pos, and q_pos - kv_pos < window
+// when windowed), in any order (a ring), with an optional tanh softcap.
+// An empty slot gives exact zeros (l == 0 -> 1).  All arithmetic is f32
+// and the output is rounded once to q's dtype: the fp pool never exists.
 //
-// What bounds it on the H100: bytes, as for the fp pool, but 1 or 0.5 bytes
-// a K/V element instead of 2 (plus 4 bytes of scale per row of 128), so the
-// bound is about 2x or 4x lower.
+// What bounds it on the H100.  Not bytes: at the serving shape (B = 8,
+// Skv = 1024, Hkv = 2, hd = 128, rep = 8) the pool is about 2 MB of codes,
+// 0.6 us at 3.35 TB/s, and ~36 MFLOP.  Latency and parallelism bound it.
+// The first design gave each (slot, KV head) one block of 8 warps, 16
+// blocks on 132 SMs, each warp walking its tiles through dependent strided
+// loads (one byte an __ldg for V), and took 0.104 ms (kv8) / 0.082 ms
+// (kv4); kv8, with more bytes, was the slower, as a latency-bound kernel
+// is.
 //
-// Design: decode.cu's, with another K/V reader.  One block per (KV head,
-// slot) holds the rep query rows; 8 warps split the entries in tiles of
-// 32, each warp keeping its own f32 online softmax, merged at the end
-// through shared memory.  The code planes and scales are read strided in
-// place (no transpose, unlike the Pallas wrapper).  Scores: lane i takes
-// entry i of the tile and reads its K row of codes with 16-byte loads (16
-// int8 or 32 int4 codes each), unpacking int4 pairs (byte i holds
-// dimension 2i in the low nibble, 2i+1 in the high one).  Values: lane i
-// takes dimensions i, i+32, ... of each V row.  Fully masked tiles and
-// masked entries load nothing, and a ragged Skv is masked.  Known limit,
-// as in decode.cu: B * Hkv blocks (16 at B=8, Hkv=2) use 16 of 132 SMs.
-#include <cstdint>
-
+// Design: split-KV.
+// - Grid (splits, Hkv, B).  A split is a contiguous range of pool INDICES
+//   (not positions: ring entries are unordered), a whole number of 32-entry
+//   tiles.  The plan is made in Python (flash_attention/decode.py::
+//   decode_splits): enough splits that B * Hkv * splits fills one wave of
+//   the SMs (11 splits of 3 tiles, 176 blocks, at the serving shape), one
+//   split (no workspace, no ticket) when B * Hkv alone does.
+// - A block of 8 warps covers the rep query rows of its KV head (warp w
+//   rows w * RPW .., RPW = 1 or 2 for rep up to 8, 16) and keeps an f32
+//   online-softmax state (m, l, acc) per row in registers.
+// - It first marks which of its tiles hold a valid entry (kv_pos, one
+//   ballot a tile), then streams the live ones through two shared-memory
+//   buffers: K codes, V codes and both scales of tile t + 1 come in with
+//   cp.async (16-byte copies, zero-filled past Skv) while tile t is
+//   computed.  Fully masked tiles are never loaded.
+// - Scores: lane j takes entry j, reads its K code row from shared memory
+//   (rows padded to an odd number of 16-byte words: no bank conflicts),
+//   converts 16 bytes at a time exactly (a byte permute builds the f32
+//   2^23 + code + bias), dots it with the f32 query rows (broadcast reads)
+//   and multiplies the sum by the entry's K scale.  Values: lane i takes
+//   dimensions i * DPL .. (DPL = 4, or 8 for hdv up to 256), reading 2-8
+//   code bytes an entry with one load; the V scale is folded into the
+//   probability (p * v_scale).  Converting a tile once for all warps,
+//   into f32 shared memory, was tried: 0.0183 ms against 0.0155 (the
+//   extra pass and barrier cost more than the conversions it saves).
+// - Splits are merged in the same launch, in split order, by the last
+//   block of each (slot, KV head) (split_kv.cuh): deterministic, no second
+//   launch, so the engine still launches one kernel a layer a step.
+// CUDA cores, not tensor cores: the work is ~36 MFLOP a call at the
+// serving shape, and the mma was not tried.
+//
+// Measured on the H100 at the serving shape (chip_probe_attention.py,
+// device time a call with a cold L2): ~0.0155 ms kv8 and ~0.016 kv4, of
+// which ~0.007 is what a launch costs with no tile at all (prologue, the
+// ticket, the merge); the split count, 1 to 32: 0.065, 0.040, 0.023,
+// 0.0147 (8), 0.0155 (11), 0.018 (16), 0.024 ms (kv8), so 11 splits keep a
+// full wave within 1 us of the fastest; blocks of 4 warps (2 rows each)
+// read 0.0174 against 8 warps' 0.0155.
 #include "common.cuh"
+#include "split_kv.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 8;  // query rows per pass (rep > 8 takes several passes)
-static_assert(kRows == 8, "the value loop reads a tile's probabilities as two float4");
+constexpr int kTile = 32;  // pool entries a tile: one a lane in the score loop
 
-// The pool reader.  bind(b, h) gives the reader of one (slot, KV head):
-// kVec values of a K row from one 16-byte load of codes, and a V row read
-// by dimension, dequantised to f32.
+// Codes -> f32, exactly: 0x4B000000 | (code + bias) is the f32 2^23 + code
+// + bias; minus 2^23 + bias gives the code.
+__device__ __forceinline__ float biased(uint32_t u, uint32_t sel, float magic) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, sel)) - magic;
+}
 
-template <int BITS>  // the quantised pool: int8 codes (packed int4) + f32 scales
-struct QuantPool {
-  static constexpr int kPack = BITS == 4 ? 2 : 1;  // values per code byte
-  static constexpr int kVec = 16 * kPack;          // values per 16-byte load
-  const int8_t* k;
-  const int8_t* v;
-  const float* ks;
-  const float* vs;
-  long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;        // code strides (bytes)
-  long long ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh;  // scale strides
-
-  static __device__ __forceinline__ float code(int8_t byte, int d) {
-    if (BITS == 8) return static_cast<float>(byte);
-    const int c = (d & 1) ? byte >> 4 : static_cast<int8_t>((byte & 0x0F) << 4) >> 4;
-    return static_cast<float>(c);
-  }
-  struct VRow {
-    const int8_t* p;
-    float s;
-    __device__ __forceinline__ float operator[](int d) const {
-      return code(__ldg(p + d / kPack), d) * s;
-    }
-  };
-  struct Bound {
-    const int8_t* __restrict__ kb;
-    const int8_t* __restrict__ vb;
-    const float* __restrict__ ksb;
-    const float* __restrict__ vsb;
-    long long k_ss, v_ss, ks_ss, vs_ss;
-    __device__ __forceinline__ void k_load(int j, int d0, float* kf) const {
-      const float s = __ldg(ksb + j * ks_ss);
-      union {
-        uint4 raw;
-        int8_t c[16];
-      } u;
-      u.raw = __ldg(reinterpret_cast<const uint4*>(kb + j * k_ss + d0 / kPack));
+template <int BITS>
+struct Codes {
+  static constexpr int kPack = BITS == 4 ? 2 : 1;  // values a code byte
+  // the 4 * kPack values of one 32-bit word of codes, in dimension order
+  static __device__ __forceinline__ void word(uint32_t w, float* f) {
+    if (BITS == 8) {
+      const uint32_t u = w ^ 0x80808080u;  // signed byte -> code + 128
+      const float m = 8388736.f;           // 2^23 + 128
 #pragma unroll
-      for (int t = 0; t < kVec; ++t) kf[t] = code(u.c[t / kPack], t) * s;
+      for (int i = 0; i < 4; ++i) f[i] = biased(u, 0x7440u + i, m);
+    } else {
+      const uint32_t lo = (w & 0x0F0F0F0Fu) ^ 0x08080808u;  // nibble -> code + 8
+      const uint32_t hi = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+      const float m = 8388616.f;                            // 2^23 + 8
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        f[2 * i] = biased(lo, 0x7440u + i, m);
+        f[2 * i + 1] = biased(hi, 0x7440u + i, m);
+      }
     }
-    __device__ __forceinline__ VRow v_row(int j) const {
-      return {vb + j * v_ss, __ldg(vsb + j * vs_ss)};
+  }
+  // the DPL values of a lane's V codes (DPL / kPack bytes at p)
+  template <int DPL>
+  static __device__ __forceinline__ void values(const int8_t* p, float* f) {
+    constexpr int kBytes = DPL / kPack;
+    if constexpr (kBytes == 8) {
+      const uint2 w = *reinterpret_cast<const uint2*>(p);
+      word(w.x, f);
+      word(w.y, f + 4 * kPack);
+    } else if constexpr (kBytes == 4) {
+      word(*reinterpret_cast<const uint32_t*>(p), f);
+    } else {
+      float g[8];
+      word(*reinterpret_cast<const uint16_t*>(p), g);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) f[i] = g[i];
     }
-  };
-  __device__ __forceinline__ Bound bind(int b, int h) const {
-    return {k + b * k_sb + h * k_sh, v + b * v_sb + h * v_sh, ks + b * ks_sb + h * ks_sh,
-            vs + b * vs_sb + h * vs_sh, k_ss, v_ss, ks_ss, vs_ss};
   }
 };
 
-template <typename T, int BITS, int DPL>  // DPL: value dims per lane (hdv <= 32*DPL)
-__global__ void __launch_bounds__(kThreads) decode_quant_kernel(
-    const T* __restrict__ q, const QuantPool<BITS> pool, const int* __restrict__ q_pos,
-    const int* __restrict__ kv_pos, T* __restrict__ out, int Skv, int rep, int hd,
-    int hdv, long long q_sb, long long q_sh, long long qp_sb, long long kp_sb,
-    long long kp_ss, long long o_sb, long long o_sh, int window, float softcap,
-    float scale) {
-  constexpr int kVec = QuantPool<BITS>::kVec;  // K values per 16-byte load
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                                  // kRows x hd
-  float* p_s = q_s + kRows * hd;                      // kWarps x 32 x kRows
-  float* acc_w = p_s + kWarps * kRows * 32;           // kWarps x kRows x hdv
-  float* m_w = acc_w + kWarps * kRows * hdv;          // kWarps x kRows
-  float* l_w = m_w + kWarps * kRows;                  // kWarps x kRows
+struct Params {
+  const void* q;
+  const int8_t* kq;
+  const int8_t* vq;
+  const float* ks;
+  const float* vs;
+  const int* q_pos;
+  const int* kv_pos;
+  void* out;
+  SplitKV split;  // workspace, tickets, splits, rows = rep, hdv
+  int Skv, Hkv, rep, hd, hdv, tiles;  // tiles: 32-entry tiles a split
+  long long q_sb, q_sh;
+  long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;        // code strides (bytes)
+  long long ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh;  // scale strides
+  long long qp_sb, kp_sb, kp_ss, o_sb, o_sh;
+  int window;
+  float softcap, scale;
+  int k_row, v_row;  // bytes of a K / V code row in shared memory
+  bool vec_v;        // V code rows in 16-byte copies (else 4-byte)
+};
 
-  const int h = blockIdx.x;  // KV head
-  const int b = blockIdx.y;  // slot
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int qp = q_pos[b * qp_sb];
-  const typename QuantPool<BITS>::Bound kv = pool.bind(b, h);
-  const int* pb = kv_pos + b * kp_sb;
-  float* pw = p_s + warp * 32 * kRows;  // this warp's probabilities, [entry][row]
+// Byte offsets of the block's shared memory.
+struct Layout {
+  int q, k, v, ksc, vsc, pw, masks, bytes;
+  __host__ __device__ Layout(const Params& p, int rpw) {
+    int o = 0;
+    q = o;      o += kWarps * rpw * p.hd * 4;      // f32 query rows
+    k = o;      o += 2 * kTile * p.k_row;          // two buffers of K codes
+    v = o;      o += 2 * kTile * p.v_row;          // and of V codes
+    ksc = o;    o += 2 * kTile * 4;                // and of both scales
+    vsc = o;    o += 2 * kTile * 4;
+    pw = o;     o += kWarps * kTile * rpw * 4;     // p * v_scale, [warp][entry][row]
+    masks = o;  o += (p.tiles * 4 + 15) & ~15;     // valid entries of each tile
+    bytes = o;
+  }
+};
 
-  for (int r0 = 0; r0 < rep; r0 += kRows) {
-    const int nr = min(kRows, rep - r0);
-    const T* qb = q + b * q_sb + (long long)(h * rep + r0) * q_sh;
-    for (int e = threadIdx.x; e < kRows * hd; e += kThreads) {
-      const int r = e / hd;
-      q_s[e] = r < nr ? repro_to_f32(qb[(long long)r * q_sh + e % hd]) : 0.f;
+template <typename T, int BITS, int RPW, int DPL>
+__global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) {
+  using C = Codes<BITS>;
+  constexpr int kPack = C::kPack;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(p, RPW);
+  float* q_s = reinterpret_cast<float*>(smem + L.q);
+  int8_t* k_s = reinterpret_cast<int8_t*>(smem + L.k);
+  int8_t* v_s = reinterpret_cast<int8_t*>(smem + L.v);
+  float* ksc_s = reinterpret_cast<float*>(smem + L.ksc);
+  float* vsc_s = reinterpret_cast<float*>(smem + L.vsc);
+  float* pw = reinterpret_cast<float*>(smem + L.pw);
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + L.masks);
+
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntiles = (p.Skv + kTile - 1) / kTile;
+  const int t0 = split * p.tiles, nt = min(p.tiles, ntiles - t0);
+  const int qp = p.q_pos[b * p.qp_sb];
+  const int* pb = p.kv_pos + b * p.kp_sb;
+  const int hdq = p.hd / kPack, hdvq = p.hdv / kPack;  // code bytes of a K / V row
+  const int8_t* kb = p.kq + b * p.k_sb + h * p.k_sh;
+  const int8_t* vb = p.vq + b * p.v_sb + h * p.v_sh;
+  const float* ksb = p.ks + b * p.ks_sb + h * p.ks_sh;
+  const float* vsb = p.vs + b * p.vs_sb + h * p.vs_sh;
+
+  // which entries of each tile are valid: one ballot a tile
+  for (int t = warp; t < nt; t += kWarps) {
+    const int j = (t0 + t) * kTile + lane;
+    bool valid = false;
+    if (j < p.Skv) {
+      const int pos = pb[j * p.kp_ss];
+      valid = pos >= 0 && pos <= qp && (p.window == 0 || qp - pos < p.window);
     }
-    __syncthreads();
+    const unsigned m = __ballot_sync(0xffffffffu, valid);
+    if (lane == 0) masks[t] = m;
+  }
+  // the query rows in f32; warp w holds rows w * RPW .. w * RPW + RPW - 1
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + (long long)h * p.rep * p.q_sh;
+  for (int e = tid; e < kWarps * RPW * p.hd; e += kThreads) {
+    const int r = e / p.hd;
+    q_s[e] = r < p.rep ? repro_to_f32(qb[r * p.q_sh + e % p.hd]) : 0.f;
+  }
+  __syncthreads();
 
-    float m[kRows], l[kRows], acc[kRows][DPL];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      m[r] = REPRO_NEG_INF;
-      l[r] = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
+  // tile t of the split into buffer s: K and V code rows, then the scales
+  auto load = [&](int t, int s) {
+    const int j0 = (t0 + t) * kTile;
+    int8_t* kd = k_s + s * kTile * p.k_row;
+    int8_t* vd = v_s + s * kTile * p.v_row;
+    for (int c = tid; c < kTile * 16; c += kThreads) {  // rows of at most 16 x 16 bytes
+      const int r = c >> 4, off = (c & 15) * 16, j = j0 + r;
+      const bool ok = j < p.Skv;
+      if (off < hdq) cp_async16(kd + r * p.k_row + off, ok ? kb + j * p.k_ss + off : kb, ok);
+      if (p.vec_v && off < hdvq)
+        cp_async16(vd + r * p.v_row + off, ok ? vb + j * p.v_ss + off : vb, ok);
     }
-
-    for (int j0 = warp * 32; j0 < Skv; j0 += kWarps * 32) {
-      const int j = j0 + lane;
-      bool valid = false;
-      if (j < Skv) {
-        const int p = pb[j * kp_ss];
-        valid = p >= 0 && p <= qp && (window == 0 || qp - p < window);
+    if (!p.vec_v) {
+      const int vch = hdvq / 4;
+      for (int c = tid; c < kTile * vch; c += kThreads) {
+        const int r = c / vch, off = (c - r * vch) * 4, j = j0 + r;
+        const bool ok = j < p.Skv;
+        cp_async4(vd + r * p.v_row + off, ok ? vb + j * p.v_ss + off : vb, ok);
       }
-      const unsigned vmask = __ballot_sync(0xffffffffu, valid);
-      if (vmask == 0) continue;  // tile fully masked: no K/V loads
+    }
+    if (tid < 2 * kTile) {
+      const int e = tid % kTile, j = j0 + e;
+      const bool ok = j < p.Skv;
+      const float* sb = tid < kTile ? ksb : vsb;
+      const long long ss = tid < kTile ? p.ks_ss : p.vs_ss;
+      float* sd = (tid < kTile ? ksc_s : vsc_s) + s * kTile + e;
+      cp_async4(sd, ok ? sb + j * ss : sb, ok);
+    }
+  };
+  auto next_live = [&](int t) {
+    while (t < nt && masks[t] == 0u) ++t;
+    return t;
+  };
 
-      // scores: lane = entry, its K row against every query row
-      float s[kRows];
+  float m[RPW], l[RPW], acc[RPW][DPL];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-      if (valid) {
+  for (int r = 0; r < RPW; ++r) {
+    m[r] = REPRO_NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
+  }
+  const bool active = warp * RPW < p.rep;  // a warp with no query row only loads
+  const float* qw = q_s + warp * RPW * p.hd;
+  float* pwl = pw + warp * kTile * RPW;    // this warp's p * v_scale, [entry][row]
+
+  int cur = next_live(0), s = 0;
+  if (cur < nt) load(cur, 0);
+  cp_async_commit();
+  while (cur < nt) {
+    const int nxt = next_live(cur + 1);
+    cp_async_wait<0>();
+    __syncthreads();  // tile cur landed; every warp is done with the other buffer
+    if (nxt < nt) load(nxt, s ^ 1);
+    cp_async_commit();
+    if (active) {
+      const unsigned vmask = masks[cur];
+      const bool valid = (vmask >> lane) & 1u;
+      const int8_t* krow = k_s + (s * kTile + lane) * p.k_row;
+      const int8_t* vt = v_s + s * kTile * p.v_row;
+
+      // scores: lane = entry, its K row of codes against every query row,
+      // four partial sums a row (independent chains)
+      float sc[RPW][4];
+#pragma unroll
+      for (int r = 0; r < RPW; ++r)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[r][i] = 0.f;
 #pragma unroll 2
-        for (int d0 = 0; d0 < hd; d0 += kVec) {
-          float kf[kVec];
-          kv.k_load(j, d0, kf);
+      for (int c = 0; c < hdq; c += 16) {  // 16 code bytes: 16 * kPack dimensions
+        const uint4 raw = *reinterpret_cast<const uint4*>(krow + c);
+        float kf[16 * kPack];
+        C::word(raw.x, kf);
+        C::word(raw.y, kf + 4 * kPack);
+        C::word(raw.z, kf + 8 * kPack);
+        C::word(raw.w, kf + 12 * kPack);
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float4* q4 = reinterpret_cast<const float4*>(q_s + r * hd + d0);
+        for (int r = 0; r < RPW; ++r) {
+          const float4* q4 = reinterpret_cast<const float4*>(qw + r * p.hd + c * kPack);
 #pragma unroll
-            for (int t4 = 0; t4 < kVec / 4; ++t4) {
-              const float4 qq = q4[t4];  // one broadcast read: 4 query values
-              s[r] = fmaf(qq.x, kf[4 * t4], s[r]);
-              s[r] = fmaf(qq.y, kf[4 * t4 + 1], s[r]);
-              s[r] = fmaf(qq.z, kf[4 * t4 + 2], s[r]);
-              s[r] = fmaf(qq.w, kf[4 * t4 + 3], s[r]);
-            }
+          for (int t4 = 0; t4 < 4 * kPack; ++t4) {
+            const float4 qq = q4[t4];  // one broadcast read: 4 query values
+            sc[r][0] = fmaf(qq.x, kf[4 * t4], sc[r][0]);
+            sc[r][1] = fmaf(qq.y, kf[4 * t4 + 1], sc[r][1]);
+            sc[r][2] = fmaf(qq.z, kf[4 * t4 + 2], sc[r][2]);
+            sc[r][3] = fmaf(qq.w, kf[4 * t4 + 3], sc[r][3]);
           }
         }
       }
-      // online-softmax update of this warp's rows over the tile
+      // online-softmax update of the warp's rows over the tile
+      const float ksj = ksc_s[s * kTile + lane], vsj = vsc_s[s * kTile + lane];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float sr = s[r] * scale;
-        if (softcap > 0.f) sr = softcap * tanhf(sr / softcap);
-        sr = valid ? sr : REPRO_NEG_INF;
-        const float m_new = fmaxf(m[r], repro_warp_max(sr));
-        const float p = valid ? expf(sr - m_new) : 0.f;
+      for (int r = 0; r < RPW; ++r) {
+        float x = ((sc[r][0] + sc[r][1]) + (sc[r][2] + sc[r][3])) * ksj * p.scale;
+        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
+        x = valid ? x : REPRO_NEG_INF;
+        const float m_new = fmaxf(m[r], repro_warp_max(x));
+        const float pj = valid ? expf(x - m_new) : 0.f;
         const float alpha = expf(m[r] - m_new);
-        l[r] = l[r] * alpha + repro_warp_sum(p);
+        l[r] = l[r] * alpha + repro_warp_sum(pj);
         m[r] = m_new;
-        pw[lane * kRows + r] = p;
+        pwl[lane * RPW + r] = valid ? pj * vsj : 0.f;  // a masked entry adds an exact 0
 #pragma unroll
         for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
       }
       __syncwarp();
-      // values: lane = dimensions lane, lane+32, ...; probabilities broadcast
-#pragma unroll 4
-      for (int jj = 0; jj < 32; ++jj) {
-        if ((vmask >> jj) & 1u) {
-          const float4* p4 = reinterpret_cast<const float4*>(pw + jj * kRows);
-          const float4 pa = p4[0], pb2 = p4[1];
-          const float pj[kRows] = {pa.x, pa.y, pa.z, pa.w, pb2.x, pb2.y, pb2.z, pb2.w};
-          const auto vr = kv.v_row(j0 + jj);
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) {
-            const int d = lane + 32 * i;
-            if (d < hdv) {
-              const float vf = vr[d];
-#pragma unroll
-              for (int r = 0; r < kRows; ++r) acc[r][i] = fmaf(pj[r], vf, acc[r][i]);
-            }
+      // values: lane = dimensions lane * DPL ..; probabilities broadcast.
+      // Codes are finite, so a masked entry's 0 * code adds nothing.
+      if (lane * DPL < p.hdv) {
+        const int8_t* vcol = vt + lane * DPL / kPack;
+#pragma unroll 8
+        for (int jj = 0; jj < kTile; ++jj) {
+          float pr[RPW];
+          if constexpr (RPW == 2) {
+            const float2 t = *reinterpret_cast<const float2*>(pwl + jj * 2);
+            pr[0] = t.x; pr[1] = t.y;
+          } else {
+            pr[0] = pwl[jj];
           }
+          float vf[DPL];
+          C::template values<DPL>(vcol + jj * p.v_row, vf);
+#pragma unroll
+          for (int r = 0; r < RPW; ++r)
+#pragma unroll
+            for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(pr[r], vf[i], acc[r][i]);
         }
       }
-      __syncwarp();
+      __syncwarp();  // pwl is rewritten by the next tile
     }
-
-    // merge the warps' partial softmax states
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (lane == 0) {
-        m_w[warp * kRows + r] = m[r];
-        l_w[warp * kRows + r] = l[r];
-      }
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hdv) acc_w[(warp * kRows + r) * hdv + d] = acc[r][i];
-      }
-    }
-    __syncthreads();
-    T* ob = out + b * o_sb + (long long)(h * rep + r0) * o_sh;
-    for (int e = threadIdx.x; e < nr * hdv; e += kThreads) {
-      const int r = e / hdv, d = e % hdv;
-      float mx = REPRO_NEG_INF;
-      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_w[w * kRows + r]);
-      float lsum = 0.f, o = 0.f;
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = expf(m_w[w * kRows + r] - mx);
-        lsum += l_w[w * kRows + r] * f;
-        o += acc_w[(w * kRows + r) * hdv + d] * f;
-      }
-      if (lsum == 0.f) lsum = 1.f;  // empty slot -> exact zeros
-      ob[(long long)r * o_sh + d] = repro_from_f32<T>(o / lsum);
-    }
-    __syncthreads();  // q_s, m_w, acc_w are reused by the next row group
+    cur = nxt;
+    s ^= 1;
   }
+
+  T* ob = static_cast<T*>(p.out) + b * p.o_sb + (long long)h * p.rep * p.o_sh;
+  const int d0 = lane * DPL;
+  if (p.split.splits == 1) {  // the whole pool: finish here
+    if (active && d0 < p.hdv) {
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        const int row = warp * RPW + r;
+        if (row >= p.rep) break;
+        const float lr = l[r] == 0.f ? 1.f : l[r];  // empty slot -> exact zeros
+#pragma unroll
+        for (int i = 0; i < DPL; ++i)
+          ob[row * p.o_sh + d0 + i] = repro_from_f32<T>(acc[r][i] / lr);
+      }
+    }
+    return;
+  }
+  // this split's part, then the merge by the last split to finish
+  const int unit = b * p.Hkv + h;
+  float* part = p.split.part(unit, split);
+  if (active) {
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int row = warp * RPW + r;
+      if (row >= p.rep) break;
+      if (d0 < p.hdv) {
+#pragma unroll
+        for (int i = 0; i < DPL; i += 4)
+          *reinterpret_cast<float4*>(part + row * p.hdv + d0 + i) =
+              make_float4(acc[r][i], acc[r][i + 1], acc[r][i + 2], acc[r][i + 3]);
+      }
+      if (lane == 0) {
+        part[p.rep * p.hdv + row] = m[r];
+        part[p.rep * p.hdv + p.rep + row] = l[r];
+      }
+    }
+  }
+  if (!split_kv_last(p.split, unit)) return;
+  split_kv_merge<T>(p.split, unit, ob, p.o_sh);
 }
 
-// Everything of a launch but the pool.
-struct Launch {
-  const void* q;
-  const int* q_pos;
-  const int* kv_pos;
-  void* out;
-  int B, Skv, Hq, Hkv, hd, hdv;
-  long long q_sb, q_sh, qp_sb, kp_sb, kp_ss, o_sb, o_sh;
-  int window;
-  float softcap, scale;
-  cudaStream_t stream;
-};
-
-template <typename T, int BITS, int DPL>
-cudaError_t launch_dpl(const Launch& a, const QuantPool<BITS>& pool) {
-  const size_t smem = sizeof(float) * ((size_t)kRows * a.hd + kWarps * kRows * 32 +
-                                       (size_t)kWarps * kRows * a.hdv + 2 * kWarps * kRows);
-  cudaError_t err = repro_smem_limit(decode_quant_kernel<T, BITS, DPL>, smem);
+template <typename T, int BITS, int RPW, int DPL>
+cudaError_t launch_kernel(const Params& p, int B, cudaStream_t stream) {
+  const size_t smem = Layout(p, RPW).bytes;
+  cudaError_t err = repro_smem_limit(decode_quant_kernel<T, BITS, RPW, DPL>, smem);
   if (err != cudaSuccess) return err;
-  decode_quant_kernel<T, BITS, DPL><<<dim3(a.Hkv, a.B), kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), pool, a.q_pos, a.kv_pos, static_cast<T*>(a.out), a.Skv,
-      a.Hq / a.Hkv, a.hd, a.hdv, a.q_sb, a.q_sh, a.qp_sb, a.kp_sb, a.kp_ss, a.o_sb, a.o_sh,
-      a.window, a.softcap, a.scale);
+  decode_quant_kernel<T, BITS, RPW, DPL>
+      <<<dim3(p.split.splits, p.Hkv, B), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <typename T, int BITS, int RPW>
+cudaError_t launch_rows(const Params& p, int B, cudaStream_t stream) {
+  if (p.hdv <= 128) return launch_kernel<T, BITS, RPW, 4>(p, B, stream);
+  if (p.hdv <= 256) return launch_kernel<T, BITS, RPW, 8>(p, B, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, int BITS>
-cudaError_t launch(const Launch& a, const void* k_q, const void* k_s, const void* v_q,
-                   const void* v_s, const long long* st) {
-  // 16-byte K loads: the row length, the base and every K row offset
-  // (in bytes of codes) whole vectors
-  if (a.hd % QuantPool<BITS>::kVec || reinterpret_cast<uintptr_t>(k_q) % 16 ||
-      st[0] % 16 || st[1] % 16 || st[2] % 16)
-    return cudaErrorMisalignedAddress;
-  const QuantPool<BITS> pool{static_cast<const int8_t*>(k_q), static_cast<const int8_t*>(v_q),
-                             static_cast<const float*>(k_s), static_cast<const float*>(v_s),
-                             st[0], st[1], st[2], st[3], st[4], st[5],
-                             st[6], st[7], st[8], st[9], st[10], st[11]};
-  if (a.hdv <= 128) return launch_dpl<T, BITS, 4>(a, pool);
-  if (a.hdv <= 256) return launch_dpl<T, BITS, 8>(a, pool);
+cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  if (p.rep <= kWarps) return launch_rows<T, BITS, 1>(p, B, stream);
+  if (p.rep <= 2 * kWarps) return launch_rows<T, BITS, 2>(p, B, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -282,23 +397,49 @@ cudaError_t launch(const Launch& a, const void* k_q, const void* k_s, const void
 
 // The quantised pool: k_q/v_q (B, Skv, Hkv, hd/pack) int8 codes, k_s/v_s
 // (B, Skv, Hkv) f32 scales.  strides (12): k_q, v_q, k_s, v_s, each as
-// (sb, ss, sh) in elements; K code rows 16-byte aligned.  hd and hdv are
-// the unpacked head dims.  Otherwise as decode.cu's repro_decode_attention.
+// (sb, ss, sh) in elements.  K code rows 16-byte aligned (base and
+// strides), V code rows 16- or 4-byte aligned; hd a multiple of 16 * pack,
+// hdv of 8, both up to 256; rep = Hq / Hkv up to 16.  hd and hdv are the
+// unpacked head dims.  The split plan: `splits` blocks a (slot, KV head),
+// each over `tiles` 32-entry tiles of the pool (splits * tiles * 32 >= Skv);
+// with splits > 1, ws holds B * Hkv * splits parts of rep * hdv + 2 * rep
+// f32 (rounded up to 4) and tickets B * Hkv zeros of this stream.
+// Otherwise as decode.cu's repro_decode_attention.
 extern "C" int repro_decode_attention_quant(
     const void* q, const void* k_q, const void* k_s, const void* v_q, const void* v_s,
-    const void* q_pos, const void* kv_pos, void* out, int B, int Skv, int Hq, int Hkv,
-    int hd, int hdv, long long q_sb, long long q_sh, const long long* strides,
-    long long qp_sb, long long kp_sb, long long kp_ss, long long o_sb, long long o_sh,
-    int window, float softcap, float scale, int bits, int dtype, void* stream) {
-  const Launch a{q, static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos), out,
-                 B, Skv, Hq, Hkv, hd, hdv, q_sb, q_sh, qp_sb, kp_sb, kp_ss, o_sb, o_sh,
-                 window, softcap, scale, static_cast<cudaStream_t>(stream)};
-  const long long* st = strides;  // QuantPool order: codes k, v, then scales k, v
-  if (dtype == REPRO_BF16 && bits == 8)
-    return launch<__nv_bfloat16, 8>(a, k_q, k_s, v_q, v_s, st);
-  if (dtype == REPRO_BF16 && bits == 4)
-    return launch<__nv_bfloat16, 4>(a, k_q, k_s, v_q, v_s, st);
-  if (dtype == REPRO_F32 && bits == 8) return launch<float, 8>(a, k_q, k_s, v_q, v_s, st);
-  if (dtype == REPRO_F32 && bits == 4) return launch<float, 4>(a, k_q, k_s, v_q, v_s, st);
+    const void* q_pos, const void* kv_pos, void* out, void* ws, void* tickets, int B,
+    int Skv, int Hq, int Hkv, int hd, int hdv, int splits, int tiles, long long q_sb,
+    long long q_sh, const long long* strides, long long qp_sb, long long kp_sb,
+    long long kp_ss, long long o_sb, long long o_sh, int window, float softcap,
+    float scale, int bits, int dtype, void* stream) {
+  const long long* st = strides;
+  if ((bits != 4 && bits != 8) || Hq % Hkv || hd > 256 || hdv > 256 || hdv % 8)
+    return cudaErrorInvalidValue;
+  const int pack = bits == 4 ? 2 : 1, hdq = hd / pack, hdvq = hdv / pack;
+  const int ntiles = (Skv + kTile - 1) / kTile;
+  if (hd % (16 * pack) || splits < 1 || tiles < 1 || (long long)splits * tiles < ntiles ||
+      (long long)(splits - 1) * tiles >= ntiles || (splits > 1 && (!ws || !tickets)))
+    return cudaErrorInvalidValue;
+  // 16-byte K copies: base and every K row offset whole vectors
+  if (reinterpret_cast<uintptr_t>(k_q) % 16 || st[0] % 16 || st[1] % 16 || st[2] % 16)
+    return cudaErrorMisalignedAddress;
+  const bool vec_v = reinterpret_cast<uintptr_t>(v_q) % 16 == 0 && st[3] % 16 == 0 &&
+                     st[4] % 16 == 0 && st[5] % 16 == 0 && hdvq % 16 == 0;
+  if (reinterpret_cast<uintptr_t>(v_q) % 4 || st[3] % 4 || st[4] % 4 || st[5] % 4)
+    return cudaErrorMisalignedAddress;
+  const int kw = hdq / 16;  // K rows an odd number of 16-byte words: no bank conflicts
+  Params p{q, static_cast<const int8_t*>(k_q), static_cast<const int8_t*>(v_q),
+           static_cast<const float*>(k_s), static_cast<const float*>(v_s),
+           static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos), out,
+           SplitKV{static_cast<float*>(ws), static_cast<int*>(tickets), splits, Hq / Hkv, hdv},
+           Skv, Hkv, Hq / Hkv, hd, hdv, tiles, q_sb, q_sh,
+           st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+           qp_sb, kp_sb, kp_ss, o_sb, o_sh, window, softcap, scale,
+           16 * (kw | 1), (hdvq + 15) & ~15, vec_v};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == REPRO_BF16 && bits == 8) return launch<__nv_bfloat16, 8>(p, B, s);
+  if (dtype == REPRO_BF16 && bits == 4) return launch<__nv_bfloat16, 4>(p, B, s);
+  if (dtype == REPRO_F32 && bits == 8) return launch<float, 8>(p, B, s);
+  if (dtype == REPRO_F32 && bits == 4) return launch<float, 4>(p, B, s);
   return cudaErrorInvalidValue;
 }

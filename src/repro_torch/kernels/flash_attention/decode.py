@@ -16,9 +16,15 @@ entry (``-1`` = empty) and ``q_pos`` the query position of each slot.
 Causality, sliding window, per-slot lengths and empty-slot masking all
 reduce to one mask on ``(q_pos, kv_pos)``; entries need not be ordered,
 so ring-buffer caches work unmodified.  An empty slot gives exact zeros.
+
+The quantised kernel splits the pool across blocks (split-KV, merged in the
+same launch): :func:`decode_splits` is its plan, and
+:data:`quant_kernel_launches` counts its launches by kernel (code bits,
+q's dtype, query rows a warp, value dims a lane, splits).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -26,12 +32,47 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.common import (
     DTYPE_CODES, MAX_HEAD_DIM, NEG_INF, check_cuda)
+from repro_torch.kernels.scratch import sm_count, split_tickets
 from repro_torch.quant.core import dequantize_kv
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = ((_P,) * 6 + (_I,) * 6 + (_L,) * 13 + (_I, _F, _F, _I, _P))
-_QUANT_ARGTYPES = ((_P,) * 8 + (_I,) * 6 + (_L,) * 2 + (_P,) + (_L,) * 5
+_QUANT_ARGTYPES = ((_P,) * 10 + (_I,) * 8 + (_L,) * 2 + (_P,) + (_L,) * 5
                    + (_I, _F, _F, _I, _I, _P))
+
+TILE = 32              # pool entries a tile of decode_quant.cu
+MAX_SPLITS = 64        # splits of one (slot, KV head), so the merge stays short
+MAX_REP = 16           # query heads a KV head, in 8 warps of 1 or 2 rows
+
+Split = collections.namedtuple("Split", "splits tiles")
+# one kernel of decode_quant.cu: code bits, q's dtype, query rows a warp,
+# value dims a lane, and the split count of the launch
+QuantKernel = collections.namedtuple("QuantKernel", "bits dtype rows dims splits")
+
+# launches of each QuantKernel
+quant_kernel_launches: collections.Counter = collections.Counter()
+
+
+def decode_splits(B: int, Hkv: int, Skv: int, sms: int) -> Split:
+    """How ``decode_quant.cu`` splits the pool of each (slot, KV head):
+    ``splits`` blocks, each over ``tiles`` whole 32-entry tiles of pool
+    indices (the last one possibly short), together covering Skv.  The
+    most tiles a split for which ``B * Hkv * splits`` blocks still make a
+    wave of the card's ``sms`` SMs, where the pool has tiles enough (11
+    splits of 3 tiles at B = 8, Hkv = 2, Skv = 1024 on 132 SMs); one split
+    when ``B * Hkv`` blocks do alone; at most ``MAX_SPLITS``."""
+    ntiles = max(1, -(-Skv // TILE))
+    want = -(-sms // (B * Hkv))                    # splits for one wave
+    tiles = max(1, ntiles // want, -(-ntiles // MAX_SPLITS))
+    return Split(-(-ntiles // tiles), tiles)
+
+
+def quant_kernel(bits: int, dtype: torch.dtype, rep: int, hdv: int, splits: int) -> QuantKernel:
+    """The kernel of ``decode_quant.cu`` that a call launches: 1 or 2
+    query rows a warp (rep up to 8, 16), 4 or 8 value dims a lane (hdv up
+    to 128, 256)."""
+    rows = 1 if rep <= 8 else 2
+    return QuantKernel(bits, str(dtype), rows, 4 if hdv <= 128 else 8, splits)
 
 
 def flash_decode_plain(q, k, v, *, q_pos, kv_pos, window: int = 0,
@@ -162,24 +203,40 @@ def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos
     if max(hd, hdv) > MAX_HEAD_DIM or hd % (16 * pack) or hdv % 8:
         raise ValueError(f"head dims must be multiples of {16 * pack} (K) and 8 (V) "
                          f"up to {MAX_HEAD_DIM}, got {hd}/{hdv}")
-    # the kernel reads a K row of codes in 16-byte loads
+    if Hq // Hkv > MAX_REP:
+        raise ValueError(f"at most {MAX_REP} query heads a KV head, got {Hq // Hkv}")
+    # the kernel copies K code rows in 16-byte pieces, V code rows in 16 or 4
     if k_q.data_ptr() % 16 or any(s % 16 for s in k_q.stride()[:3]):
         raise ValueError("the decode kernel needs 16-byte aligned K code rows")
+    if v_q.data_ptr() % 4 or any(s % 4 for s in v_q.stride()[:3]):
+        raise ValueError("the decode kernel needs 4-byte aligned V code rows")
     scale = scale if scale is not None else hd ** -0.5
     out = torch.empty((B, 1, Hq, hdv), dtype=q.dtype, device=q.device)
+    sp = decode_splits(B, Hkv, Skv, sm_count(q.device))
+    stream = torch.cuda.current_stream(q.device)
+    ws = tickets = None
+    if sp.splits > 1:
+        rep = Hq // Hkv
+        part = rep * hdv + (2 * rep + 3) // 4 * 4     # acc, m, l of one split
+        ws = torch.empty((B * Hkv * sp.splits * part,), dtype=torch.float32,
+                         device=q.device)
+        tickets = split_tickets(q.device, stream, B * Hkv)
     strides = (ctypes.c_longlong * 12)(*k_q.stride()[:3], *v_q.stride()[:3],
                                        *k_s.stride(), *v_s.stride())
     fn = build.bind("decode_quant", "repro_decode_attention_quant", _QUANT_ARGTYPES)
     err = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
              v_s.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
-             B, Skv, Hq, Hkv, hd, hdv, q.stride(0), q.stride(2),
+             None if ws is None else ws.data_ptr(),
+             None if tickets is None else tickets.data_ptr(),
+             B, Skv, Hq, Hkv, hd, hdv, sp.splits, sp.tiles, q.stride(0), q.stride(2),
              ctypes.cast(strides, ctypes.c_void_p), q_pos.stride(0),
              kv_pos.stride(0), kv_pos.stride(1), out.stride(0), out.stride(2),
              int(window), float(softcap), float(scale), kv_bits, DTYPE_CODES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             stream.cuda_stream)
     if err:
         raise RuntimeError(f"quantised decode attention kernel launch failed: "
                            f"cudaError {err}")
+    quant_kernel_launches[quant_kernel(kv_bits, q.dtype, Hq // Hkv, hdv, sp.splits)] += 1
     flash_decode_quant_fwd.launches += 1
     return out
 

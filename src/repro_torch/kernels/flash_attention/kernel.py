@@ -18,9 +18,15 @@ positional distance for the window.
 
 The public layout is the reference's ``(B, H, S, hd)``; the kernel reads
 its inputs through their strides, so transposed views cost no copy.
+
+The source has two designs, tensor cores (bf16) and CUDA cores (f32, or
+head dims the tensor-core tiles do not take): :func:`prefill_plan` picks
+one, with the block's shape, and :data:`kernel_launches` counts the
+launches of each (design, heads a block, query rows a block, dtype).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -28,9 +34,56 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.common import (
     DTYPE_CODES, MAX_HEAD_DIM, NEG_INF, check_cuda)
+from repro_torch.kernels.scratch import sm_count
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = ((_P,) * 5 + (_I,) * 7 + (_L,) * 14 + (_I, _I, _F, _F, _I, _P))
+_ARGTYPES = ((_P,) * 5 + (_I,) * 7 + (_L,) * 14 + (_I, _I, _F, _F, _I, _I, _I, _I, _P))
+
+DESIGNS = ("cuda_core", "tensor_core")   # by the code prefill.cu reads
+TC_HEAD_DIMS = (64, 128)  # head dims (q/k and v alike) the tensor-core design takes
+TC_MAX_WARPS = 8          # warps a block of the tensor-core design
+
+# the block of a call: its design, query heads (of one KV head) and query
+# rows; CUDA cores always take one head and 32 rows
+Plan = collections.namedtuple("Plan", "design heads rows")
+Kernel = collections.namedtuple("Kernel", "design heads rows dtype")
+
+# launches of each Kernel
+kernel_launches: collections.Counter = collections.Counter()
+
+
+def _aligned(*tensors) -> bool:
+    """Rows in whole 16-byte pieces: what the tensor-core design copies."""
+    return all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1])
+               for t in tensors)
+
+
+def prefill_plan(B: int, Sq: int, Hq: int, Hkv: int, hd: int, hdv: int,
+                 dtype: torch.dtype, aligned: bool, sms: int) -> Plan:
+    """What ``prefill.cu`` runs: tensor cores for bf16 with one head dim
+    of ``TC_HEAD_DIMS`` for q/k and v and 16-byte aligned rows, else CUDA
+    cores.  A tensor-core warp takes 16 query rows of one head; a block
+    shares its K/V tiles among more query heads of its KV head, then more
+    16-row tiles: up to 4 warps, which an SM runs on its 4 sub-partitions
+    side by side, and up to 8 while the blocks still make a wave of the
+    card's ``sms`` SMs."""
+    if dtype != torch.bfloat16 or hd != hdv or hd not in TC_HEAD_DIMS or not aligned:
+        return Plan("cuda_core", 1, 32)
+    rep = Hq // Hkv
+
+    def blocks(heads, tiles):
+        return -(-Sq // (16 * tiles)) * Hkv * -(-rep // heads) * B
+
+    def grows(heads, tiles):
+        warps = heads * tiles
+        return warps <= 4 or (warps <= TC_MAX_WARPS and blocks(heads, tiles) >= sms)
+
+    heads = tiles = 1
+    while heads < rep and grows(2 * heads, tiles):
+        heads *= 2
+    while grows(heads, 2 * tiles):
+        tiles *= 2
+    return Plan("tensor_core", heads, 16 * tiles)
 
 
 def _mask(Sq, Skv, segments, causal, window, device):
@@ -99,6 +152,8 @@ def flash_attention_fwd(q, k, v, *, segments=None, causal: bool = True,
     scale = scale if scale is not None else hd ** -0.5
     # written as (B, Sq, Hq, hdv): the caller's transpose back is free
     out = torch.empty((B, Sq, Hq, hdv), dtype=q.dtype, device=q.device)
+    plan = prefill_plan(B, Sq, Hq, Hkv, hd, hdv, q.dtype, _aligned(q, k, v),
+                        sm_count(q.device))
     seg = segments
     fn = build.bind("prefill", "repro_prefill_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -111,9 +166,11 @@ def flash_attention_fwd(q, k, v, *, segments=None, causal: bool = True,
              0 if seg is None else seg.stride(1),
              out.stride(0), out.stride(1), out.stride(2),
              int(causal), int(window), float(softcap), float(scale),
-             DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+             DTYPE_CODES[q.dtype], DESIGNS.index(plan.design), plan.heads,
+             plan.rows // 16, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"prefill attention kernel launch failed: cudaError {err}")
+    kernel_launches[Kernel(*plan, str(q.dtype))] += 1
     flash_attention_fwd.launches += 1
     return out.transpose(1, 2)
 

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.common import DTYPE_CODES
+from repro_torch.kernels.scratch import sm_count, split_tickets
 from repro_torch.quant.core import QuantTensor, dequantize
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -82,39 +83,19 @@ def plan(M: int, K: int, N: int, *, bits: int, group_rows: int, tile: bool,
     return p._replace(design=DESIGNS[p.design])
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-_tickets: dict = {}
-
-
-def _split_tickets(device: torch.device, stream, n: int) -> torch.Tensor:
-    """The split-K tickets of one stream: zeros, which every launch leaves
-    at zero.  Launches on one stream run one after another, so they share
-    them; launches on two streams may run at once, so each stream has its
-    own."""
-    key = (device, stream.cuda_stream)
-    t = _tickets.get(key)
-    if t is None or t.numel() < n:
-        t = _tickets[key] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-    return t
-
-
 def launch_dequant_matmul(x, q, scale, *, bits: int, group_rows: int, tile: bool):
     """Launch ``kernels/csrc/qmatmul.cu`` on checked CUDA operands:
     x (M, K) · dequant(q, scale) -> (M, N) in x's dtype."""
     M, K = x.shape
     N = q.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    sms = _sms(x.device)
+    sms = sm_count(x.device)
     p = plan(M, K, N, bits=bits, group_rows=group_rows, tile=tile, dtype=x.dtype, sms=sms)
     stream = torch.cuda.current_stream(x.device)
     ws = tickets = None
     if p.splits > 1:
         ws = torch.empty((p.splits, M, N), dtype=torch.float32, device=x.device)
-        tickets = _split_tickets(x.device, stream, p.tiles)
+        tickets = split_tickets(x.device, stream, p.tiles)
     fn = build.bind("qmatmul", "repro_dequant_matmul", _ARGTYPES)
     err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
              None if ws is None else ws.data_ptr(),
