@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time of the quantised decode (``decode_quant.cu``) and of the
-tensor-core prefill (``prefill.cu``) goes, on one NVIDIA card.
+"""Where the time of the two split-KV decodes (``decode.cu`` over the fp
+pool, ``decode_quant.cu`` over the quantised one) and of the tensor-core
+prefill (``prefill.cu``) goes, on one NVIDIA card.
 
     python3 chip_probe_attention.py                  # the plans, as built
-    python3 chip_probe_attention.py dq_nomerge ...   # and named variants
+    python3 chip_probe_attention.py dc_nomerge ...   # and named variants
 
 At the serving engine's shapes (decode: B = 8 slots, a 1024-entry pool,
-16 query heads over 2 KV heads, head_dim 128, kv8 and kv4; prefill: one
+16 query heads over 2 KV heads, head_dim 128, bf16, kv8 and kv4; prefill: one
 128-token packed stream of three prompts and pad, the same heads), it
 times each kernel (device time per call, as ``chip_smoke.py`` measures it,
 cycling over pools that span twice the L2) under the plan the wrapper
@@ -35,8 +36,26 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SPLITS = (1, 2, 4, 8, 16, 32)
 PREFILL_BLOCKS = ((1, 16), (2, 16), (8, 16), (1, 32), (2, 32), (1, 64))
 _PV = "for (int i = 0; i < 3; ++i) {\n            mma_bf16(o[2 * np], pa[i], r[0], r[1]);"
-SOURCES = {"dq": "decode_quant.cu", "pf": "prefill.cu"}   # by a variant's prefix
+SOURCES = {"dc": "decode.cu", "dq": "decode_quant.cu", "pf": "prefill.cu"}  # by prefix
 VARIANTS = {   # name: [(file of csrc/, its text, the replacement), ...]
+    # fp decode ablations (wrong results): the merge, every tile, the
+    # tiles' arithmetic, the scores, the values; and blocks of 4 warps (2
+    # query rows each at rep 8)
+    "dc_nomerge": [("decode.cu", "  split_kv_merge<T>(p.split, unit, ob, p.o_sh, nrows);", "")],
+    "dc_notiles": [("decode.cu", "    int cur = next_live(0), s = 0;", "    int cur = cn, s = 0;")],
+    "dc_nocompute": [("decode.cu", "      if (active) {\n        const bool valid",
+                      "      if (false) {\n        const bool valid")],
+    "dc_noscores": [("decode.cu", "        for (int c = 0; c < kbytes; c += 16) {",
+                     "        for (int c = 0; c < 0; c += 16) {")],
+    "dc_novalues": [("decode.cu", "          for (int jj = 0; jj < kTile; ++jj) {",
+                     "          for (int jj = 0; jj < 0; ++jj) {")],
+    "dc_4warps": [("decode.cu", "constexpr int kWarps = 8;", "constexpr int kWarps = 4;")],
+    # registers capped for two blocks an SM (the plan's 176 blocks in one
+    # wave), in either decode
+    "dc_2blocks": [("decode.cu", "__launch_bounds__(kThreads) decode_attention_kernel",
+                    "__launch_bounds__(kThreads, 2) decode_attention_kernel")],
+    "dq_2blocks": [("decode_quant.cu", "__launch_bounds__(kThreads) decode_quant_kernel",
+                    "__launch_bounds__(kThreads, 2) decode_quant_kernel")],
     # decode ablations (wrong results): the merge, every tile, the tiles'
     # arithmetic, the scores, the values
     "dq_nomerge": [("decode_quant.cu", "  split_kv_merge<T>(p.split, unit, ob, p.o_sh);", "")],
@@ -109,6 +128,19 @@ def main(names):
     p = cs.prefill_case(torch, rng)
     pargs = dict(segments=p["segments"])
     plain_prefill = K.flash_attention_plain(p["q"], p["k"], p["v"], **pargs).float()
+    c = cs.decode_case(torch, rng, copies=cs.cold_copies(2 * 8 * 1024 * 2 * 128 * 2))
+    fp = (c["q"], c["pools"], dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"]))
+
+    def time_fp_decode(tag):
+        q, pools, args = fp
+        B, Skv, Hkv = pools[0][0].shape[:3]
+        sp = D.decode_splits(B, Hkv, Skv, sms)
+        out = D.flash_decode_fwd(q, *pools[0], **args).float()
+        err = (out - D.flash_decode_plain(q, *pools[0], **args).float()).abs().max()
+        nxt = cs.cycler(pools)
+        ms = cs.device_ms(lambda: D.flash_decode_fwd(q, *nxt(), **args), 200)
+        print(f"{tag:13s} decode bf16 splits={sp.splits} tiles={sp.tiles} "
+              f"blocks={B * Hkv * sp.splits} ms={ms:.4f} max_abs_err={float(err):.2e}")
 
     def time_decode(tag):
         for bits, (q, pools, args) in decode.items():
@@ -132,6 +164,7 @@ def main(names):
               f"max_abs_err={float(err):.2e}")
 
     print(f"build {build.build().seconds:.1f} s")
+    time_fp_decode("as built")
     time_decode("as built")
     time_prefill("as built")
     plan_decode, plan_prefill = D.decode_splits, K.prefill_plan
@@ -139,6 +172,7 @@ def main(names):
     for n in SPLITS:
         tiles = -(-ntiles // n)
         D.decode_splits = lambda *a, tiles=tiles: D.Split(-(-ntiles // tiles), tiles)
+        time_fp_decode(f"splits{n}")
         time_decode(f"splits{n}")
     D.decode_splits = plan_decode
     for heads, rows in PREFILL_BLOCKS:
@@ -163,10 +197,11 @@ def main(names):
         build.bind.cache_clear()
         build.CSRC, build.BUILD_ROOT = d, d / "out"
         build.build()
-        (time_decode if name.startswith("dq") else time_prefill)(name)
+        {"dc": time_fp_decode, "dq": time_decode, "pf": time_prefill}[name[:2]](name)
         build.build.cache_clear()
         build.bind.cache_clear()
         build.CSRC, build.BUILD_ROOT = src, root
+    time_fp_decode("again")
     time_decode("again")
     time_prefill("again")
     return 0

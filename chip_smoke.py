@@ -19,11 +19,13 @@ Phases, each of which must pass or the script exits non-zero:
              dequantised bf16 weights for the matmuls) and its bound; each
              dequant-matmul and prefill case prints the design it ran
              (tensor cores or CUDA cores) and is checked to run the one its
-             dtype, head dims and group call for; each quantised-decode case
-             prints its split count (wholly masked splits, one split, rep
-             16 among them); split shapes of the dequant-matmul and of the
-             quantised decode launched on two streams at once must give
-             what they give on one, bit for bit;
+             dtype, head dims and group call for; each decode case, fp and
+             quantised, prints its kernel and split count (wholly masked
+             splits, one split, rep 16 among them; fp also rep 32 in two
+             row groups, f32 hd 256 and V rows not 16-byte aligned) and is
+             checked to run the split count of its plan; split shapes of
+             the dequant-matmul and of both decodes launched on two streams
+             at once must give what they give on one, bit for bit;
 4. engine  — the port's serving engine on full-width qwen2.5-3b with random
              bf16 weights, fp and then quantised (``w8kv8``, ``w4kv4``): 16
              requests (prompts of 4..384 tokens, so chunked prefill runs),
@@ -31,8 +33,9 @@ Phases, each of which must pass or the script exits non-zero:
              during each run, checked against the run's steps and calls, and
              every quantised projection and every prefill checked to have
              run on tensor cores, and every kernel of ``qmatmul.cu``,
-             ``decode_quant.cu`` and ``prefill.cu`` it launched checked to
-             be one that phase 3 held against its plain version;
+             ``decode.cu``, ``decode_quant.cu`` and ``prefill.cu`` it
+             launched checked to be one that phase 3 held against its plain
+             version;
 5. crossbar — the PIM-MVM entry point ``pim_mvm`` on the shapes of
              ``benchmarks/kernel_micro.py``, f32 x (as there) and bf16 x,
              against its oracle and the fp product, with the kernel's launch
@@ -114,9 +117,13 @@ def bound(nbytes, flops, dtype):
 # ---------------------------------------------------------------------------
 
 def decode_case(torch, rng, *, B=8, Skv=1024, Hq=16, Hkv=2, hd=128, lens=None,
-                window=0, softcap=0.0, ring=False, empty=(), dtype=None, copies=1):
+                window=0, softcap=0.0, ring=False, empty=(), dtype=None, copies=1,
+                hdv=None, v_offset=0):
     """Inputs of one decode call; ``copies`` distinct K/V pools (to time
-    with a cold L2, as each layer's pool is)."""
+    with a cold L2, as each layer's pool is); V rows of ``hdv`` (default
+    hd).  ``v_offset`` > 0 makes V a view that starts that many elements
+    into wider rows (V not 16-byte aligned)."""
+    hdv = hdv or hd
     dtype = dtype or torch.bfloat16
     dev = DEVICE
     lens = rng.integers(64, Skv + 1, B) if lens is None else np.asarray(lens)
@@ -135,7 +142,8 @@ def decode_case(torch, rng, *, B=8, Skv=1024, Hq=16, Hkv=2, hd=128, lens=None,
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     q = torch.randn((B, 1, Hq, hd), generator=g, device=dev).to(dtype)
     pools = [(torch.randn((B, Skv, Hkv, hd), generator=g, device=dev).to(dtype),
-              torch.randn((B, Skv, Hkv, hd), generator=g, device=dev).to(dtype))
+              torch.randn((B, Skv, Hkv, hdv + v_offset), generator=g,
+                          device=dev).to(dtype)[..., v_offset:])
              for _ in range(copies)]
     return dict(q=q, pools=pools, q_pos=torch.from_numpy(q_pos).to(dev),
                 kv_pos=torch.from_numpy(kv_pos).to(dev), window=window,
@@ -160,10 +168,11 @@ def prefill_case(torch, rng, *, S=128, Hq=16, Hkv=2, hd=128, lens=(37, 50, 20),
                 seg_np=seg if segmented else None)
 
 
-# the kernels of prefill.cu and decode_quant.cu (their wrappers'
+# the kernels of prefill.cu, decode.cu and decode_quant.cu (their wrappers'
 # kernel_launches / quant_kernel_launches keys) that some case of
 # run_kernel_checks / run_quant_decode_checks held against the plain version
 CHECKED_PREFILL = set()
+CHECKED_DECODE = set()
 CHECKED_DECODE_QUANT = set()
 
 
@@ -179,9 +188,36 @@ def ran_one(counter, fn, what):
 
 def attention_kernel_name(k):
     dtype = k.dtype.split(".")[-1]
-    if hasattr(k, "splits"):
+    if hasattr(k, "bits"):
         return f"int{k.bits}/{dtype}/rows{k.rows}/dims{k.dims}/splits{k.splits}"
+    if hasattr(k, "splits"):
+        return f"{dtype}/rows{k.rows}/dims{k.dims}/splits{k.splits}"
     return f"{k.design}/heads{k.heads}/rows{k.rows}/{dtype}"
+
+
+def masked_splits(kv_pos, sp):
+    """(slot, split) pairs of a split plan whose every pool entry is empty."""
+    valid, n = kv_pos >= 0, sp.tiles * 32
+    return sum(int(not valid[b, s * n:(s + 1) * n].any())
+               for b in range(valid.shape[0]) for s in range(sp.splits))
+
+
+def two_streams(torch, calls):
+    """Each of ``calls`` launched 20 times over two streams at once, in
+    turns: True when every output equals what the call gives alone, bit
+    for bit (each stream's split tickets are its own, and splits are
+    merged in a fixed order)."""
+    alone = [f() for f in calls]
+    streams = [torch.cuda.Stream(device=DEVICE) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for r in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                j = (r + i) % len(calls)
+                outs.append((j, calls[j]()))
+    torch.cuda.synchronize()
+    return len(outs), all(torch.equal(out, alone[j]) for j, out in outs)
 
 
 def expected_prefill_design(dtype, hd):
@@ -192,21 +228,30 @@ def expected_prefill_design(dtype, hd):
 
 
 def check_attention_checked(what, kernels, checked):
-    """Every kernel of prefill.cu or decode_quant.cu that ``what``
-    launched was held against its plain version in phase 3."""
+    """Every kernel of prefill.cu, decode.cu or decode_quant.cu that
+    ``what`` launched was held against its plain version in phase 3."""
     missed = sorted(attention_kernel_name(k) for k in kernels if k not in checked)
     check(not missed, f"{what}: attention kernels launched but never checked: {missed}")
 
 
 def run_kernel_checks(torch):
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.decode import (flash_decode_fwd,
-                                                            flash_decode_plain)
+    from repro_torch.kernels.flash_attention.decode import (decode_splits,
+                                                            flash_decode_fwd,
+                                                            flash_decode_plain,
+                                                            row_groups)
+    from repro_torch.kernels.flash_attention.decode import kernel_launches as decode_launches
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_fwd,
                                                             flash_attention_plain)
     from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill_launches
+    from repro_torch.kernels.scratch import sm_count
     rng = np.random.default_rng(0)
+    sms = sm_count(torch.device(DEVICE))
     records = {}
+
+    def plan(k, Hq):
+        B, Skv, Hkv = k.shape[:3]
+        return decode_splits(B, Hkv * row_groups(Hq // Hkv)[0], Skv, sms)
 
     # -- decode ---------------------------------------------------------------
     cases = {
@@ -219,23 +264,58 @@ def run_kernel_checks(torch):
         "rep8 hd256 Skv300": dict(Hq=16, Hkv=2, hd=256, Skv=300),
         "f32 B3 Skv200 rep4": dict(B=3, Skv=200, Hq=8, Hkv=2, dtype=torch.float32),
     }
+    # the split-KV cases draw from a generator of their own, so the timed
+    # inputs below stay those that earlier versions of the kernel were timed on
+    rng_split = np.random.default_rng(6)
+    split_cases = {
+        "short slots: wholly masked splits": dict(lens=[40, 90, 1, 33, 64, 100, 2, 70]),
+        "B40 Hkv4: one split": dict(B=40, Hq=16, Hkv=4),
+        "rep16 Hq16 Hkv1": dict(Hq=16, Hkv=1),
+        "rep32 Hq32 Hkv1: two row groups": dict(Hq=32, Hkv=1),
+        "f32 hd256 rep2 Skv300 (gemma2-9b heads)": dict(Skv=300, Hq=16, Hkv=8, hd=256,
+                                                        dtype=torch.float32),
+        "V not 16-byte aligned (2-byte)": dict(v_offset=1),
+        "V not 16-byte aligned (4-byte)": dict(v_offset=2),
+        "hd96 hdv64 (hd != hdv, 12 pieces a K row)": dict(hd=96, hdv=64),
+        # one split of 532 tiles: the kernel walks it in two chunks of tile masks
+        "one split over 17000 entries": dict(B=40, Hkv=4, Skv=17000,
+                                             lens=[17000 - 400 * b for b in range(40)]),
+    }
     errs = []
-    for name, kw in cases.items():
-        c = decode_case(torch, rng, **kw)
+    for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
+                               + [(n, kw, rng_split) for n, kw in split_cases.items()]):
+        c = decode_case(torch, case_rng, **kw)
         k, v = c["pools"][0]
         args = dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"], window=c["window"],
                     softcap=c["softcap"])
-        out = flash_decode_fwd(c["q"], k, v, **args)
+        out, kernel = ran_one(decode_launches, lambda: flash_decode_fwd(c["q"], k, v, **args),
+                              "decode")
+        CHECKED_DECODE.add(kernel)
         ref = flash_decode_plain(c["q"], k, v, **args)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = TOL[str(c["q"].dtype)]
         empty_ok = all(bool((out[b] == 0).all()) for b in kw.get("empty", ()))
-        print(f"kernel flash_decode case={name!r} max_abs_err={err:.3e} tol={tol:g}"
+        sp = plan(k, c["q"].shape[2])
+        print(f"kernel flash_decode case={name!r} splits={sp.splits} tiles_a_split={sp.tiles} "
+              f"wholly_masked_splits={masked_splits(c['kv_pos_np'], sp)} "
+              f"kernel={attention_kernel_name(kernel)} max_abs_err={err:.3e} tol={tol:g}"
               f" empty_slots_zero={empty_ok}")
         check(np.isfinite(err) and err <= tol and empty_ok,
               f"decode kernel disagrees with its plain version ({name})")
-        errs.append({"case": name, "max_abs_err": err, "tol": tol})
+        check(kernel.splits == sp.splits, f"decode ({name}) ran {kernel.splits} splits, "
+              f"its plan {sp.splits}")
+        errs.append({"case": name, "splits": sp.splits, "max_abs_err": err, "tol": tol})
+
+    # split shapes of two kernels (bf16 rows1/dims4, f32 rows1/dims8)
+    calls = []
+    for kw in (dict(), dict(Skv=300, Hq=16, Hkv=8, hd=256, dtype=torch.float32)):
+        c = decode_case(torch, rng_split, **kw)
+        calls.append(functools.partial(flash_decode_fwd, c["q"], *c["pools"][0],
+                                       q_pos=c["q_pos"], kv_pos=c["kv_pos"]))
+    n, same = two_streams(torch, calls)
+    print(f"kernel flash_decode two_streams launches={n} identical={same}")
+    check(same, "decode split shapes on two streams differ from one stream")
 
     pool_bytes = 2 * 8 * 1024 * 2 * 128 * 2     # K + V: B 8, Skv 1024, Hkv 2, hd 128, bf16
     c = decode_case(torch, rng, copies=cold_copies(pool_bytes))
@@ -247,6 +327,9 @@ def run_kernel_checks(torch):
         return c["pools"][next(it) % len(c["pools"])]
 
     args = dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"])
+    _, kernel = ran_one(decode_launches, lambda: flash_decode_fwd(c["q"], *pool(), **args),
+                        "decode")
+    sp = plan(c["pools"][0][0], Hq)
     ms = device_ms(lambda: flash_decode_fwd(c["q"], *pool(), **args), 200)
     plain_ms = device_ms(lambda: flash_decode_plain(c["q"], *pool(), **args), 20)
     mask = (c["kv_pos"] >= 0) & (c["kv_pos"] <= c["q_pos"])
@@ -274,8 +357,10 @@ def run_kernel_checks(torch):
         "max_abs_err": max(e["max_abs_err"] for e in errs),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms, "shape": [B, Skv, Hq, Hkv, hd],
+        "kernel": attention_kernel_name(kernel), "splits": sp.splits,
         "valid_entries": valid, "cases": errs}
-    print(f"kernel flash_decode timing ms={ms:.4f} plain_ms={plain_ms:.4f} "
+    print(f"kernel flash_decode timing kernel={attention_kernel_name(kernel)} "
+          f"splits={sp.splits} ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
 
     # -- packed prefill -------------------------------------------------------
@@ -411,12 +496,9 @@ def run_quant_decode_checks(torch):
             empty_ok = all(bool((out[b] == 0).all()) for b in kw.get("empty", ()))
             B, Skv, Hkv = k_q.shape[:3]
             sp = decode_splits(B, Hkv, Skv, sms)
-            # (slot, split) pairs whose every pool entry is empty
-            valid, n = c["kv_pos_np"] >= 0, sp.tiles * 32
-            masked = sum(int(not valid[b, s * n:(s + 1) * n].any())
-                         for b in range(B) for s in range(sp.splits))
             print(f"kernel flash_decode_quant kv{bits} case={name!r} splits={sp.splits} "
-                  f"tiles_a_split={sp.tiles} wholly_masked_splits={masked} "
+                  f"tiles_a_split={sp.tiles} "
+                  f"wholly_masked_splits={masked_splits(c['kv_pos_np'], sp)} "
                   f"kernel={attention_kernel_name(kernel)} max_abs_err={err:.3e} "
                   f"tol={tol:g} empty_slots_zero={empty_ok}")
             check(np.isfinite(err) and err <= tol and empty_ok,
@@ -428,26 +510,15 @@ def run_quant_decode_checks(torch):
                          "max_abs_err": err, "tol": tol})
 
     # the split decode launched on two streams at once gives what it gives
-    # alone, bit for bit: each stream's tickets are its own, and the splits
-    # are merged in a fixed order
+    # alone, bit for bit
     calls = []
     for bits in (8, 4):
         c = quant_case(bits)
         args = dict(kv_bits=bits, q_pos=c["q_pos"], kv_pos=c["kv_pos"])
         calls.append(functools.partial(flash_decode_quant_fwd, c["q"], *c["qpools"][0],
                                        **args))
-    alone = [f() for f in calls]
-    streams = [torch.cuda.Stream(device=DEVICE) for _ in range(2)]
-    torch.cuda.synchronize()
-    outs = []
-    for r in range(20):
-        for i, st in enumerate(streams):
-            with torch.cuda.stream(st):
-                j = (r + i) % 2
-                outs.append((j, calls[j]()))
-    torch.cuda.synchronize()
-    same = all(torch.equal(out, alone[j]) for j, out in outs)
-    print(f"kernel flash_decode_quant two_streams launches={len(outs)} identical={same}")
+    n, same = two_streams(torch, calls)
+    print(f"kernel flash_decode_quant two_streams launches={n} identical={same}")
     check(same, "quantised decode split shapes on two streams differ from one stream")
 
     timing = {}
@@ -620,26 +691,15 @@ def run_matmul_checks(torch):
                                  group=group))
 
     # split shapes (a decode tile and a wide tile) launched on two streams
-    # at once give what they give alone, bit for bit: each stream's split-K
-    # tickets are its own, and the splits are added in a fixed order
+    # at once give what they give alone, bit for bit (split-K)
     calls = []
     for M, K, N, bits, group in ((8, 2048, 11008, 8, 0), (128, 2048, 2048, 8, 128)):
         x, w = operands(M, K, N)
         qt = quantize(w, bits, group=group)
         calls.append(functools.partial(quant_matmul_fwd, x, qt.q, qt.scale, bits=bits,
                                        group=group))
-    alone = [f() for f in calls]
-    streams = [torch.cuda.Stream(device=DEVICE) for _ in range(2)]
-    torch.cuda.synchronize()
-    outs = []
-    for r in range(20):
-        for i, s in enumerate(streams):
-            with torch.cuda.stream(s):
-                j = (r + i) % 2
-                outs.append((j, calls[j]()))
-    torch.cuda.synchronize()
-    same = all(torch.equal(out, alone[j]) for j, out in outs)
-    print(f"kernel quant_matmul two_streams launches={len(outs)} identical={same}")
+    n, same = two_streams(torch, calls)
+    print(f"kernel quant_matmul two_streams launches={n} identical={same}")
     check(same, "dequant-matmul split shapes on two streams differ from one stream")
 
     def timed(M, K, N, bits):
@@ -729,12 +789,14 @@ def kernel_counters():
 
 
 def kernel_counts():
-    """The per-kernel launch counters of qmatmul.cu, prefill.cu and
-    decode_quant.cu."""
+    """The per-kernel launch counters of qmatmul.cu, prefill.cu, decode.cu
+    and decode_quant.cu."""
+    from repro_torch.kernels.flash_attention.decode import kernel_launches as decode
     from repro_torch.kernels.flash_attention.decode import quant_kernel_launches
     from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill
     from repro_torch.quant.kernel import kernel_launches as qmatmul
-    return {"qmatmul": qmatmul, "prefill": prefill, "decode_quant": quant_kernel_launches}
+    return {"qmatmul": qmatmul, "prefill": prefill, "decode": decode,
+            "decode_quant": quant_kernel_launches}
 
 
 def reset_launches():
@@ -849,6 +911,7 @@ def run_engine(torch, cfg, params, run="fp"):
     check(tc == launches["flash_prefill"],
           f"{run}: {tc} of {launches['flash_prefill']} prefill launches on tensor cores")
     check_attention_checked(f"engine ({run}) prefill", attn["prefill"], CHECKED_PREFILL)
+    check_attention_checked(f"engine ({run}) decode", attn["decode"], CHECKED_DECODE)
     check_attention_checked(f"engine ({run}) quantised decode", attn["decode_quant"],
                             CHECKED_DECODE_QUANT)
     check(launches["pim_mvm"] == 0, f"{run}: the crossbar kernel ran in serving")

@@ -51,19 +51,21 @@ __device__ __forceinline__ bool split_kv_last(const SplitKV& kv, int unit) {
 }
 
 // The merge, by the last block: out row r at out + r * o_sr (the rows of
-// one unit).  hdv is a multiple of 4.  Parts are read through L2 (__ldcg):
-// other blocks wrote them.  A thread takes a float4 of acc and the m, l of
+// one unit; only the first `nrows` when given, for a unit of fewer rows
+// than its part holds).  hdv is a multiple of 4.  Parts are read through
+// L2 (__ldcg): other blocks wrote them.  A thread takes a float4 of acc and the m, l of
 // its row from kChunk splits at once, all loads in flight together (one
 // trip to L2 when splits <= kChunk; else a first pass finds M), and adds
 // them in split order.
 template <typename T>
 __device__ void split_kv_merge(const SplitKV& kv, int unit, T* __restrict__ out,
-                               long long o_sr) {
+                               long long o_sr, int nrows = -1) {
   constexpr int kChunk = 16;
   const int rows = kv.rows, hdv = kv.hdv, splits = kv.splits;
+  const int n = nrows < 0 ? rows : nrows;
   const long long stride = kv.part_floats();
   const float* base = kv.part(unit, 0);
-  for (int g = threadIdx.x; g < rows * hdv / 4; g += blockDim.x) {
+  for (int g = threadIdx.x; g < n * hdv / 4; g += blockDim.x) {
     const int e = 4 * g, r = e / hdv, d = e % hdv;
     const float* ml = base + (long long)rows * hdv + r;  // m at ml[0], l at ml[rows]
     float M = REPRO_NEG_INF;

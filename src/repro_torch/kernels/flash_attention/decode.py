@@ -17,10 +17,11 @@ Causality, sliding window, per-slot lengths and empty-slot masking all
 reduce to one mask on ``(q_pos, kv_pos)``; entries need not be ordered,
 so ring-buffer caches work unmodified.  An empty slot gives exact zeros.
 
-The quantised kernel splits the pool across blocks (split-KV, merged in the
-same launch): :func:`decode_splits` is its plan, and
-:data:`quant_kernel_launches` counts its launches by kernel (code bits,
-q's dtype, query rows a warp, value dims a lane, splits).
+Both kernels split the pool across blocks (split-KV, merged in the same
+launch): :func:`decode_splits` is their plan and :func:`split_scratch`
+makes it with its workspace and tickets.  :data:`kernel_launches` (fp) and
+:data:`quant_kernel_launches` count launches by kernel (q's dtype, [code
+bits,] query rows a warp, value dims a lane, splits).
 """
 from __future__ import annotations
 
@@ -36,25 +37,30 @@ from repro_torch.kernels.scratch import sm_count, split_tickets
 from repro_torch.quant.core import dequantize_kv
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = ((_P,) * 6 + (_I,) * 6 + (_L,) * 13 + (_I, _F, _F, _I, _P))
+_ARGTYPES = ((_P,) * 8 + (_I,) * 9 + (_L,) * 13 + (_I, _F, _F, _I, _P))
 _QUANT_ARGTYPES = ((_P,) * 10 + (_I,) * 8 + (_L,) * 2 + (_P,) + (_L,) * 5
                    + (_I, _F, _F, _I, _I, _P))
 
-TILE = 32              # pool entries a tile of decode_quant.cu
-MAX_SPLITS = 64        # splits of one (slot, KV head), so the merge stays short
-MAX_REP = 16           # query heads a KV head, in 8 warps of 1 or 2 rows
+TILE = 32              # pool entries a tile of decode.cu and decode_quant.cu
+MAX_SPLITS = 64        # splits of one unit, so the merge stays short
+MAX_REP = 16           # query rows a block: 8 warps of 1 or 2 rows
 
 Split = collections.namedtuple("Split", "splits tiles")
-# one kernel of decode_quant.cu: code bits, q's dtype, query rows a warp,
-# value dims a lane, and the split count of the launch
+# one kernel of decode.cu: q's dtype, query rows a warp, value dims a lane,
+# and the split count of the launch
+DecodeKernel = collections.namedtuple("DecodeKernel", "dtype rows dims splits")
+# one kernel of decode_quant.cu: code bits and the same
 QuantKernel = collections.namedtuple("QuantKernel", "bits dtype rows dims splits")
 
-# launches of each QuantKernel
+# launches of each DecodeKernel and of each QuantKernel
+kernel_launches: collections.Counter = collections.Counter()
 quant_kernel_launches: collections.Counter = collections.Counter()
 
 
 def decode_splits(B: int, Hkv: int, Skv: int, sms: int) -> Split:
-    """How ``decode_quant.cu`` splits the pool of each (slot, KV head):
+    """How ``decode.cu`` and ``decode_quant.cu`` split the pool of each of
+    their ``B * Hkv`` units (slot and KV head, and for ``decode.cu`` row
+    group: :func:`split_scratch` passes the units as ``B``, ``Hkv = 1``):
     ``splits`` blocks, each over ``tiles`` whole 32-entry tiles of pool
     indices (the last one possibly short), together covering Skv.  The
     most tiles a split for which ``B * Hkv * splits`` blocks still make a
@@ -65,6 +71,43 @@ def decode_splits(B: int, Hkv: int, Skv: int, sms: int) -> Split:
     want = -(-sms // (B * Hkv))                    # splits for one wave
     tiles = max(1, ntiles // want, -(-ntiles // MAX_SPLITS))
     return Split(-(-ntiles // tiles), tiles)
+
+
+def row_groups(rep: int) -> tuple:
+    """``decode.cu``'s cut of a KV head's ``rep`` query rows: (groups,
+    rows a group), groups of ``MAX_REP`` rows above it (the last one
+    possibly short), one group of ``rep`` rows otherwise."""
+    rows = min(rep, MAX_REP)
+    return -(-rep // rows), rows
+
+
+def decode_kernel(dtype: torch.dtype, rep: int, hdv: int, splits: int) -> DecodeKernel:
+    """The kernel of ``decode.cu`` that a call launches: 1 or 2 query rows
+    a warp (groups of up to 8, 16 rows), 4 or 8 value dims a lane (hdv up
+    to 128, 256)."""
+    rows = 1 if row_groups(rep)[1] <= 8 else 2
+    return DecodeKernel(str(dtype), rows, 4 if hdv <= 128 else 8, splits)
+
+
+def part_floats(rows: int, hdv: int) -> int:
+    """f32 of one split's part of the workspace (``split_kv.cuh``): acc
+    (rows x hdv), then m and l (rows each), padded to a multiple of 4."""
+    return rows * hdv + (2 * rows + 3) // 4 * 4
+
+
+def split_scratch(q: torch.Tensor, units: int, Skv: int, rows: int, hdv: int):
+    """The split plan of a decode launch over ``units`` (slot, KV head[,
+    row group]) units of ``rows`` query rows, and its scratch: (plan,
+    workspace, tickets).  With one split there is no workspace and no
+    ticket (None, None); else ``units * splits`` parts of
+    :func:`part_floats` f32 and this stream's tickets."""
+    sp = decode_splits(units, 1, Skv, sm_count(q.device))
+    if sp.splits == 1:
+        return sp, None, None
+    ws = torch.empty((units * sp.splits * part_floats(rows, hdv),), dtype=torch.float32,
+                     device=q.device)
+    stream = torch.cuda.current_stream(q.device)
+    return sp, ws, split_tickets(q.device, stream, units)
 
 
 def quant_kernel(bits: int, dtype: torch.dtype, rep: int, hdv: int, splits: int) -> QuantKernel:
@@ -122,21 +165,25 @@ def flash_decode_fwd(q, k, v, *, q_pos, kv_pos, window: int = 0,
     if max(hd, hdv) > MAX_HEAD_DIM or hd % 8 or hdv % 8:
         raise ValueError(f"head dims must be multiples of 8 up to "
                          f"{MAX_HEAD_DIM}, got {hd}/{hdv}")
-    vec = 16 // k.element_size()       # the kernel reads K rows in 16-byte loads
+    vec = 16 // k.element_size()       # the kernel copies K rows in 16-byte pieces
     if k.data_ptr() % 16 or any(s % vec for s in k.stride()[:3]):
         raise ValueError("the decode kernel needs 16-byte aligned K rows")
     scale = scale if scale is not None else hd ** -0.5
     out = torch.empty((B, 1, Hq, hdv), dtype=q.dtype, device=q.device)
+    groups, rows = row_groups(Hq // Hkv)
+    sp, ws, tickets = split_scratch(q, B * Hkv * groups, Skv, rows, hdv)
     fn = build.bind("decode", "repro_decode_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-             kv_pos.data_ptr(), out.data_ptr(), B, Skv, Hq, Hkv, hd, hdv,
-             q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2), q_pos.stride(0),
-             kv_pos.stride(0), kv_pos.stride(1), out.stride(0), out.stride(2),
-             int(window), float(softcap), float(scale), DTYPE_CODES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             kv_pos.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+             None if tickets is None else tickets.data_ptr(), B, Skv, Hq, Hkv, hd, hdv,
+             rows, sp.splits, sp.tiles, q.stride(0), q.stride(2), k.stride(0),
+             k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
+             q_pos.stride(0), kv_pos.stride(0), kv_pos.stride(1), out.stride(0),
+             out.stride(2), int(window), float(softcap), float(scale),
+             DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"decode attention kernel launch failed: cudaError {err}")
+    kernel_launches[decode_kernel(q.dtype, Hq // Hkv, hdv, sp.splits)] += 1
     flash_decode_fwd.launches += 1
     return out
 
@@ -212,15 +259,7 @@ def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos
         raise ValueError("the decode kernel needs 4-byte aligned V code rows")
     scale = scale if scale is not None else hd ** -0.5
     out = torch.empty((B, 1, Hq, hdv), dtype=q.dtype, device=q.device)
-    sp = decode_splits(B, Hkv, Skv, sm_count(q.device))
-    stream = torch.cuda.current_stream(q.device)
-    ws = tickets = None
-    if sp.splits > 1:
-        rep = Hq // Hkv
-        part = rep * hdv + (2 * rep + 3) // 4 * 4     # acc, m, l of one split
-        ws = torch.empty((B * Hkv * sp.splits * part,), dtype=torch.float32,
-                         device=q.device)
-        tickets = split_tickets(q.device, stream, B * Hkv)
+    sp, ws, tickets = split_scratch(q, B * Hkv, Skv, Hq // Hkv, hdv)
     strides = (ctypes.c_longlong * 12)(*k_q.stride()[:3], *v_q.stride()[:3],
                                        *k_s.stride(), *v_s.stride())
     fn = build.bind("decode_quant", "repro_decode_attention_quant", _QUANT_ARGTYPES)
@@ -232,7 +271,7 @@ def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos
              ctypes.cast(strides, ctypes.c_void_p), q_pos.stride(0),
              kv_pos.stride(0), kv_pos.stride(1), out.stride(0), out.stride(2),
              int(window), float(softcap), float(scale), kv_bits, DTYPE_CODES[q.dtype],
-             stream.cuda_stream)
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"quantised decode attention kernel launch failed: "
                            f"cudaError {err}")

@@ -1,6 +1,7 @@
 """What the kernels' launches share on a card: its SM count, and the
 tickets of the reductions that a launch finishes itself (the split-K of
-``csrc/qmatmul.cu``, the split-KV of ``csrc/decode_quant.cu``)."""
+``csrc/qmatmul.cu``, the split-KV of ``csrc/decode.cu`` and
+``csrc/decode_quant.cu``)."""
 from __future__ import annotations
 
 import functools

@@ -1,12 +1,14 @@
-"""The order of operations of the port's two redesigned attention kernels,
+"""The order of operations of the port's redesigned attention kernels,
 rendered in plain PyTorch on the CPU, against the plain versions behind the
 wrappers and the reference's Pallas kernels in interpret mode, on the same
 seeded numpy inputs.
 
-- ``kernels/csrc/decode_quant.cu``: split-KV.  Each split of a (slot, KV
-  head) sweeps a contiguous range of pool indices in 32-entry tiles with
-  its own f32 online softmax (m, l, acc); the splits are merged in split
-  order.  Its plan, ``decode_splits``, is checked here too.
+- ``kernels/csrc/decode.cu`` (fp pool) and ``decode_quant.cu`` (int8 /
+  int4 pool): split-KV.  Each split of a (slot, KV head[, group of 16
+  query rows]) sweeps a contiguous range of pool indices in 32-entry tiles
+  with its own f32 online softmax (m, l, acc); the splits are merged in
+  split order.  Their plan, ``decode_splits``, its workspace and the
+  kernels' names are checked here too.
 - ``kernels/csrc/prefill.cu``'s tensor-core design: bf16 Q.K^T products
   summed in f32, an online softmax over 32-key tiles, and P split into
   three bf16 terms, whose sum is P exactly, for the P.V product.  Its plan,
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.decode import flash_decode_fwd as jax_decode
 from repro.kernels.flash_attention.decode import flash_decode_quant_fwd as jax_decode_quant
 from repro.kernels.flash_attention.kernel import flash_attention_fwd as jax_prefill
 from repro.quant import core as QJ
@@ -37,7 +40,7 @@ H100_SMS = 132
 
 
 # ---------------------------------------------------------------------------
-# decode_quant.cu: split-KV
+# decode.cu and decode_quant.cu: split-KV
 # ---------------------------------------------------------------------------
 
 def _kv_codes(q: torch.Tensor, bits: int) -> torch.Tensor:
@@ -52,19 +55,20 @@ def _kv_codes(q: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).reshape(*q.shape[:-1], 2 * q.shape[-1]).float()
 
 
-def split_kv_rendering(q, k_q, k_s, v_q, v_s, *, kv_bits, q_pos, kv_pos, splits, tiles,
-                       window=0, softcap=0.0, scale=None):
-    """decode_quant.cu's order of operations: per (slot, KV head) and
-    split, the split's 32-entry tiles of pool indices in order, skipping
-    tiles with no valid entry; scores (q . codes) * k_scale * scale, then
-    softcap and mask; an online-softmax update per tile with v_scale
-    folded into p; then the splits merged in split order."""
+def split_kv_rendering_over(q, keys, values, k_scale, v_scale, *, q_pos, kv_pos, splits,
+                            tiles, rows, window=0, softcap=0.0, scale=None):
+    """The split-KV order of operations over a pool read as f32 ``keys``
+    and ``values`` (B, Skv, Hkv, hd|hdv) with a factor per (entry, head),
+    ``k_scale`` and ``v_scale`` (B, Skv, Hkv): per (slot, KV head, group of
+    ``rows`` query rows) and split, the split's 32-entry tiles of pool
+    indices in order, skipping tiles with no valid entry; scores (q . key)
+    * k_scale * scale, then softcap and mask; an online-softmax update per
+    tile with v_scale folded into p and a masked entry's values zero-filled
+    (as the kernels copy them); then the splits merged in split order."""
     B, _, Hq, hd = q.shape
-    _, Skv, Hkv, _ = k_q.shape
+    _, Skv, Hkv, hdv = values.shape
     rep = Hq // Hkv
     scale = scale if scale is not None else hd ** -0.5
-    kc, vc = _kv_codes(k_q, kv_bits), _kv_codes(v_q, kv_bits)
-    hdv = vc.shape[-1]
     out = torch.zeros((B, 1, Hq, hdv), dtype=torch.float32)
     TILE = D.TILE
     for b in range(B):
@@ -73,48 +77,69 @@ def split_kv_rendering(q, k_q, k_s, v_q, v_s, *, kv_bits, q_pos, kv_pos, splits,
         if window:
             valid &= qp - kv_pos[b] < window
         for h in range(Hkv):
-            qr = q[b, 0, h * rep:(h + 1) * rep].float()               # (rep, hd)
-            parts = []
-            for s in range(splits):
-                m = torch.full((rep,), NEG_INF)
-                l = torch.zeros(rep)
-                acc = torch.zeros((rep, hdv))
-                for t in range(s * tiles, min((s + 1) * tiles, -(-Skv // TILE))):
-                    j = torch.arange(t * TILE, min((t + 1) * TILE, Skv))
-                    ok = valid[j]
-                    if not ok.any():
-                        continue                                      # never loaded
-                    x = (qr @ kc[b, j, h].T) * k_s[b, j, h] * scale   # (rep, entries)
-                    if softcap:
-                        x = softcap * torch.tanh(x / softcap)
-                    x = torch.where(ok, x, NEG_INF)
-                    m_new = torch.maximum(m, x.amax(dim=1))
-                    p = torch.where(ok, torch.exp(x - m_new[:, None]), 0.0)
-                    alpha = torch.exp(m - m_new)
-                    l = l * alpha + p.sum(dim=1)
-                    m = m_new
-                    acc = acc * alpha[:, None] + (p * v_s[b, j, h]) @ vc[b, j, h]
-                parts.append((m, l, acc))
-            M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
-            o, L = torch.zeros((rep, hdv)), torch.zeros(rep)
-            for m, l, acc in parts:                                   # split order
-                f = torch.exp(m - M)
-                L = L + l * f
-                o = o + acc * f[:, None]
-            L = torch.where(L == 0, 1.0, L)                           # empty slot -> zeros
-            out[b, 0, h * rep:(h + 1) * rep] = o / L[:, None]
+            for r0 in range(h * rep, (h + 1) * rep, rows):            # a unit's rows
+                qr = q[b, 0, r0:min(r0 + rows, (h + 1) * rep)].float()
+                n = qr.shape[0]
+                parts = []
+                for s in range(splits):
+                    m = torch.full((n,), NEG_INF)
+                    l = torch.zeros(n)
+                    acc = torch.zeros((n, hdv))
+                    for t in range(s * tiles, min((s + 1) * tiles, -(-Skv // TILE))):
+                        j = torch.arange(t * TILE, min((t + 1) * TILE, Skv))
+                        ok = valid[j]
+                        if not ok.any():
+                            continue                                  # never loaded
+                        x = (qr @ keys[b, j, h].T) * k_scale[b, j, h] * scale
+                        if softcap:
+                            x = softcap * torch.tanh(x / softcap)
+                        x = torch.where(ok, x, NEG_INF)
+                        m_new = torch.maximum(m, x.amax(dim=1))
+                        p = torch.where(ok, torch.exp(x - m_new[:, None]), 0.0)
+                        alpha = torch.exp(m - m_new)
+                        l = l * alpha + p.sum(dim=1)
+                        m = m_new
+                        vals = torch.where(ok[:, None], values[b, j, h], 0.0)
+                        acc = acc * alpha[:, None] + (p * v_scale[b, j, h]) @ vals
+                    parts.append((m, l, acc))
+                M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+                o, L = torch.zeros((n, hdv)), torch.zeros(n)
+                for m, l, acc in parts:                               # split order
+                    f = torch.exp(m - M)
+                    L = L + l * f
+                    o = o + acc * f[:, None]
+                L = torch.where(L == 0, 1.0, L)                       # empty slot -> zeros
+                out[b, 0, r0:r0 + n] = o / L[:, None]
     return out
 
 
-def _quant_decode_inputs(seed, B, Skv, Hq, Hkv, hd, bits, *, lengths=None, ring=False,
-                         empty=()):
-    """A quantised slot pool (quantised by the reference): slots of the
-    given lengths from index 0, or wrapped rings with holes in scrambled
-    order; ``empty`` slots hold nothing."""
-    rng = np.random.default_rng(seed)
-    q = rng.standard_normal((B, 1, Hq, hd)).astype(np.float32)
-    k = rng.standard_normal((B, Skv, Hkv, hd)).astype(np.float32)
-    v = rng.standard_normal((B, Skv, Hkv, hd)).astype(np.float32)
+def split_kv_rendering(q, k_q, k_s, v_q, v_s, *, kv_bits, q_pos, kv_pos, splits, tiles,
+                       window=0, softcap=0.0, scale=None):
+    """decode_quant.cu's order of operations: the codes decoded as the
+    kernel decodes a code byte, the scales as the factors, the rep query
+    rows of a KV head in one unit."""
+    rep = q.shape[2] // k_q.shape[2]
+    return split_kv_rendering_over(q, _kv_codes(k_q, kv_bits), _kv_codes(v_q, kv_bits), k_s,
+                                   v_s, q_pos=q_pos, kv_pos=kv_pos, splits=splits,
+                                   tiles=tiles, rows=rep, window=window, softcap=softcap,
+                                   scale=scale)
+
+
+def fp_split_kv_rendering(q, k, v, *, q_pos, kv_pos, splits, tiles, window=0, softcap=0.0,
+                          scale=None):
+    """decode.cu's order of operations: the fp pool in f32, factors of 1
+    (exact), the rep query rows of a KV head in units of ``row_groups``."""
+    ones = torch.ones(k.shape[:3])
+    _, rows = D.row_groups(q.shape[2] // k.shape[2])
+    return split_kv_rendering_over(q, k.float(), v.float(), ones, ones, q_pos=q_pos,
+                                   kv_pos=kv_pos, splits=splits, tiles=tiles, rows=rows,
+                                   window=window, softcap=softcap, scale=scale)
+
+
+def _pool_positions(rng, B, Skv, *, lengths=None, ring=False, empty=()):
+    """kv_pos/q_pos of a slot pool: slots of the given lengths from index
+    0, or wrapped rings with holes in scrambled order; ``empty`` slots hold
+    nothing."""
     kv_pos = np.full((B, Skv), -1, np.int32)
     for b in range(B):
         if b in empty:
@@ -126,6 +151,19 @@ def _quant_decode_inputs(seed, B, Skv, Hq, Hkv, hd, bits, *, lengths=None, ring=
         else:
             kv_pos[b, :lengths[b]] = np.arange(lengths[b])
     q_pos = np.maximum(kv_pos.max(axis=1, keepdims=True), 0).astype(np.int32)
+    return q_pos, kv_pos
+
+
+def _quant_decode_inputs(seed, B, Skv, Hq, Hkv, hd, bits, *, lengths=None, ring=False,
+                         empty=()):
+    """A quantised slot pool (quantised by the reference): slots of the
+    given lengths from index 0, or wrapped rings with holes in scrambled
+    order; ``empty`` slots hold nothing."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, 1, Hq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, Hkv, hd)).astype(np.float32)
+    q_pos, kv_pos = _pool_positions(rng, B, Skv, lengths=lengths, ring=ring, empty=empty)
     planes = (*QJ.quantize_kv(jnp.asarray(k), bits), *QJ.quantize_kv(jnp.asarray(v), bits))
     return q, planes, q_pos, kv_pos
 
@@ -168,6 +206,49 @@ def test_split_kv_rendering_matches_plain_and_pallas(case, bits):
         assert not tile_valid[sp.tiles:].any()
 
 
+_FP_SPLIT_CASES = {  # name: (B, Skv, Hq, Hkv, hd, hdv, pool, window, softcap)
+    "ring with holes": (3, 100, 8, 2, 32, 32, dict(ring=True), 0, 0.0),
+    "wholly masked splits": (3, 128, 8, 2, 32, 32, dict(lengths=[5, 40, 128]), 0, 0.0),
+    "empty slot": (3, 96, 4, 2, 32, 32, dict(lengths=[20, 0, 96], empty=(1,)), 0, 0.0),
+    "window softcap": (2, 128, 16, 1, 32, 32, dict(lengths=[128, 77]), 24, 30.0),
+    "rep1 ragged hd64 hdv48": (4, 70, 4, 4, 64, 48, dict(ring=True), 0, 0.0),
+    "rep20 in row groups": (2, 128, 40, 2, 16, 16, dict(lengths=[128, 50]), 0, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", list(_FP_SPLIT_CASES))
+def test_fp_split_kv_rendering_matches_plain_and_pallas(case):
+    """decode.cu's order over the fp pool (per-split online softmax over
+    contiguous index ranges, masked tiles skipped, masked entries
+    zero-filled, rows in groups of at most 16, splits merged in split
+    order): the plain version's function and the TPU kernel's, to f32
+    rounding, with the split count the plan gives on an H100."""
+    B, Skv, Hq, Hkv, hd, hdv, pool, window, softcap = _FP_SPLIT_CASES[case]
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    q = rng.standard_normal((B, 1, Hq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, Hkv, hdv)).astype(np.float32)
+    q_pos, kv_pos = _pool_positions(rng, B, Skv, **pool)
+    groups, rows = D.row_groups(Hq // Hkv)
+    sp = D.decode_splits(B, Hkv * groups, Skv, H100_SMS)
+    assert sp.splits > 1
+    args = dict(q_pos=T(q_pos), kv_pos=T(kv_pos), window=window, softcap=softcap)
+    got = fp_split_kv_rendering(T(q), T(k), T(v), splits=sp.splits, tiles=sp.tiles, **args)
+    plain = D.flash_decode_plain(T(q), T(k), T(v), **args)
+    ref = jax_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_pos=jnp.asarray(q_pos),
+                     kv_pos=jnp.asarray(kv_pos), window=window, softcap=softcap,
+                     interpret=True)
+    for want in (plain.numpy(), np.asarray(ref)):
+        np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+    for b in pool.get("empty", ()):
+        assert torch.all(got[b] == 0)                  # the empty slot: exact zeros
+    if case == "wholly masked splits":                 # splits past slot 0's 5 entries
+        tile_valid = (kv_pos[0] >= 0).reshape(-1, D.TILE).any(axis=1)
+        assert not tile_valid[sp.tiles:].any()
+    if case == "rep20 in row groups":                  # a full group of 16 and one of 4
+        assert (groups, rows) == (2, 16)
+
+
 @pytest.mark.parametrize("B,Hkv,Skv", [(8, 2, 1024), (3, 2, 200), (1, 1, 65536),
                                        (40, 4, 1024), (2, 1, 31), (8, 2, 1000),
                                        (16, 8, 4096), (1, 2, 96)])
@@ -186,6 +267,46 @@ def test_decode_splits_plan(B, Hkv, Skv):
         assert B * Hkv * sp.splits >= H100_SMS
     if (B, Hkv, Skv) == (8, 2, 1024):
         assert sp == (11, 3) and B * Hkv * sp.splits == 176
+
+
+def test_decode_kernel_names_rows_dims_and_splits():
+    """decode.cu's kernel a call takes: query rows a warp for groups of up
+    to 8, 16 rows (rep above 16 in groups of 16), value dims a lane for
+    hdv up to 128, 256, and the launch's split count."""
+    k = D.decode_kernel(torch.bfloat16, 8, 128, 11)
+    assert k == D.DecodeKernel("torch.bfloat16", 1, 4, 11)
+    assert [D.decode_kernel(torch.float32, r, 128, 1).rows
+            for r in (1, 8, 9, 16, 17, 32, 40)] == [1, 1, 2, 2, 2, 2, 2]
+    assert [D.row_groups(r) for r in (1, 8, 16, 17, 32, 40)] == \
+        [(1, 1), (1, 8), (1, 16), (2, 16), (2, 16), (3, 16)]
+    assert D.decode_kernel(torch.float32, 2, 256, 4) == \
+        D.DecodeKernel("torch.float32", 1, 8, 4)
+
+
+@pytest.mark.parametrize("units,Skv,rows,hdv,splits", [
+    (16, 1024, 8, 128, 11),      # the serving shape (B 8, Hkv 2, rep 8)
+    (8, 1024, 16, 128, 32),      # rep 32 over one KV head, B 4: two groups of 16
+    (64, 300, 2, 256, 4),        # gemma2-9b's heads in f32: B 8, Hkv 8
+    (160, 1024, 4, 128, 1),      # B 40, Hkv 4: one split, no scratch
+])
+def test_split_scratch_part_size(monkeypatch, units, Skv, rows, hdv, splits):
+    """The plan-and-workspace helper both decode wrappers call: the plan of
+    ``units`` units, and a workspace of ``units * splits`` parts of ``rows
+    * hdv + 2 * rows`` f32 padded to 4 (split_kv.cuh's part_floats), with
+    one ticket a unit; nothing at one split."""
+    monkeypatch.setattr(D, "sm_count", lambda device: H100_SMS)
+    monkeypatch.setattr(D.torch.cuda, "current_stream", lambda device: None)
+    monkeypatch.setattr(D, "split_tickets",
+                        lambda device, stream, n: torch.zeros(n, dtype=torch.int32))
+    sp, ws, tickets = D.split_scratch(torch.zeros(1), units, Skv, rows, hdv)
+    assert sp == D.decode_splits(units, 1, Skv, H100_SMS) and sp.splits == splits
+    part = rows * hdv + ((2 * rows + 3) & ~3)
+    assert D.part_floats(rows, hdv) == part and part % 4 == 0
+    if splits == 1:
+        assert ws is None and tickets is None
+    else:
+        assert ws.dtype == torch.float32 and ws.numel() == units * splits * part
+        assert tickets.numel() == units
 
 
 def test_quant_kernel_names_rows_and_dims():
