@@ -58,7 +58,8 @@ VARIANTS = {   # name: [(file of csrc/, its text, the replacement), ...]
                     "__launch_bounds__(kThreads, 2) decode_quant_kernel")],
     # decode ablations (wrong results): the merge, every tile, the tiles'
     # arithmetic, the scores, the values
-    "dq_nomerge": [("decode_quant.cu", "  split_kv_merge<T>(p.split, unit, ob, p.o_sh);", "")],
+    "dq_nomerge": [("decode_quant.cu",
+                    "  split_kv_merge<T>(p.split, unit, ob, p.o_sh, nrows, p.hdv);", "")],
     "dq_notiles": [("decode_quant.cu", "  int cur = next_live(0), s = 0;",
                     "  int cur = nt, s = 0;")],
     "dq_nocompute": [("decode_quant.cu", "    if (active) {\n      const unsigned vmask",
@@ -72,8 +73,8 @@ VARIANTS = {   # name: [(file of csrc/, its text, the replacement), ...]
     "dq_4warps": [("decode_quant.cu", "constexpr int kWarps = 8;", "constexpr int kWarps = 4;")],
     "dq_rcp": [("split_kv.cuh", "    if (L == 0.f) L = 1.f;  // empty unit -> exact zeros",
                 "    if (L == 0.f) L = 1.f;  // empty unit -> exact zeros\n    const float inv = 1.f / L;"),
-               ("split_kv.cuh", "(o.x / L)", "(o.x * inv)"), ("split_kv.cuh", "(o.y / L)", "(o.y * inv)"),
-               ("split_kv.cuh", "(o.z / L)", "(o.z * inv)"), ("split_kv.cuh", "(o.w / L)", "(o.w * inv)")],
+               ("split_kv.cuh", "{o.x / L, o.y / L, o.z / L, o.w / L}",
+                "{o.x * inv, o.y * inv, o.z * inv, o.w * inv}")],
     # prefill ablations (wrong results): no run-time tile skip, no tiles'
     # arithmetic, no S or no P.V product, no Q loads
     "pf_noprologue": [("prefill.cu", "  if (sb) {  // which tiles hold",

@@ -9,11 +9,14 @@ Phases, each of which must pass or the script exits non-zero:
 2. build   — the CUDA kernels of ``src/repro_torch/kernels/csrc`` built with
              nvcc (``repro_torch.kernels.build``);
 3. kernels — each of the five kernels against its plain PyTorch version on
-             the card, at the serving path's shapes and at edge cases
+             the card, at the serving path's shapes (qwen2.5-3b's and
+             gemma2-9b's: every projection, the 5120-entry global pool and
+             the 4096-entry ring at head dim 256) and at edge cases
              (window, softcap, an empty slot, a pad-only tile, ragged
              lengths and shapes, GQA rep 1 and 8, f32, head_dim 256, int8 and
              int4, per-channel and per-group scales, M from 1 to 1024), with
-             its time, the plain version's time, one PyTorch call's time (a
+             its time (at both models' shapes), the plain version's time, one
+             PyTorch call's time (a
              yardstick the port never calls: ``scaled_dot_product_attention``
              with an explicit mask for attention, ``torch.matmul`` with the
              dequantised bf16 weights for the matmuls) and its bound; each
@@ -21,36 +24,47 @@ Phases, each of which must pass or the script exits non-zero:
              (tensor cores or CUDA cores) and is checked to run the one its
              dtype, head dims and group call for; each decode case, fp and
              quantised, prints its kernel and split count (wholly masked
-             splits, one split, rep 16 among them; fp also rep 32 in two
-             row groups, f32 hd 256 and V rows not 16-byte aligned) and is
+             splits, one split, rep 16 and rep 32 in two row groups among
+             them; fp also f32 hd 256 and V rows not 16-byte aligned;
+             quantised also head dims 16 and 6, code rows shorter than 16
+             bytes, and rep 20 in f32) and is
              checked to run the split count of its plan; split shapes of
              the dequant-matmul and of both decodes launched on two streams
              at once must give what they give on one, bit for bit;
-4. engine  — the port's serving engine on full-width qwen2.5-3b with random
-             bf16 weights, fp and then quantised (``w8kv8``, ``w4kv4``): 16
-             requests (prompts of 4..384 tokens, so chunked prefill runs),
-             greedy, 32 new tokens each, with the launch count of each kernel
-             during each run, checked against the run's steps and calls, and
-             every quantised projection and every prefill checked to have
-             run on tensor cores, and every kernel of ``qmatmul.cu``,
-             ``decode.cu``, ``decode_quant.cu`` and ``prefill.cu`` it
-             launched checked to be one that phase 3 held against its plain
-             version;
+4. engine  — the port's serving engine on full-width qwen2.5-3b and
+             gemma2-9b (42 layers, local 4096-entry rings and global layers,
+             head dim 256) with random bf16 weights, fp and then quantised
+             (``w8kv8``, ``w4kv4``): 16 requests (prompts of 4..384 tokens,
+             so chunked prefill runs; gemma2-9b adds one of 4600 tokens whose
+             rings wrap), greedy, 32 new tokens each, with the launch count of
+             each kernel during each run, checked against the run's steps and
+             calls, every quantised projection checked to have run on tensor
+             cores and every prefill on the design its head dim calls for,
+             and every kernel of ``qmatmul.cu``, ``decode.cu``,
+             ``decode_quant.cu`` and ``prefill.cu`` it launched checked to be
+             one that phase 3 held against its plain version;
 5. crossbar — the PIM-MVM entry point ``pim_mvm`` on the shapes of
              ``benchmarks/kernel_micro.py``, f32 x (as there) and bf16 x,
              against its oracle and the fp product, with the kernel's launch
              count, the bf16 calls checked to have run on tensor cores, in
              kernels that phase 3 checked;
 6. logits  — packed prefill plus 4 decode steps at full width with
-             ``impl="flash"`` against ``impl="ref"``, fp and ``w8kv8``;
+             ``impl="flash"`` against ``impl="ref"``, fp and ``w8kv8``: qwen2.5-3b,
+             gemma2-9b (with a 4200-token row: windowed prefill, a wrapped
+             ring), gemma3-27b and minitron-8b (depth cut to one pattern
+             period plus the remainder);
 7. profile — torch.profiler over 4 full-pool decode steps and 2 chunk
-             steps (8 rows of a 128-token chunk), fp and ``w8kv8``: device
-             busy time and kernels launched per step (read, not checked).
+             steps (8 rows of a 128-token chunk), fp and ``w8kv8``, of
+             qwen2.5-3b and gemma2-9b: device busy time and kernels launched
+             per step (read, not checked).
+
+Each model's weights are freed before the next is made.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits 1
 and prints no result.
 """
+import dataclasses
 import functools
 import json
 import os
@@ -70,8 +84,24 @@ TOL = {"torch.bfloat16": 1e-2, "torch.float32": 2e-5}
 MATMUL_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-5}
 QUANT_RUNS = {"fp": dict(), "w8kv8": dict(weight_bits=8, kv_bits=8),
               "w4kv4": dict(weight_bits=4, kv_bits=4)}
-PROJECTIONS = 7                     # wq, wk, wv, wo, w_gate, w_up, w_down
-ARCH, MAX_BATCH, KV_LEN, NEW_TOKENS, N_REQUESTS = "qwen2.5-3b", 8, 1024, 32, 16
+MAX_BATCH, NEW_TOKENS, N_REQUESTS, CHUNK = 8, 32, 16, 128
+# the served models at full width and depth: the pool's length, prompts
+# beside the 16 of 4..384 tokens, and a long row of the logits phase
+# (gemma2-9b's 4600 and 4200 wrap its 4096-entry local rings: in chunked
+# prefill and decode, and in the packed prefill's insert)
+SERVED = {"qwen2.5-3b": dict(kv_len=1024, long_prompts=(), logits_row=0),
+          "gemma2-9b": dict(kv_len=5120, long_prompts=(4600,), logits_row=4200)}
+# logits only, full width at a cut depth: one pattern period plus the
+# remainder (gemma3-27b: qk-norm at head dim 128; minitron-8b: the untied
+# 256000-column lm_head, ReLU^2 without GLU)
+LOGITS_ONLY = {"gemma3-27b": 8, "minitron-8b": 2}
+# gemma2-9b's attention as the engine runs it: 8 slots, 16 query heads over
+# 8 KV heads of dim 256, a 5120-entry global pool and 4096-entry local rings
+# (window 4096), attention softcap 50
+GEMMA2_DECODE = dict(B=8, Skv=5120, Hq=16, Hkv=8, hd=256, softcap=50.0)
+GEMMA2_RING = dict(B=8, Skv=4096, Hq=16, Hkv=8, hd=256, window=4096, softcap=50.0,
+                   ring=True)
+GEMMA2_PREFILL = dict(S=128, Hq=16, Hkv=8, hd=256, window=4096, softcap=50.0)
 DEVICE = "cuda"
 
 
@@ -234,8 +264,56 @@ def check_attention_checked(what, kernels, checked):
     check(not missed, f"{what}: attention kernels launched but never checked: {missed}")
 
 
-def run_kernel_checks(torch):
+def decode_timing(torch, rng, kw):
+    """Device time of the fp decode at a shape (``decode_case``'s keywords),
+    cycling over pools that span twice the L2, beside its plain version, its
+    bound and ``scaled_dot_product_attention`` over the same pools and mask
+    (without a softcap, which it lacks)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.decode import (decode_splits,
+                                                            flash_decode_fwd,
+                                                            flash_decode_plain,
+                                                            row_groups)
+    from repro_torch.kernels.flash_attention.decode import kernel_launches as decode_launches
+    from repro_torch.kernels.scratch import sm_count
+    shape = dict(dict(B=8, Skv=1024, Hkv=2, hd=128), **kw)
+    pool_bytes = 2 * shape["B"] * shape["Skv"] * shape["Hkv"] * shape["hd"] * 2
+    c = decode_case(torch, rng, copies=cold_copies(pool_bytes), **kw)
+    B, Skv, Hkv, hd = c["pools"][0][0].shape
+    Hq = c["q"].shape[2]
+    nxt = cycler(c["pools"])
+    args = dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"], window=c["window"],
+                softcap=c["softcap"])
+    _, kernel = ran_one(decode_launches, lambda: flash_decode_fwd(c["q"], *nxt(), **args),
+                        "decode")
+    sp = decode_splits(B, Hkv * row_groups(Hq // Hkv)[0], Skv, sm_count(c["q"].device))
+    ms = device_ms(lambda: flash_decode_fwd(c["q"], *nxt(), **args), 200)
+    plain_ms = device_ms(lambda: flash_decode_plain(c["q"], *nxt(), **args), 20)
+    mask = (c["kv_pos"] >= 0) & (c["kv_pos"] <= c["q_pos"])
+    if c["window"]:
+        mask &= c["q_pos"] - c["kv_pos"] < c["window"]
+    qt = c["q"].transpose(1, 2)
+    nxt_lib = cycler([(k.transpose(1, 2), v.transpose(1, 2)) for k, v in c["pools"]])
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, *nxt_lib(), attn_mask=mask[:, None, None, :], enable_gqa=True), 100)
+    valid = int(mask.sum().item())
+    esz = c["q"].element_size()
+    nbytes = (2 * B * Hq * hd * esz                       # q in, out
+              + 2 * valid * Hkv * hd * esz                # valid K and V rows
+              + c["kv_pos_np"].nbytes + c["q_pos_np"].nbytes)
+    flops = 4 * valid * Hq * hd                           # QK^T and PV
+    b_ms, b_by = bound(nbytes, flops, str(c["q"].dtype))
+    name = attention_kernel_name(kernel)
+    print(f"kernel flash_decode timing shape={[B, Skv, Hq, Hkv, hd]} kernel={name} "
+          f"splits={sp.splits} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "shape": [B, Skv, Hq, Hkv, hd], "kernel": name,
+            "splits": sp.splits, "valid_entries": valid, "window": c["window"],
+            "softcap": c["softcap"]}
+
+
+def run_kernel_checks(torch):
     from repro_torch.kernels.flash_attention.decode import (decode_splits,
                                                             flash_decode_fwd,
                                                             flash_decode_plain,
@@ -280,6 +358,8 @@ def run_kernel_checks(torch):
         # one split of 532 tiles: the kernel walks it in two chunks of tile masks
         "one split over 17000 entries": dict(B=40, Hkv=4, Skv=17000,
                                              lens=[17000 - 400 * b for b in range(40)]),
+        "gemma2-9b global B8 Skv5120 Hq16 Hkv8 hd256 softcap50": GEMMA2_DECODE,
+        "gemma2-9b ring B8 Skv4096 hd256 window4096 softcap50": GEMMA2_RING,
     }
     errs = []
     for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
@@ -317,51 +397,15 @@ def run_kernel_checks(torch):
     print(f"kernel flash_decode two_streams launches={n} identical={same}")
     check(same, "decode split shapes on two streams differ from one stream")
 
-    pool_bytes = 2 * 8 * 1024 * 2 * 128 * 2     # K + V: B 8, Skv 1024, Hkv 2, hd 128, bf16
-    c = decode_case(torch, rng, copies=cold_copies(pool_bytes))
-    B, Skv, Hkv, hd = c["pools"][0][0].shape
-    Hq = c["q"].shape[2]
-    it = iter(range(1 << 30))
-
-    def pool():
-        return c["pools"][next(it) % len(c["pools"])]
-
-    args = dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"])
-    _, kernel = ran_one(decode_launches, lambda: flash_decode_fwd(c["q"], *pool(), **args),
-                        "decode")
-    sp = plan(c["pools"][0][0], Hq)
-    ms = device_ms(lambda: flash_decode_fwd(c["q"], *pool(), **args), 200)
-    plain_ms = device_ms(lambda: flash_decode_plain(c["q"], *pool(), **args), 20)
-    mask = (c["kv_pos"] >= 0) & (c["kv_pos"] <= c["q_pos"])
-    qt = c["q"].transpose(1, 2)
-    lib_pools = [(k.transpose(1, 2), v.transpose(1, 2)) for k, v in c["pools"]]
-    lib_mask = mask[:, None, None, :]
-    it2 = iter(range(1 << 30))
-
-    def library():
-        k, v = lib_pools[next(it2) % len(lib_pools)]
-        return F.scaled_dot_product_attention(qt, k, v, attn_mask=lib_mask,
-                                              enable_gqa=True)
-    library_ms = device_ms(library, 100)
-    valid = int((c["kv_pos_np"] >= 0).sum())
-    esz = c["q"].element_size()
-    nbytes = (2 * B * Hq * hd * esz                       # q in, out
-              + 2 * valid * Hkv * hd * esz                # valid K and V rows
-              + c["kv_pos_np"].nbytes + c["q_pos_np"].nbytes)
-    flops = 4 * valid * Hq * hd                           # QK^T and PV
-    b_ms, b_by = bound(nbytes, flops, str(c["q"].dtype))
+    t = decode_timing(torch, rng, {})
     records["flash_decode"] = {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode.cu",
         "replaces": "src/repro/kernels/flash_attention/decode.py:113",
         "max_abs_err": max(e["max_abs_err"] for e in errs),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": library_ms, "shape": [B, Skv, Hq, Hkv, hd],
-        "kernel": attention_kernel_name(kernel), "splits": sp.splits,
-        "valid_entries": valid, "cases": errs}
-    print(f"kernel flash_decode timing kernel={attention_kernel_name(kernel)} "
-          f"splits={sp.splits} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                             "shape", "kernel", "splits", "valid_entries")},
+        "gemma2_9b": decode_timing(torch, rng_split, GEMMA2_DECODE), "cases": errs}
 
     # -- packed prefill -------------------------------------------------------
     cases = {
@@ -376,6 +420,7 @@ def run_kernel_checks(torch):
         "long stream S4096 rep8": dict(S=4096, lens=(1500, 2000, 500)),
         "rep1 S2048 Hq4": dict(S=2048, Hq=4, Hkv=4, lens=(2000,)),
         "rep2 hd64": dict(Hq=4, Hkv=2, hd=64),
+        "gemma2-9b S128 Hq16 Hkv8 hd256 window4096 softcap50": GEMMA2_PREFILL,
     }
     errs = []
     for name, kw in cases.items():
@@ -401,10 +446,31 @@ def run_kernel_checks(torch):
         check(kernel.design == want, f"prefill ({name}) ran on {kernel.design}, expected {want}")
         errs.append({"case": name, "design": kernel.design, "max_abs_err": err, "tol": tol})
 
-    c = prefill_case(torch, rng)
+    t = prefill_timing(torch, rng, {})
+    records["flash_prefill"] = {
+        "name": "flash_prefill", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/prefill.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:123",
+        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                             "shape", "kernel", "attended_pairs")},
+        "gemma2_9b": prefill_timing(torch, rng, GEMMA2_PREFILL), "cases": errs}
+    return records
+
+
+def prefill_timing(torch, rng, kw):
+    """Device time of the packed prefill at a shape (``prefill_case``'s
+    keywords; three prompts and pad), beside its plain version, its bound
+    and ``scaled_dot_product_attention`` with the same mask (without a
+    softcap, which it lacks)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_fwd,
+                                                            flash_attention_plain)
+    from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill_launches
+    c = prefill_case(torch, rng, **kw)
     _, Hq, S, hd = c["q"].shape
     Hkv = c["k"].shape[1]
-    args = dict(segments=c["segments"])
+    args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"])
     _, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
         c["q"], c["k"], c["v"], **args), "prefill")
     ms = device_ms(lambda: flash_attention_fwd(c["q"], c["k"], c["v"], **args), 200)
@@ -412,7 +478,10 @@ def run_kernel_checks(torch):
     seg = c["segments"][0]
     idx = torch.arange(S, device=DEVICE)
     lib_mask = ((seg[:, None] == seg[None, :]) & (seg[:, None] >= 0)
-                & (idx[None, :] <= idx[:, None]))[None, None]
+                & (idx[None, :] <= idx[:, None]))
+    if c["window"]:
+        lib_mask &= idx[:, None] - idx[None, :] < c["window"]
+    lib_mask = lib_mask[None, None]
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         c["q"], c["k"], c["v"], attn_mask=lib_mask, enable_gqa=True), 200)
     pairs = int(lib_mask.sum().item())                     # attended (q, k) pairs
@@ -420,17 +489,13 @@ def run_kernel_checks(torch):
     nbytes = (2 * Hq * S * hd + 2 * Hkv * S * hd) * esz + c["seg_np"].nbytes
     flops = 4 * pairs * Hq * hd
     b_ms, b_by = bound(nbytes, flops, str(c["q"].dtype))
-    records["flash_prefill"] = {
-        "name": "flash_prefill", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/prefill.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:123",
-        "max_abs_err": max(e["max_abs_err"] for e in errs),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": library_ms, "shape": [1, S, Hq, Hkv, hd],
-        "kernel": attention_kernel_name(kernel), "attended_pairs": pairs, "cases": errs}
-    print(f"kernel flash_prefill timing kernel={attention_kernel_name(kernel)} ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
-    return records
+    name = attention_kernel_name(kernel)
+    print(f"kernel flash_prefill timing shape={[1, S, Hq, Hkv, hd]} kernel={name} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "shape": [1, S, Hq, Hkv, hd], "kernel": name,
+            "design": kernel.design, "attended_pairs": pairs, "softcap": c["softcap"]}
 
 
 def cold_copies(nbytes):
@@ -449,19 +514,19 @@ def cycler(items):
 
 def run_quant_decode_checks(torch):
     """The quantised-pool decode kernel, kv8 and kv4, against its plain
-    version; timed at the main shape."""
-    import torch.nn.functional as F
+    version; timed at qwen2.5-3b's and gemma2-9b's shapes."""
     from repro_torch.kernels.flash_attention.decode import (decode_splits,
                                                             flash_decode_quant_fwd,
                                                             flash_decode_quant_plain,
-                                                            quant_kernel_launches)
+                                                            quant_kernel_launches,
+                                                            row_groups)
     from repro_torch.kernels.scratch import sm_count
-    from repro_torch.quant.core import dequantize_kv, quantize_kv
+    from repro_torch.quant.core import quantize_kv
     rng = np.random.default_rng(3)
     sms = sm_count(torch.device(DEVICE))
 
-    def quant_case(bits, copies=1, **kw):
-        c = decode_case(torch, rng, copies=copies, **kw)
+    def quant_case(bits, copies=1, case_rng=rng, **kw):
+        c = decode_case(torch, case_rng, copies=copies, **kw)
         c["qpools"] = [(*quantize_kv(k, bits), *quantize_kv(v, bits))
                        for k, v in c.pop("pools")]
         return c
@@ -479,10 +544,25 @@ def run_quant_decode_checks(torch):
         "B40 Hkv4: one split": dict(B=40, Hq=16, Hkv=4),
         "rep16 Hq16 Hkv1": dict(Hq=16, Hkv=1),
     }
+    # shapes beyond the serving ones, from a generator of their own (so the
+    # timed inputs below stay those that earlier versions were timed on):
+    # K code rows of 16 and 8 bytes (kv8, kv4), of 6 and 3 (byte copies, and
+    # V rows not whole float4s of the merge), rep above 16, gemma2-9b's pools
+    rng_new = np.random.default_rng(7)
+    new_cases = {
+        "hd16 (reduced configs' head dim)": dict(B=3, Skv=200, Hq=8, Hkv=2, hd=16),
+        "hd6 B3 Skv200 (code rows of a few bytes)": dict(B=3, Skv=200, Hq=8, Hkv=2, hd=6),
+        "rep32 Hq32 Hkv1: two row groups": dict(Hq=32, Hkv=1),
+        "rep20 Hq40 Hkv2 hd16 f32: a short row group": dict(B=3, Skv=200, Hq=40, Hkv=2, hd=16,
+                                                           dtype=torch.float32),
+        "gemma2-9b global B8 Skv5120 Hq16 Hkv8 hd256 softcap50": GEMMA2_DECODE,
+        "gemma2-9b ring B8 Skv4096 hd256 window4096 softcap50": GEMMA2_RING,
+    }
     errs = []
     for bits in (8, 4):
-        for name, kw in cases.items():
-            c = quant_case(bits, **kw)
+        for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
+                                   + [(n, kw, rng_new) for n, kw in new_cases.items()]):
+            c = quant_case(bits, case_rng=case_rng, **kw)
             k_q, k_s, v_q, v_s = c["qpools"][0]
             args = dict(kv_bits=bits, q_pos=c["q_pos"], kv_pos=c["kv_pos"],
                         window=c["window"], softcap=c["softcap"])
@@ -495,7 +575,7 @@ def run_quant_decode_checks(torch):
             tol = TOL[str(c["q"].dtype)]
             empty_ok = all(bool((out[b] == 0).all()) for b in kw.get("empty", ()))
             B, Skv, Hkv = k_q.shape[:3]
-            sp = decode_splits(B, Hkv, Skv, sms)
+            sp = decode_splits(B, Hkv * row_groups(c["q"].shape[2] // Hkv)[0], Skv, sms)
             print(f"kernel flash_decode_quant kv{bits} case={name!r} splits={sp.splits} "
                   f"tiles_a_split={sp.tiles} "
                   f"wholly_masked_splits={masked_splits(c['kv_pos_np'], sp)} "
@@ -521,56 +601,66 @@ def run_quant_decode_checks(torch):
     print(f"kernel flash_decode_quant two_streams launches={n} identical={same}")
     check(same, "quantised decode split shapes on two streams differ from one stream")
 
-    timing = {}
-    for bits in (8, 4):
-        pool_bytes = 2 * 8 * 1024 * 2 * (128 * bits // 8 + 4)  # K + V codes and scales
-        c = quant_case(bits, copies=cold_copies(pool_bytes))
-        B, Skv, Hkv, hdq = c["qpools"][0][0].shape
-        Hq, hd = c["q"].shape[2], c["q"].shape[3]
-        args = dict(kv_bits=bits, q_pos=c["q_pos"], kv_pos=c["kv_pos"])
-        nxt = cycler(c["qpools"])
-        _, kernel = ran_one(quant_kernel_launches, lambda: flash_decode_quant_fwd(
-            c["q"], *nxt(), **args), "quantised decode")
-        ms = device_ms(lambda: flash_decode_quant_fwd(c["q"], *nxt(), **args), 200)
-        plain_ms = device_ms(lambda: flash_decode_quant_plain(c["q"], *nxt(), **args), 20)
-        valid = int((c["kv_pos_np"] >= 0).sum())
-        esz = c["q"].element_size()
-        nbytes = (2 * B * Hq * hd * esz                     # q in, out
-                  + 2 * valid * Hkv * (hdq + 4)             # K and V codes + scales
-                  + c["kv_pos_np"].nbytes + c["q_pos_np"].nbytes)
-        flops = 4 * valid * Hq * hd
-        timing[bits] = dict(ms=ms, plain_ms=plain_ms, kernel=attention_kernel_name(kernel),
-                            bound=bound(nbytes, flops, str(c["q"].dtype)))
-        if bits == 8:
-            # yardstick: scaled_dot_product_attention over the pools
-            # dequantised to bf16 (an fp pool, which quantisation replaces)
-            mask = ((c["kv_pos"] >= 0) & (c["kv_pos"] <= c["q_pos"]))[:, None, None, :]
-            qt = c["q"].transpose(1, 2)
-            lib_pools = [(dequantize_kv(kq, ks, bits).to(c["q"].dtype).transpose(1, 2),
-                          dequantize_kv(vq, vs, bits).to(c["q"].dtype).transpose(1, 2))
-                         for kq, ks, vq, vs in c["qpools"]]
-            nxt_lib = cycler(lib_pools)
-            timing[bits]["library_ms"] = device_ms(
-                lambda: F.scaled_dot_product_attention(qt, *nxt_lib(), attn_mask=mask,
-                                                       enable_gqa=True), 100)
-            shape, valid8 = [B, Skv, Hq, Hkv, hd], valid
-    t8, t4 = timing[8], timing[4]
-    print(f"kernel flash_decode_quant timing kv8 kernel={t8['kernel']} ms={t8['ms']:.4f} "
-          f"plain_ms={t8['plain_ms']:.4f} library_ms={t8['library_ms']:.4f} "
-          f"bound_ms={t8['bound'][0]:.5f} ({t8['bound'][1]}); kv4 kernel={t4['kernel']} "
-          f"ms={t4['ms']:.4f} plain_ms={t4['plain_ms']:.4f} bound_ms={t4['bound'][0]:.5f}")
+    t8, t4 = (quant_decode_timing(torch, rng, bits, {}) for bits in (8, 4))
+    g8, g4 = (quant_decode_timing(torch, rng, bits, GEMMA2_DECODE) for bits in (8, 4))
     return {"flash_decode_quant": {
         "name": "flash_decode_quant", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_quant.cu",
         "replaces": "src/repro/kernels/flash_attention/decode.py:226",
         "max_abs_err": max(e["max_abs_err"] for e in errs),
-        "ms": t8["ms"], "plain_ms": t8["plain_ms"], "bound_ms": t8["bound"][0],
-        "bound_by": t8["bound"][1], "library_ms": t8["library_ms"],
+        **{k: t8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "shape", "valid_entries", "kernel")},
         "library": "scaled_dot_product_attention over the pools dequantised to bf16",
-        "shape": shape, "kv_bits": 8, "valid_entries": valid8, "kernel": t8["kernel"],
-        "kv4": {"ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound"][0],
-                "kernel": t4["kernel"]},
-        "cases": errs}}
+        "kv_bits": 8, "kv4": t4, "gemma2_9b": {"kv8": g8, "kv4": g4}, "cases": errs}}
+
+
+def quant_decode_timing(torch, rng, bits, kw):
+    """Device time of the quantised decode at a shape (``decode_case``'s
+    keywords), cycling over pools that span twice the L2, beside its plain
+    version, its bound and ``scaled_dot_product_attention`` over the pools
+    dequantised to bf16 (an fp pool, which quantisation replaces; without a
+    softcap, which it lacks)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.decode import (flash_decode_quant_fwd,
+                                                            flash_decode_quant_plain,
+                                                            quant_kernel_launches)
+    from repro_torch.quant.core import dequantize_kv, quantize_kv
+    shape = dict(dict(B=8, Skv=1024, Hkv=2, hd=128), **kw)
+    pool_bytes = 2 * shape["B"] * shape["Skv"] * shape["Hkv"] * (shape["hd"] * bits // 8 + 4)
+    c = decode_case(torch, rng, copies=cold_copies(pool_bytes), **kw)
+    qpools = [(*quantize_kv(k, bits), *quantize_kv(v, bits)) for k, v in c.pop("pools")]
+    B, Skv, Hkv, hdq = qpools[0][0].shape
+    Hq, hd = c["q"].shape[2], c["q"].shape[3]
+    args = dict(kv_bits=bits, q_pos=c["q_pos"], kv_pos=c["kv_pos"], window=c["window"],
+                softcap=c["softcap"])
+    nxt = cycler(qpools)
+    _, kernel = ran_one(quant_kernel_launches, lambda: flash_decode_quant_fwd(
+        c["q"], *nxt(), **args), "quantised decode")
+    ms = device_ms(lambda: flash_decode_quant_fwd(c["q"], *nxt(), **args), 200)
+    plain_ms = device_ms(lambda: flash_decode_quant_plain(c["q"], *nxt(), **args), 20)
+    mask = (c["kv_pos"] >= 0) & (c["kv_pos"] <= c["q_pos"])
+    if c["window"]:
+        mask &= c["q_pos"] - c["kv_pos"] < c["window"]
+    qt = c["q"].transpose(1, 2)
+    lib_pools = [(dequantize_kv(kq, ks, bits).to(c["q"].dtype).transpose(1, 2),
+                  dequantize_kv(vq, vs, bits).to(c["q"].dtype).transpose(1, 2))
+                 for kq, ks, vq, vs in qpools]
+    nxt_lib = cycler(lib_pools)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, *nxt_lib(), attn_mask=mask[:, None, None, :], enable_gqa=True), 100)
+    valid = int(mask.sum().item())
+    esz = c["q"].element_size()
+    nbytes = (2 * B * Hq * hd * esz                     # q in, out
+              + 2 * valid * Hkv * (hdq + 4)             # K and V codes + scales
+              + c["kv_pos_np"].nbytes + c["q_pos_np"].nbytes)
+    b_ms, b_by = bound(nbytes, 4 * valid * Hq * hd, str(c["q"].dtype))
+    name = attention_kernel_name(kernel)
+    print(f"kernel flash_decode_quant timing kv{bits} shape={[B, Skv, Hq, Hkv, hd]} "
+          f"kernel={name} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "shape": [B, Skv, Hq, Hkv, hd], "kernel": name,
+            "valid_entries": valid, "window": c["window"], "softcap": c["softcap"]}
 
 
 def matmul_record(name, source, replaces, errs, ms, plain_ms, library_ms, nbytes,
@@ -643,10 +733,25 @@ def check_matmul(torch, label, name, fwd, plain, x, *args, **kw):
             "tol": tol}
 
 
+def projection_shapes(cfg):
+    """(K, N) of each distinct dense projection of a model, named by its
+    weights: q, k and v, o, the MLP's (gate and up, down) and an untied
+    lm_head."""
+    D, hd, hdv = cfg.d_model, cfg.head_dim, cfg.v_head_dim
+    shapes = {}
+    for what, kn in (("wq", (D, cfg.n_heads * hd)), ("wk/wv", (D, cfg.n_kv_heads * hd)),
+                     ("wo", (cfg.n_heads * hdv, D)), ("w_up", (D, cfg.d_ff)),
+                     ("w_down", (cfg.d_ff, D))) + \
+            ((("lm_head", (D, cfg.vocab_size)),) if not cfg.tie_embeddings else ()):
+        shapes.setdefault(kn, what)
+    return shapes
+
+
 def run_matmul_checks(torch):
     """The dequant-matmul kernel through both of its wrappers."""
     from repro_torch.kernels.pim_mvm.kernel import pim_mvm_fwd, pim_mvm_plain
     from repro_torch.quant.core import dequantize, quantize, quantize_weights
+    from repro_torch.config import get_config
     from repro_torch.quant.kernel import quant_matmul_fwd, quant_matmul_plain
     g = torch.Generator(device=DEVICE).manual_seed(4)
 
@@ -681,7 +786,17 @@ def run_matmul_checks(torch):
         "int4 group128 (8, 2048, 2048) decode": (8, 2048, 2048, 4, 128, None),
         "int8 group128 (1024, 2048, 11008) chunk-step w_up": (1024, 2048, 11008, 8, 128,
                                                               None),
+        "minitron-8b lm_head int8 (4, 4096, 256000) decode": (4, 4096, 256000, 8, 0, None),
+        "minitron-8b lm_head int8 (3, 4096, 256000) packed prefill": (3, 4096, 256000, 8, 0,
+                                                                      None),
     }
+    # every projection of gemma2-9b as the engine runs it: per channel, int8
+    # and int4, at the decode step's 8 rows, the packed prefill's 128 and the
+    # chunk step's 1024
+    for (K, N), what in projection_shapes(get_config("gemma2-9b")).items():
+        for M in (8, 128, 1024):
+            for bits in (8, 4):
+                cases[f"gemma2-9b {what} int{bits} ({M}, {K}, {N})"] = (M, K, N, bits, 0, None)
     errs = []
     for name, (M, K, N, bits, group, dtype) in cases.items():
         x, w = operands(M, K, N, dtype or torch.bfloat16)
@@ -739,7 +854,10 @@ def run_matmul_checks(torch):
         bf16, shape=[8, 2048, 11008], weight_bits=8, design=design, copies=copies,
         int4_w_down=shape_record(8, 11008, 2048, 4),
         chunk_step=shape_record(1024, 2048, 11008, 8),
-        chunk_step_int4_w_down=shape_record(1024, 11008, 2048, 4))}
+        chunk_step_int4_w_down=shape_record(1024, 11008, 2048, 4),
+        gemma2_9b={"decode_w_up_int8": shape_record(8, 3584, 14336, 8),
+                   "decode_w_down_int4": shape_record(8, 14336, 3584, 4),
+                   "chunk_step_w_up_int8": shape_record(1024, 3584, 14336, 8)})}
 
     # -- the crossbar layout --------------------------------------------------
     cases = {"kernel_micro (256, 1024, 512)": (256, 1024, 512, None),
@@ -828,22 +946,39 @@ def tensor_bytes(tree):
     return sum(tensor_bytes(t) for t in tree)
 
 
-def run_engine(torch, cfg, params, run="fp"):
-    """One drain of the 16 requests, fp or quantised (``QUANT_RUNS``), with
-    every kernel's launches counted over that drain alone."""
+def projections(cfg):
+    """Dense projections of one forward call (each a dequant-matmul under
+    ``weight_bits``): q, k, v, o and the MLP's (three gated, two plain) in
+    every layer, and an untied lm_head once."""
+    return (4 + (3 if cfg.glu else 2)) * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+
+
+def local_positions(cfg, cache):
+    """The largest position held by any local (ring) layer's pool."""
+    from repro_torch.models.transformer import build_groups
+    return max((int(cache["stack"][gi][f"u{ui}"]["attn"]["pos"].max())
+                for gi, spec in enumerate(build_groups(cfg))
+                for ui, kind in enumerate(spec.units) if kind == "local"), default=-1)
+
+
+def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=()):
+    """One drain of the 16 requests (and ``long_prompts``), fp or quantised
+    (``QUANT_RUNS``), with every kernel's launches counted over that drain
+    alone."""
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     bits = QUANT_RUNS[run]
-    ecfg = EngineConfig(max_batch=MAX_BATCH, kv_len=KV_LEN,
+    ecfg = EngineConfig(max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK,
                         max_new_tokens=NEW_TOKENS, impl="flash", **bits)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
                for n in rng.integers(4, 385, N_REQUESTS)]
+    prompts += [rng.integers(0, cfg.vocab_size, size=n) for n in long_prompts]
 
     # warm-up: cuBLAS handles, allocator pools, kernel modules
     warm = ServingEngine(cfg, params, EngineConfig(
-        max_batch=MAX_BATCH, kv_len=KV_LEN, max_new_tokens=2, impl="flash", **bits),
-        device=DEVICE)
+        max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=2,
+        impl="flash", **bits), device=DEVICE)
     for p in prompts[:2]:
         warm.submit(p)
     warm.run_until_drained()
@@ -870,7 +1005,7 @@ def run_engine(torch, cfg, params, run="fp"):
     st = engine.stats()
     print(f"engine run={run} arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"weight_bits={st['weight_bits']} kv_bits={st['kv_bits']} "
-          f"finished={st['finished']}/{N_REQUESTS} tokens={st['tokens']} "
+          f"finished={st['finished']}/{len(prompts)} tokens={st['tokens']} "
           f"tokens_per_s={st['tokens_per_s']:.2f} mean_ttft_s={st['mean_ttft_s']:.4f} "
           f"ttft_p95_s={st['ttft_p95_s']:.4f} mean_tpot_s={st['mean_tpot_s']:.5f} "
           f"decode_steps={st['decode_steps']} prefill_calls={st['prefill_calls']} "
@@ -881,12 +1016,18 @@ def run_engine(torch, cfg, params, run="fp"):
           f"qmatmul_kernels={json.dumps({kernel_name(k): n for k, n in kernels.items()})} "
           + " ".join(f"{w}_kernels=" + json.dumps(
               {attention_kernel_name(k): n for k, n in c.items()}) for w, c in attn.items()))
-    check(st["finished"] == N_REQUESTS and st["failed"] == 0,
-          f"engine ({run}) finished {st['finished']} of {N_REQUESTS}")
+    check(st["finished"] == len(prompts) and st["failed"] == 0,
+          f"engine ({run}) finished {st['finished']} of {len(prompts)}")
     outs = [r.output for r in engine.finished]
     check(all(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o)
               for o in outs), f"engine ({run}) produced malformed token streams")
-    check(any(n > 128 for n in st["prompt_lens"]), "no chunked prefill ran")
+    check(any(n > CHUNK for n in st["prompt_lens"]), "no chunked prefill ran")
+    if "local" in cfg.pattern:
+        # the long prompt's slot keeps its ring: positions past the window
+        held = local_positions(cfg, engine.pool.cache)
+        print(f"engine run={run} local_ring_cap={min(cfg.window, kv_len)} "
+              f"largest_position_held={held}")
+        check(held >= min(cfg.window, kv_len), f"{run}: no local ring wrapped")
     steps = st["decode_steps"] * cfg.n_layers
     quant_kv, quant_w = bool(bits.get("kv_bits")), bool(bits.get("weight_bits"))
     want_decode = {"flash_decode": 0 if quant_kv else steps,
@@ -896,7 +1037,7 @@ def run_engine(torch, cfg, params, run="fp"):
     # every projection of every forward call (decode step, packed prefill,
     # chunk step) went through the dequant-matmul kernel
     calls = st["decode_steps"] + st["prefill_calls"]
-    want_mm = PROJECTIONS * cfg.n_layers * calls if quant_w else 0
+    want_mm = projections(cfg) * calls if quant_w else 0
     check(launches["quant_matmul"] == want_mm,
           f"{run}: quant_matmul launches {launches['quant_matmul']} != {want_mm}")
     # the engine runs bf16: every projection on tensor cores
@@ -906,10 +1047,12 @@ def run_engine(torch, cfg, params, run="fp"):
     check(launches["flash_prefill"] > 0 and
           launches["flash_prefill"] % cfg.n_layers == 0,
           f"{run}: prefill kernel launches {launches['flash_prefill']}")
-    # every packed prefill on tensor cores, in kernels that phase 3 checked
-    tc = sum(n for k, n in attn["prefill"].items() if k.design == "tensor_core")
-    check(tc == launches["flash_prefill"],
-          f"{run}: {tc} of {launches['flash_prefill']} prefill launches on tensor cores")
+    # every packed prefill on the design its head dim calls for (tensor cores
+    # at 64/128, CUDA cores at 256), in kernels that phase 3 checked
+    want_pf = expected_prefill_design(torch.bfloat16, cfg.head_dim)
+    on = sum(n for k, n in attn["prefill"].items() if k.design == want_pf)
+    check(on == launches["flash_prefill"],
+          f"{run}: {on} of {launches['flash_prefill']} prefill launches on {want_pf}")
     check_attention_checked(f"engine ({run}) prefill", attn["prefill"], CHECKED_PREFILL)
     check_attention_checked(f"engine ({run}) decode", attn["decode"], CHECKED_DECODE)
     check_attention_checked(f"engine ({run}) quantised decode", attn["decode_quant"],
@@ -959,7 +1102,7 @@ def run_crossbar(torch):
     return launches
 
 
-def profiled(torch, run, what, step, steps):
+def profiled(torch, arch, run, what, step, steps):
     """torch.profiler over ``steps`` calls of ``step``: device busy time
     (the sum of kernel times) a call, kernels launched a call and the
     largest kernels.  The profiler slows the host, so the wall time here is
@@ -977,14 +1120,15 @@ def profiled(torch, run, what, step, steps):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profile run={run} {what} busy_ms={busy_ms:.3f} wall_ms_profiled={wall_ms:.3f} "
+    print(f"profile arch={arch} run={run} {what} busy_ms={busy_ms:.3f} "
+          f"wall_ms_profiled={wall_ms:.3f} "
           f"kernels_per_step={launches:.0f} top=" + json.dumps(
               [[e.key[:60], round(e.self_device_time_total / 1e3 / steps, 4), e.count // steps]
                for e in top]))
     return {"busy_ms": busy_ms, "kernels_per_step": launches, "wall_ms_profiled": wall_ms}
 
 
-def run_profile(torch, cfg, params, run="fp", steps=4, chunk_steps=2):
+def run_profile(torch, cfg, params, run="fp", kv_len=1024, steps=4, chunk_steps=2):
     """Where a step's time goes, with every slot of the pool busy: ``steps``
     fused decode steps, then ``chunk_steps`` chunked-prefill steps (the
     executor's ``chunk_step``, as the engine calls it for long prompts:
@@ -992,7 +1136,7 @@ def run_profile(torch, cfg, params, run="fp", steps=4, chunk_steps=2):
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     engine = ServingEngine(cfg, params, EngineConfig(
-        max_batch=MAX_BATCH, kv_len=KV_LEN, max_new_tokens=steps + 8,
+        max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=steps + 8,
         impl="flash", **QUANT_RUNS[run]), device=DEVICE)
     rng = np.random.default_rng(2)
     for _ in range(MAX_BATCH):        # 8 x 16 tokens: one packed stream
@@ -1000,7 +1144,7 @@ def run_profile(torch, cfg, params, run="fp", steps=4, chunk_steps=2):
     engine.step()                     # admission (one packed prefill) + a step
     engine.step()
     check(len(engine.pool.decoding()) == MAX_BATCH, "profile: pool not full")
-    decode = profiled(torch, run, "decode_step", engine.step, steps)
+    decode = profiled(torch, cfg.name, run, "decode_step", engine.step, steps)
 
     # chunk steps over the same pool: each row's next 128 tokens at
     # positions 32..159, no row final (the slots' state is left as it is)
@@ -1016,23 +1160,28 @@ def run_profile(torch, cfg, params, run="fp", steps=4, chunk_steps=2):
         pool.cache, pool.state, _ = ex.chunk_step(pool.cache, pool.state, toks, pos, take,
                                                   final, budget)
     chunk_step()                      # warm-up
-    chunk = profiled(torch, run, "chunk_step", chunk_step, chunk_steps)
+    chunk = profiled(torch, cfg.name, run, "chunk_step", chunk_step, chunk_steps)
     return {"decode_step": decode, "chunk_step": chunk}
 
 
-def run_logits(torch, cfg, params, run="fp"):
+def run_logits(torch, cfg, params, run="fp", long_row=0):
     """Packed prefill + 4 teacher-forced decode steps at full width,
     impl="flash" against impl="ref", each on its own slot pool.  Quantised
     (``QUANT_RUNS``), "ref" is the attention oracle over the pool
     dequantised to bf16 plus the reference's dequantise-then-matmul, whose
-    weights are rounded to bf16; the kernels keep them in f32."""
+    weights are rounded to bf16; the kernels keep them in f32.  A
+    ``long_row`` of that many prompt tokens joins the three short ones in
+    the packed stream: past a local window, its prefill is windowed, its
+    ring wraps in the packed insert, and the decode steps read it wrapped."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.executor import Executor
     from repro_torch.serving.pool import SlotPool
 
     rng = np.random.default_rng(1)
-    B, C, lens = 4, 128, (30, 61, 17)
+    lens = (30, 61, 17) + ((long_row,) if long_row else ())
+    B, C = 4, -(-sum(lens) // CHUNK) * CHUNK
+    kv_len = max(256, -(-(max(lens) + 8) // 256) * 256)
     toks = np.zeros((1, C), np.int32)
     seg = np.full((1, C), -1, np.int32)
     pos = np.zeros((1, C), np.int32)
@@ -1050,7 +1199,7 @@ def run_logits(torch, cfg, params, run="fp"):
 
     results = {}
     for impl in ("flash", "ref"):
-        ecfg = EngineConfig(max_batch=B, kv_len=256, impl=impl, **QUANT_RUNS[run])
+        ecfg = EngineConfig(max_batch=B, kv_len=kv_len, impl=impl, **QUANT_RUNS[run])
         ex = Executor(cfg, params, ecfg, device=torch.device(DEVICE))
         pool = SlotPool(cfg, ecfg, device=torch.device(DEVICE))
         with torch.no_grad():
@@ -1058,28 +1207,49 @@ def run_logits(torch, cfg, params, run="fp"):
                                           dev(gather), impl=impl, kv_bits=ecfg.kv_bits)
             ex.packed_insert(pool.cache, pc["stack"], dev(seg), dev(pos),
                               dev(seg_len), dev(active))
+            del pc
+            if long_row and "local" in cfg.pattern:
+                held = local_positions(cfg, pool.cache)
+                check(held >= cfg.window, f"logits ({run}): the local ring did not wrap")
             out = [logits.float()]
             for s in range(4):
                 p = np.where(active, seg_len + s, -1).astype(np.int32)
                 logits, _ = T.decode_step(ex.params, cfg, pool.cache, dev(steps[s]),
                                           dev(p), impl=impl)
                 out.append(logits.float()[: len(lens)])
-        del ex
+        del ex, pool
         results[impl] = out
     names = ["prefill"] + [f"decode{s}" for s in range(4)]
     scale = max(float(r.abs().max()) for r in results["ref"])
     # bound: the oracle rounds its probabilities to bf16 before the value
-    # product and the kernels do not; over 36 bf16 layers of random weights
-    # that difference may grow to a few bf16 ulps of the logits' scale
+    # product and the kernels do not; over 36-42 bf16 layers of random
+    # weights that difference may grow to a few bf16 ulps of the logits' scale
     limit = 5e-2 * max(1.0, scale)
     diffs = {n: float((a - b).abs().max()) for n, a, b in
              zip(names, results["flash"], results["ref"])}
     finite = all(bool(torch.isfinite(r).all()) for r in results["flash"])
-    print(f"logits run={run} arch={cfg.name} max_abs_diff={json.dumps(diffs)} "
+    print(f"logits run={run} arch={cfg.name} layers={cfg.n_layers} rows={list(lens)} "
+          f"stream={C} kv_len={kv_len} max_abs_diff={json.dumps(diffs)} "
           f"bound={limit:.4f} ref_scale={scale:.4f} finite={finite}")
     check(finite and max(diffs.values()) <= limit,
           f"flash and ref logits ({run}) disagree beyond the bound")
     return diffs, limit
+
+
+def make_params(torch, cfg):
+    """Random bf16 weights (seed 0) on the card, after the last model's are
+    freed."""
+    from repro_torch.models import transformer as T
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                           device=DEVICE, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"params: arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"{n_params} in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return params
 
 
 def main():
@@ -1090,7 +1260,6 @@ def main():
     sys.path.insert(0, SRC)
     from repro_torch.config import get_config
     from repro_torch.kernels import build
-    from repro_torch.models import transformer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1112,24 +1281,31 @@ def main():
     records.update(run_quant_decode_checks(torch))
     records.update(run_matmul_checks(torch))
 
-    cfg = get_config(ARCH)
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
-                           device=DEVICE, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    print(f"params: {n_params} in {time.perf_counter() - t0:.2f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    runs = {run: run_engine(torch, cfg, params, run) for run in QUANT_RUNS}
-    crossbar = run_crossbar(torch)
-    for run in ("fp", "w8kv8"):
-        run_logits(torch, cfg, params, run)
-    for run in ("fp", "w8kv8"):
-        run_profile(torch, cfg, params, run)
+    start = time.perf_counter()
+    by_run = {}            # launches of each main-path run, counted from 0 before it
+    for arch, serve in SERVED.items():
+        cfg = get_config(arch)
+        params = make_params(torch, cfg)
+        for run in QUANT_RUNS:
+            r = run_engine(torch, cfg, params, run, kv_len=serve["kv_len"],
+                           long_prompts=serve["long_prompts"])
+            by_run[f"{arch} {run}"] = r["launches"]
+        if arch == "qwen2.5-3b":
+            by_run["crossbar"] = run_crossbar(torch)
+        for run in ("fp", "w8kv8"):
+            run_logits(torch, cfg, params, run, long_row=serve["logits_row"])
+        for run in ("fp", "w8kv8"):
+            run_profile(torch, cfg, params, run, kv_len=serve["kv_len"])
+        del params
+        print(f"phases of {arch} done at {time.perf_counter() - start:.1f} s")
+    for arch, layers in LOGITS_ONLY.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        params = make_params(torch, cfg)
+        for run in ("fp", "w8kv8"):
+            run_logits(torch, cfg, params, run)
+        del params
+        print(f"phases of {arch} done at {time.perf_counter() - start:.1f} s")
 
-    # launches: each main-path run, counted from 0 just before it
-    by_run = {run: r["launches"] for run, r in runs.items()}
-    by_run["crossbar"] = crossbar
     for name, rec in records.items():
         rec["launches"] = sum(n[name] for n in by_run.values())
         rec["launches_by_run"] = {run: n[name] for run, n in by_run.items() if n[name]}

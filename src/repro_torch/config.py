@@ -34,13 +34,16 @@ class ModelConfig:
     # -- attention flavour -------------------------------------------------
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
+    qk_norm: bool = False           # per-head RMS norm of q and k (gemma3)
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     rope_theta_local: float = 0.0
     # -- MLP --------------------------------------------------------------
-    act: str = "silu"
-    glu: bool = True
+    act: str = "silu"               # silu | gelu | relu2
+    glu: bool = True                # gated (w_gate, w_up) MLP vs plain
+    post_norm: bool = False         # gemma2/3: norms after each sublayer
     tie_embeddings: bool = False
+    embed_scale: bool = False       # gemma: embeddings scaled by sqrt(d_model)
     v_head_dim: int = 0  # 0 -> head_dim
     # -- provenance ---------------------------------------------------------
     source: str = ""

@@ -21,8 +21,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.quant.core import QuantTensor, quantize_params
 
-# leaves that stay f32 (cast at use): biases and (scale - 1) norm vectors
-_F32_LEAVES = ("bq", "bk", "bv", "scale")
+# leaves that stay f32 (cast at use): biases and (scale - 1) norm vectors,
+# the per-head q/k norms among them
+_F32_LEAVES = ("bq", "bk", "bv", "scale", "q_norm", "k_norm")
 
 
 def _is_quant(leaf) -> bool:

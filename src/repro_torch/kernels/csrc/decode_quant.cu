@@ -28,16 +28,24 @@
 //   decode_splits): enough splits that B * Hkv * splits fills one wave of
 //   the SMs (11 splits of 3 tiles, 176 blocks, at the serving shape), one
 //   split (no workspace, no ticket) when B * Hkv alone does.
-// - A block of 8 warps covers the rep query rows of its KV head (warp w
-//   rows w * RPW .., RPW = 1 or 2 for rep up to 8, 16) and keeps an f32
-//   online-softmax state (m, l, acc) per row in registers.
+// - A block of 8 warps covers the query rows of one row group of its KV
+//   head (warp w rows w * RPW .., RPW = 1 or 2 for groups of up to 8, 16
+//   rows) and keeps an f32 online-softmax state (m, l, acc) per row in
+//   registers.  rep above 16 is cut into groups of 16 rows (the last one
+//   possibly short), each a grid row and a merge unit of its own, as in
+//   decode.cu: grid (splits, Hkv x row groups, B).
 // - It first marks which of its tiles hold a valid entry (kv_pos, one
 //   ballot a tile), then streams the live ones through two shared-memory
 //   buffers: K codes, V codes and both scales of tile t + 1 come in with
-//   cp.async (16-byte copies, zero-filled past Skv) while tile t is
-//   computed.  Fully masked tiles are never loaded.
+//   cp.async (zero-filled past Skv) while tile t is computed.  Fully masked
+//   tiles are never loaded.  A code row comes in 16-byte copies where its
+//   length and alignment allow (every serving shape), else in 4-byte
+//   copies, else byte by byte with plain loads and stores (any even head
+//   dim: a K row at kv4 and hd 16 is 8 bytes).
 // - Scores: lane j takes entry j, reads its K code row from shared memory
-//   (rows padded to an odd number of 16-byte words: no bank conflicts),
+//   (rows padded to an odd number of 16-byte words: no bank conflicts;
+//   the query rows padded with zeros to the same whole words, so whatever
+//   code bytes the padding holds add an exact 0),
 //   converts 16 bytes at a time exactly (a byte permute builds the f32
 //   2^23 + code + bias), dots it with the f32 query rows (broadcast reads)
 //   and multiplies the sum by the entry's K scale.  Values: lane i takes
@@ -123,16 +131,17 @@ struct Params {
   const int* q_pos;
   const int* kv_pos;
   void* out;
-  SplitKV split;  // workspace, tickets, splits, rows = rep, hdv
-  int Skv, Hkv, rep, hd, hdv, tiles;  // tiles: 32-entry tiles a split
+  SplitKV split;  // workspace, tickets, splits, rows of a group, hdv rounded up to 8
+  int Skv, Hkv, rep, groups, hd, hdv, tiles;  // tiles: 32-entry tiles a split
   long long q_sb, q_sh;
   long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;        // code strides (bytes)
   long long ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh;  // scale strides
   long long qp_sb, kp_sb, kp_ss, o_sb, o_sh;
   int window;
   float softcap, scale;
-  int k_row, v_row;  // bytes of a K / V code row in shared memory
-  bool vec_v;        // V code rows in 16-byte copies (else 4-byte)
+  int k_row, v_row;      // bytes of a K / V code row in shared memory
+  int q_row;             // floats of a query row in shared memory (zero-padded)
+  int k_piece, v_piece;  // bytes a K / V copy: 16, 4 or 1, as length and alignment allow
 };
 
 // Byte offsets of the block's shared memory.
@@ -140,7 +149,7 @@ struct Layout {
   int q, k, v, ksc, vsc, pw, masks, bytes;
   __host__ __device__ Layout(const Params& p, int rpw) {
     int o = 0;
-    q = o;      o += kWarps * rpw * p.hd * 4;      // f32 query rows
+    q = o;      o += kWarps * rpw * p.q_row * 4;   // f32 query rows
     k = o;      o += 2 * kTile * p.k_row;          // two buffers of K codes
     v = o;      o += 2 * kTile * p.v_row;          // and of V codes
     ksc = o;    o += 2 * kTile * 4;                // and of both scales
@@ -165,12 +174,15 @@ __global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) 
   float* pw = reinterpret_cast<float*>(smem + L.pw);
   unsigned* masks = reinterpret_cast<unsigned*>(smem + L.masks);
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, h = blockIdx.y / p.groups, g = blockIdx.y % p.groups;
+  const int b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ntiles = (p.Skv + kTile - 1) / kTile;
   const int t0 = split * p.tiles, nt = min(p.tiles, ntiles - t0);
   const int qp = p.q_pos[b * p.qp_sb];
   const int* pb = p.kv_pos + b * p.kp_sb;
+  const int row0 = g * p.split.rows;                  // the group's first row of rep
+  const int nrows = min(p.split.rows, p.rep - row0);  // and its rows
   const int hdq = p.hd / kPack, hdvq = p.hdv / kPack;  // code bytes of a K / V row
   const int8_t* kb = p.kq + b * p.k_sb + h * p.k_sh;
   const int8_t* vb = p.vq + b * p.v_sb + h * p.v_sh;
@@ -188,34 +200,44 @@ __global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) 
     const unsigned m = __ballot_sync(0xffffffffu, valid);
     if (lane == 0) masks[t] = m;
   }
-  // the query rows in f32; warp w holds rows w * RPW .. w * RPW + RPW - 1
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + (long long)h * p.rep * p.q_sh;
-  for (int e = tid; e < kWarps * RPW * p.hd; e += kThreads) {
-    const int r = e / p.hd;
-    q_s[e] = r < p.rep ? repro_to_f32(qb[r * p.q_sh + e % p.hd]) : 0.f;
+  // the group's query rows in f32, zero past hd; warp w holds rows
+  // w * RPW .. w * RPW + RPW - 1
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + (long long)(h * p.rep + row0) * p.q_sh;
+  for (int e = tid; e < kWarps * RPW * p.q_row; e += kThreads) {
+    const int r = e / p.q_row, d = e - r * p.q_row;
+    q_s[e] = r < nrows && d < p.hd ? repro_to_f32(qb[r * p.q_sh + d]) : 0.f;
   }
   __syncthreads();
 
+  // 32 code rows of `bytes` from src (row j at j * ss) into dst (row r at
+  // r * row), zero past Skv, in pieces of `piece` bytes
+  auto load_rows = [&](int8_t* dst, int row, const int8_t* src, long long ss, int bytes,
+                       int piece, int j0) {
+    if (piece == 16) {
+      for (int c = tid; c < kTile * 16; c += kThreads) {  // rows of at most 16 x 16 bytes
+        const int r = c >> 4, off = (c & 15) * 16, j = j0 + r;
+        const bool ok = j < p.Skv;
+        if (off < bytes) cp_async16(dst + r * row + off, ok ? src + j * ss + off : src, ok);
+      }
+    } else if (piece == 4) {
+      const int n = bytes / 4;
+      for (int c = tid; c < kTile * n; c += kThreads) {
+        const int r = c / n, off = (c - r * n) * 4, j = j0 + r;
+        const bool ok = j < p.Skv;
+        cp_async4(dst + r * row + off, ok ? src + j * ss + off : src, ok);
+      }
+    } else {
+      for (int c = tid; c < kTile * bytes; c += kThreads) {
+        const int r = c / bytes, off = c - r * bytes, j = j0 + r;
+        dst[r * row + off] = j < p.Skv ? src[j * ss + off] : int8_t(0);
+      }
+    }
+  };
   // tile t of the split into buffer s: K and V code rows, then the scales
   auto load = [&](int t, int s) {
     const int j0 = (t0 + t) * kTile;
-    int8_t* kd = k_s + s * kTile * p.k_row;
-    int8_t* vd = v_s + s * kTile * p.v_row;
-    for (int c = tid; c < kTile * 16; c += kThreads) {  // rows of at most 16 x 16 bytes
-      const int r = c >> 4, off = (c & 15) * 16, j = j0 + r;
-      const bool ok = j < p.Skv;
-      if (off < hdq) cp_async16(kd + r * p.k_row + off, ok ? kb + j * p.k_ss + off : kb, ok);
-      if (p.vec_v && off < hdvq)
-        cp_async16(vd + r * p.v_row + off, ok ? vb + j * p.v_ss + off : vb, ok);
-    }
-    if (!p.vec_v) {
-      const int vch = hdvq / 4;
-      for (int c = tid; c < kTile * vch; c += kThreads) {
-        const int r = c / vch, off = (c - r * vch) * 4, j = j0 + r;
-        const bool ok = j < p.Skv;
-        cp_async4(vd + r * p.v_row + off, ok ? vb + j * p.v_ss + off : vb, ok);
-      }
-    }
+    load_rows(k_s + s * kTile * p.k_row, p.k_row, kb, p.k_ss, hdq, p.k_piece, j0);
+    load_rows(v_s + s * kTile * p.v_row, p.v_row, vb, p.v_ss, hdvq, p.v_piece, j0);
     if (tid < 2 * kTile) {
       const int e = tid % kTile, j = j0 + e;
       const bool ok = j < p.Skv;
@@ -238,8 +260,8 @@ __global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) 
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
   }
-  const bool active = warp * RPW < p.rep;  // a warp with no query row only loads
-  const float* qw = q_s + warp * RPW * p.hd;
+  const bool active = warp * RPW < nrows;  // a warp with no query row only loads
+  const float* qw = q_s + warp * RPW * p.q_row;
   float* pwl = pw + warp * kTile * RPW;    // this warp's p * v_scale, [entry][row]
 
   int cur = next_live(0), s = 0;
@@ -258,7 +280,8 @@ __global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) 
       const int8_t* vt = v_s + s * kTile * p.v_row;
 
       // scores: lane = entry, its K row of codes against every query row,
-      // four partial sums a row (independent chains)
+      // four partial sums a row (independent chains); a row of fewer than
+      // 16 bytes reads its padding against zero query values
       float sc[RPW][4];
 #pragma unroll
       for (int r = 0; r < RPW; ++r)
@@ -274,7 +297,7 @@ __global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) 
         C::word(raw.w, kf + 12 * kPack);
 #pragma unroll
         for (int r = 0; r < RPW; ++r) {
-          const float4* q4 = reinterpret_cast<const float4*>(qw + r * p.hd + c * kPack);
+          const float4* q4 = reinterpret_cast<const float4*>(qw + r * p.q_row + c * kPack);
 #pragma unroll
           for (int t4 = 0; t4 < 4 * kPack; ++t4) {
             const float4 qq = q4[t4];  // one broadcast read: 4 query values
@@ -303,7 +326,9 @@ __global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) 
       }
       __syncwarp();
       // values: lane = dimensions lane * DPL ..; probabilities broadcast.
-      // Codes are finite, so a masked entry's 0 * code adds nothing.
+      // Codes are finite, so a masked entry's 0 * code adds nothing, and
+      // the dimensions past hdv that a lane's last bytes hold are never
+      // written out.
       if (lane * DPL < p.hdv) {
         const int8_t* vcol = vt + lane * DPL / kPack;
 #pragma unroll 8
@@ -329,44 +354,46 @@ __global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) 
     s ^= 1;
   }
 
-  T* ob = static_cast<T*>(p.out) + b * p.o_sb + (long long)h * p.rep * p.o_sh;
+  T* ob = static_cast<T*>(p.out) + b * p.o_sb + (long long)(h * p.rep + row0) * p.o_sh;
   const int d0 = lane * DPL;
   if (p.split.splits == 1) {  // the whole pool: finish here
     if (active && d0 < p.hdv) {
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
         const int row = warp * RPW + r;
-        if (row >= p.rep) break;
+        if (row >= nrows) break;
         const float lr = l[r] == 0.f ? 1.f : l[r];  // empty slot -> exact zeros
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
-          ob[row * p.o_sh + d0 + i] = repro_from_f32<T>(acc[r][i] / lr);
+          if (d0 + i < p.hdv) ob[row * p.o_sh + d0 + i] = repro_from_f32<T>(acc[r][i] / lr);
       }
     }
     return;
   }
-  // this split's part, then the merge by the last split to finish
-  const int unit = b * p.Hkv + h;
+  // this split's part (rows of hdv rounded up to 8), then the merge by the
+  // last split to finish
+  const int unit = (b * p.Hkv + h) * p.groups + g;
+  const int rows = p.split.rows, hdp = p.split.hdv;
   float* part = p.split.part(unit, split);
   if (active) {
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
       const int row = warp * RPW + r;
-      if (row >= p.rep) break;
+      if (row >= nrows) break;
       if (d0 < p.hdv) {
 #pragma unroll
         for (int i = 0; i < DPL; i += 4)
-          *reinterpret_cast<float4*>(part + row * p.hdv + d0 + i) =
+          *reinterpret_cast<float4*>(part + row * hdp + d0 + i) =
               make_float4(acc[r][i], acc[r][i + 1], acc[r][i + 2], acc[r][i + 3]);
       }
       if (lane == 0) {
-        part[p.rep * p.hdv + row] = m[r];
-        part[p.rep * p.hdv + p.rep + row] = l[r];
+        part[rows * hdp + row] = m[r];
+        part[rows * hdp + rows + row] = l[r];
       }
     }
   }
   if (!split_kv_last(p.split, unit)) return;
-  split_kv_merge<T>(p.split, unit, ob, p.o_sh);
+  split_kv_merge<T>(p.split, unit, ob, p.o_sh, nrows, p.hdv);
 }
 
 template <typename T, int BITS, int RPW, int DPL>
@@ -375,7 +402,7 @@ cudaError_t launch_kernel(const Params& p, int B, cudaStream_t stream) {
   cudaError_t err = repro_smem_limit(decode_quant_kernel<T, BITS, RPW, DPL>, smem);
   if (err != cudaSuccess) return err;
   decode_quant_kernel<T, BITS, RPW, DPL>
-      <<<dim3(p.split.splits, p.Hkv, B), kThreads, smem, stream>>>(p);
+      <<<dim3(p.split.splits, p.Hkv * p.groups, B), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -388,54 +415,64 @@ cudaError_t launch_rows(const Params& p, int B, cudaStream_t stream) {
 
 template <typename T, int BITS>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  if (p.rep <= kWarps) return launch_rows<T, BITS, 1>(p, B, stream);
-  if (p.rep <= 2 * kWarps) return launch_rows<T, BITS, 2>(p, B, stream);
+  if (p.split.rows <= kWarps) return launch_rows<T, BITS, 1>(p, B, stream);
+  if (p.split.rows <= 2 * kWarps) return launch_rows<T, BITS, 2>(p, B, stream);
   return cudaErrorInvalidValue;
+}
+
+// The largest copy (16 or 4 bytes) that divides a code row of `bytes` and
+// its base and strides; else 1 (plain loads).
+int piece_bytes(const void* base, const long long* st, int bytes) {
+  for (int n = 16; n >= 4; n /= 4) {
+    if (bytes % n == 0 && reinterpret_cast<uintptr_t>(base) % n == 0 && st[0] % n == 0 &&
+        st[1] % n == 0 && st[2] % n == 0)
+      return n;
+  }
+  return 1;
 }
 
 }  // namespace
 
 // The quantised pool: k_q/v_q (B, Skv, Hkv, hd/pack) int8 codes, k_s/v_s
 // (B, Skv, Hkv) f32 scales.  strides (12): k_q, v_q, k_s, v_s, each as
-// (sb, ss, sh) in elements.  K code rows 16-byte aligned (base and
-// strides), V code rows 16- or 4-byte aligned; hd a multiple of 16 * pack,
-// hdv of 8, both up to 256; rep = Hq / Hkv up to 16.  hd and hdv are the
-// unpacked head dims.  The split plan: `splits` blocks a (slot, KV head),
-// each over `tiles` 32-entry tiles of the pool (splits * tiles * 32 >= Skv);
-// with splits > 1, ws holds B * Hkv * splits parts of rep * hdv + 2 * rep
-// f32 (rounded up to 4) and tickets B * Hkv zeros of this stream.
-// Otherwise as decode.cu's repro_decode_attention.
+// (sb, ss, sh) in elements.  hd and hdv are the unpacked head dims, up to
+// 256 and multiples of pack; code rows at any alignment.  The rep = Hq /
+// Hkv query rows of a KV head go in groups of `rows` (1..16; the last group
+// may be short).  The split plan: `splits` blocks a (slot, KV head, group),
+// each over `tiles` 32-entry tiles of the pool (splits * tiles * 32 >=
+// Skv); with splits > 1, ws holds B * Hkv * groups * splits parts of rows *
+// hdv8 + 2 * rows f32 (rounded up to 4; hdv8 = hdv rounded up to 8) and
+// tickets B * Hkv * groups zeros of this stream.  Otherwise as decode.cu's
+// repro_decode_attention.
 extern "C" int repro_decode_attention_quant(
     const void* q, const void* k_q, const void* k_s, const void* v_q, const void* v_s,
     const void* q_pos, const void* kv_pos, void* out, void* ws, void* tickets, int B,
-    int Skv, int Hq, int Hkv, int hd, int hdv, int splits, int tiles, long long q_sb,
-    long long q_sh, const long long* strides, long long qp_sb, long long kp_sb,
-    long long kp_ss, long long o_sb, long long o_sh, int window, float softcap,
-    float scale, int bits, int dtype, void* stream) {
+    int Skv, int Hq, int Hkv, int hd, int hdv, int rows, int splits, int tiles,
+    long long q_sb, long long q_sh, const long long* strides, long long qp_sb,
+    long long kp_sb, long long kp_ss, long long o_sb, long long o_sh, int window,
+    float softcap, float scale, int bits, int dtype, void* stream) {
   const long long* st = strides;
-  if ((bits != 4 && bits != 8) || Hq % Hkv || hd > 256 || hdv > 256 || hdv % 8)
+  if ((bits != 4 && bits != 8) || Hkv < 1 || Hq % Hkv || hd < 1 || hdv < 1 || hd > 256 ||
+      hdv > 256 || rows < 1 || rows > 2 * kWarps)
     return cudaErrorInvalidValue;
   const int pack = bits == 4 ? 2 : 1, hdq = hd / pack, hdvq = hdv / pack;
+  const int rep = Hq / Hkv, groups = (rep + rows - 1) / rows;
   const int ntiles = (Skv + kTile - 1) / kTile;
-  if (hd % (16 * pack) || splits < 1 || tiles < 1 || (long long)splits * tiles < ntiles ||
-      (long long)(splits - 1) * tiles >= ntiles || (splits > 1 && (!ws || !tickets)))
+  if (hd % pack || hdv % pack || splits < 1 || tiles < 1 ||
+      (long long)splits * tiles < ntiles || (long long)(splits - 1) * tiles >= ntiles ||
+      (splits > 1 && (!ws || !tickets)) || rows > rep)
     return cudaErrorInvalidValue;
-  // 16-byte K copies: base and every K row offset whole vectors
-  if (reinterpret_cast<uintptr_t>(k_q) % 16 || st[0] % 16 || st[1] % 16 || st[2] % 16)
-    return cudaErrorMisalignedAddress;
-  const bool vec_v = reinterpret_cast<uintptr_t>(v_q) % 16 == 0 && st[3] % 16 == 0 &&
-                     st[4] % 16 == 0 && st[5] % 16 == 0 && hdvq % 16 == 0;
-  if (reinterpret_cast<uintptr_t>(v_q) % 4 || st[3] % 4 || st[4] % 4 || st[5] % 4)
-    return cudaErrorMisalignedAddress;
-  const int kw = hdq / 16;  // K rows an odd number of 16-byte words: no bank conflicts
+  const int kw = (hdq + 15) / 16;  // K rows an odd number of 16-byte words: no bank conflicts
   Params p{q, static_cast<const int8_t*>(k_q), static_cast<const int8_t*>(v_q),
            static_cast<const float*>(k_s), static_cast<const float*>(v_s),
            static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos), out,
-           SplitKV{static_cast<float*>(ws), static_cast<int*>(tickets), splits, Hq / Hkv, hdv},
-           Skv, Hkv, Hq / Hkv, hd, hdv, tiles, q_sb, q_sh,
+           SplitKV{static_cast<float*>(ws), static_cast<int*>(tickets), splits, rows,
+                   (hdv + 7) & ~7},
+           Skv, Hkv, rep, groups, hd, hdv, tiles, q_sb, q_sh,
            st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
            qp_sb, kp_sb, kp_ss, o_sb, o_sh, window, softcap, scale,
-           16 * (kw | 1), (hdvq + 15) & ~15, vec_v};
+           16 * (kw | 1), (hdvq + 15) & ~15, 16 * kw * pack,
+           piece_bytes(k_q, st, hdq), piece_bytes(v_q, st + 3, hdvq)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_BF16 && bits == 8) return launch<__nv_bfloat16, 8>(p, B, s);
   if (dtype == REPRO_BF16 && bits == 4) return launch<__nv_bfloat16, 4>(p, B, s);

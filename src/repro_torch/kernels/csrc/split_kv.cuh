@@ -52,17 +52,18 @@ __device__ __forceinline__ bool split_kv_last(const SplitKV& kv, int unit) {
 
 // The merge, by the last block: out row r at out + r * o_sr (the rows of
 // one unit; only the first `nrows` when given, for a unit of fewer rows
-// than its part holds).  hdv is a multiple of 4.  Parts are read through
+// than its part holds; only the first `ncols` columns when given, for
+// parts whose rows are padded past the output's).  hdv is a multiple of 4.  Parts are read through
 // L2 (__ldcg): other blocks wrote them.  A thread takes a float4 of acc and the m, l of
 // its row from kChunk splits at once, all loads in flight together (one
 // trip to L2 when splits <= kChunk; else a first pass finds M), and adds
 // them in split order.
 template <typename T>
 __device__ void split_kv_merge(const SplitKV& kv, int unit, T* __restrict__ out,
-                               long long o_sr, int nrows = -1) {
+                               long long o_sr, int nrows = -1, int ncols = -1) {
   constexpr int kChunk = 16;
   const int rows = kv.rows, hdv = kv.hdv, splits = kv.splits;
-  const int n = nrows < 0 ? rows : nrows;
+  const int n = nrows < 0 ? rows : nrows, cols = ncols < 0 ? hdv : ncols;
   const long long stride = kv.part_floats();
   const float* base = kv.part(unit, 0);
   for (int g = threadIdx.x; g < n * hdv / 4; g += blockDim.x) {
@@ -104,9 +105,9 @@ __device__ void split_kv_merge(const SplitKV& kv, int unit, T* __restrict__ out,
     }
     if (L == 0.f) L = 1.f;  // empty unit -> exact zeros
     T* p = out + r * o_sr + d;
-    p[0] = repro_from_f32<T>(o.x / L);
-    p[1] = repro_from_f32<T>(o.y / L);
-    p[2] = repro_from_f32<T>(o.z / L);
-    p[3] = repro_from_f32<T>(o.w / L);
+    const float v[4] = {o.x / L, o.y / L, o.z / L, o.w / L};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (d + i < cols) p[i] = repro_from_f32<T>(v[i]);
   }
 }

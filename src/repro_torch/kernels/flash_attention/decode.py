@@ -38,12 +38,12 @@ from repro_torch.quant.core import dequantize_kv
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = ((_P,) * 8 + (_I,) * 9 + (_L,) * 13 + (_I, _F, _F, _I, _P))
-_QUANT_ARGTYPES = ((_P,) * 10 + (_I,) * 8 + (_L,) * 2 + (_P,) + (_L,) * 5
+_QUANT_ARGTYPES = ((_P,) * 10 + (_I,) * 9 + (_L,) * 2 + (_P,) + (_L,) * 5
                    + (_I, _F, _F, _I, _I, _P))
 
 TILE = 32              # pool entries a tile of decode.cu and decode_quant.cu
 MAX_SPLITS = 64        # splits of one unit, so the merge stays short
-MAX_REP = 16           # query rows a block: 8 warps of 1 or 2 rows
+MAX_REP = 16           # query rows a block (a row group): 8 warps of 1 or 2 rows
 
 Split = collections.namedtuple("Split", "splits tiles")
 # one kernel of decode.cu: q's dtype, query rows a warp, value dims a lane,
@@ -59,8 +59,8 @@ quant_kernel_launches: collections.Counter = collections.Counter()
 
 def decode_splits(B: int, Hkv: int, Skv: int, sms: int) -> Split:
     """How ``decode.cu`` and ``decode_quant.cu`` split the pool of each of
-    their ``B * Hkv`` units (slot and KV head, and for ``decode.cu`` row
-    group: :func:`split_scratch` passes the units as ``B``, ``Hkv = 1``):
+    their ``B * Hkv`` units (slot, KV head and row group:
+    :func:`split_scratch` passes the units as ``B``, ``Hkv = 1``):
     ``splits`` blocks, each over ``tiles`` whole 32-entry tiles of pool
     indices (the last one possibly short), together covering Skv.  The
     most tiles a split for which ``B * Hkv * splits`` blocks still make a
@@ -74,7 +74,7 @@ def decode_splits(B: int, Hkv: int, Skv: int, sms: int) -> Split:
 
 
 def row_groups(rep: int) -> tuple:
-    """``decode.cu``'s cut of a KV head's ``rep`` query rows: (groups,
+    """The decode kernels' cut of a KV head's ``rep`` query rows: (groups,
     rows a group), groups of ``MAX_REP`` rows above it (the last one
     possibly short), one group of ``rep`` rows otherwise."""
     rows = min(rep, MAX_REP)
@@ -95,6 +95,13 @@ def part_floats(rows: int, hdv: int) -> int:
     return rows * hdv + (2 * rows + 3) // 4 * 4
 
 
+def part_hdv(hdv: int) -> int:
+    """The row length of ``decode_quant.cu``'s parts: hdv rounded up to 8,
+    whole value pieces of a lane (``decode.cu`` takes hdv a multiple of 8
+    already)."""
+    return -(-hdv // 8) * 8
+
+
 def split_scratch(q: torch.Tensor, units: int, Skv: int, rows: int, hdv: int):
     """The split plan of a decode launch over ``units`` (slot, KV head[,
     row group]) units of ``rows`` query rows, and its scratch: (plan,
@@ -112,9 +119,9 @@ def split_scratch(q: torch.Tensor, units: int, Skv: int, rows: int, hdv: int):
 
 def quant_kernel(bits: int, dtype: torch.dtype, rep: int, hdv: int, splits: int) -> QuantKernel:
     """The kernel of ``decode_quant.cu`` that a call launches: 1 or 2
-    query rows a warp (rep up to 8, 16), 4 or 8 value dims a lane (hdv up
-    to 128, 256)."""
-    rows = 1 if rep <= 8 else 2
+    query rows a warp (groups of up to 8, 16 rows), 4 or 8 value dims a
+    lane (hdv up to 128, 256)."""
+    rows = 1 if row_groups(rep)[1] <= 8 else 2
     return QuantKernel(bits, str(dtype), rows, 4 if hdv <= 128 else 8, splits)
 
 
@@ -247,19 +254,12 @@ def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos
         raise ValueError("positions must be int32")
     if k_q.stride(-1) != 1 or v_q.stride(-1) != 1:
         raise ValueError("code planes need a contiguous last dimension")
-    if max(hd, hdv) > MAX_HEAD_DIM or hd % (16 * pack) or hdv % 8:
-        raise ValueError(f"head dims must be multiples of {16 * pack} (K) and 8 (V) "
-                         f"up to {MAX_HEAD_DIM}, got {hd}/{hdv}")
-    if Hq // Hkv > MAX_REP:
-        raise ValueError(f"at most {MAX_REP} query heads a KV head, got {Hq // Hkv}")
-    # the kernel copies K code rows in 16-byte pieces, V code rows in 16 or 4
-    if k_q.data_ptr() % 16 or any(s % 16 for s in k_q.stride()[:3]):
-        raise ValueError("the decode kernel needs 16-byte aligned K code rows")
-    if v_q.data_ptr() % 4 or any(s % 4 for s in v_q.stride()[:3]):
-        raise ValueError("the decode kernel needs 4-byte aligned V code rows")
+    if max(hd, hdv) > MAX_HEAD_DIM:
+        raise ValueError(f"head dims up to {MAX_HEAD_DIM}, got {hd}/{hdv}")
     scale = scale if scale is not None else hd ** -0.5
     out = torch.empty((B, 1, Hq, hdv), dtype=q.dtype, device=q.device)
-    sp, ws, tickets = split_scratch(q, B * Hkv, Skv, Hq // Hkv, hdv)
+    groups, rows = row_groups(Hq // Hkv)
+    sp, ws, tickets = split_scratch(q, B * Hkv * groups, Skv, rows, part_hdv(hdv))
     strides = (ctypes.c_longlong * 12)(*k_q.stride()[:3], *v_q.stride()[:3],
                                        *k_s.stride(), *v_s.stride())
     fn = build.bind("decode_quant", "repro_decode_attention_quant", _QUANT_ARGTYPES)
@@ -267,7 +267,7 @@ def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos
              v_s.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
              None if ws is None else ws.data_ptr(),
              None if tickets is None else tickets.data_ptr(),
-             B, Skv, Hq, Hkv, hd, hdv, sp.splits, sp.tiles, q.stride(0), q.stride(2),
+             B, Skv, Hq, Hkv, hd, hdv, rows, sp.splits, sp.tiles, q.stride(0), q.stride(2),
              ctypes.cast(strides, ctypes.c_void_p), q_pos.stride(0),
              kv_pos.stride(0), kv_pos.stride(1), out.stride(0), out.stride(2),
              int(window), float(softcap), float(scale), kv_bits, DTYPE_CODES[q.dtype],

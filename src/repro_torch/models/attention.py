@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention.ops import attention as flash_attention
-from repro_torch.models.modules import apply_rope, dense_init
+from repro_torch.models.modules import apply_rope, dense_init, rmsnorm
 from repro_torch.quant.core import (dequantize_kv, kv_cache_bits, quantize_kv,
                                     quantize_kv_cache)
 from repro_torch.quant.ops import qdense
@@ -50,8 +50,12 @@ def init_attention(generator, cfg, *, repeats, dtype, device):
         "wv": dense_init(generator, (R, D, Hkv * hdv), dtype, device),
         "wo": dense_init(generator, (R, Hq * hdv, D), dtype, device, fan_in=Hq * hdv),
     }
+    f32 = dict(dtype=torch.float32, device=device)
+    if cfg.qk_norm:
+        # (scale - 1) of the per-head rms norms of q and k, as the reference's
+        p["q_norm"] = torch.zeros((R, hd), **f32)
+        p["k_norm"] = torch.zeros((R, hd), **f32)
     if cfg.qkv_bias:
-        f32 = dict(dtype=torch.float32, device=device)
         p["bq"] = torch.zeros((R, Hq * hd), **f32)
         p["bk"] = torch.zeros((R, Hkv * hd), **f32)
         p["bv"] = torch.zeros((R, Hkv * hdv), **f32)
@@ -172,8 +176,10 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = apply_rope(q.reshape(B, S, Hq, hd), pos, theta)
-    k = apply_rope(k.reshape(B, S, Hkv, hd), pos, theta)
+    q, k = q.reshape(B, S, Hq, hd), k.reshape(B, S, Hkv, hd)
+    if cfg.qk_norm:
+        q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
+    q, k = apply_rope(q, pos, theta), apply_rope(k, pos, theta)
     v = v.reshape(B, S, Hkv, hdv)
 
     if mode == "prefill":

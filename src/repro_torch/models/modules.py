@@ -1,5 +1,6 @@
-"""Shared building blocks: rmsnorm, RoPE, the SiLU GLU MLP and the init
-helpers (counterpart of the reference's ``models/modules.py``)."""
+"""Shared building blocks: rmsnorm, activations, RoPE, the dense MLP
+(gated or plain) and the init helpers (counterpart of the reference's
+``models/modules.py``)."""
 from __future__ import annotations
 
 import math
@@ -52,6 +53,20 @@ def init_norm(shape, device):
 
 
 # ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(f"unknown activation {name!r}")
+
+
+# ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
 
@@ -75,22 +90,27 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# MLP (dense FFN): the SiLU GLU
+# MLP (dense FFN): gated (act(x W_gate) * x W_up) or plain (act(x W_up))
 # ---------------------------------------------------------------------------
 
 def init_mlp(generator, cfg, *, repeats, dtype, device):
     """The reference creates these in f32 and casts them at use; the port
     stores them in the compute dtype — the same numbers at half the memory."""
     d, f = cfg.d_model, cfg.d_ff
-    return {
-        "w_gate": dense_init(generator, (repeats, d, f), dtype, device),
-        "w_up": dense_init(generator, (repeats, d, f), dtype, device),
-        "w_down": dense_init(generator, (repeats, f, d), dtype, device, fan_in=f),
-    }
+    p = {}
+    if cfg.glu:
+        p["w_gate"] = dense_init(generator, (repeats, d, f), dtype, device)
+    p["w_up"] = dense_init(generator, (repeats, d, f), dtype, device)
+    p["w_down"] = dense_init(generator, (repeats, f, d), dtype, device, fan_in=f)
+    return p
 
 
-def apply_mlp(p, x, impl: str = "flash"):
+def apply_mlp(p, x, cfg, impl: str = "flash"):
     """Each projection through ``qdense``: fp or a quantised weight."""
+    act = activation(cfg.act)
     dt = x.dtype
-    h = F.silu(qdense(x, p["w_gate"], dt, impl=impl)) * qdense(x, p["w_up"], dt, impl=impl)
+    if cfg.glu:
+        h = act(qdense(x, p["w_gate"], dt, impl=impl)) * qdense(x, p["w_up"], dt, impl=impl)
+    else:
+        h = act(qdense(x, p["w_up"], dt, impl=impl))
     return qdense(h, p["w_down"], dt, impl=impl)

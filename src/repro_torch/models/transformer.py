@@ -15,6 +15,7 @@ buffers: ``stack.<group>.u<i>.attn.wq.q`` and ``...wq.scale``.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -25,6 +26,7 @@ from repro_torch.models import modules as M
 from repro_torch.models.attention import (apply_attention, init_attention,
                                           init_kv_cache)
 from repro_torch.quant.core import QuantTensor
+from repro_torch.quant.ops import qdense
 
 
 # ---------------------------------------------------------------------------
@@ -95,21 +97,27 @@ def _as_module(tree):
 
 class Transformer(nn.ModuleDict):
     """The parameters of one model, indexed like the reference's tree:
-    ``params["stack"][g]["u0"]["attn"]["wq"]``."""
+    ``params["stack"][g]["u0"]["attn"]["wq"]``.  A tensor at the top of
+    the tree (the untied ``lm_head``) is a parameter of the module itself,
+    a quantised one a :class:`QuantWeight`, both under their own name."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
-        super().__init__({k: _as_module(t) for k, t in tree.items()})
+        super().__init__({k: _as_module(t) for k, t in tree.items()
+                          if isinstance(t, (dict, list))})
+        for k, t in tree.items():
+            if isinstance(t, QuantTensor):
+                self[k] = QuantWeight(t)
+            elif isinstance(t, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(t, requires_grad=False))
         self.cfg = cfg
 
+    def __getitem__(self, key):
+        if key in self._parameters:
+            return self._parameters[key]
+        return super().__getitem__(key)
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise on what this slice of the port does not run: untied
-    embeddings, a final-logit softcap, an MLP other than the SiLU GLU."""
-    if not cfg.tie_embeddings or cfg.final_softcap or cfg.act != "silu" \
-            or not cfg.glu:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs tied embeddings, no final softcap and "
-            f"the SiLU GLU MLP so far")
+    def items(self):
+        return [*super().items(), *self._parameters.items()]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
@@ -119,7 +127,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
     Weights and the embedding are stored in ``dtype``; biases and norm
     scales in f32, cast at use.  ``generator=None`` with ``device="meta"``
     builds only the names and shapes."""
-    check_supported(cfg)
     device = resolve_device(device)
     if generator is None and device.type != "meta":
         raise ValueError("init_params draws with an explicit torch.Generator")
@@ -129,17 +136,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
     for spec in build_groups(cfg):
         blk = {}
         for ui in range(len(spec.units)):
-            blk[f"u{ui}"] = {
-                "ln1": M.init_norm((spec.repeats, cfg.d_model), device),
-                "attn": init_attention(generator, cfg, repeats=spec.repeats,
-                                       dtype=dtype, device=device),
-                "ln2": M.init_norm((spec.repeats, cfg.d_model), device),
-                "mlp": M.init_mlp(generator, cfg, repeats=spec.repeats,
-                                  dtype=dtype, device=device),
-            }
+            layer = {"ln1": M.init_norm((spec.repeats, cfg.d_model), device),
+                     "attn": init_attention(generator, cfg, repeats=spec.repeats,
+                                            dtype=dtype, device=device),
+                     "ln2": M.init_norm((spec.repeats, cfg.d_model), device),
+                     "mlp": M.init_mlp(generator, cfg, repeats=spec.repeats,
+                                       dtype=dtype, device=device)}
+            if cfg.post_norm:
+                for name in ("ln1_post", "ln2_post"):
+                    layer[name] = M.init_norm((spec.repeats, cfg.d_model), device)
+            blk[f"u{ui}"] = layer
         stack.append(blk)
     tree["stack"] = stack
     tree["final_norm"] = M.init_norm((cfg.d_model,), device)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = M.dense_init(generator, (cfg.d_model, cfg.vocab_size), dtype,
+                                       device)
     return Transformer(cfg, tree)
 
 
@@ -162,9 +174,14 @@ def _apply_layer(p, x, *, cfg, kind, mode, pos, cache, impl, segments, kv_bits):
     out, c = apply_attention(p["attn"], h, cfg=cfg, kind=kind, mode=mode,
                              pos=pos, cache=None if cache is None else cache["attn"],
                              impl=impl, segments=segments, kv_bits=kv_bits)
+    if cfg.post_norm:
+        out = M.rmsnorm(out, p["ln1_post"]["scale"])
     x = x + out
     h = M.rmsnorm(x, p["ln2"]["scale"])
-    x = x + M.apply_mlp(p["mlp"], h, impl=impl)
+    ff = M.apply_mlp(p["mlp"], h, cfg, impl=impl)
+    if cfg.post_norm:
+        ff = M.rmsnorm(ff, p["ln2_post"]["scale"])
+    x = x + ff
     return x, {"attn": c}
 
 
@@ -204,12 +221,30 @@ def _stack_trees(trees):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, cfg, tokens, dtype):
-    return params["embed"]["tok"][tokens].to(dtype)
+    """The embedding rows in ``dtype``; with ``embed_scale``, times
+    sqrt(d_model) rounded to ``dtype`` first, as the reference multiplies
+    (59.75 in bf16 at d_model 3584)."""
+    h = params["embed"]["tok"][tokens].to(dtype)
+    if cfg.embed_scale:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype).item()
+    return h
 
 
-def unembed(params, cfg, h):
-    """Logits from the tied embedding table."""
-    return h @ params["embed"]["tok"].to(h.dtype).T
+def unembed(params, cfg, h, impl="flash"):
+    """Logits from the tied embedding table or the untied ``lm_head`` (a
+    projection like any other: ``weight_bits`` quantises it), then the
+    final softcap: tanh in f32, rounded to the logits' dtype, then
+    scaled."""
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"]["tok"].to(h.dtype).T
+    else:
+        w = params["lm_head"]
+        logits = qdense(h, w.tensor() if isinstance(w, QuantWeight) else w, h.dtype,
+                        impl=impl)
+    if cfg.final_softcap:
+        cap = cfg.final_softcap
+        logits = cap * torch.tanh(logits.float() / cap).to(logits.dtype)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +269,7 @@ def prefill_packed(params, cfg: ModelConfig, tokens, positions, segments,
                           segments=segments, kv_bits=kv_bits)
     h = M.rmsnorm(h, params["final_norm"]["scale"])
     last = h[0][gather_idx][:, None]                    # (n_seg, 1, D)
-    logits = unembed(params, cfg, last)[:, 0]
+    logits = unembed(params, cfg, last, impl)[:, 0]
     return logits, {"stack": caches}
 
 
@@ -253,7 +288,7 @@ def chunk_prefill_step(params, cfg: ModelConfig, cache, tokens, pos, take_idx,
     h = M.rmsnorm(h, params["final_norm"]["scale"])
     idx = take_idx.long()[:, None, None].expand(-1, 1, h.shape[-1])
     last = torch.gather(h, 1, idx)                      # (B, 1, D)
-    logits = unembed(params, cfg, last)[:, 0]
+    logits = unembed(params, cfg, last, impl)[:, 0]
     return logits, {"stack": caches}
 
 
@@ -266,7 +301,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
     h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
                           mode="decode", pos=pos2, caches=cache["stack"], impl=impl)
     h = M.rmsnorm(h, params["final_norm"]["scale"])
-    logits = unembed(params, cfg, h)[:, 0]
+    logits = unembed(params, cfg, h, impl)[:, 0]
     return logits, {"stack": caches}
 
 

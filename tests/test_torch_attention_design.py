@@ -117,11 +117,11 @@ def split_kv_rendering(q, k_q, k_s, v_q, v_s, *, kv_bits, q_pos, kv_pos, splits,
                        window=0, softcap=0.0, scale=None):
     """decode_quant.cu's order of operations: the codes decoded as the
     kernel decodes a code byte, the scales as the factors, the rep query
-    rows of a KV head in one unit."""
-    rep = q.shape[2] // k_q.shape[2]
+    rows of a KV head in units of ``row_groups``."""
+    _, rows = D.row_groups(q.shape[2] // k_q.shape[2])
     return split_kv_rendering_over(q, _kv_codes(k_q, kv_bits), _kv_codes(v_q, kv_bits), k_s,
                                    v_s, q_pos=q_pos, kv_pos=kv_pos, splits=splits,
-                                   tiles=tiles, rows=rep, window=window, softcap=softcap,
+                                   tiles=tiles, rows=rows, window=window, softcap=softcap,
                                    scale=scale)
 
 
@@ -174,6 +174,11 @@ _SPLIT_CASES = {  # name: (B, Skv, Hq, Hkv, hd, pool, window, softcap)
     "empty slot": (3, 96, 4, 2, 32, dict(lengths=[20, 0, 96], empty=(1,)), 0, 0.0),
     "window softcap": (2, 128, 16, 1, 32, dict(lengths=[128, 77]), 24, 30.0),
     "rep1 ragged": (4, 70, 4, 4, 64, dict(ring=True), 0, 0.0),
+    # the reduced configs' head dim: K code rows of 8 bytes at kv4
+    "hd16": (3, 100, 8, 2, 16, dict(lengths=[100, 37, 64]), 16, 50.0),
+    # code rows of 3 (kv4) and 6 (kv8) bytes, V rows short of a value piece
+    "hd6": (2, 96, 4, 2, 6, dict(ring=True), 0, 0.0),
+    "rep32 in row groups": (2, 128, 32, 1, 16, dict(lengths=[128, 50]), 0, 0.0),
 }
 
 
@@ -186,7 +191,8 @@ def test_split_kv_rendering_matches_plain_and_pallas(case, bits):
     B, Skv, Hq, Hkv, hd, pool, window, softcap = _SPLIT_CASES[case]
     q, planes, q_pos, kv_pos = _quant_decode_inputs(zlib.crc32(case.encode()) + bits, B,
                                                     Skv, Hq, Hkv, hd, bits, **pool)
-    sp = D.decode_splits(B, Hkv, Skv, H100_SMS)
+    groups, rows = D.row_groups(Hq // Hkv)
+    sp = D.decode_splits(B, Hkv * groups, Skv, H100_SMS)
     assert sp.splits > 1
     k_q, k_s, v_q, v_s = (T(p) for p in planes)
     args = dict(kv_bits=bits, q_pos=T(q_pos), kv_pos=T(kv_pos), window=window,
@@ -204,6 +210,8 @@ def test_split_kv_rendering_matches_plain_and_pallas(case, bits):
     if case == "wholly masked splits":                 # splits past slot 0's 5 entries
         tile_valid = (kv_pos[0] >= 0).reshape(-1, D.TILE).any(axis=1)
         assert not tile_valid[sp.tiles:].any()
+    if case == "rep32 in row groups":                  # two full groups of 16
+        assert (groups, rows) == (2, 16)
 
 
 _FP_SPLIT_CASES = {  # name: (B, Skv, Hq, Hkv, hd, hdv, pool, window, softcap)
@@ -310,13 +318,26 @@ def test_split_scratch_part_size(monkeypatch, units, Skv, rows, hdv, splits):
 
 
 def test_quant_kernel_names_rows_and_dims():
-    """The kernel a call takes: query rows a warp for rep up to 8, 16,
-    value dims a lane for hdv up to 128, 256."""
+    """The kernel a call takes: query rows a warp for groups of up to 8, 16
+    rows (rep above 16 in groups of 16), value dims a lane for hdv up to
+    128, 256."""
     k = D.quant_kernel(8, torch.bfloat16, 8, 128, 11)
     assert k == D.QuantKernel(8, "torch.bfloat16", 1, 4, 11)
     assert [D.quant_kernel(4, torch.float32, r, 256, 1).rows for r in (1, 4, 5, 8, 9, 16)] \
         == [1, 1, 1, 1, 2, 2]
     assert D.quant_kernel(4, torch.float32, 1, 256, 1).dims == 8
+    # rep 17, 20, 32, 40: groups of 16 rows, so 2 rows a warp
+    assert [D.quant_kernel(8, torch.bfloat16, r, 16, 7).rows for r in (17, 20, 32, 40)] \
+        == [2, 2, 2, 2]
+
+
+@pytest.mark.parametrize("hdv,part", [(6, 8), (8, 8), (16, 16), (20, 24), (128, 128),
+                                      (250, 256), (256, 256)])
+def test_quant_parts_hold_whole_value_pieces(hdv, part):
+    """decode_quant.cu's parts hold rows of hdv rounded up to 8 (a lane's
+    4 or 8 value dims), so a head dim that is not a multiple of 8 keeps
+    whole float4s for the merge, which writes out only the first hdv."""
+    assert D.part_hdv(hdv) == part and part % 4 == 0
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,16 @@ def test_engine_without_a_device_refuses_to_run_on_the_cpu(monkeypatch):
         init_params(cfg, torch.Generator())
 
 
-def test_qwen_config_equals_the_reference_field_by_field():
-    port, ref = get_config("qwen2.5-3b"), jax_get_config("qwen2.5-3b")
+def _same_fields(arch):
+    port, ref = get_config(arch), jax_get_config(arch)
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
+
+
+def test_qwen_config_equals_the_reference_field_by_field():
+    _same_fields("qwen2.5-3b")
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "minitron-8b"])
+def test_zoo_config_equals_the_reference_field_by_field(arch):
+    _same_fields(arch)

@@ -1,4 +1,6 @@
-"""The port's serving engine against the reference's, live, on the CPU.
+"""The port's serving engine against the reference's, live, on the CPU, on
+reduced qwen2.5-3b and reduced gemma2-9b (its local ring through the
+engine).
 
 Both engines serve the same prompts with the same weights (the reference's
 f32 tree, carried over by ``repro_torch.convert`` into bf16 — the values
@@ -15,8 +17,13 @@ The quantised engines (the reference's golden cases ``kv8``, ``w8kv8``,
 ``w4kv4``) run the same comparison.  Both engines quantise their own copy
 of the weights at construction; the port gets the f32 values (stored f32,
 cast at use), so the two quantise the same numbers into the same codes.
-The near-tie margin is then the reference model's own on its quantised
-weights (``fake_quantize_params``).
+Both then compute with the weights as their kernels do, dequantised to f32
+(the port's plain version; the reference's Pallas kernel in interpret
+mode, which its CPU dispatch would otherwise replace by a fallback that
+rounds every dequantised weight to bf16: at w4kv4 the int4 KV codes turn
+that rounding into logits apart by more than the near-tie bound).  The
+near-tie margin is the reference model's own on its quantised weights,
+through the same kernel.
 """
 import jax
 import jax.numpy as jnp
@@ -27,7 +34,7 @@ import torch
 from repro.config import get_config as jax_get_config
 from repro.config import reduce_config as jax_reduce_config
 from repro.models import transformer as TJ
-from repro.quant.core import fake_quantize_params
+from repro.quant.core import quantize_params
 from repro.serving.engine import EngineConfig as JaxEngineConfig
 from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro_torch.config import get_config, reduce_config
@@ -58,10 +65,21 @@ QUANT_CASES = {"kv8": dict(kv_bits=8), "w8kv8": dict(weight_bits=8, kv_bits=8),
                "w4kv4": dict(weight_bits=4, kv_bits=4)}
 
 
-def _compare_engines(**bits):
+def _reference_kernel_matmul(monkeypatch):
+    """The reference's dequant-matmul through its Pallas kernel in
+    interpret mode wherever its grid tiles the shape (as on its TPU)."""
+    import repro.quant.ops as ops
+    fallback = ops.quant_matmul
+    monkeypatch.setattr(ops, "quant_matmul",
+                        lambda x, qt, impl="auto": fallback(x, qt, impl="pallas_interpret"))
+
+
+def _compare_engines(monkeypatch, arch="qwen2.5-3b", **bits):
     settings = dict(SETTINGS, **bits)
-    cfg_j = jax_reduce_config(jax_get_config("qwen2.5-3b"))
-    cfg_t = reduce_config(get_config("qwen2.5-3b"))
+    if bits.get("weight_bits"):
+        _reference_kernel_matmul(monkeypatch)
+    cfg_j = jax_reduce_config(jax_get_config(arch))
+    cfg_t = reduce_config(get_config(arch))
     params_j = TJ.init_params(cfg_j, jax.random.PRNGKey(0), param_dtype=jnp.float32)
     # quantised weights: the f32 values, as the reference quantises them
     params_t = params_from_jax(jax.device_get(params_j), cfg_t, device="cpu",
@@ -83,7 +101,7 @@ def _compare_engines(**bits):
         assert st[key] == sj[key], key
     assert st["finished"] == len(PROMPT_LENS)
     margin_params = params_j if not bits.get("weight_bits") else \
-        fake_quantize_params(params_j, bits["weight_bits"])
+        quantize_params(params_j, bits["weight_bits"])
 
     out_j = {r.uid: r.output for r in eng_j.finished}
     out_t = {r.uid: r.output for r in eng_t.finished}
@@ -99,13 +117,21 @@ def _compare_engines(**bits):
                 f"with a reference margin of {margin:.4f}: not a near-tie")
 
 
-def test_engine_matches_reference_engine():
-    _compare_engines()
+def test_engine_matches_reference_engine(monkeypatch):
+    _compare_engines(monkeypatch)
 
 
 @pytest.mark.parametrize("case", sorted(QUANT_CASES))
-def test_quantised_engine_matches_reference_engine(case):
-    _compare_engines(**QUANT_CASES[case])
+def test_quantised_engine_matches_reference_engine(monkeypatch, case):
+    _compare_engines(monkeypatch, **QUANT_CASES[case])
+
+
+@pytest.mark.parametrize("case", ["fp"] + sorted(QUANT_CASES))
+def test_gemma2_engine_matches_reference_engine(monkeypatch, case):
+    """Reduced gemma2-9b: prompts of up to 23 tokens and 8 new ones over
+    its 16-entry local rings, which wrap in packed prefill, in chunked
+    continuation and in decode."""
+    _compare_engines(monkeypatch, "gemma2-9b", **QUANT_CASES.get(case, {}))
 
 
 @pytest.mark.parametrize("field,value", [
@@ -127,3 +153,13 @@ def test_unported_engine_options_raise(field, value):
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match=field):
         ServingEngine(cfg, params, EngineConfig(**{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "gemma3-27b", "minitron-8b"])
+def test_launcher_serves_each_registered_model_reduced_on_the_cpu(arch):
+    """``python -m repro_torch.launch.serve --arch <id> --reduced --device
+    cpu``: every request finishes with its budget of tokens."""
+    from repro_torch.launch.serve import main
+    stats = main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "3",
+                  "--max-new-tokens", "4", "--kv-bits", "8"])
+    assert stats["finished"] == 3 and stats["tokens"] == 12 and stats["kv_bits"] == 8
