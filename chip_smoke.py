@@ -30,7 +30,10 @@ Phases, each of which must pass or the script exits non-zero:
              bytes, and rep 20 in f32) and is
              checked to run the split count of its plan; split shapes of
              the dequant-matmul and of both decodes launched on two streams
-             at once must give what they give on one, bit for bit;
+             at once must give what they give on one, bit for bit; the
+             prefill also without segments at the shapes the sequential
+             baseline launches (qwen2.5-3b's buckets of 8..1024 tokens,
+             gemma2-9b's exact lengths up to 4600 under its window);
 4. engine  — the port's serving engine on full-width qwen2.5-3b and
              gemma2-9b (42 layers, local 4096-entry rings and global layers,
              head dim 256) with random bf16 weights, fp and then quantised
@@ -42,7 +45,22 @@ Phases, each of which must pass or the script exits non-zero:
              cores and every prefill on the design its head dim calls for,
              and every kernel of ``qmatmul.cu``, ``decode.cu``,
              ``decode_quant.cu`` and ``prefill.cu`` it launched checked to be
-             one that phase 3 held against its plain version;
+             one that phase 3 held against its plain version.  The engine
+             replays its three programs (fused step, packed prefill, chunk
+             step) from CUDA graphs captured when it is built, and traces
+             each decode step's wall time (dispatch + fetch);
+4a. graphs — each engine run again with its programs run through the
+             eager methods: token streams bit for bit and every launch
+             count equal (a replay counts what its capture launched);
+             tokens/s, TTFT, TPOT, decode-step wall time, build time and
+             peak memory, eager and replayed;
+4b. baselines — at fp, sequential admission (``packed=False``) on both
+             models (gemma2-9b's 4600-token prompt through a batch-1 prefill
+             that wraps its rings) and the host-looped step
+             (``fused=False``) on qwen2.5-3b, whose streams must equal the
+             sequential fused path's bit for bit;
+4c. sampling — qwen2.5-3b at temperature 0.8 through the graphs: the
+             same seed repeats, another does not, replays draw anew;
 5. crossbar — the PIM-MVM entry point ``pim_mvm`` on the shapes of
              ``benchmarks/kernel_micro.py``, f32 x (as there) and bf16 x,
              against its oracle and the fp product, with the kernel's launch
@@ -52,11 +70,12 @@ Phases, each of which must pass or the script exits non-zero:
              ``impl="flash"`` against ``impl="ref"``, fp and ``w8kv8``: qwen2.5-3b,
              gemma2-9b (with a 4200-token row: windowed prefill, a wrapped
              ring), gemma3-27b and minitron-8b (depth cut to one pattern
-             period plus the remainder);
+             period plus the remainder); the sequential baseline's
+             first-token logits against the packed prefill's;
 7. profile — torch.profiler over 4 full-pool decode steps and 2 chunk
              steps (8 rows of a 128-token chunk), fp and ``w8kv8``, of
-             qwen2.5-3b and gemma2-9b: device busy time and kernels launched
-             per step (read, not checked).
+             qwen2.5-3b and gemma2-9b, replayed and eager: device busy time,
+             wall time and kernels launched per step (read, not checked).
 
 Each model's weights are freed before the next is made.
 
@@ -64,6 +83,7 @@ The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits 1
 and prints no result.
 """
+import contextlib
 import dataclasses
 import functools
 import json
@@ -422,6 +442,13 @@ def run_kernel_checks(torch):
         "rep2 hd64": dict(Hq=4, Hkv=2, hd=64),
         "gemma2-9b S128 Hq16 Hkv8 hd256 window4096 softcap50": GEMMA2_PREFILL,
     }
+    # the sequential baseline's batch-1 prefills, without segments:
+    # qwen2.5-3b's power-of-two buckets, gemma2-9b's exact lengths (its 4600-
+    # token prompt under the 4096 window)
+    cases.update({f"non-segmented S{S} (a qwen2.5-3b bucket)": dict(S=S, segmented=False)
+                  for S in (8, 16, 32, 64, 128, 256, 512, 1024)})
+    cases.update({f"non-segmented gemma2-9b S{S} window4096 softcap50":
+                  dict(GEMMA2_PREFILL, S=S, segmented=False) for S in (17, 384, 4600)})
     errs = []
     for name, kw in cases.items():
         c = prefill_case(torch, rng, **kw)
@@ -894,38 +921,19 @@ def run_matmul_checks(torch):
 # engine and logits at full width
 # ---------------------------------------------------------------------------
 
-def kernel_counters():
-    """Every kernel wrapper of the port, by the name of its JSON record."""
-    from repro_torch.kernels.flash_attention.decode import (flash_decode_fwd,
-                                                            flash_decode_quant_fwd)
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-    from repro_torch.kernels.pim_mvm.kernel import pim_mvm_fwd
-    from repro_torch.quant.kernel import quant_matmul_fwd
-    return {"flash_decode": flash_decode_fwd, "flash_prefill": flash_attention_fwd,
-            "flash_decode_quant": flash_decode_quant_fwd,
-            "quant_matmul": quant_matmul_fwd, "pim_mvm": pim_mvm_fwd}
-
-
-def kernel_counts():
-    """The per-kernel launch counters of qmatmul.cu, prefill.cu, decode.cu
-    and decode_quant.cu."""
-    from repro_torch.kernels.flash_attention.decode import kernel_launches as decode
-    from repro_torch.kernels.flash_attention.decode import quant_kernel_launches
-    from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill
-    from repro_torch.quant.kernel import kernel_launches as qmatmul
-    return {"qmatmul": qmatmul, "prefill": prefill, "decode": decode,
-            "decode_quant": quant_kernel_launches}
-
-
 def reset_launches():
-    for fn in kernel_counters().values():
+    """Every wrapper's launch count and per-kernel counter to 0 (a replayed
+    CUDA graph adds what its capture counted: ``repro_torch.kernels.launches``)."""
+    from repro_torch.kernels import launches
+    for fn in launches.wrappers().values():
         fn.launches = 0
-    for counter in kernel_counts().values():
+    for counter in launches.counters().values():
         counter.clear()
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    from repro_torch.kernels import launches
+    return {name: fn.launches for name, fn in launches.wrappers().items()}
 
 
 def read_kernels():
@@ -961,33 +969,62 @@ def local_positions(cfg, cache):
                 for ui, kind in enumerate(spec.units) if kind == "local"), default=-1)
 
 
-def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=()):
+@contextlib.contextmanager
+def eager_programs():
+    """Engines built inside run their three programs through the eager
+    methods (the functions the graphs capture), not replayed from graphs."""
+    from repro_torch.serving.executor import Executor
+    capture = Executor.capture
+    Executor.capture = lambda self, *a, **k: None
+    try:
+        yield
+    finally:
+        Executor.capture = capture
+
+
+def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager=False,
+               **paths):
     """One drain of the 16 requests (and ``long_prompts``), fp or quantised
-    (``QUANT_RUNS``), with every kernel's launches counted over that drain
-    alone."""
+    (``QUANT_RUNS``), traced, with every kernel's launches counted over that
+    drain alone.  The default path replays its programs from CUDA graphs;
+    ``eager`` runs them through the eager methods; ``paths`` picks a
+    baseline (``fused=False``, ``packed=False``)."""
+    from repro_torch.kernels.launches import counters as launch_counters
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     bits = QUANT_RUNS[run]
+    label = run + "".join(f" {k}={v}" for k, v in paths.items()) + (" eager" if eager else "")
     ecfg = EngineConfig(max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK,
-                        max_new_tokens=NEW_TOKENS, impl="flash", **bits)
+                        max_new_tokens=NEW_TOKENS, impl="flash", trace=True, **bits, **paths)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
                for n in rng.integers(4, 385, N_REQUESTS)]
     prompts += [rng.integers(0, cfg.vocab_size, size=n) for n in long_prompts]
 
     # warm-up: cuBLAS handles, allocator pools, kernel modules
-    warm = ServingEngine(cfg, params, EngineConfig(
-        max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=2,
-        impl="flash", **bits), device=DEVICE)
-    for p in prompts[:2]:
-        warm.submit(p)
-    warm.run_until_drained()
-    del warm
-    torch.cuda.synchronize()
+    with eager_programs() if eager else contextlib.nullcontext():
+        warm = ServingEngine(cfg, params, EngineConfig(
+            max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=2,
+            impl="flash", **bits, **paths), device=DEVICE)
+        for p in prompts[:2]:
+            warm.submit(p)
+        warm.run_until_drained()
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
-    torch.cuda.reset_peak_memory_stats()
-    engine = ServingEngine(cfg, params, ecfg, device=DEVICE)
-    torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_build = time.perf_counter()
+        engine = ServingEngine(cfg, params, ecfg, device=DEVICE)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t_build
+    graphs = engine.executor.graphs
+    check((graphs is None) == (eager or not paths.get("fused", True)),
+          f"{label}: programs {'not ' if graphs is None else ''}captured")
+    if graphs is not None:
+        want = ["fused_step"] + (["packed_prefill", "chunk_step"]
+                                 if paths.get("packed", True) else [])
+        check(sorted(graphs.graphs) == sorted(want), f"{label}: captured {sorted(graphs.graphs)}")
     reset_launches()
     t0 = time.perf_counter()
     for p in prompts:
@@ -997,19 +1034,21 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=()):
     wall = time.perf_counter() - t0
     launches = read_launches()
     kernels, designs = read_kernels()
-    attn = {k: v.copy() for k, v in kernel_counts().items() if k != "qmatmul"}
+    attn = {k: v.copy() for k, v in launch_counters().items() if k != "qmatmul"}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     qp = engine.executor.params
     params_gb = sum(tensor_bytes(t) for t in (*qp.parameters(), *qp.buffers())) / 1e9
     pool_gb = tensor_bytes(engine.pool.cache) / 1e9
     st = engine.stats()
-    print(f"engine run={run} arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+    print(f"engine run={label} arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"weight_bits={st['weight_bits']} kv_bits={st['kv_bits']} "
           f"finished={st['finished']}/{len(prompts)} tokens={st['tokens']} "
           f"tokens_per_s={st['tokens_per_s']:.2f} mean_ttft_s={st['mean_ttft_s']:.4f} "
           f"ttft_p95_s={st['ttft_p95_s']:.4f} mean_tpot_s={st['mean_tpot_s']:.5f} "
           f"decode_steps={st['decode_steps']} prefill_calls={st['prefill_calls']} "
-          f"prefill_tokens={st['prefill_tokens']} wall_s={wall:.3f} "
+          f"prefill_tokens={st['prefill_tokens']} wall_s={wall:.3f} build_s={build_s:.3f} "
+          f"decode_step_wall_ms={st['trace_decode_step_s'] * 1e3:.3f} "
+          f"decode_step_p95_ms={st['trace_decode_step_p95_s'] * 1e3:.3f} "
           f"peak_memory_gib={peak_gib:.2f} params_gb={params_gb:.3f} "
           f"pool_gb={pool_gb:.4f} launches={json.dumps(launches)} "
           f"qmatmul_designs={json.dumps(designs)} "
@@ -1017,17 +1056,21 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=()):
           + " ".join(f"{w}_kernels=" + json.dumps(
               {attention_kernel_name(k): n for k, n in c.items()}) for w, c in attn.items()))
     check(st["finished"] == len(prompts) and st["failed"] == 0,
-          f"engine ({run}) finished {st['finished']} of {len(prompts)}")
-    outs = [r.output for r in engine.finished]
+          f"engine ({label}) finished {st['finished']} of {len(prompts)}")
+    outs = [r.output for r in sorted(engine.finished, key=lambda r: r.uid)]
     check(all(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o)
-              for o in outs), f"engine ({run}) produced malformed token streams")
-    check(any(n > CHUNK for n in st["prompt_lens"]), "no chunked prefill ran")
+              for o in outs), f"engine ({label}) produced malformed token streams")
+    if paths.get("packed", True):
+        check(any(n > CHUNK for n in st["prompt_lens"]), "no chunked prefill ran")
+    else:
+        check(st["prefill_calls"] == len(prompts), f"{label}: {st['prefill_calls']} "
+              f"prefill calls for {len(prompts)} requests")
     if "local" in cfg.pattern:
         # the long prompt's slot keeps its ring: positions past the window
         held = local_positions(cfg, engine.pool.cache)
-        print(f"engine run={run} local_ring_cap={min(cfg.window, kv_len)} "
+        print(f"engine run={label} local_ring_cap={min(cfg.window, kv_len)} "
               f"largest_position_held={held}")
-        check(held >= min(cfg.window, kv_len), f"{run}: no local ring wrapped")
+        check(held >= min(cfg.window, kv_len), f"{label}: no local ring wrapped")
     steps = st["decode_steps"] * cfg.n_layers
     quant_kv, quant_w = bool(bits.get("kv_bits")), bool(bits.get("weight_bits"))
     want_decode = {"flash_decode": 0 if quant_kv else steps,
@@ -1053,14 +1096,88 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=()):
     on = sum(n for k, n in attn["prefill"].items() if k.design == want_pf)
     check(on == launches["flash_prefill"],
           f"{run}: {on} of {launches['flash_prefill']} prefill launches on {want_pf}")
-    check_attention_checked(f"engine ({run}) prefill", attn["prefill"], CHECKED_PREFILL)
-    check_attention_checked(f"engine ({run}) decode", attn["decode"], CHECKED_DECODE)
-    check_attention_checked(f"engine ({run}) quantised decode", attn["decode_quant"],
+    if not paths.get("packed", True):
+        # one non-segmented prefill a request and layer
+        check(launches["flash_prefill"] == st["prefill_calls"] * cfg.n_layers,
+              f"{label}: prefill launches {launches['flash_prefill']}")
+    check_attention_checked(f"engine ({label}) prefill", attn["prefill"], CHECKED_PREFILL)
+    check_attention_checked(f"engine ({label}) decode", attn["decode"], CHECKED_DECODE)
+    check_attention_checked(f"engine ({label}) quantised decode", attn["decode_quant"],
                             CHECKED_DECODE_QUANT)
-    check(launches["pim_mvm"] == 0, f"{run}: the crossbar kernel ran in serving")
+    check(launches["pim_mvm"] == 0, f"{label}: the crossbar kernel ran in serving")
     return {"stats": st, "launches": launches, "designs": designs, "wall_s": wall,
-            "peak_gib": peak_gib,
+            "peak_gib": peak_gib, "outputs": outs, "build_s": build_s,
+            "kernels": {"qmatmul": kernels, **attn},
             "params_gb": params_gb, "pool_gb": pool_gb}
+
+
+def run_graphs(torch, cfg, params, run, replayed, kv_len, long_prompts):
+    """The same drain as ``replayed`` (the engine phase's, its programs
+    replayed from CUDA graphs) through the eager methods: the token streams
+    bit for bit, the launch counts (replays counted) and the kernels equal;
+    tokens/s, TTFT, TPOT, the decode step's wall time (dispatch + fetch)
+    and peak memory of both."""
+    eager = run_engine(torch, cfg, params, run, kv_len=kv_len, long_prompts=long_prompts,
+                       eager=True)
+    r, e = replayed["stats"], eager["stats"]
+    same_streams = replayed["outputs"] == eager["outputs"]
+    print(f"graphs arch={cfg.name} run={run} streams_identical={same_streams} "
+          f"launches_equal={replayed['launches'] == eager['launches']} "
+          + " ".join(f"{k}_eager={e[k]:.5f} {k}_replayed={r[k]:.5f}" for k in (
+              "tokens_per_s", "mean_ttft_s", "ttft_p95_s", "mean_tpot_s",
+              "trace_decode_step_s", "trace_decode_step_p95_s"))
+          + f" peak_memory_gib_eager={eager['peak_gib']:.3f} "
+          f"peak_memory_gib_replayed={replayed['peak_gib']:.3f} "
+          f"build_s_eager={eager['build_s']:.3f} build_s_replayed={replayed['build_s']:.3f}")
+    check(same_streams, f"graphs ({cfg.name} {run}): replayed and eager streams differ")
+    check(replayed["launches"] == eager["launches"] and
+          replayed["kernels"] == eager["kernels"],
+          f"graphs ({cfg.name} {run}): launches {replayed['launches']} replayed, "
+          f"{eager['launches']} eager")
+    return eager
+
+
+def run_sampling(torch, cfg, params, kv_len):
+    """``temperature`` 0.8 through the replayed programs, whose graphs draw
+    from the executor's generator (registered with each graph): an engine
+    with the same seed repeats a run's streams, another seed does not, and
+    each stream's tokens differ from one another (each replay draws anew)."""
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    runs = []
+    for seed in (3, 3, 4):
+        engine = ServingEngine(cfg, params, EngineConfig(
+            max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=8,
+            temperature=0.8, seed=seed), device=DEVICE)
+        rng = np.random.default_rng(0)
+        for n in (5, 20, 40, 200):
+            engine.submit(rng.integers(0, cfg.vocab_size, size=n))
+        runs.append([r.output for r in sorted(engine.run_until_drained(), key=lambda r: r.uid)])
+        del engine
+    repeats, differs = runs[0] == runs[1], runs[0] != runs[2]
+    fresh = all(len(set(o)) > 1 for o in runs[0])
+    print(f"sampling arch={cfg.name} temperature=0.8 same_seed_repeats={repeats} "
+          f"other_seed_differs={differs} replays_draw_anew={fresh} stream0={runs[0][0]}")
+    check(repeats and differs and fresh, "sampling through the graphs is not seeded draws")
+
+
+def run_baselines(torch, cfg, params, by_run, kv_len, long_prompts):
+    """The engine's baselines at full width, fp, their own calls eager (one
+    launch a kernel): sequential admission (``packed=False``: a batch-1
+    prefill a request, right-padded to a power-of-two bucket on qwen2.5-3b,
+    exact on gemma2-9b, whose 4600-token prompt fills a wrapped ring), the
+    fused step replayed; and on qwen2.5-3b the host-looped step
+    (``fused=False``), whose greedy streams equal the sequential fused
+    path's bit for bit (the same admission, so the same prefill)."""
+    drain = dict(kv_len=kv_len, long_prompts=long_prompts)
+    seq = run_engine(torch, cfg, params, "fp", packed=False, **drain)
+    by_run[f"{cfg.name} fp packed=False"] = seq["launches"]
+    if cfg.name != "qwen2.5-3b":
+        return
+    host = run_engine(torch, cfg, params, "fp", fused=False, **drain)
+    by_run[f"{cfg.name} fp fused=False"] = host["launches"]
+    same = host["outputs"] == seq["outputs"]
+    print(f"baseline arch={cfg.name} fused=False streams_equal_fused_sequential={same}")
+    check(same, "the host-looped streams differ from the fused step's")
 
 
 def run_crossbar(torch):
@@ -1103,13 +1220,19 @@ def run_crossbar(torch):
 
 
 def profiled(torch, arch, run, what, step, steps):
-    """torch.profiler over ``steps`` calls of ``step``: device busy time
-    (the sum of kernel times) a call, kernels launched a call and the
-    largest kernels.  The profiler slows the host, so the wall time here is
-    not the engine's."""
+    """``steps`` calls of ``step`` timed on the host clock (to a
+    synchronise), then torch.profiler over as many: device busy time (the
+    sum of kernel times) a call, the share of the wall time the card was
+    idle, kernels launched a call and the largest kernels.  The profiler
+    slows the host, so its own wall time is not the engine's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -1120,48 +1243,51 @@ def profiled(torch, arch, run, what, step, steps):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profile arch={arch} run={run} {what} busy_ms={busy_ms:.3f} "
-          f"wall_ms_profiled={wall_ms:.3f} "
+    print(f"profile arch={arch} run={run} {what} wall_ms={step_ms:.3f} busy_ms={busy_ms:.3f} "
+          f"idle_share={1 - busy_ms / step_ms:.3f} wall_ms_profiled={wall_ms:.3f} "
           f"kernels_per_step={launches:.0f} top=" + json.dumps(
               [[e.key[:60], round(e.self_device_time_total / 1e3 / steps, 4), e.count // steps]
                for e in top]))
-    return {"busy_ms": busy_ms, "kernels_per_step": launches, "wall_ms_profiled": wall_ms}
+    return {"busy_ms": busy_ms, "kernels_per_step": launches, "wall_ms": step_ms,
+            "wall_ms_profiled": wall_ms}
 
 
 def run_profile(torch, cfg, params, run="fp", kv_len=1024, steps=4, chunk_steps=2):
     """Where a step's time goes, with every slot of the pool busy: ``steps``
     fused decode steps, then ``chunk_steps`` chunked-prefill steps (the
     executor's ``chunk_step``, as the engine calls it for long prompts:
-    all 8 rows with a 128-token chunk, M = 1024 rows a projection)."""
+    all 8 rows with a 128-token chunk, M = 1024 rows a projection); each
+    replayed from its CUDA graph, as the engine runs it, and then through
+    the eager method (the decode step with its fetch, as ``step`` does)."""
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     engine = ServingEngine(cfg, params, EngineConfig(
-        max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=steps + 8,
-        impl="flash", **QUANT_RUNS[run]), device=DEVICE)
+        max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK,
+        max_new_tokens=4 * steps + 8, impl="flash", **QUANT_RUNS[run]), device=DEVICE)
     rng = np.random.default_rng(2)
     for _ in range(MAX_BATCH):        # 8 x 16 tokens: one packed stream
         engine.submit(rng.integers(0, cfg.vocab_size, size=16))
     engine.step()                     # admission (one packed prefill) + a step
     engine.step()
     check(len(engine.pool.decoding()) == MAX_BATCH, "profile: pool not full")
-    decode = profiled(torch, cfg.name, run, "decode_step", engine.step, steps)
+    ex, pool = engine.executor, engine.pool
+    decode = profiled(torch, cfg.name, run, "decode_step replayed", engine.step, steps)
+    decode_eager = profiled(torch, cfg.name, run, "decode_step eager", lambda: ex.fetch(
+        ex.fused_step(pool.cache, pool.state)[2]), steps)
 
     # chunk steps over the same pool: each row's next 128 tokens at
     # positions 32..159, no row final (the slots' state is left as it is)
     B, C = MAX_BATCH, engine._chunk
-    dev = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
-    toks = dev(rng.integers(0, cfg.vocab_size, (B, C)).astype(np.int32))
-    pos = dev(np.broadcast_to(32 + np.arange(C, dtype=np.int32), (B, C)).copy())
-    take = dev(np.full((B,), C - 1, np.int32))
-    final, budget = dev(np.zeros((B,), bool)), dev(np.ones((B,), np.int32))
-    ex, pool = engine.executor, engine.pool
-
-    def chunk_step():
-        pool.cache, pool.state, _ = ex.chunk_step(pool.cache, pool.state, toks, pos, take,
-                                                  final, budget)
-    chunk_step()                      # warm-up
-    chunk = profiled(torch, cfg.name, run, "chunk_step", chunk_step, chunk_steps)
-    return {"decode_step": decode, "chunk_step": chunk}
+    host = (rng.integers(0, cfg.vocab_size, (B, C)).astype(np.int32),
+            np.broadcast_to(32 + np.arange(C, dtype=np.int32), (B, C)).copy(),
+            np.full((B,), C - 1, np.int32), np.zeros((B,), bool), np.ones((B,), np.int32))
+    args = [torch.from_numpy(a).to(DEVICE) for a in host]
+    chunk = profiled(torch, cfg.name, run, "chunk_step replayed",
+                     lambda: ex.run("chunk_step", pool, *host), chunk_steps)
+    chunk_eager = profiled(torch, cfg.name, run, "chunk_step eager",
+                           lambda: ex.chunk_step(pool.cache, pool.state, *args), chunk_steps)
+    return {"decode_step": decode, "decode_step_eager": decode_eager,
+            "chunk_step": chunk, "chunk_step_eager": chunk_eager}
 
 
 def run_logits(torch, cfg, params, run="fp", long_row=0):
@@ -1172,9 +1298,12 @@ def run_logits(torch, cfg, params, run="fp", long_row=0):
     weights are rounded to bf16; the kernels keep them in f32.  A
     ``long_row`` of that many prompt tokens joins the three short ones in
     the packed stream: past a local window, its prefill is windowed, its
-    ring wraps in the packed insert, and the decode steps read it wrapped."""
+    ring wraps in the packed insert, and the decode steps read it wrapped.
+    The sequential baseline's first-token logits (a batch-1 prefill of each
+    row, padded as the engine pads it) are held to the packed prefill's
+    under the same bound."""
     from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.engine import EngineConfig, _bucket_len
     from repro_torch.serving.executor import Executor
     from repro_torch.serving.pool import SlotPool
 
@@ -1205,6 +1334,16 @@ def run_logits(torch, cfg, params, run="fp", long_row=0):
         with torch.no_grad():
             logits, pc = T.prefill_packed(ex.params, cfg, dev(toks), dev(pos), dev(seg),
                                           dev(gather), impl=impl, kv_bits=ecfg.kv_bits)
+            if impl == "flash":
+                # the sequential baseline's first-token logits of each row:
+                # a batch-1 prefill padded as the engine pads it
+                bucketed = all(k == "global" for k in cfg.layer_kinds)
+                seq = []
+                for i, n in enumerate(lens):
+                    row = np.zeros((1, _bucket_len(n, kv_len) if bucketed else n), np.int32)
+                    row[0, :n] = toks[0, gather[i] - n + 1:gather[i] + 1]
+                    seq.append(ex.prefill(dev(row), n)[0].float())
+                sequential = torch.cat(seq)
             ex.packed_insert(pool.cache, pc["stack"], dev(seg), dev(pos),
                               dev(seg_len), dev(active))
             del pc
@@ -1227,6 +1366,8 @@ def run_logits(torch, cfg, params, run="fp", long_row=0):
     limit = 5e-2 * max(1.0, scale)
     diffs = {n: float((a - b).abs().max()) for n, a, b in
              zip(names, results["flash"], results["ref"])}
+    # sequential against packed, both through the kernels
+    diffs["sequential_prefill"] = float((sequential - results["flash"][0][:len(lens)]).abs().max())
     finite = all(bool(torch.isfinite(r).all()) for r in results["flash"])
     print(f"logits run={run} arch={cfg.name} layers={cfg.n_layers} rows={list(lens)} "
           f"stream={C} kv_len={kv_len} max_abs_diff={json.dumps(diffs)} "
@@ -1286,10 +1427,15 @@ def main():
     for arch, serve in SERVED.items():
         cfg = get_config(arch)
         params = make_params(torch, cfg)
+        drain = dict(kv_len=serve["kv_len"], long_prompts=serve["long_prompts"])
         for run in QUANT_RUNS:
-            r = run_engine(torch, cfg, params, run, kv_len=serve["kv_len"],
-                           long_prompts=serve["long_prompts"])
+            r = run_engine(torch, cfg, params, run, **drain)
             by_run[f"{arch} {run}"] = r["launches"]
+            run_graphs(torch, cfg, params, run, r, **drain)
+            if run == "fp":
+                run_baselines(torch, cfg, params, by_run, **drain)
+        if arch == "qwen2.5-3b":
+            run_sampling(torch, cfg, params, serve["kv_len"])
         if arch == "qwen2.5-3b":
             by_run["crossbar"] = run_crossbar(torch)
         for run in ("fp", "w8kv8"):

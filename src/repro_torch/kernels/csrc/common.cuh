@@ -42,14 +42,20 @@ __device__ __forceinline__ float repro_warp_sum(float x) {
   return x;
 }
 
-// Raise the block's dynamic shared-memory limit when it needs more than the
-// default 48 KB; refuse what Hopper cannot give.
-template <typename Kernel>
-static cudaError_t repro_smem_limit(Kernel kernel, size_t bytes) {
+// Raise a kernel's dynamic shared-memory limit when a launch needs more than
+// it has (48 KB at first); refuse what Hopper cannot give.  The limit only
+// grows, so the attribute is set once for each larger need and a launch that
+// fits calls no other CUDA function: launches captured into a CUDA graph, after
+// a run of the same shapes, are launches and nothing else.
+template <auto kernel>
+static cudaError_t repro_smem_limit(size_t bytes) {
+  static size_t granted = 48 * 1024;
   if (bytes > (size_t)kReproMaxSmem) return cudaErrorInvalidConfiguration;
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  if (bytes <= granted) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) granted = bytes;
+  return err;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -360,7 +360,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
 template <typename T, int RPW, int DPL>
 cudaError_t launch_kernel(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = Layout(p, RPW).bytes;
-  cudaError_t err = repro_smem_limit(decode_attention_kernel<T, RPW, DPL>, smem);
+  cudaError_t err = repro_smem_limit<decode_attention_kernel<T, RPW, DPL>>(smem);
   if (err != cudaSuccess) return err;
   decode_attention_kernel<T, RPW, DPL>
       <<<dim3(p.split.splits, p.Hkv * p.groups, B), kThreads, smem, stream>>>(p);

@@ -399,7 +399,7 @@ __global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) 
 template <typename T, int BITS, int RPW, int DPL>
 cudaError_t launch_kernel(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = Layout(p, RPW).bytes;
-  cudaError_t err = repro_smem_limit(decode_quant_kernel<T, BITS, RPW, DPL>, smem);
+  cudaError_t err = repro_smem_limit<decode_quant_kernel<T, BITS, RPW, DPL>>(smem);
   if (err != cudaSuccess) return err;
   decode_quant_kernel<T, BITS, RPW, DPL>
       <<<dim3(p.split.splits, p.Hkv * p.groups, B), kThreads, smem, stream>>>(p);

@@ -224,7 +224,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
                        (size_t)kBK * hdv + (size_t)kBQ * kBK + (size_t)kBQ * hdv +
                        3 * (size_t)kBQ) +
       sizeof(int) * (kBQ + kBK);
-  cudaError_t err = repro_smem_limit(prefill_attention_kernel<T>, smem);
+  cudaError_t err = repro_smem_limit<prefill_attention_kernel<T>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   prefill_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
@@ -546,7 +546,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
 template <int HD>
 cudaError_t launch_hd(const Args& a, int B, int Hkv, cudaStream_t stream) {
   const size_t smem = smem_bytes(HD, a.rows, a.Skv);
-  cudaError_t err = repro_smem_limit(prefill_tc_kernel<HD>, smem);
+  cudaError_t err = repro_smem_limit<prefill_tc_kernel<HD>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + 16 * a.rows - 1) / (16 * a.rows),
                   Hkv * ((a.rep + a.heads - 1) / a.heads), B);

@@ -765,7 +765,7 @@ cudaError_t launch(const Plan& p, size_t smem, const Args& a, cudaStream_t strea
   // for the largest shared-memory carveout (the kernels keep their operands
   // in shared memory, not L1), so that as many blocks fit an SM as it allows
   static const cudaError_t attr = [&] {
-    const cudaError_t e = repro_smem_limit(kernel, smem);
+    const cudaError_t e = repro_smem_limit<kernel>(smem);
     return e != cudaSuccess ? e : cudaFuncSetAttribute(
         kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   }();

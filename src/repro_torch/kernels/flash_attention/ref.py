@@ -51,10 +51,14 @@ def attention_ref(
     window: int = 0,
     softcap: float = 0.0,
     scale: Optional[float] = None,
+    q_chunk: int = 1024,
 ) -> torch.Tensor:
+    """``q_chunk``: where it divides ``Sq`` and ``Sq`` is longer, the
+    queries run in chunks of that many rows, each over every key, so the
+    scores of one chunk (not all ``Sq x Skv``) are alive at a time, as the
+    reference does; the result is the same."""
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
-    rep = Hq // Hkv
     scale = scale if scale is not None else hd ** -0.5
     dev = q.device
     if q_pos is None:
@@ -64,8 +68,23 @@ def attention_ref(
     if (q_seg is None) != (kv_seg is None):
         raise ValueError("q_seg and kv_seg must be passed together")
 
-    mask = _mask(q_pos, kv_pos, kv_valid, causal, window, q_seg, kv_seg)
-    qr = q.reshape(B, Sq, Hkv, rep, hd)
+    def attend(rows):
+        qs = None if q_seg is None else q_seg[:, rows]
+        mask = _mask(q_pos[:, rows], kv_pos, kv_valid, causal, window, qs, kv_seg)
+        return _attend_block(q[:, rows], k, v, mask, scale, softcap)
+
+    if q_chunk and Sq > q_chunk and Sq % q_chunk == 0:
+        return torch.cat([attend(slice(i, i + q_chunk)) for i in range(0, Sq, q_chunk)],
+                         dim=1)
+    return attend(slice(None))
+
+
+def _attend_block(q, k, v, mask, scale, softcap):
+    """Masked softmax attention of q (B, Sq, Hq, hd) over k/v; ``mask``
+    (B, Sq, Skv)."""
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    qr = q.reshape(B, Sq, Hkv, Hq // Hkv, hd)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qr.float(), k.float()) * scale
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)

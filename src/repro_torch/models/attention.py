@@ -15,6 +15,10 @@ Serving modes:
   several prompts in one token stream, per-token prompt ids, no
   cross-prompt attention.  Returns the *raw per-token* cache; the serving
   engine scatters each segment into its KV slot;
+- ``mode="prefill"`` without ``segments`` — one right-padded prompt
+  whose cache is *exact* at ``length`` (the sequential baseline): a
+  global layer's cache is the stream padded to ``kv_cap`` entries, a
+  local layer's a ring of the last real tokens (pads never enter it);
 - ``mode="chunk"`` — **chunked prefill continuation**: S tokens per batch
   row are written into the KV cache at explicit positions (``pos < 0`` =
   pad, dropped) and attend to the pre-write cache plus the chunk;
@@ -23,7 +27,8 @@ Serving modes:
 
 The reference's functional cache update becomes an **in-place** update
 of the pool tensors here: ``chunk``/``decode`` write into ``cache`` and
-return it.
+return it, with fixed shapes and no read of device data by the host, so
+that the serving engine can capture them in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -103,6 +108,65 @@ def ring_positions(length, cap: int):
     return length - 1 - torch.remainder(length - 1 - s_idx, cap)
 
 
+def _ring_fill(k, v, cap: int, length):
+    """A ring cache of ``cap`` entries holding the last real tokens of a
+    right-padded stream (positions ``arange(S)``, ``length`` of them
+    real): ring index ``s`` holds position ``p ≡ s (mod cap)``, ``p ∈
+    [length-cap, length)``, pulled from the stream; pads never enter the
+    ring and never evict a real entry."""
+    B, S = k.shape[:2]
+    p = ring_positions(torch.full((), length, dtype=torch.int32, device=k.device), cap)
+    valid = p >= 0
+    src = p.clamp(0, S - 1).long()
+    keep = valid[None, :, None, None]
+    return (torch.where(keep, k[:, src], 0), torch.where(keep, v[:, src], 0),
+            torch.where(valid, p, -1).expand(B, cap))
+
+
+def _pad_cache(x, cap: int):
+    """``x`` (B, S, ...) padded with zeros to ``cap`` entries."""
+    B, S = x.shape[:2]
+    if cap <= S:
+        return x
+    return torch.cat([x, x.new_zeros((B, cap - S) + tuple(x.shape[2:]))], dim=1)
+
+
+def _pad_pos(pos, cap: int):
+    """``pos`` (B, S) padded with empty entries (-1) to ``cap``."""
+    B, S = pos.shape
+    if cap <= S:
+        return pos
+    return torch.cat([pos, pos.new_full((B, cap - S), -1)], dim=1)
+
+
+def unique_targets(loc, keep, n_loc: int):
+    """Where to write entries bound for flat locations ``loc`` (those with
+    ``keep``; their locations distinct) of a tensor holding ``n_loc``, so
+    that no two writes share a target (``index_put_`` with duplicate
+    indices is undefined on CUDA): (entries, targets, kept).  The kept
+    entries come first, and at most ``n_loc`` entries are taken; each
+    dropped one is sent to its own location that no kept entry targets,
+    where it writes back what is there.  Fixed shapes, no host read."""
+    n = min(loc.shape[0], n_loc)
+    sel = torch.sort(keep.to(torch.uint8), descending=True, stable=True).indices[:n]
+    loc, keep = loc[sel].long(), keep[sel]
+    taken = torch.zeros(n_loc, dtype=torch.int32, device=loc.device).scatter_add_(
+        0, loc.clamp(0, n_loc - 1), keep.to(torch.int32))
+    # the d-th dropped entry takes the d-th location that no kept one takes
+    spare = torch.searchsorted(torch.cumsum(taken == 0, 0), torch.cumsum(~keep, 0))
+    return sel, torch.where(keep, loc, spare), keep
+
+
+def put_unique(pool, sel, tgt, keep, vals, lead: int = 0):
+    """``vals[sel]`` written at :func:`unique_targets`' targets of ``pool``,
+    in place: the two axes after ``lead`` are the flat locations, and a
+    dropped entry's target keeps its value."""
+    flat = pool.view(*pool.shape[:lead], -1, *pool.shape[lead + 2:])
+    ix = (slice(None),) * lead
+    k = keep.view((-1,) + (1,) * (flat.dim() - lead - 1))
+    flat[ix + (tgt,)] = torch.where(k, vals[ix + (sel,)].to(flat.dtype), flat[ix + (tgt,)])
+
+
 def _ring_write(cache, new_leaves: dict, pos):
     """Write S tokens at per-(row, token) ``pos`` into the cache in place
     (ring for local, direct for global).  ``new_leaves`` maps cache leaf
@@ -118,8 +182,8 @@ def _ring_write(cache, new_leaves: dict, pos):
     slot = torch.remainder(pos, cap)
     leaves = dict(new_leaves, pos=pos)
     if S == 1:
-        # one target per row: a row without a valid write rewrites what
-        # its target holds, so the drop needs no host round trip
+        # decode, the hot path, in fewer launches: one target per row, so a
+        # row without a valid write rewrites what its target holds
         bidx = torch.arange(B, device=pos.device)
         s = torch.where(valid[:, 0], slot[:, 0], 0)
         for name, leaf in leaves.items():
@@ -127,10 +191,12 @@ def _ring_write(cache, new_leaves: dict, pos):
             keep = valid[:, 0].reshape((B,) + (1,) * (pool.dim() - 2))
             pool[bidx, s] = torch.where(keep, leaf[:, 0].to(pool.dtype), pool[bidx, s])
     else:
-        bi, si = valid.nonzero(as_tuple=True)
+        row = torch.arange(B, device=pos.device)[:, None]
+        sel, tgt, keep = unique_targets((row * cap + slot).reshape(-1), valid.reshape(-1),
+                                        B * cap)
         for name, leaf in leaves.items():
-            pool = cache[name]
-            pool[bi, slot[bi, si]] = leaf[bi, si].to(pool.dtype)
+            put_unique(cache[name], sel, tgt, keep,
+                       leaf.reshape((B * S,) + tuple(leaf.shape[2:])))
     return cache
 
 
@@ -151,17 +217,18 @@ def _commit_kv(cache, new_k, new_v, pos):
 # ---------------------------------------------------------------------------
 
 def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
-                    impl: str = "flash", segments=None, kv_bits: int = 0):
+                    impl: str = "flash", segments=None, kv_bits: int = 0,
+                    kv_cap: int = 0, length=None):
     """x (B, S, D); pos (B, S) int32 (decode: (B, 1); chunk: -1 = pad).
-    ``kv_bits`` (packed prefill) returns a quantised raw cache.  Returns
-    (out (B, S, D), cache)."""
+    Prefill: ``kv_bits`` returns a quantised cache; without ``segments``,
+    ``kv_cap`` is the cache's capacity (at least S) and ``length`` the
+    prompt's true length (default S).  Returns (out (B, S, D), cache)."""
     if kind not in ("global", "local"):
         raise NotImplementedError(f"layer kind {kind!r} has no port yet")
-    if mode not in ("prefill", "chunk", "decode") or \
-            (mode == "prefill" and segments is None):
+    if mode not in ("prefill", "chunk", "decode"):
         raise NotImplementedError(
-            f"attention mode {mode!r} (segments={segments is not None}) has no "
-            f"port yet: serving runs packed prefill, chunk and decode")
+            f"attention mode {mode!r} has no port yet: serving runs prefill, "
+            f"chunk and decode")
     B, S, D = x.shape
     Hq, Hkv, hd, hdv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
     dt = x.dtype
@@ -186,11 +253,21 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
         out = flash_attention(q, k, v, causal=True, window=window,
                               softcap=cfg.attn_softcap, impl=impl,
                               segments=segments)
-        # packed ragged prefill: raw per-token cache; the serving engine
-        # scatters each segment into its KV slot
-        new_cache = {"k": k, "v": v, "pos": torch.where(segments >= 0, pos, -1)}
+        if segments is not None:
+            # packed ragged prefill: raw per-token cache; the serving
+            # engine scatters each segment into its KV slot
+            new_cache = {"k": k, "v": v, "pos": torch.where(segments >= 0, pos, -1)}
+        elif kind == "local":
+            kc, vc, pc = _ring_fill(k, v, min(cfg.window, max(kv_cap, S)),
+                                    S if length is None else length)
+            new_cache = {"k": kc, "v": vc, "pos": pc}
+        else:
+            cap = max(kv_cap, S)
+            new_cache = {"k": _pad_cache(k, cap), "v": _pad_cache(v, cap),
+                         "pos": _pad_pos(pos, cap)}
         if kv_bits:
             # the engine's quantised pool takes these rows as codes + scales
+            # (empty entries quantise to zeros)
             new_cache = quantize_kv_cache(new_cache, kv_bits)
     else:
         quant = "k_q" in cache

@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -169,11 +170,13 @@ def _layer(tree, r: int):
 # stack runner
 # ---------------------------------------------------------------------------
 
-def _apply_layer(p, x, *, cfg, kind, mode, pos, cache, impl, segments, kv_bits):
+def _apply_layer(p, x, *, cfg, kind, mode, pos, cache, impl, segments, kv_bits,
+                 kv_cap, length):
     h = M.rmsnorm(x, p["ln1"]["scale"])
     out, c = apply_attention(p["attn"], h, cfg=cfg, kind=kind, mode=mode,
                              pos=pos, cache=None if cache is None else cache["attn"],
-                             impl=impl, segments=segments, kv_bits=kv_bits)
+                             impl=impl, segments=segments, kv_bits=kv_bits,
+                             kv_cap=kv_cap, length=length)
     if cfg.post_norm:
         out = M.rmsnorm(out, p["ln1_post"]["scale"])
     x = x + out
@@ -186,11 +189,12 @@ def _apply_layer(p, x, *, cfg, kind, mode, pos, cache, impl, segments, kv_bits):
 
 
 def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
-              impl="flash", segments=None, kv_bits=0):
-    """Run every layer.  ``prefill`` returns the per-layer raw caches
-    stacked as ``(repeats, ...)`` per group (quantised with ``kv_bits``);
-    ``chunk``/``decode`` update the pool ``caches`` in place and return
-    them."""
+              impl="flash", segments=None, kv_bits=0, kv_cap=0, length=None):
+    """Run every layer.  ``prefill`` returns the per-layer caches stacked
+    as ``(repeats, ...)`` per group (quantised with ``kv_bits``): raw
+    per-token with ``segments``, else exact at ``length`` with ``kv_cap``
+    entries (a ring for local layers); ``chunk``/``decode`` update the pool
+    ``caches`` in place and return them."""
     new_caches = []
     for gi, spec in enumerate(groups):
         gp = stack[gi]
@@ -204,7 +208,8 @@ def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
                 x, c_out[f"u{ui}"] = _apply_layer(
                     p_blk[f"u{ui}"], x, cfg=cfg, kind=kind, mode=mode, pos=pos,
                     cache=None if c_blk is None else c_blk[f"u{ui}"],
-                    impl=impl, segments=segments, kv_bits=kv_bits)
+                    impl=impl, segments=segments, kv_bits=kv_bits, kv_cap=kv_cap,
+                    length=length)
             outs.append(c_out)
         new_caches.append(gc if gc is not None else _stack_trees(outs))
     return x, new_caches
@@ -220,13 +225,24 @@ def _stack_trees(trees):
 # embeddings / logits
 # ---------------------------------------------------------------------------
 
+def round_to(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (bf16, f16 or f32) to nearest even, in
+    plain Python: no tensor, so no read of one by the host."""
+    f32 = np.float32(x)
+    if dtype == torch.bfloat16:
+        bits = int(f32.view(np.uint32))
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+        return float(np.uint32(bits).view(np.float32))
+    return float(np.float16(x)) if dtype == torch.float16 else float(f32)
+
+
 def embed_tokens(params, cfg, tokens, dtype):
     """The embedding rows in ``dtype``; with ``embed_scale``, times
     sqrt(d_model) rounded to ``dtype`` first, as the reference multiplies
     (59.75 in bf16 at d_model 3584)."""
     h = params["embed"]["tok"][tokens].to(dtype)
     if cfg.embed_scale:
-        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype).item()
+        h = h * round_to(math.sqrt(cfg.d_model), dtype)
     return h
 
 
@@ -250,6 +266,27 @@ def unembed(params, cfg, h, impl="flash"):
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+
+def prefill(params, cfg: ModelConfig, tokens, *, impl="flash",
+            compute_dtype=torch.bfloat16, kv_cap: int = 0, length=None,
+            kv_bits: int = 0):
+    """One right-padded prompt a row: ``tokens`` (B, S) at positions
+    ``arange(S)``, ``length`` (an int, default S) of them real.  Returns
+    (logits (B, V) at position ``length - 1``, cache): per group the
+    layers' caches, exact at ``length`` with ``kv_cap`` entries (at least
+    S; a ring of ``min(window, kv_cap)`` for local layers), quantised with
+    ``kv_bits``.  Causal masking makes attention exact under the pads."""
+    B, S = tokens.shape
+    length = S if length is None else length
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    h = embed_tokens(params, cfg, tokens, compute_dtype)
+    h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
+                          mode="prefill", pos=pos, impl=impl, kv_bits=kv_bits,
+                          kv_cap=kv_cap, length=length)
+    h = M.rmsnorm(h, params["final_norm"]["scale"])
+    logits = unembed(params, cfg, h[:, length - 1:length], impl)[:, 0]
+    return logits, {"stack": caches}
+
 
 def prefill_packed(params, cfg: ModelConfig, tokens, positions, segments,
                    gather_idx, *, impl="flash", compute_dtype=torch.bfloat16,

@@ -24,7 +24,17 @@ iteration loop.  Each iteration runs:
    device→host traffic per iteration is one packed ``(K, 3, max_batch)``
    int32 of ``(next_token, done, anomaly)``.
 
-The port runs the FIFO, packed, fused path, fp or quantised
+On a card the three programs (fused step, packed prefill, chunk step)
+are captured as CUDA graphs when the engine is built and replayed from
+then on (``executor.py``, ``graphs.py``); on the CPU they run eagerly.
+
+``packed=False`` keeps the sequential admission baseline (one
+bucket-padded batch-1 prefill+insert call per request) and
+``fused=False`` the host-looped decode step: measurement baselines, run
+eagerly on the card too.  ``trace=True`` records each decode iteration's
+wall-clock split (``self.trace``, the ``trace_*`` keys of ``stats()``).
+
+The port runs the FIFO scheduler, fp or quantised
 (``weight_bits``/``weight_group``/``kv_bits``).  ``EngineConfig`` fields
 of the reference that it does not implement raise
 ``NotImplementedError`` when the engine is built (see ``ROADMAP.md``).
@@ -56,8 +66,9 @@ class EngineConfig:
     eos_token: int = -1           # -1 → never stops early
     impl: str = "flash"           # attention impl ("flash" → the CUDA kernels)
     seed: int = 0
-    fused: bool = True
-    packed: bool = True
+    fused: bool = True            # fused on-device step (False = host-looped)
+    packed: bool = True           # packed prefill + chunked continuation
+    #   (False = sequential admission: one batch-1 prefill per request)
     prefill_chunk: int = 0        # packed-stream / chunk budget in tokens
     #   (0 → min(128, kv_len))
     decode_chunk: int = 1         # decode iterations per step()
@@ -73,13 +84,26 @@ class EngineConfig:
     spec_k: int = 0
     clock: Callable[[], float] = time.monotonic
     #   the engine's time source for request timestamps
-    trace: bool = False
+    trace: bool = False           # per-iteration wall-clock tracer: each
+    #   decode iteration appends {"prefill_s", "decode_s", "d2h_s",
+    #   "step_s", "iters"} to ``ServingEngine.trace``; stats() adds trace_*
+    #   keys only when tracing.  Durations are time.perf_counter's, not
+    #   ``clock``'s
 
 
 # fields of the reference's EngineConfig this slice does not implement, with
 # the value that means "off"
-_NOT_PORTED = {"fused": True, "packed": True, "deadline_ms": 0.0,
-               "max_queue": 0, "spec_k": 0, "trace": False}
+_NOT_PORTED = {"deadline_ms": 0.0, "max_queue": 0, "spec_k": 0}
+
+# prompt-length buckets of the sequential (packed=False) baseline
+_MIN_BUCKET = 8
+
+
+def _bucket_len(plen: int, kv_len: int) -> int:
+    b = _MIN_BUCKET
+    while b < plen:
+        b *= 2
+    return min(b, kv_len)
 
 
 class EngineStallError(RuntimeError):
@@ -158,9 +182,21 @@ class ServingEngine:
         self._stall_tokens = 0
         # {n_active: decode iterations at that occupancy}
         self.active_slot_hist: collections.Counter = collections.Counter()
+        # per-iteration wall-clock records (EngineConfig(trace=))
+        self.trace: list[dict] = []
 
         S = ecfg.kv_len
         self._chunk = min(ecfg.prefill_chunk or min(128, S), S)
+        # pow2 bucketing (sequential baseline) is exact only where cache
+        # index == token position: global layers, not rings
+        self._bucketed = all(k == "global" for k in cfg.layer_kinds)
+        if self.device.type == "cuda":
+            # the programs this configuration runs, replayed from graphs
+            programs = [name for name, used in (
+                ("fused_step", ecfg.fused), ("packed_prefill", ecfg.fused and ecfg.packed),
+                ("chunk_step", ecfg.fused and ecfg.packed)) if used]
+            if programs:
+                self.executor.capture(self.pool, programs, chunk=self._chunk)
 
     @property
     def host_transfers(self):
@@ -241,12 +277,20 @@ class ServingEngine:
     # -- iteration loop --------------------------------------------------------
     def step(self) -> int:
         """One engine iteration: (scheduler-gated) admission + chunked
-        prefill continuation + one fused decode step over the slot pool.
-        Returns the number of occupied slots."""
+        prefill continuation + one decode step over the slot pool.  Returns
+        the number of occupied slots."""
+        if self.ecfg.fused:
+            return self._step_fused()
+        return self._step_host()
+
+    def _step_fused(self) -> int:
         t0 = time.perf_counter()
         calls0 = self.prefill_calls
         if self._prefill_allowed():
-            self._admit_packed()
+            if self.ecfg.packed:
+                self._admit_packed()
+            else:
+                self._admit_fused()
         dt = time.perf_counter() - t0
         self.prefill_time += dt
         if self.prefill_calls > calls0:
@@ -256,9 +300,18 @@ class ServingEngine:
             # no live slot: nothing to decode
             self._stall_tokens = 0
             return occupied
-        self.pool.cache, self.pool.state, packed = self.executor.fused_step(
-            self.pool.cache, self.pool.state)
+        tr = self.ecfg.trace
+        td0 = time.perf_counter() if tr else 0.0
+        packed = self.executor.run("fused_step", self.pool)
+        td1 = time.perf_counter() if tr else 0.0
         arr = self._fetch(packed)                 # ONE d2h transfer
+        if tr:
+            # dispatch (a graph replay on the card) is asynchronous: the
+            # fetch waits on the step, so decode_s + d2h_s is its wall time
+            td2 = time.perf_counter()
+            self.trace.append({"prefill_s": dt, "decode_s": td1 - td0,
+                               "d2h_s": td2 - td1, "step_s": td2 - t0,
+                               "iters": int(arr.shape[0])})
         self.decode_steps += arr.shape[0]
         self.max_stall_tokens = max(self.max_stall_tokens, self._stall_tokens)
         self._stall_tokens = 0
@@ -287,6 +340,57 @@ class ServingEngine:
                     req.t_done = now
                     self.finished.append(req)
                     self.pool.release(i)     # slot freed → continuous batching
+        return self.pool.occupied()
+
+    def _step_host(self) -> int:
+        """The host-looped step (``fused=False`` baseline): decode, then
+        sampling and bookkeeping on the host, one round trip a token."""
+        t0 = time.perf_counter()
+        calls0 = self.prefill_calls
+        if self._prefill_allowed():
+            self._admit_host()
+        dt = time.perf_counter() - t0
+        self.prefill_time += dt
+        if self.prefill_calls > calls0:
+            self.scheduler.observe_prefill(dt)
+        live = [i for i, r in enumerate(self.pool.slot_req) if r is not None]
+        if not live:
+            return 0
+        host = self.pool.ensure_host()
+        self.active_slot_hist[len(live)] += 1
+        tokens, pos = self._dev(host["last_token"]), self._dev(host["slot_pos"])
+        tr = self.ecfg.trace
+        td0 = time.perf_counter() if tr else 0.0
+        logits, _ = self.executor.decode(self.pool.cache, tokens, pos)
+        td1 = time.perf_counter() if tr else 0.0
+        self.decode_steps += 1
+        self.max_stall_tokens = max(self.max_stall_tokens, self._stall_tokens)
+        self._stall_tokens = 0
+        nxt = self.executor.sample_host(logits)
+        if tr:
+            # the host path's "d2h" is the sampling round trip that waits on
+            # the decode, the same split as the fused path's
+            td2 = time.perf_counter()
+            self.trace.append({"prefill_s": dt, "decode_s": td1 - td0,
+                               "d2h_s": td2 - td1, "step_s": td2 - t0, "iters": 1})
+        now = self._now()
+        for i in live:
+            req = self.pool.slot_req[i]
+            tok = int(nxt[i])
+            if not req.output:
+                req.t_first_token = now
+            req.output.append(tok)
+            host["last_token"][i] = tok
+            host["slot_pos"][i] += 1
+            host["slot_budget"][i] -= 1
+            hit_eos = self.ecfg.eos_token >= 0 and tok == self.ecfg.eos_token
+            if host["slot_budget"][i] <= 0 or hit_eos or \
+                    host["slot_pos"][i] >= self.ecfg.kv_len:
+                req.done = True
+                req.status = DONE
+                req.t_done = now
+                self.finished.append(req)
+                self.pool.release(i)     # slot freed → continuous batching
         return self.pool.occupied()
 
     def run_until_drained(self, max_iters: int = 10_000) -> list[Request]:
@@ -359,10 +463,8 @@ class ServingEngine:
             len_v[slot] = take
             fin_v[slot], bud_v[slot], act_v[slot] = final, budget, True
 
-        self.pool.cache, self.pool.state, first = self.executor.packed_prefill(
-            self.pool.cache, self.pool.state, self._dev(toks), self._dev(pos),
-            self._dev(seg), self._dev(gather), self._dev(len_v),
-            self._dev(fin_v), self._dev(bud_v), self._dev(act_v))
+        first = self.executor.run("packed_prefill", self.pool, toks, pos, seg, gather,
+                                  len_v, fin_v, bud_v, act_v)
         arr = self._fetch(first)                  # one d2h per admission burst
         self.prefill_tokens += used
         self.prefill_calls += 1
@@ -405,9 +507,8 @@ class ServingEngine:
             bud_v[slot] = budget
             plan.append((slot, start, c, budget))
 
-        self.pool.cache, self.pool.state, first = self.executor.chunk_step(
-            self.pool.cache, self.pool.state, self._dev(toks), self._dev(pos),
-            self._dev(take_idx), self._dev(fin_v), self._dev(bud_v))
+        first = self.executor.run("chunk_step", self.pool, toks, pos, take_idx, fin_v,
+                                  bud_v)
         arr = self._fetch(first)
         self.prefill_tokens += sum(c for _, _, c, _ in plan)
         self.prefill_calls += 1
@@ -427,6 +528,78 @@ class ServingEngine:
                     self.pool.release(slot)
             else:
                 self.pool.prefilling[slot] = (start + c, budget)
+
+    # -- admission: sequential baselines ---------------------------------------
+    def _next_request(self, slot: int) -> Optional[tuple]:
+        """Pop the next admissible queued request and its right-padded
+        prompt (a power-of-two bucket where the stack allows it), or None."""
+        if self.pool.slot_req[slot] is not None:
+            return None
+        nxt = self._pop_admissible()
+        if nxt is None:
+            return None
+        req, plen, budget = nxt
+        pad = _bucket_len(plen, self.ecfg.kv_len) if self._bucketed else plen
+        toks = np.zeros((1, pad), np.int32)
+        toks[0, :plen] = req.prompt
+        return req, toks, plen, budget
+
+    def _admit_fused(self):
+        """Sequential admission on the fused path (``packed=False``)."""
+        for slot in range(self.ecfg.max_batch):
+            nxt = self._next_request(slot)
+            if nxt is not None:
+                self._admit_one(slot, *nxt)
+
+    def _admit_one(self, slot: int, req, toks, plen: int, budget: int):
+        """One right-padded batch-1 prefill+insert call and its bookkeeping."""
+        req.t_admit = self._now()
+        _, _, first = self.executor.prefill_insert(
+            self.pool.cache, self.pool.state, self._dev(toks), slot, plen, budget)
+        tok = int(self._fetch(first))
+        self.prefill_tokens += plen
+        self.prefill_calls += 1
+        self._stall_tokens += toks.shape[1]
+        req.output = [tok]
+        req.t_first_token = self._now()
+        if budget == 1:             # the prefill sample was the whole budget
+            req.done = True
+            req.status = DONE
+            req.t_done = req.t_first_token
+            self.finished.append(req)
+        else:
+            req.status = ACTIVE
+            self.pool.slot_req[slot] = req
+
+    def _admit_host(self):
+        """Sequential admission of the host-looped baseline (``fused=False``):
+        prefill, insert and sampling as separate calls."""
+        host = self.pool.ensure_host()
+        for slot in range(self.ecfg.max_batch):
+            nxt = self._next_request(slot)
+            if nxt is None:
+                continue
+            req, toks, plen, budget = nxt
+            req.t_admit = self._now()
+            logits, pcache = self.executor.prefill(self._dev(toks), plen)
+            self.executor.insert(self.pool.cache, pcache, slot, plen)
+            first = self.executor.sample_host(logits)
+            self.prefill_tokens += plen
+            self.prefill_calls += 1
+            self._stall_tokens += toks.shape[1]
+            req.output = [int(first[0])]
+            req.t_first_token = self._now()
+            if budget == 1:         # the prefill sample was the whole budget
+                req.done = True
+                req.status = DONE
+                req.t_done = req.t_first_token
+                self.finished.append(req)
+                continue
+            req.status = ACTIVE
+            self.pool.slot_req[slot] = req
+            host["slot_pos"][slot] = plen
+            host["slot_budget"][slot] = budget - 1
+            host["last_token"][slot] = int(first[0])
 
     # -- stats ---------------------------------------------------------------
     def _failure_stats(self) -> dict:
@@ -457,6 +630,22 @@ class ServingEngine:
         tpot_p, qwait_p = _percentiles(tpot), _percentiles(qwait)
         toks = sum(len(r.output) for r in done)
         span = max(r.t_done for r in done) - min(r.t_enqueue for r in done)
+        # measured per-iteration wall clock, present only when tracing
+        trace: dict = {}
+        if self.ecfg.trace:
+            steps = [t["decode_s"] + t["d2h_s"] for t in self.trace]
+            step_p = _percentiles(steps)
+            trace = {
+                "trace_iterations": len(self.trace),
+                "trace_prefill_s": float(sum(t["prefill_s"] for t in self.trace)),
+                "trace_decode_s": float(sum(t["decode_s"] for t in self.trace)),
+                "trace_d2h_s": float(sum(t["d2h_s"] for t in self.trace)),
+                # one decode iteration's wall time: dispatch plus the fetch
+                # that waits on it
+                "trace_decode_step_s": float(np.mean(steps)) if steps else None,
+                "trace_decode_step_p50_s": step_p[0],
+                "trace_decode_step_p95_s": step_p[1],
+            }
         return {
             "finished": len(done),
             "tokens": toks,
@@ -493,5 +682,6 @@ class ServingEngine:
             "weight_bits": self.ecfg.weight_bits or 16,
             "kv_bits": self.ecfg.kv_bits or 16,
             "active_slots_hist": dict(sorted(self.active_slot_hist.items())),
+            **trace,
             **self._failure_stats(),
         }

@@ -6,7 +6,10 @@ One :class:`SlotPool` owns everything whose lifetime is "a slot":
 - the device KV cache built by ``models.transformer.init_cache`` (bf16,
   or int8 codes with f32 scales under ``kv_bits``);
 - the fused-path device state: last token, position, budget and liveness
-  per slot;
+  per slot.  The state tensors, like the cache, are allocated once and
+  every program writes them in place, so a CUDA graph captured over them
+  reads what the host writes there (:meth:`kill`);
+- the host arrays of the ``fused=False`` baseline, made on first use;
 - host bookkeeping: which ``Request`` occupies each slot, chunked-prefill
   progress (``prefilling``: slot -> (next_prompt_pos, budget)) and the
   anomaly-quarantine counters.
@@ -16,6 +19,9 @@ updates ``(cache, state)`` and hands them back.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
@@ -38,6 +44,8 @@ class SlotPool:
         self.slot_req: list = [None] * B
         self.prefilling: dict[int, tuple[int, int]] = {}
         self.anomalies: list[int] = [0] * B
+        # host-path (fused=False) arrays, made on first admission
+        self.host: Optional[dict[str, np.ndarray]] = None
 
     def free_slots(self) -> list[int]:
         """Free slot indices, ascending (allocation order is index order)."""
@@ -52,6 +60,16 @@ class SlotPool:
         return [r for i, r in enumerate(self.slot_req)
                 if r is not None and i not in self.prefilling]
 
+    def ensure_host(self) -> dict[str, np.ndarray]:
+        """The ``fused=False`` baseline's per-slot position, budget and last
+        token, on the host."""
+        if self.host is None:
+            B = self.ecfg.max_batch
+            self.host = {"slot_pos": np.zeros(B, np.int32),
+                         "slot_budget": np.zeros(B, np.int32),
+                         "last_token": np.zeros(B, np.int32)}
+        return self.host
+
     def release(self, slot: int) -> None:
         """Free a slot whose request finished (continuous batching)."""
         self.slot_req[slot] = None
@@ -62,4 +80,7 @@ class SlotPool:
         self.slot_req[slot] = None
         self.prefilling.pop(slot, None)
         self.anomalies[slot] = 0
-        self.state["live"][slot] = False
+        if self.ecfg.fused:
+            self.state["live"][slot] = False
+        elif self.host is not None:
+            self.host["slot_budget"][slot] = 0

@@ -135,3 +135,28 @@ def test_wrappers_never_fall_back_off_the_cpu():
     kp = torch.empty((1, 2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         flash_attention_fwd(qp, kp, kp, segments=pos)
+
+
+@pytest.mark.parametrize("Sq,q_chunk,segmented", [(64, 16, False), (64, 16, True),
+                                                   (48, 32, False)])
+def test_oracle_query_chunks_give_the_unchunked_result(Sq, q_chunk, segmented):
+    """``attention_ref`` splits ``Sq`` into ``q_chunk`` rows where that
+    divides it (64 in 16s), as the reference's oracle does, and otherwise
+    (48 by 32) runs whole: the same result either way, equal to the
+    reference's chunked oracle within the f32 pin."""
+    from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((2, Sq, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, Sq, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, Sq, 2, 16)).astype(np.float32)
+    seg = np.broadcast_to(_segments(Sq, [Sq // 3, Sq // 2]), (2, Sq)).copy()
+    kw = dict(window=20, softcap=30.0)
+    tk = {"q_seg": torch.from_numpy(seg), "kv_seg": torch.from_numpy(seg)} if segmented else {}
+    jk = {"q_seg": jnp.asarray(seg), "kv_seg": jnp.asarray(seg)} if segmented else {}
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    chunked = attention_ref(*t, q_chunk=q_chunk, **tk, **kw)
+    whole = attention_ref(*t, q_chunk=0, **tk, **kw)
+    assert torch.equal(chunked, whole)
+    want = jax_ref(*(jnp.asarray(a) for a in (q, k, v)), q_chunk=q_chunk, **jk, **kw)
+    np.testing.assert_allclose(chunked.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)

@@ -428,3 +428,149 @@ def test_packed_insert_into_ring_and_global_caches_matches_reference():
             np.testing.assert_array_equal(
                 cache_t["stack"][0][u]["attn"][name].numpy(),
                 np.asarray(new_j["stack"][0][u]["attn"][name]), err_msg=f"{u}.{name}")
+
+
+# ---------------------------------------------------------------------------
+# non-segmented prefill (the sequential baseline): one right-padded prompt
+# whose cache is exact at ``length``
+# ---------------------------------------------------------------------------
+
+# (kind, stream S, length, kv_cap) on reduced gemma2-9b's geometry (ring of
+# 16): a wrapped ring, a short prompt in a long pad, a wrapped ring under
+# pads, a padded global cache, one with no padding
+FILL_CASES = [("local", 24, 24, 48), ("local", 24, 11, 48), ("local", 32, 20, 48),
+              ("local", 8, 5, 48), ("global", 24, 17, 48), ("global", 16, 16, 16)]
+
+
+@pytest.mark.parametrize("kind,S,length,kv_cap", FILL_CASES)
+def test_unsegmented_prefill_cache_is_the_reference_bit_for_bit(kind, S, length, kv_cap):
+    """``_ring_fill`` (local) and ``_pad_cache``/``_pad_pos`` (global) on the
+    same f32 K/V as the reference's: equal bit for bit, pads out of the
+    ring and past ``length``."""
+    from repro.models import attention as AJ
+    from repro_torch.models import attention as AT
+    rng = np.random.default_rng(8)
+    k = rng.standard_normal((1, S, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((1, S, 2, 8)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)[None]
+    if kind == "local":
+        cap = min(16, kv_cap)
+        want = AJ._ring_fill(jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos), cap,
+                             length=jnp.int32(length))
+        got = AT._ring_fill(torch.from_numpy(k), torch.from_numpy(v), cap, length)
+        assert int(got[2].max()) == length - 1 and int((got[2] >= 0).sum()) == min(cap, length)
+    else:
+        want = (AJ._pad_cache(jnp.asarray(k), kv_cap), AJ._pad_cache(jnp.asarray(v), kv_cap),
+                AJ._pad_pos(jnp.asarray(pos), kv_cap))
+        got = (AT._pad_cache(torch.from_numpy(k), kv_cap),
+               AT._pad_cache(torch.from_numpy(v), kv_cap),
+               AT._pad_pos(torch.from_numpy(pos), kv_cap))
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+# (arch, case, prompt length in a stream of 24): the ring wraps at 20
+UNSEGMENTED = [(arch, case, n) for arch in ("qwen2.5-3b", "gemma2-9b")
+               for case in ("f32-flash", "w8kv8-f32-ref") for n in (13, 20)]
+
+
+@pytest.mark.parametrize("arch,case,length", UNSEGMENTED)
+def test_unsegmented_prefill_matches_reference(arch, case, length):
+    """``prefill`` of one right-padded prompt (stream 24, ``kv_cap`` 48,
+    ``length`` 13 or 20): logits at ``length - 1`` and every cache leaf
+    against the reference's, with the file's f32 bounds; then the engine's
+    insert of that cache into a pool slot, as the reference's executor
+    inserts it (``pos`` at or past ``length`` invalidated)."""
+    from repro.serving.engine import EngineConfig as JaxEngineConfig
+    from repro.serving.executor import Executor as JaxExecutor
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.executor import Executor
+    cfg_j, cfg_t, tree = _reduced(arch)
+    _, impl, wbits, kvbits = CASES[case]
+    if wbits:
+        pt = TT.Transformer(cfg_t, quantize_params(
+            params_from_jax(tree, cfg_t, device="cpu", dtype=torch.float32), wbits))
+        tree = jax_quantize_params(tree, wbits)
+    else:
+        pt = params_from_jax(tree, cfg_t, device="cpu", dtype=torch.float32)
+    S = 24
+    toks = np.zeros((1, S), np.int32)
+    toks[0, :length] = np.random.default_rng(9).integers(0, cfg_t.vocab_size, length)
+    lj, cj = TJ.prefill(tree, cfg_j, {"tokens": jnp.asarray(toks)}, impl=impl,
+                        compute_dtype=jnp.float32, kv_cap=48, length=jnp.int32(length),
+                        kv_bits=kvbits)
+    lt, ct = TT.prefill(pt, cfg_t, torch.from_numpy(toks), impl=impl,
+                        compute_dtype=torch.float32, kv_cap=48, length=length,
+                        kv_bits=kvbits)
+    _close(lt, lj, 2e-5, "prefill logits")
+    _compare_cache(ct, cj, 2e-5, "prefill cache", kv_bits=kvbits)
+    settings = dict(max_batch=B, kv_len=48, kv_bits=kvbits)
+    pool_j = TJ.init_cache(cfg_j, B, 48, dtype=jnp.float32, kv_bits=kvbits)
+    pool_t = TT.init_cache(cfg_t, B, 48, dtype=torch.float32, device="cpu", kv_bits=kvbits)
+    pool_j = JaxExecutor(cfg_j, None, JaxEngineConfig(**settings))._insert_fn(
+        pool_j, cj, jnp.int32(1), jnp.int32(length))
+    Executor(cfg_t, None, EngineConfig(**settings), device="cpu").insert(
+        pool_t, ct, 1, length)
+    _compare_cache(pool_t, pool_j, 2e-5, "inserted cache", kv_bits=kvbits)
+
+
+@pytest.mark.parametrize("n,n_loc", [(12, 40), (40, 40), (64, 24)])
+def test_unique_targets_give_every_write_its_own_target(n, n_loc):
+    """The scatter behind the ring write and the packed insert: kept
+    entries at their locations, every dropped one at a location of its
+    own that no kept entry takes, all targets distinct, also with more
+    entries than locations (a chunk longer than its ring)."""
+    from repro_torch.models.attention import put_unique, unique_targets
+    rng = np.random.default_rng(n)
+    k = min(n, n_loc) // 2
+    loc = rng.integers(-3, n_loc + 3, n)               # dropped entries point anywhere
+    kept = rng.choice(n, k, replace=False)
+    loc[kept] = rng.choice(n_loc, k, replace=False)    # kept locations are distinct
+    keep = np.zeros(n, bool)
+    keep[kept] = True
+    sel, tgt, kp = unique_targets(torch.from_numpy(loc), torch.from_numpy(keep), n_loc)
+    sel, tgt, kp = sel.numpy(), tgt.numpy(), kp.numpy()
+    assert len(set(tgt.tolist())) == len(tgt) == min(n, n_loc)
+    assert sorted(sel[kp].tolist()) == sorted(kept.tolist())
+    assert np.array_equal(tgt[kp], loc[sel[kp]])
+    assert not set(tgt[~kp].tolist()) & set(loc[kept].tolist())
+    # the write, on a (2, n_loc / 4, 4, 3) tensor with a leading axis
+    pool = torch.from_numpy(rng.standard_normal((2, n_loc // 4, 4, 3)))
+    vals = torch.from_numpy(rng.standard_normal((2, n, 3)))
+    want = pool.clone()
+    want.view(2, n_loc, 3)[:, loc[keep]] = vals[:, keep]
+    put_unique(pool, torch.from_numpy(sel), torch.from_numpy(tgt), torch.from_numpy(kp),
+               vals, lead=1)
+    assert torch.equal(pool, want)
+
+
+def test_chunk_longer_than_its_ring_matches_reference():
+    """A 24-token chunk through a 16-entry local ring (only its last 16
+    positions stay): the ring write with more entries than ring slots."""
+    from repro.models.attention import apply_attention as jax_apply
+    from repro.models.attention import init_attention as jax_init
+    from repro.models.attention import init_kv_cache as jax_cache
+    from repro_torch.models.attention import apply_attention, init_kv_cache
+    cfg_j, cfg_t = _gemma_cfgs()
+    pj = jax_init(jax.random.PRNGKey(6), cfg_j)
+    pt = {k: torch.from_numpy(np.array(v)) for k, v in pj.items()}
+    B, C, D = 2, 24, cfg_t.d_model
+    cj = jax_cache(cfg_j, "local", B, 48, jnp.float32)
+    ct = init_kv_cache(cfg_t, "local", B, 48, torch.float32, "cpu")
+    rng = np.random.default_rng(6)
+    for start in (0, 24):
+        pos = np.full((B, C), -1, np.int32)
+        pos[0] = start + np.arange(C)
+        pos[1, :5] = start + np.arange(5)
+        x = rng.standard_normal((B, C, D)).astype(np.float32)
+        oj, cj = jax_apply(pj, jnp.asarray(x), cfg=cfg_j, kind="local", mode="chunk",
+                           pos=jnp.asarray(pos), cache=cj, impl="flash")
+        ot, ct = apply_attention(pt, torch.from_numpy(x), cfg=cfg_t, kind="local",
+                                 mode="chunk", pos=torch.from_numpy(pos), cache=ct,
+                                 impl="flash")
+        np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=2e-5, rtol=2e-5)
+        np.testing.assert_array_equal(ct["pos"].numpy(), np.asarray(cj["pos"]))
+        for name in ("k", "v"):
+            np.testing.assert_allclose(ct[name].numpy(), np.asarray(cj[name]),
+                                       atol=2e-5, rtol=2e-5, err_msg=name)
