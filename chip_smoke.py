@@ -60,7 +60,28 @@ Phases, each of which must pass or the script exits non-zero:
              (``fused=False``) on qwen2.5-3b, whose streams must equal the
              sequential fused path's bit for bit;
 4c. sampling — qwen2.5-3b at temperature 0.8 through the graphs: the
-             same seed repeats, another does not, replays draw anew;
+             same seed repeats, another does not, replays draw anew; and
+             again with speculative decoding (an 8-bit self-draft);
+4d. spec   — speculative decoding (``spec_k`` 4), the spec step replayed
+             from its graph: qwen2.5-3b at fp with self-drafts of 0, 8 and 4
+             bits, at w8kv8 with a 4-bit draft and with a draft model (its
+             config cut to 4 layers, a seed of its own), gemma2-9b at fp
+             with an 8-bit draft (the 4600-token prompt's rings wrap under
+             verify and rollback); each against the plain replayed drain
+             of its configuration: full budgets, the same streams up to a
+             token where the plain logits are a near-tie (printed), an
+             acceptance of at least 0.9 with the serving params, launch
+             counts against the steps (draft decodes = spec steps x
+             spec_k x the draft's layers, and the draft model's catch-up),
+             every kernel one that phase 3 checked; one run a model
+             replayed again through the eager methods (streams bit for bit,
+             launches equal) and one of its steps profiled;
+4e. slo    — qwen2.5-3b on the real clock: 48 requests of ``make_workload``
+             at twice the rate the plain drain sustained, offered open-loop
+             through ``ServingFrontend.play`` to an engine with
+             ``SloScheduler`` (two classes), ``deadline_ms`` and a bounded
+             queue: each request finished (with its budget), expired or
+             shed, some of each; TTFT p50/p95 a class;
 5. crossbar — the PIM-MVM entry point ``pim_mvm`` on the shapes of
              ``benchmarks/kernel_micro.py``, f32 x (as there) and bf16 x,
              against its oracle and the fp product, with the kernel's launch
@@ -105,6 +126,29 @@ MATMUL_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-5}
 QUANT_RUNS = {"fp": dict(), "w8kv8": dict(weight_bits=8, kv_bits=8),
               "w4kv4": dict(weight_bits=4, kv_bits=4)}
 MAX_BATCH, NEW_TOKENS, N_REQUESTS, CHUNK = 8, 32, 16, 128
+# speculative decoding: drafts a step, and the verify's rows (8 slots x 5)
+SPEC_K = 4
+VERIFY_M = MAX_BATCH * (SPEC_K + 1)
+# the spec phase's runs of each served model: the plain run whose streams
+# they must give, the draft, and the EngineConfig fields of speculation;
+# "eager" marks the run replayed again through the eager methods
+SPEC_RUNS = {
+    "qwen2.5-3b": [("fp", "bits0", dict(spec_draft_bits=0)),
+                   ("fp", "bits8 eager", dict(spec_draft_bits=8)),
+                   ("fp", "bits4", dict(spec_draft_bits=4)),
+                   ("w8kv8", "bits4", dict(spec_draft_bits=4)),
+                   ("fp", "model", dict(spec_draft="model"))],
+    "gemma2-9b": [("fp", "bits8 eager", dict(spec_draft_bits=8))],
+}
+DRAFT_LAYERS, DRAFT_SEED = 4, 1     # the draft model: the target's config cut
+# greedy streams may part from the plain run's where the plain logits'
+# top-1/top-2 margin is under phase logits' bound (verify and decode round
+# differently), relative to the logits' scale
+NEAR_TIE = 5e-2
+# the slo phase: requests, the offered rate over what the plain drain
+# sustains, the bounded queue, and the deadline in plain decode times of a
+# request's budget
+SLO_REQUESTS, SLO_OVERLOAD, SLO_MAX_QUEUE, SLO_DEADLINE_BUDGETS = 48, 2.0, 4, 2.0
 # the served models at full width and depth: the pool's length, prompts
 # beside the 16 of 4..384 tokens, and a long row of the logits phase
 # (gemma2-9b's 4600 and 4200 wrap its 4096-entry local rings: in chunked
@@ -447,6 +491,8 @@ def run_kernel_checks(torch):
     # token prompt under the 4096 window)
     cases.update({f"non-segmented S{S} (a qwen2.5-3b bucket)": dict(S=S, segmented=False)
                   for S in (8, 16, 32, 64, 128, 256, 512, 1024)})
+    # a draft model's prompt prefill, right-padded to a multiple of the chunk
+    cases["non-segmented S384 (a draft prefill, chunk-padded)"] = dict(S=384, segmented=False)
     cases.update({f"non-segmented gemma2-9b S{S} window4096 softcap50":
                   dict(GEMMA2_PREFILL, S=S, segmented=False) for S in (17, 384, 4600)})
     errs = []
@@ -824,6 +870,12 @@ def run_matmul_checks(torch):
         for M in (8, 128, 1024):
             for bits in (8, 4):
                 cases[f"gemma2-9b {what} int{bits} ({M}, {K}, {N})"] = (M, K, N, bits, 0, None)
+    # every projection of qwen2.5-3b at the speculative verify's 40 rows
+    # (8 slots x spec_k + 1), int8 and int4
+    for (K, N), what in projection_shapes(get_config("qwen2.5-3b")).items():
+        for bits in (8, 4):
+            cases[f"qwen2.5-3b verify {what} int{bits} ({VERIFY_M}, {K}, {N})"] = (
+                VERIFY_M, K, N, bits, 0, None)
     errs = []
     for name, (M, K, N, bits, group, dtype) in cases.items():
         x, w = operands(M, K, N, dtype or torch.bfloat16)
@@ -881,6 +933,7 @@ def run_matmul_checks(torch):
         bf16, shape=[8, 2048, 11008], weight_bits=8, design=design, copies=copies,
         int4_w_down=shape_record(8, 11008, 2048, 4),
         chunk_step=shape_record(1024, 2048, 11008, 8),
+        verify=shape_record(VERIFY_M, 2048, 11008, 8),
         chunk_step_int4_w_down=shape_record(1024, 11008, 2048, 4),
         gemma2_9b={"decode_w_up_int8": shape_record(8, 3584, 14336, 8),
                    "decode_w_down_int4": shape_record(8, 14336, 3584, 4),
@@ -982,13 +1035,43 @@ def eager_programs():
         Executor.capture = capture
 
 
+def expected_launches(cfg, st, bits, paths, draft):
+    """Launches of the decodes and the dequant-matmul that a drain with the
+    stats ``st`` makes: a decode step runs every layer's decode attention
+    and every projection; a speculative step runs ``spec_k`` draft decode
+    steps in the draft's layers (the target's own, or the draft model's and
+    one catch-up step), and a verify through every target projection (its
+    attention takes the oracle); prefills run every target projection."""
+    steps, calls = st["decode_steps"], st["decode_steps"] + st["prefill_calls"]
+    decode = "flash_decode_quant" if bits.get("kv_bits") else "flash_decode"
+    want = {"flash_decode": 0, "flash_decode_quant": 0,
+            "quant_matmul": projections(cfg) * calls if bits.get("weight_bits") else 0}
+    k = paths.get("spec_k", 0)
+    if not k:
+        want[decode] = steps * cfg.n_layers
+    elif paths.get("spec_draft") == "model":
+        want["flash_decode"] = steps * (k + 1) * draft[0].n_layers
+    else:
+        want[decode] = steps * k * cfg.n_layers
+        # a self-draft is quantised at spec_draft_bits (default 8), or is
+        # the serving params themselves
+        if paths.get("spec_draft_bits", 8) or bits.get("weight_bits"):
+            want["quant_matmul"] += projections(cfg) * k * steps
+    return want
+
+
 def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager=False,
-               **paths):
+               draft=None, warm=True, **paths):
     """One drain of the 16 requests (and ``long_prompts``), fp or quantised
     (``QUANT_RUNS``), traced, with every kernel's launches counted over that
     drain alone.  The default path replays its programs from CUDA graphs;
     ``eager`` runs them through the eager methods; ``paths`` picks a
-    baseline (``fused=False``, ``packed=False``)."""
+    baseline (``fused=False``, ``packed=False``) or speculative decoding
+    (``spec_k`` and its draft; ``draft`` = (cfg, params) of a draft model).
+    ``warm``: drain two requests on an engine of the same configuration
+    first (cuBLAS handles, allocator pools, kernel modules); a model's later
+    runs find these warm (an engine's capture runs each program once before
+    it records it)."""
     from repro_torch.kernels.launches import counters as launch_counters
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
@@ -1001,29 +1084,29 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
                for n in rng.integers(4, 385, N_REQUESTS)]
     prompts += [rng.integers(0, cfg.vocab_size, size=n) for n in long_prompts]
 
-    # warm-up: cuBLAS handles, allocator pools, kernel modules
     with eager_programs() if eager else contextlib.nullcontext():
-        warm = ServingEngine(cfg, params, EngineConfig(
-            max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=2,
-            impl="flash", **bits, **paths), device=DEVICE)
-        for p in prompts[:2]:
-            warm.submit(p)
-        warm.run_until_drained()
-        del warm
+        if warm:
+            warm_engine = ServingEngine(cfg, params, EngineConfig(
+                max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=2,
+                impl="flash", **bits, **paths), device=DEVICE, draft=draft)
+            for p in prompts[:2]:
+                warm_engine.submit(p)
+            warm_engine.run_until_drained()
+            del warm_engine
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
         torch.cuda.reset_peak_memory_stats()
         t_build = time.perf_counter()
-        engine = ServingEngine(cfg, params, ecfg, device=DEVICE)
+        engine = ServingEngine(cfg, params, ecfg, device=DEVICE, draft=draft)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t_build
     graphs = engine.executor.graphs
     check((graphs is None) == (eager or not paths.get("fused", True)),
           f"{label}: programs {'not ' if graphs is None else ''}captured")
     if graphs is not None:
-        want = ["fused_step"] + (["packed_prefill", "chunk_step"]
-                                 if paths.get("packed", True) else [])
+        want = ["spec_step" if paths.get("spec_k") else "fused_step"] + (
+            ["packed_prefill", "chunk_step"] if paths.get("packed", True) else [])
         check(sorted(graphs.graphs) == sorted(want), f"{label}: captured {sorted(graphs.graphs)}")
     reset_launches()
     t0 = time.perf_counter()
@@ -1050,7 +1133,10 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
           f"decode_step_wall_ms={st['trace_decode_step_s'] * 1e3:.3f} "
           f"decode_step_p95_ms={st['trace_decode_step_p95_s'] * 1e3:.3f} "
           f"peak_memory_gib={peak_gib:.2f} params_gb={params_gb:.3f} "
-          f"pool_gb={pool_gb:.4f} launches={json.dumps(launches)} "
+          f"pool_gb={pool_gb:.4f} "
+          + "".join(f"{k}={st[k]} " for k in ("spec_steps", "spec_acceptance",
+                                               "spec_tokens_per_step") if k in st)
+          + f"launches={json.dumps(launches)} "
           f"qmatmul_designs={json.dumps(designs)} "
           f"qmatmul_kernels={json.dumps({kernel_name(k): n for k, n in kernels.items()})} "
           + " ".join(f"{w}_kernels=" + json.dumps(
@@ -1071,25 +1157,21 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
         print(f"engine run={label} local_ring_cap={min(cfg.window, kv_len)} "
               f"largest_position_held={held}")
         check(held >= min(cfg.window, kv_len), f"{label}: no local ring wrapped")
-    steps = st["decode_steps"] * cfg.n_layers
-    quant_kv, quant_w = bool(bits.get("kv_bits")), bool(bits.get("weight_bits"))
-    want_decode = {"flash_decode": 0 if quant_kv else steps,
-                   "flash_decode_quant": steps if quant_kv else 0}
-    for name, n in want_decode.items():
-        check(launches[name] == n, f"{run}: {name} launches {launches[name]} != {n}")
-    # every projection of every forward call (decode step, packed prefill,
-    # chunk step) went through the dequant-matmul kernel
-    calls = st["decode_steps"] + st["prefill_calls"]
-    want_mm = projections(cfg) * calls if quant_w else 0
-    check(launches["quant_matmul"] == want_mm,
-          f"{run}: quant_matmul launches {launches['quant_matmul']} != {want_mm}")
+    # every decode attention and every projection of every forward call
+    # (decode or speculative step, packed prefill, chunk step) went through
+    # its kernel
+    want = expected_launches(cfg, st, bits, paths, draft)
+    for name, n in want.items():
+        check(launches[name] == n, f"{label}: {name} launches {launches[name]} != {n}")
+    want_mm = want["quant_matmul"]
     # the engine runs bf16: every projection on tensor cores
     check(designs == {"cuda_core": 0, "tensor_core": want_mm},
-          f"{run}: qmatmul designs {designs}, want {want_mm} on tensor cores")
-    check_kernels_checked(f"engine ({run})", kernels)
-    check(launches["flash_prefill"] > 0 and
-          launches["flash_prefill"] % cfg.n_layers == 0,
-          f"{run}: prefill kernel launches {launches['flash_prefill']}")
+          f"{label}: qmatmul designs {designs}, want {want_mm} on tensor cores")
+    check_kernels_checked(f"engine ({label})", kernels)
+    # a draft model prefills each request's prompt once, in its own layers
+    prefills = launches["flash_prefill"] - (st["finished"] * draft[0].n_layers if draft else 0)
+    check(prefills > 0 and prefills % cfg.n_layers == 0,
+          f"{label}: prefill kernel launches {launches['flash_prefill']}")
     # every packed prefill on the design its head dim calls for (tensor cores
     # at 64/128, CUDA cores at 256), in kernels that phase 3 checked
     want_pf = expected_prefill_design(torch.bfloat16, cfg.head_dim)
@@ -1106,21 +1188,23 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
                             CHECKED_DECODE_QUANT)
     check(launches["pim_mvm"] == 0, f"{label}: the crossbar kernel ran in serving")
     return {"stats": st, "launches": launches, "designs": designs, "wall_s": wall,
-            "peak_gib": peak_gib, "outputs": outs, "build_s": build_s,
+            "peak_gib": peak_gib, "outputs": outs, "build_s": build_s, "prompts": prompts,
             "kernels": {"qmatmul": kernels, **attn},
             "params_gb": params_gb, "pool_gb": pool_gb}
 
 
-def run_graphs(torch, cfg, params, run, replayed, kv_len, long_prompts):
-    """The same drain as ``replayed`` (the engine phase's, its programs
-    replayed from CUDA graphs) through the eager methods: the token streams
-    bit for bit, the launch counts (replays counted) and the kernels equal;
-    tokens/s, TTFT, TPOT, the decode step's wall time (dispatch + fetch)
-    and peak memory of both."""
+def run_graphs(torch, cfg, params, run, replayed, kv_len, long_prompts, draft=None,
+               **paths):
+    """The same drain as ``replayed`` (the engine or spec phase's, its
+    programs replayed from CUDA graphs) through the eager methods: the token
+    streams bit for bit, the launch counts (replays counted) and the kernels
+    equal; tokens/s, TTFT, TPOT, the decode step's wall time (dispatch +
+    fetch) and peak memory of both."""
     eager = run_engine(torch, cfg, params, run, kv_len=kv_len, long_prompts=long_prompts,
-                       eager=True)
+                       eager=True, draft=draft, **paths)
     r, e = replayed["stats"], eager["stats"]
     same_streams = replayed["outputs"] == eager["outputs"]
+    run = run + "".join(f" {k}={v}" for k, v in paths.items())
     print(f"graphs arch={cfg.name} run={run} streams_identical={same_streams} "
           f"launches_equal={replayed['launches'] == eager['launches']} "
           + " ".join(f"{k}_eager={e[k]:.5f} {k}_replayed={r[k]:.5f}" for k in (
@@ -1137,17 +1221,19 @@ def run_graphs(torch, cfg, params, run, replayed, kv_len, long_prompts):
     return eager
 
 
-def run_sampling(torch, cfg, params, kv_len):
+def run_sampling(torch, cfg, params, kv_len, **paths):
     """``temperature`` 0.8 through the replayed programs, whose graphs draw
     from the executor's generator (registered with each graph): an engine
     with the same seed repeats a run's streams, another seed does not, and
-    each stream's tokens differ from one another (each replay draws anew)."""
+    each stream's tokens differ from one another (each replay draws anew).
+    ``paths``: speculative decoding, whose graph draws its drafts, its
+    acceptance uniforms and the residual's draws."""
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     runs = []
     for seed in (3, 3, 4):
         engine = ServingEngine(cfg, params, EngineConfig(
             max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=8,
-            temperature=0.8, seed=seed), device=DEVICE)
+            temperature=0.8, seed=seed, **paths), device=DEVICE)
         rng = np.random.default_rng(0)
         for n in (5, 20, 40, 200):
             engine.submit(rng.integers(0, cfg.vocab_size, size=n))
@@ -1155,7 +1241,9 @@ def run_sampling(torch, cfg, params, kv_len):
         del engine
     repeats, differs = runs[0] == runs[1], runs[0] != runs[2]
     fresh = all(len(set(o)) > 1 for o in runs[0])
-    print(f"sampling arch={cfg.name} temperature=0.8 same_seed_repeats={repeats} "
+    print(f"sampling arch={cfg.name} temperature=0.8 "
+          + "".join(f"{k}={v} " for k, v in paths.items())
+          + f"same_seed_repeats={repeats} "
           f"other_seed_differs={differs} replays_draw_anew={fresh} stream0={runs[0][0]}")
     check(repeats and differs and fresh, "sampling through the graphs is not seeded draws")
 
@@ -1178,6 +1266,159 @@ def run_baselines(torch, cfg, params, by_run, kv_len, long_prompts):
     same = host["outputs"] == seq["outputs"]
     print(f"baseline arch={cfg.name} fused=False streams_equal_fused_sequential={same}")
     check(same, "the host-looped streams differ from the fused step's")
+
+
+def draft_model(torch, cfg):
+    """A draft model for speculative decoding: the target's config cut to
+    ``DRAFT_LAYERS`` layers, random bf16 weights of a seed of its own."""
+    from repro_torch.models import transformer as T
+    dcfg = dataclasses.replace(cfg, n_layers=DRAFT_LAYERS, name=cfg.name + "-draft")
+    return dcfg, T.init_params(dcfg, torch.Generator(device=DEVICE).manual_seed(DRAFT_SEED),
+                               device=DEVICE, dtype=torch.bfloat16)
+
+
+def divergences(torch, cfg, params, run, prompts, plain, spec):
+    """Where each speculative stream first parts from the plain one: (request,
+    token, margin, bound), the margin being the top-1 minus top-2 of the
+    plain model's logits for that token (a batch-1 prefill of the prompt and
+    the plain stream before it, through the kernels), the bound ``NEAR_TIE``
+    of those logits' scale."""
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.core import quantize_params
+    out, target = [], None
+    for uid, (prompt, a, b) in enumerate(zip(prompts, plain, spec)):
+        t = next((i for i in range(len(a)) if a[i] != b[i]), None)
+        if t is None:
+            continue
+        if target is None:
+            wb = QUANT_RUNS[run].get("weight_bits")
+            target = T.Transformer(cfg, quantize_params(params, wb)) if wb else params
+        seq = np.concatenate([prompt, np.asarray(a[:t])]).astype(np.int32)
+        with torch.no_grad():
+            logits, _ = T.prefill(target, cfg, torch.from_numpy(seq[None]).to(DEVICE),
+                                  impl="flash", kv_cap=seq.size)
+        row = logits[0].float()
+        top = torch.topk(row, 2).values
+        out.append((uid, t, float(top[0] - top[1]),
+                    NEAR_TIE * max(1.0, float(row.abs().max()))))
+    return out
+
+
+def profile_spec(torch, cfg, params, run, kv_len, draft=None, **paths):
+    """Where a speculative step's time goes with every slot busy: two
+    replayed steps timed on the host clock, then profiled (busy time)."""
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    engine = ServingEngine(cfg, params, EngineConfig(
+        max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=64,
+        impl="flash", **QUANT_RUNS[run], **paths), device=DEVICE, draft=draft)
+    rng = np.random.default_rng(2)
+    for _ in range(MAX_BATCH):
+        engine.submit(rng.integers(0, cfg.vocab_size, size=16))
+    engine.step()                     # admission (one packed prefill) + a step
+    engine.step()
+    check(len(engine.pool.decoding()) == MAX_BATCH, "spec profile: pool not full")
+    label = run + "".join(f" {k}={v}" for k, v in paths.items())
+    return profiled(torch, cfg.name, label, "spec_step replayed", engine.step, 2)
+
+
+def run_spec(torch, cfg, params, plain, by_run, kv_len, long_prompts):
+    """Speculative decoding (``spec_k`` 4) on the engine phase's drains,
+    replayed from graphs: each run of ``SPEC_RUNS`` against the plain
+    replayed drain of its configuration (``plain``): every request
+    finishes with its budget, every stream equals the plain one up to a
+    token where the plain logits are a near-tie (printed with its margin),
+    and drafting with the serving params accepts at least 0.9 of the
+    drafts.  A run marked "eager" is replayed again through the eager
+    methods (``run_graphs``: streams bit for bit, launches equal), and one
+    of its steps profiled."""
+    draft = None
+    for run, name, spec in SPEC_RUNS[cfg.name]:
+        paths = dict(spec_k=SPEC_K, **spec)
+        model = spec.get("spec_draft") == "model"
+        if model and draft is None:
+            draft = draft_model(torch, cfg)
+        dm = draft if model else None
+        r = run_engine(torch, cfg, params, run, kv_len=kv_len, long_prompts=long_prompts,
+                       draft=dm, warm=False, **paths)
+        label = f"{cfg.name} {run} spec {name.split()[0]}"
+        by_run[label] = r["launches"]
+        st, ps = r["stats"], plain[run]["stats"]
+        divs = divergences(torch, cfg, params, run, r["prompts"], plain[run]["outputs"],
+                           r["outputs"])
+        print(f"spec arch={cfg.name} run={run} draft={name.split()[0]} spec_k={SPEC_K} "
+              f"acceptance={st['spec_acceptance']:.4f} "
+              f"tokens_per_step={st['spec_tokens_per_step']:.4f} "
+              f"spec_steps={st['spec_steps']} plain_decode_steps={ps['decode_steps']} "
+              + " ".join(f"{k}={st[k]:.5f} plain_{k}={ps[k]:.5f}" for k in (
+                  "tokens_per_s", "mean_ttft_s", "ttft_p95_s", "mean_tpot_s",
+                  "trace_decode_step_s"))
+              + f" build_s={r['build_s']:.3f} plain_build_s={plain[run]['build_s']:.3f} "
+              f"peak_memory_gib={r['peak_gib']:.3f} "
+              f"plain_peak_memory_gib={plain[run]['peak_gib']:.3f} "
+              f"divergences={json.dumps([[u, t, round(m, 4), round(b, 4)] for u, t, m, b in divs])}")
+        check(all(m < b for _, _, m, b in divs),
+              f"spec ({label}): a stream parts from the plain one away from a near-tie")
+        if spec.get("spec_draft_bits") == 0:
+            check(st["spec_acceptance"] >= 0.9,
+                  f"spec ({label}): acceptance {st['spec_acceptance']} with the serving params")
+        if name.endswith("eager"):
+            run_graphs(torch, cfg, params, run, r, kv_len, long_prompts, draft=dm, **paths)
+            profile_spec(torch, cfg, params, run, kv_len, draft=dm, **paths)
+
+
+def run_slo(torch, cfg, params, plain, kv_len):
+    """The SLO plane on the real clock: ``SLO_REQUESTS`` requests of
+    ``make_workload`` (prompts of 4..384 tokens, half of them in a high
+    class), Poisson arrivals at ``SLO_OVERLOAD`` times the request rate the
+    plain replayed drain (``plain``) sustained, offered open-loop through
+    ``ServingFrontend.play`` to an engine with ``SloScheduler`` (two classes
+    with TTFT and TPOT targets), a deadline of ``SLO_DEADLINE_BUDGETS``
+    times a budget's plain decode time and a queue bounded at
+    ``SLO_MAX_QUEUE``.  Every request ends finished, expired or shed; each
+    finished one has its budget; every stream delivered its request's
+    tokens in order; some requests expired and some were shed."""
+    from repro_torch.serving.engine import DONE, EngineConfig, ServingEngine
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.scheduler import SloClass, SloScheduler
+    from repro_torch.serving.workload import make_workload
+    ps = plain["stats"]
+    rate = SLO_OVERLOAD * ps["finished"] / plain["wall_s"]
+    tpot_ms = ps["mean_tpot_s"] * 1e3
+    deadline_ms = SLO_DEADLINE_BUDGETS * NEW_TOKENS * tpot_ms
+    classes = {1: SloClass(ttft_ms=deadline_ms / 4, tpot_ms=2 * tpot_ms),
+               0: SloClass(ttft_ms=deadline_ms, tpot_ms=4 * tpot_ms)}
+    wl = make_workload(SLO_REQUESTS, rate, seed=0, hi_fraction=0.5, min_len=4, max_len=384,
+                       vocab=cfg.vocab_size, max_new_tokens=NEW_TOKENS)
+    engine = ServingEngine(cfg, params, EngineConfig(
+        max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=NEW_TOKENS,
+        impl="flash", deadline_ms=deadline_ms, max_queue=SLO_MAX_QUEUE),
+        device=DEVICE, scheduler=SloScheduler(classes))
+    front = ServingFrontend(engine)
+    t0 = time.perf_counter()
+    streams = front.play(wl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = engine.stats()
+    n_fin, n_dl, n_rej = st["finished"], st["failed_deadline"], st["rejected"]
+    ttft = {}
+    for p in (1, 0):
+        xs = [s.request.t_first_token - s.request.t_enqueue for s in streams
+              if s.status == DONE and s.request.priority == p]
+        ttft[p] = (len(xs), *(np.percentile(xs, (50, 95)) if xs else (float("nan"),) * 2))
+    print(f"slo arch={cfg.name} requests={len(wl)} rate_rps={rate:.3f} "
+          f"plain_rate_rps={rate / SLO_OVERLOAD:.3f} deadline_ms={deadline_ms:.1f} "
+          f"max_queue={SLO_MAX_QUEUE} finished={n_fin} failed_deadline={n_dl} rejected={n_rej} "
+          f"wall_s={wall:.3f} tokens_per_s={st.get('tokens_per_s', 0.0):.2f} "
+          + " ".join(f"class{p}_finished={n} class{p}_ttft_p50_s={a:.4f} "
+                     f"class{p}_ttft_p95_s={b:.4f}" for p, (n, a, b) in ttft.items()))
+    check(len(streams) == SLO_REQUESTS and n_fin + n_dl + n_rej == SLO_REQUESTS
+          and st["failed"] == n_dl, f"slo: {n_fin} + {n_dl} + {n_rej} of {SLO_REQUESTS}")
+    check(all(len(s.tokens) == NEW_TOKENS for s in streams if s.status == DONE),
+          "slo: a finished request lacks tokens of its budget")
+    check(all(s.tokens == s.request.output for s in streams),
+          "slo: a stream did not deliver its request's tokens in order")
+    check(n_fin > 0 and n_dl > 0 and n_rej > 0,
+          f"slo: finished {n_fin}, expired {n_dl}, shed {n_rej}: each must be above 0")
 
 
 def run_crossbar(torch):
@@ -1224,7 +1465,9 @@ def profiled(torch, arch, run, what, step, steps):
     synchronise), then torch.profiler over as many: device busy time (the
     sum of kernel times) a call, the share of the wall time the card was
     idle, kernels launched a call and the largest kernels.  The profiler
-    slows the host, so its own wall time is not the engine's."""
+    slows the host, so its own wall time is not the engine's; it records
+    the card's activity only (the host's thousands of operator events a
+    step cost seconds to gather and are not read)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1233,7 +1476,7 @@ def profiled(torch, arch, run, what, step, steps):
         step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -1241,6 +1484,7 @@ def profiled(torch, arch, run, what, step, steps):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    check(busy_ms > 0, f"profile ({arch} {run} {what}): the profiler recorded no device time")
     launches = sum(e.count for e in kernels) / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     print(f"profile arch={arch} run={run} {what} wall_ms={step_ms:.3f} busy_ms={busy_ms:.3f} "
@@ -1418,28 +1662,40 @@ def main():
     for ln in ptxas:
         print(f"build ptxas: {ln}")
 
+    t_kernels = time.perf_counter()
     records = run_kernel_checks(torch)
     records.update(run_quant_decode_checks(torch))
     records.update(run_matmul_checks(torch))
+    print(f"phase kernels done in {time.perf_counter() - t_kernels:.1f} s")
 
     start = time.perf_counter()
+
+    def done(what):
+        print(f"phase {what} done at {time.perf_counter() - start:.1f} s")
     by_run = {}            # launches of each main-path run, counted from 0 before it
     for arch, serve in SERVED.items():
         cfg = get_config(arch)
         params = make_params(torch, cfg)
         drain = dict(kv_len=serve["kv_len"], long_prompts=serve["long_prompts"])
+        plain = {}
         for run in QUANT_RUNS:
-            r = run_engine(torch, cfg, params, run, **drain)
+            r = plain[run] = run_engine(torch, cfg, params, run, **drain)
             by_run[f"{arch} {run}"] = r["launches"]
             run_graphs(torch, cfg, params, run, r, **drain)
             if run == "fp":
                 run_baselines(torch, cfg, params, by_run, **drain)
+        done(f"engine, graphs and baselines of {arch}")
+        run_spec(torch, cfg, params, plain, by_run, **drain)
+        done(f"spec of {arch}")
         if arch == "qwen2.5-3b":
             run_sampling(torch, cfg, params, serve["kv_len"])
-        if arch == "qwen2.5-3b":
+            run_sampling(torch, cfg, params, serve["kv_len"], spec_k=SPEC_K, spec_draft_bits=8)
+            run_slo(torch, cfg, params, plain["fp"], serve["kv_len"])
+            done(f"sampling and slo of {arch}")
             by_run["crossbar"] = run_crossbar(torch)
         for run in ("fp", "w8kv8"):
             run_logits(torch, cfg, params, run, long_row=serve["logits_row"])
+        done(f"logits of {arch}")
         for run in ("fp", "w8kv8"):
             run_profile(torch, cfg, params, run, kv_len=serve["kv_len"])
         del params

@@ -329,6 +329,22 @@ def chunk_prefill_step(params, cfg: ModelConfig, cache, tokens, pos, take_idx,
     return logits, {"stack": caches}
 
 
+def verify_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
+                compute_dtype=torch.bfloat16):
+    """Batched multi-position scoring (the speculative step's verify): the
+    chunk pass of :func:`chunk_prefill_step` — ``tokens`` (B, C) written
+    into each row's cache in place at ``pos`` (B, C) (-1 = pad / inactive
+    row), attending to the pre-write cache plus the in-stream block — with
+    the logits kept at every position: those at index ``i`` are the
+    distribution of the token after ``tokens[:, i]``.  Returns (logits
+    (B, C, V), cache)."""
+    h = embed_tokens(params, cfg, tokens, compute_dtype)
+    h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
+                          mode="chunk", pos=pos, caches=cache["stack"], impl=impl)
+    h = M.rmsnorm(h, params["final_norm"]["scale"])
+    return unembed(params, cfg, h, impl), {"stack": caches}
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
                 compute_dtype=torch.bfloat16):
     """One decode step.  tokens (B,), pos (B,) -> (logits (B, V), cache);

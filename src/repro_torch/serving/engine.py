@@ -3,10 +3,11 @@
 
 Policy, device execution and slot lifecycle live in three sibling layers::
 
-    scheduler.py   admission policy (Scheduler protocol; FIFO default)
-    executor.py    the device programs (fused decode step, packed ragged
-                   prefill, chunked continuation) + the single
-                   device→host transfer point
+    scheduler.py   admission policy (Scheduler protocol: FifoScheduler,
+                   the default, or SloScheduler)
+    executor.py    the device programs (fused decode step or speculative
+                   step, packed ragged prefill, chunked continuation) +
+                   the single device→host transfer point
     pool.py        the slotted KV cache, per-slot decode state, slot
                    lifecycle
 
@@ -27,6 +28,17 @@ iteration loop.  Each iteration runs:
 On a card the three programs (fused step, packed prefill, chunk step)
 are captured as CUDA graphs when the engine is built and replayed from
 then on (``executor.py``, ``graphs.py``); on the CPU they run eagerly.
+With ``spec_k > 0`` the speculative step (``spec_k`` draft steps, one
+batched verify, acceptance and rollback) is captured in the fused step's
+place and commits up to ``spec_k + 1`` tokens a slot a step; a draft
+model's prompt prefill (``spec_draft="model"``) runs eagerly.
+
+Hardening (defaults off): per-request deadlines (``deadline_ms``:
+expired requests are evicted, queued or mid-decode, as
+``FAILED_DEADLINE``), bounded-queue shedding (``max_queue``: the
+retriable ``REJECTED``), the NaN/inf logit quarantine
+(``anomaly_retries``) and ``EngineStallError`` from
+``run_until_drained``.  Every submitted request ends in a terminal state.
 
 ``packed=False`` keeps the sequential admission baseline (one
 bucket-padded batch-1 prefill+insert call per request) and
@@ -34,11 +46,10 @@ bucket-padded batch-1 prefill+insert call per request) and
 eagerly on the card too.  ``trace=True`` records each decode iteration's
 wall-clock split (``self.trace``, the ``trace_*`` keys of ``stats()``).
 
-The port runs the FIFO scheduler, fp or quantised
-(``weight_bits``/``weight_group``/``kv_bits``).  ``EngineConfig`` fields
-of the reference that it does not implement raise
-``NotImplementedError`` when the engine is built (see ``ROADMAP.md``).
-The engine runs on ``"cuda"`` unless ``device="cpu"`` is passed.
+The engine serves fp or quantised (``weight_bits``/``weight_group``/
+``kv_bits``).  A mesh (sharded serving) has no port yet: ``mesh=``
+raises ``NotImplementedError``.  The engine runs on ``"cuda"`` unless
+``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
@@ -76,12 +87,22 @@ class EngineConfig:
     #   quantisation of the dense projections (dequant-matmul kernel)
     weight_group: int = 0         # rows of K per scale group (0 = per-channel)
     kv_bits: int = 0              # 0 = fp pool; 8/4 = quantised slot-pool KV
-    deadline_ms: float = 0.0
-    max_queue: int = 0
+    deadline_ms: float = 0.0      # per-request TTL from submit (0 = none):
+    #   expired requests are evicted (queued or mid-decode) as FAILED_DEADLINE
+    max_queue: int = 0            # bounded admission queue (0 = unbounded):
+    #   submits beyond it are shed with the retriable REJECTED status
     anomaly_retries: int = 1      # NaN/inf-logit quarantine: a slot whose
     #   logits go non-finite is frozen and retried this many times before
     #   only that request is failed
-    spec_k: int = 0
+    spec_k: int = 0               # speculative decoding: draft this many
+    #   tokens a step and verify them in one batched call (0 = off).  Needs
+    #   the fused, packed path, decode_chunk 1, and spec_k+1 within the
+    #   smallest cache ring (min(window, kv_len))
+    spec_draft: str = "self"      # "self": a quantised copy of the serving
+    #   params drafts (spec_draft_bits); "model": a separate draft model,
+    #   ServingEngine(draft=(cfg, params)), with its own KV pool
+    spec_draft_bits: int = 8      # self-draft precision (8 / 4; 0 = the
+    #   serving params themselves: greedy acceptance 1)
     clock: Callable[[], float] = time.monotonic
     #   the engine's time source for request timestamps
     trace: bool = False           # per-iteration wall-clock tracer: each
@@ -90,10 +111,6 @@ class EngineConfig:
     #   keys only when tracing.  Durations are time.perf_counter's, not
     #   ``clock``'s
 
-
-# fields of the reference's EngineConfig this slice does not implement, with
-# the value that means "off"
-_NOT_PORTED = {"deadline_ms": 0.0, "max_queue": 0, "spec_k": 0}
 
 # prompt-length buckets of the sequential (packed=False) baseline
 _MIN_BUCKET = 8
@@ -106,17 +123,51 @@ def _bucket_len(plen: int, kv_len: int) -> int:
     return min(b, kv_len)
 
 
+def _check_spec(cfg: ModelConfig, ecfg: EngineConfig, draft) -> None:
+    """What speculative decoding needs of the configuration (the
+    reference's checks and messages).  The port's stacks, a draft model's
+    too, are all attention-only (``ModelConfig`` takes no other layer
+    kind), which the verify's chunk pass needs."""
+    if ecfg.spec_k < 0:
+        raise ValueError(f"spec_k must be >= 0, got {ecfg.spec_k}")
+    if not (ecfg.fused and ecfg.packed):
+        raise ValueError("speculative decoding requires the fused=True, packed=True path")
+    if ecfg.decode_chunk != 1:
+        raise ValueError("spec_k > 0 requires decode_chunk == 1 "
+                         "(the spec step IS the multi-token step)")
+    if ecfg.spec_draft not in ("self", "model"):
+        raise ValueError(f"spec_draft must be 'self' or 'model', got {ecfg.spec_draft!r}")
+    if ecfg.spec_draft_bits not in (0, 4, 8):
+        raise ValueError(f"spec_draft_bits must be 0, 4 or 8, got {ecfg.spec_draft_bits}")
+    caps = [ecfg.kv_len] + [cfg.window for k in cfg.layer_kinds if k == "local"]
+    if ecfg.spec_k + 1 > min(caps):
+        raise ValueError(
+            f"spec_k+1 ({ecfg.spec_k + 1}) exceeds the smallest cache ring "
+            f"({min(caps)}): the saved-column rollback needs unique ring indices")
+    if ecfg.spec_draft == "model":
+        if draft is None:
+            raise ValueError("spec_draft='model' needs draft=(draft_cfg, draft_params)")
+        if draft[0].vocab_size != cfg.vocab_size:
+            raise ValueError(f"draft vocab ({draft[0].vocab_size}) != target vocab "
+                             f"({cfg.vocab_size})")
+
+
 class EngineStallError(RuntimeError):
     """``run_until_drained`` exhausted ``max_iters`` with requests still in
     flight; every stranded request was marked ``FAILED_MAX_ITERS`` first."""
 
 
-# Request terminal states (Request.status)
+# Request states (Request.status); a submitted request ends in exactly one
+# of TERMINAL
 QUEUED = "queued"
 ACTIVE = "active"
 DONE = "done"
+FAILED_DEADLINE = "failed_deadline"    # missed its EngineConfig.deadline_ms
 FAILED_ANOMALY = "failed_anomaly"      # non-finite logits past the retries
 FAILED_MAX_ITERS = "failed_max_iters"  # stranded at max_iters exhaustion
+REJECTED = "rejected"                  # shed at submit (bounded queue):
+#                                        retriable, resubmit later
+TERMINAL = (DONE, FAILED_DEADLINE, FAILED_ANOMALY, FAILED_MAX_ITERS, REJECTED)
 
 
 @dataclasses.dataclass
@@ -129,10 +180,15 @@ class Request:
     output: list = dataclasses.field(default_factory=list)
     done: bool = False
     status: str = QUEUED
+    deadline: float = float("inf")           # absolute, on the engine clock
     t_enqueue: float = 0.0
     t_admit: float = 0.0
     t_first_token: float = 0.0
     t_done: float = 0.0
+
+    @property
+    def terminal(self) -> bool:
+        return self.status in TERMINAL
 
 
 def _percentiles(xs) -> tuple:
@@ -145,17 +201,16 @@ def _percentiles(xs) -> tuple:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, ecfg: Optional[EngineConfig] = None,
-                 *, device=None, scheduler: Optional[Scheduler] = None, mesh=None):
+                 *, device=None, scheduler: Optional[Scheduler] = None, mesh=None,
+                 draft: Optional[tuple] = None):
         self.cfg = cfg
         self.ecfg = ecfg = ecfg if ecfg is not None else EngineConfig()
         if ecfg.weight_bits not in (0, 4, 8):
             raise ValueError(f"weight_bits must be 0, 4 or 8, got {ecfg.weight_bits}")
         if ecfg.kv_bits not in (0, 4, 8):
             raise ValueError(f"kv_bits must be 0, 4 or 8, got {ecfg.kv_bits}")
-        for name, off in _NOT_PORTED.items():
-            if getattr(ecfg, name) != off:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(ecfg, name)!r} has no port yet")
+        if ecfg.spec_k:
+            _check_spec(cfg, ecfg, draft)
         if mesh is not None:
             raise NotImplementedError("a mesh (sharded serving) has no port yet")
         self.device = resolve_device(device)
@@ -167,10 +222,14 @@ class ServingEngine:
             else FifoScheduler()
         self.executor = Executor(cfg, params, ecfg, device=self.device)
         self.pool = SlotPool(cfg, ecfg, device=self.device)
+        if ecfg.spec_k and ecfg.spec_draft == "model":
+            self.executor.set_draft(*draft)
+            self.pool.init_draft(draft[0])
 
         self.queue: collections.deque[Request] = collections.deque()
         self.finished: list[Request] = []
-        self.failed: list[Request] = []
+        self.failed: list[Request] = []      # deadline / anomaly / max_iters
+        self.rejected: list[Request] = []    # shed at submit (retriable)
         self._uid = 0
 
         # prefill / schedule accounting
@@ -184,6 +243,12 @@ class ServingEngine:
         self.active_slot_hist: collections.Counter = collections.Counter()
         # per-iteration wall-clock records (EngineConfig(trace=))
         self.trace: list[dict] = []
+        # speculative decoding: steps, drafts proposed and accepted, tokens
+        # committed (the accepted prefix plus the correction token, capped)
+        self.spec_steps = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_committed = 0
 
         S = ecfg.kv_len
         self._chunk = min(ecfg.prefill_chunk or min(128, S), S)
@@ -192,8 +257,9 @@ class ServingEngine:
         self._bucketed = all(k == "global" for k in cfg.layer_kinds)
         if self.device.type == "cuda":
             # the programs this configuration runs, replayed from graphs
+            decode = "spec_step" if ecfg.spec_k else "fused_step"
             programs = [name for name, used in (
-                ("fused_step", ecfg.fused), ("packed_prefill", ecfg.fused and ecfg.packed),
+                (decode, ecfg.fused), ("packed_prefill", ecfg.fused and ecfg.packed),
                 ("chunk_step", ecfg.fused and ecfg.packed)) if used]
             if programs:
                 self.executor.capture(self.pool, programs, chunk=self._chunk)
@@ -233,10 +299,19 @@ class ServingEngine:
                 f"for even one generated token in the KV budget")
         if max_new_tokens is not None and max_new_tokens < 0:
             raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
+        now = self._now()
         req = Request(uid=self._uid, prompt=arr.astype(np.int32),
                       max_new_tokens=max_new_tokens, priority=int(priority),
-                      t_enqueue=self._now())
+                      t_enqueue=now)
+        if self.ecfg.deadline_ms > 0:
+            req.deadline = now + self.ecfg.deadline_ms / 1e3
         self._uid += 1
+        if self.ecfg.max_queue > 0 and len(self.queue) >= self.ecfg.max_queue:
+            # shed: returned REJECTED instead of enqueued
+            req.status = REJECTED
+            req.t_done = now
+            self.rejected.append(req)
+            return req
         self.queue.append(req)
         return req
 
@@ -244,6 +319,24 @@ class ServingEngine:
         req.status = status
         req.t_done = now if now is not None else self._now()
         self.failed.append(req)
+
+    def _evict_expired(self):
+        """Fail every queued or in-flight request past its deadline: expired
+        work is dropped before it spends another admission or decode step,
+        and its slot frees for a request that can still make it."""
+        now = self._now()
+        if self.queue:
+            kept = collections.deque()
+            for req in self.queue:
+                if now > req.deadline:
+                    self._fail(req, FAILED_DEADLINE, now)
+                else:
+                    kept.append(req)
+            self.queue = kept
+        for i, req in enumerate(self.pool.slot_req):
+            if req is not None and now > req.deadline:
+                self._fail(req, FAILED_DEADLINE, now)
+                self.pool.kill(i)
 
     # -- scheduler seams -------------------------------------------------------
     def _prefill_allowed(self) -> bool:
@@ -276,9 +369,14 @@ class ServingEngine:
 
     # -- iteration loop --------------------------------------------------------
     def step(self) -> int:
-        """One engine iteration: (scheduler-gated) admission + chunked
-        prefill continuation + one decode step over the slot pool.  Returns
-        the number of occupied slots."""
+        """One engine iteration: deadline eviction + (scheduler-gated)
+        admission + chunked prefill continuation + one decode (or
+        speculative) step over the slot pool.  Returns the number of
+        occupied slots."""
+        if self.ecfg.deadline_ms > 0:
+            self._evict_expired()
+        if self.ecfg.spec_k:
+            return self._step_spec()
         if self.ecfg.fused:
             return self._step_fused()
         return self._step_host()
@@ -340,6 +438,71 @@ class ServingEngine:
                     req.t_done = now
                     self.finished.append(req)
                     self.pool.release(i)     # slot freed → continuous batching
+        return self.pool.occupied()
+
+    def _step_spec(self) -> int:
+        """One speculative iteration: admission (the packed path), then one
+        draft + verify step over the slot pool, whose one device→host
+        transfer, a packed ``(spec_k+1, 4, B)`` of (token | -1, done,
+        anomaly, accepted), commits up to ``spec_k + 1`` tokens a slot."""
+        t0 = time.perf_counter()
+        calls0 = self.prefill_calls
+        if self._prefill_allowed():
+            self._admit_packed()
+        dt = time.perf_counter() - t0
+        self.prefill_time += dt
+        if self.prefill_calls > calls0:
+            self.scheduler.observe_prefill(dt)
+        occupied = self.pool.occupied()
+        if occupied == len(self.pool.prefilling):
+            self._stall_tokens = 0
+            return occupied
+        tr = self.ecfg.trace
+        td0 = time.perf_counter() if tr else 0.0
+        packed = self.executor.run("spec_step", self.pool)
+        td1 = time.perf_counter() if tr else 0.0
+        arr = self._fetch(packed)                 # ONE d2h transfer
+        if tr:
+            td2 = time.perf_counter()
+            self.trace.append({"prefill_s": dt, "decode_s": td1 - td0,
+                               "d2h_s": td2 - td1, "step_s": td2 - t0, "iters": 1})
+        self.decode_steps += 1                    # one target weight stream
+        self.spec_steps += 1
+        self.max_stall_tokens = max(self.max_stall_tokens, self._stall_tokens)
+        self._stall_tokens = 0
+        now = self._now()
+        K = self.ecfg.spec_k
+        self.active_slot_hist[int((arr[0, 0] >= 0).sum())] += 1
+        for i, req in enumerate(self.pool.slot_req):
+            if req is None or i in self.pool.prefilling:
+                continue
+            if arr[0, 2, i]:                      # non-finite verify logits:
+                # every column restored, the state left: the fused step's retry
+                self.pool.anomalies[i] += 1
+                if self.pool.anomalies[i] > self.ecfg.anomaly_retries:
+                    self._fail(req, FAILED_ANOMALY, now)
+                    self.pool.kill(i)
+                continue
+            if arr[0, 0, i] < 0:
+                continue
+            self.pool.anomalies[i] = 0
+            self.spec_drafted += K
+            self.spec_accepted += int(arr[0, 3, i])
+            for it in range(arr.shape[0]):        # the committed prefix, in order
+                if arr[it, 0, i] < 0:
+                    break
+                tok = int(arr[it, 0, i])
+                if not req.output:
+                    req.t_first_token = now
+                req.output.append(tok)
+                self.spec_committed += 1
+                if arr[it, 1, i]:
+                    req.done = True
+                    req.status = DONE
+                    req.t_done = now
+                    self.finished.append(req)
+                    self.pool.release(i)
+                    break
         return self.pool.occupied()
 
     def _step_host(self) -> int:
@@ -482,6 +645,7 @@ class ServingEngine:
                     self.finished.append(req)
                     continue
                 self.pool.slot_req[slot] = req
+                self._draft_ingest(req, slot)
             else:                   # long prompt: first chunk only
                 self.pool.slot_req[slot] = req
                 self.pool.prefilling[slot] = (take, budget)
@@ -526,8 +690,23 @@ class ServingEngine:
                     req.t_done = now
                     self.finished.append(req)
                     self.pool.release(slot)
+                else:
+                    self._draft_ingest(req, slot)
             else:
                 self.pool.prefilling[slot] = (start + c, budget)
+
+    def _draft_ingest(self, req, slot: int) -> None:
+        """With a draft model, mirror a completed prompt into its pool (one
+        batch-1 draft prefill, right-padded to a chunk multiple, and an
+        insert) so that the draft decodes with the target's context.  A
+        self-draft shares the target's pool: nothing to do."""
+        if self.pool.draft_cache is None:
+            return
+        plen = len(req.prompt)
+        pad = min(-(-plen // self._chunk) * self._chunk, self.ecfg.kv_len)
+        toks = np.zeros((1, pad), np.int32)
+        toks[0, :plen] = req.prompt
+        self.executor.draft_prefill(self.pool.draft_cache, self._dev(toks), slot, plen)
 
     # -- admission: sequential baselines ---------------------------------------
     def _next_request(self, slot: int) -> Optional[tuple]:
@@ -606,12 +785,12 @@ class ServingEngine:
         by_status = collections.Counter(r.status for r in self.failed)
         return {
             "failed": len(self.failed),
+            "rejected": len(self.rejected),
+            "failed_deadline": by_status.get(FAILED_DEADLINE, 0),
             "failed_anomaly": by_status.get(FAILED_ANOMALY, 0),
             "failed_max_iters": by_status.get(FAILED_MAX_ITERS, 0),
-            # the reference's bounded queue, deadlines and checkpoints have
-            # no port yet: their counters stay 0, kept for key parity
-            "rejected": 0,
-            "failed_deadline": 0,
+            # the reference's checkpoints have no port yet: their counters
+            # stay 0, kept for key parity
             "checkpoints_written": 0,
             "restores": 0,
             "replayed_requests": 0,
@@ -630,6 +809,23 @@ class ServingEngine:
         tpot_p, qwait_p = _percentiles(tpot), _percentiles(qwait)
         toks = sum(len(r.output) for r in done)
         span = max(r.t_done for r in done) - min(r.t_enqueue for r in done)
+        # speculative acceptance, present only when spec_k > 0: the
+        # acceptance of a draft, and tokens committed a slot a step
+        spec: dict = {}
+        if self.ecfg.spec_k:
+            drafted = self.spec_drafted
+            spec = {
+                "spec_k": self.ecfg.spec_k,
+                "spec_draft": self.ecfg.spec_draft,
+                "spec_draft_bits": self.ecfg.spec_draft_bits,
+                "spec_steps": self.spec_steps,
+                "spec_drafted": drafted,
+                "spec_accepted": self.spec_accepted,
+                "spec_committed": self.spec_committed,
+                "spec_acceptance": self.spec_accepted / drafted if drafted else None,
+                "spec_tokens_per_step": (self.spec_committed * self.ecfg.spec_k / drafted
+                                         if drafted else None),
+            }
         # measured per-iteration wall clock, present only when tracing
         trace: dict = {}
         if self.ecfg.trace:
@@ -682,6 +878,7 @@ class ServingEngine:
             "weight_bits": self.ecfg.weight_bits or 16,
             "kv_bits": self.ecfg.kv_bits or 16,
             "active_slots_hist": dict(sorted(self.active_slot_hist.items())),
+            **spec,
             **trace,
             **self._failure_stats(),
         }

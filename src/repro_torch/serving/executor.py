@@ -2,21 +2,22 @@
 the device programs of the serving engine and its single device→host
 transfer point.
 
-The fused decode step (decode → sample → bookkeeping), the packed ragged
-prefill with its multi-slot insert, and the chunked-prefill continuation
-run here, and so do the baselines' pieces: the batch-1 prefill and insert
-of sequential admission (``packed=False``) and the host-looped decode and
-sampling of ``fused=False``.  The executor owns the parameters, the
-sampling generator and the host-transfer accounting; it holds no request
-or slot bookkeeping — callers pass ``(cache, state)`` in and get the same
-objects back.
+The fused decode step (decode → sample → bookkeeping), the speculative
+step that takes its place under ``spec_k`` (draft, verify, accept, roll
+back), the packed ragged prefill with its multi-slot insert, and the
+chunked-prefill continuation run here, and so do the baselines' pieces:
+the batch-1 prefill and insert of sequential admission (``packed=False``)
+and the host-looped decode and sampling of ``fused=False``.  The executor
+owns the parameters (and a speculative draft's), the sampling generator
+and the host-transfer accounting; it holds no request or slot bookkeeping
+— callers pass ``(cache, state)`` in and get the same objects back.
 
 Where the reference donates the cache to a jitted program, the port
-updates the pool's cache and state tensors **in place**.  The three
-programs have fixed shapes and read no device data on the host, so on a
-card :meth:`capture` records each of them once in a CUDA graph
-(:mod:`.graphs`) and :meth:`run` replays it; the only synchronising read
-is :meth:`fetch`.  On the CPU :meth:`run` calls the program's method.
+updates the pool's cache and state tensors **in place**.  The programs
+have fixed shapes and read no device data on the host, so on a card
+:meth:`capture` records each of them once in a CUDA graph (:mod:`.graphs`)
+and :meth:`run` replays it; the only synchronising read is :meth:`fetch`.
+On the CPU :meth:`run` calls the program's method.
 """
 from __future__ import annotations
 
@@ -27,9 +28,12 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import put_unique, ring_positions, unique_targets
 from repro_torch.quant.core import quantize_params
+from repro_torch.serving.pool import cache_leaves
 
-# the three programs: the engine's default path, each one device call
+# the three programs of the engine's default path, each one device call;
+# under spec_k the speculative step takes the fused step's place
 PROGRAMS = ("fused_step", "packed_prefill", "chunk_step")
+SPEC_PROGRAMS = ("spec_step", "packed_prefill", "chunk_step")
 
 
 def _assign(state: dict, **new) -> None:
@@ -50,6 +54,15 @@ class Executor:
                 params, ecfg.weight_bits, group=ecfg.weight_group))
         self.generator = torch.Generator(device=self.device).manual_seed(ecfg.seed)
         self.graphs = None            # the captured programs (.graphs.ProgramGraphs)
+        # speculative decoding: self-speculation drafts with a quantised copy
+        # of the unquantised serving params (spec_draft_bits; 0 = the serving
+        # params themselves); a draft model comes through set_draft()
+        self.draft_cfg, self.draft_params = cfg, None
+        if ecfg.spec_k > 0 and ecfg.spec_draft == "self":
+            self.draft_params = self.params
+            if ecfg.spec_draft_bits:
+                self.draft_params = T.Transformer(cfg, quantize_params(
+                    params, ecfg.spec_draft_bits, group=ecfg.weight_group))
         # host-transfer accounting
         self.host_transfers = 0
         self.host_bytes = 0
@@ -82,12 +95,12 @@ class Executor:
 
     def run(self, name: str, pool, *host: np.ndarray) -> torch.Tensor:
         """Run program ``name`` over ``pool`` with the host arrays ``host``
-        as its inputs (after cache and state): replayed from its graph where
-        it was captured, else eagerly.  Returns its output on the device."""
+        as its inputs (after the pool's): replayed from its graph where it
+        was captured, else eagerly.  Returns its output on the device."""
         if self.graphs is not None:
             return self.graphs.replay(name, host)
         args = [torch.from_numpy(a).to(self.device) for a in host]
-        return getattr(self, name)(pool.cache, pool.state, *args)[2]
+        return getattr(self, name)(*pool_args(name, pool), *args)[2]
 
     @torch.no_grad()
     def fused_step(self, cache, state):
@@ -188,6 +201,170 @@ class Executor:
                 live=torch.where(final, budget > 1, state["live"]))
         return cache, state, torch.where(final, nxt, -1)
 
+    # -- speculative decoding ---------------------------------------------------
+    def set_draft(self, draft_cfg: ModelConfig, draft_params) -> None:
+        """Attach a separate draft model (``spec_draft="model"``)."""
+        self.draft_cfg, self.draft_params = draft_cfg, draft_params
+
+    @torch.no_grad()
+    def draft_prefill(self, dcache, tokens, slot: int, length: int):
+        """Mirror a completed prompt into the draft model's pool: one
+        right-padded batch-1 draft prefill, inserted into ``slot`` in place
+        (eager, one launch a kernel, as the sequential baseline's)."""
+        _, pcache = T.prefill(self.draft_params, self.draft_cfg, tokens,
+                              impl=self.ecfg.impl, kv_cap=self.ecfg.kv_len, length=length)
+        return self.insert(dcache, pcache, slot, length)
+
+    def _spec_ring(self, leaf, p):
+        """(slot index (B, 1), ring index (B, spec_k+1)) of the columns at
+        positions ``p .. p+spec_k`` of a pool leaf: the columns a
+        speculative step can write.  ``spec_k + 1`` fits the smallest ring
+        (validated by the engine), so a row's ring indices are distinct."""
+        jj = torch.arange(self.ecfg.spec_k + 1, dtype=torch.int32, device=p.device)
+        bidx = torch.arange(leaf.shape[1], device=p.device)[:, None]
+        return bidx, torch.remainder(p[:, None] + jj[None], leaf.shape[2]).long()
+
+    def _spec_cols(self, cache, p) -> list:
+        """Copies of the ``spec_k + 1`` columns at ring indices ``(p + j) %
+        cap`` of every leaf, (repeats, B, spec_k+1, ...) each: the pre-step
+        bytes a rollback writes back (advanced indexing copies)."""
+        return [leaf[(slice(None),) + self._spec_ring(leaf, p)]
+                for _, leaf in cache_leaves(cache)]
+
+    def _spec_restore(self, cache, saved, p, mask) -> None:
+        """Write the saved columns back where ``mask`` (B, spec_k+1) is set,
+        in place; elsewhere a column keeps what it holds."""
+        for (_, leaf), sv in zip(cache_leaves(cache), saved):
+            ix = (slice(None),) + self._spec_ring(leaf, p)
+            m = mask.reshape((1,) + mask.shape + (1,) * (sv.dim() - 3))
+            leaf[ix] = torch.where(m, sv, leaf[ix])
+
+    def _accept_sampled(self, dlogits, vlogits, dtoks):
+        """Rejection sampling (Leviathan et al.): accept draft ``d_j`` iff
+        ``u * q(d_j) <= p(d_j)``; at the first rejection draw from the
+        normalised residual ``max(p - q, 0)``, with ``q := 0`` past the
+        drafts, so full acceptance draws from the last target distribution.
+        Returns (accepted count n (B,), next token (B,))."""
+        tau, (B, K) = self.ecfg.temperature, dtoks.shape
+        qd = torch.softmax(dlogits.float() / tau, dim=-1)           # (B, K, V)
+        pt = torch.softmax(vlogits.float() / tau, dim=-1)           # (B, K+1, V)
+        idx = dtoks.long()[..., None]
+        q_at = torch.gather(qd, 2, idx)[..., 0]
+        p_at = torch.gather(pt[:, :K], 2, idx)[..., 0]
+        u = torch.rand((B, K), generator=self.generator, device=dtoks.device)
+        n = torch.cumprod((u * q_at <= p_at).to(torch.int32), dim=1).sum(dim=1)
+        at_n = n.long()[:, None, None].expand(B, 1, pt.shape[-1])
+        p_n = torch.gather(pt, 1, at_n)[:, 0]
+        q_n = torch.gather(torch.cat([qd, torch.zeros_like(pt[:, :1])], dim=1), 1,
+                           at_n)[:, 0]
+        res = torch.clamp_min(p_n - q_n, 0.0)
+        res = torch.clamp_min(res / torch.clamp_min(res.sum(-1, keepdim=True), 1e-30),
+                              1e-30)
+        # one categorical draw, as _sample makes it: argmax of res / E
+        e = torch.empty_like(res).exponential_(generator=self.generator)
+        return n.to(torch.int32), torch.argmax(res / e, dim=-1).to(torch.int32)
+
+    @torch.no_grad()
+    def spec_step(self, cache, state, dcache=None):
+        """The speculative counterpart of :meth:`fused_step`: ``spec_k``
+        draft decode steps (the draft's params, in the draft pool
+        ``dcache`` or, drafting with itself, the target's own pool), one
+        :func:`T.verify_step` scoring ``[t0, d_1..d_K]`` at positions
+        ``p..p+K``, greedy or rejection-sampling acceptance, then a rollback
+        of every column past the committed prefix from copies taken before
+        the step.  Everything is written in place.
+
+        With ``n`` drafts accepted a live row commits ``m + 1`` tokens
+        ``[d_1..d_m, t_next]``, ``m = min(n, budget-1, kv_len-1-pos,
+        eos_idx)``: the cache ends valid through ``pos + m`` and the last
+        committed token is the new pending one at ``pos + m + 1``, the
+        fused step's invariant a token at a time.  A row whose verify logits
+        are non-finite is frozen (every column restored, its state left) and
+        flagged.  A dead row writes nothing: the draft steps write at
+        ``pos -1``, the wipe and the rollback are masked by ``live``, verify
+        writes at ``-1`` and the draft model's catch-up too.
+
+        Returns (cache, state, packed (spec_k+1, 4, B) int32 of (token | -1,
+        done, anomaly, accepted)); ``dcache`` is updated in place."""
+        ecfg = self.ecfg
+        K, B = ecfg.spec_k, ecfg.max_batch
+        live, p, t0 = state["live"], state["pos"], state["tokens"]
+        self_draft = dcache is None
+        jidx = torch.arange(K + 1, dtype=torch.int32, device=p.device)
+        saved = self._spec_cols(cache, p)
+        dsaved = None if self_draft else self._spec_cols(dcache, p)
+
+        # -- draft: K sequential decode steps at the draft's precision -------
+        dc = cache if self_draft else dcache
+        tok, dtoks, dlogits = t0, [], []
+        for j in range(K):
+            logits, _ = T.decode_step(self.draft_params, self.draft_cfg, dc, tok,
+                                      torch.where(live, p + j, -1), impl=ecfg.impl)
+            tok = self._sample(logits)
+            dtoks.append(tok)
+            dlogits.append(logits)
+        dtoks = torch.stack(dtoks, dim=1)                           # (B, K)
+        if self_draft:
+            # wipe the drafts' K/V: verify needs every valid cache position
+            # below its block's, and the saved columns are the pre-draft bytes
+            self._spec_restore(cache, saved, p, live[:, None].expand(B, K + 1))
+
+        # -- verify: [t0, d_1..d_K] scored in one chunk pass ------------------
+        vtoks = torch.cat([t0[:, None], dtoks], dim=1)              # (B, K+1)
+        vpos = torch.where(live[:, None], p[:, None] + jidx[None], -1)
+        vlogits, _ = T.verify_step(self.params, self.cfg, cache, vtoks, vpos,
+                                   impl=ecfg.impl)
+        bad = ~torch.isfinite(vlogits).all(dim=2).all(dim=1)
+        ok = live & ~bad
+
+        # -- acceptance -------------------------------------------------------
+        if ecfg.temperature <= 0.0:
+            tgt = torch.argmax(vlogits, dim=-1).to(torch.int32)     # (B, K+1)
+            n = torch.cumprod((dtoks == tgt[:, :K]).to(torch.int32), dim=1) \
+                .sum(dim=1).to(torch.int32)
+            t_next = torch.gather(tgt, 1, n.long()[:, None])[:, 0]
+        else:
+            n, t_next = self._accept_sampled(torch.stack(dlogits, dim=1), vlogits, dtoks)
+
+        # -- commit bound: budget, cache depth, eos ---------------------------
+        comm = torch.cat([dtoks, torch.zeros_like(dtoks[:, :1])], dim=1)
+        comm = torch.where(jidx[None] == n[:, None], t_next[:, None], comm)
+        m = torch.minimum(n, state["budget"] - 1)
+        m = torch.minimum(m, ecfg.kv_len - 1 - p)
+        eos_idx = torch.full_like(n, K + 1)
+        if ecfg.eos_token >= 0:
+            eos_idx = torch.where(comm == ecfg.eos_token, jidx[None], K + 1) \
+                .amin(dim=1).to(torch.int32)
+            m = torch.minimum(m, eos_idx)
+        m = torch.clamp_min(m, 0)
+
+        # -- rollback past the committed prefix --------------------------------
+        mask = live[:, None] & ((jidx[None] > m[:, None]) | bad[:, None])
+        self._spec_restore(cache, saved, p, mask)
+        if not self_draft:
+            # full acceptance leaves the draft pool one entry short (input
+            # d_K at p+K was never drafted): one catch-up step writes it
+            cu_pos = torch.where(ok & (m == K), p + K, -1)
+            T.decode_step(self.draft_params, self.draft_cfg, dcache, dtoks[:, K - 1],
+                          cu_pos, impl=ecfg.impl)
+            self._spec_restore(dcache, dsaved, p, mask)
+
+        # -- state update ---------------------------------------------------------
+        c = torch.where(ok, m + 1, 0)
+        t_last = torch.gather(comm, 1, m.long()[:, None])[:, 0]
+        pos_new = p + c
+        budget_new = state["budget"] - c
+        done = ok & ((budget_new <= 0) | (pos_new >= ecfg.kv_len) | (eos_idx <= m))
+        row0 = jidx[:, None] == 0
+        packed = torch.stack([
+            torch.where((jidx[:, None] <= m[None]) & ok[None], comm.T, -1),
+            ((jidx[:, None] == m[None]) & done[None]).to(torch.int32),
+            (row0 & (live & bad)[None]).to(torch.int32),
+            torch.where(row0 & ok[None], n[None], 0)], dim=1).to(torch.int32)
+        _assign(state, tokens=torch.where(ok, t_last, t0), pos=pos_new,
+                budget=budget_new, live=live & ~done)
+        return cache, state, packed
+
     # -- the baselines (eager) -------------------------------------------------
     @torch.no_grad()
     def prefill_insert(self, cache, state, tokens, slot: int, length: int, budget: int):
@@ -237,3 +414,11 @@ class Executor:
         """Host-path sampling (``fused=False``): the sampled tokens, fetched.
         Draws come from the executor's generator, as on the fused path."""
         return self.fetch(self._sample(logits))
+
+
+def pool_args(name: str, pool) -> tuple:
+    """What program ``name`` takes from the pool: (cache, state), and the
+    speculative step the draft model's pool too."""
+    if name == "spec_step":
+        return pool.cache, pool.state, pool.draft_cache
+    return pool.cache, pool.state

@@ -12,14 +12,15 @@ What capture relies on:
 - **fixed shapes** per pool: ``(max_batch, kv_len, prefill_chunk,
   decode_chunk)``;
 - **no host read** inside a program (``executor.py``, ``attention.py``);
-- **static tensors**: the pool's cache and state are written in place,
-  so a graph reads what the host writes there; a program's host inputs
+- **static tensors**: the pool's cache and state (and the draft model's
+  pool, under speculative decoding) are written in place, so a graph
+  reads what the host writes there; a program's host inputs
   are copied into buffers of this object before each replay, and its
   output is a tensor of the graph, read (fetched) before the next replay;
 - **a warm-up on the capture stream**: it builds and binds the kernels,
   fills the dequant-matmul's plan cache and sizes the stream's split
   tickets (``kernels/scratch.py`` refuses to grow them under capture);
-- **one memory pool** for the three graphs, which never run at once: the
+- **one memory pool** for the graphs, which never run at once: the
   workspaces allocated inside them come from it;
 - **the sampling generator registered** with each graph, so every replay
   draws new numbers; after warm-up and capture its state is put back, so
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import launches
+from repro_torch.serving.executor import pool_args
 
 
 def program_inputs(ecfg, chunk: int) -> dict:
@@ -45,6 +47,7 @@ def program_inputs(ecfg, chunk: int) -> dict:
     B, i32, b = ecfg.max_batch, torch.int32, torch.bool
     return {
         "fused_step": [],
+        "spec_step": [],
         # tokens, positions, seg, gather_idx, seg_len, final, budget, active
         "packed_prefill": [((1, chunk), i32, 0), ((1, chunk), i32, 0),
                            ((1, chunk), i32, -1), ((B,), i32, 0), ((B,), i32, 0),
@@ -69,7 +72,7 @@ class ProgramGraphs:
         gen_state = gen.get_state()
 
         def call(name):
-            return getattr(executor, name)(pool.cache, pool.state, *self.inputs[name])[2]
+            return getattr(executor, name)(*pool_args(name, pool), *self.inputs[name])[2]
 
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.stream):

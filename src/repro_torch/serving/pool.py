@@ -12,7 +12,10 @@ One :class:`SlotPool` owns everything whose lifetime is "a slot":
 - the host arrays of the ``fused=False`` baseline, made on first use;
 - host bookkeeping: which ``Request`` occupies each slot, chunked-prefill
   progress (``prefilling``: slot -> (next_prompt_pos, budget)) and the
-  anomaly-quarantine counters.
+  anomaly-quarantine counters;
+- for speculative decoding with a draft model (``spec_draft="model"``),
+  the draft model's own KV pool (:meth:`init_draft`), which the
+  speculative step keeps in lockstep with the target's.
 
 The engine allocates and frees slots through this object; the executor
 updates ``(cache, state)`` and hands them back.
@@ -46,6 +49,17 @@ class SlotPool:
         self.anomalies: list[int] = [0] * B
         # host-path (fused=False) arrays, made on first admission
         self.host: Optional[dict[str, np.ndarray]] = None
+        # the draft model's KV pool (spec_draft="model"); self-speculation
+        # drafts in the target's own pool
+        self.draft_cache = None
+        self.device = device
+
+    def init_draft(self, draft_cfg: ModelConfig) -> None:
+        """Allocate the draft model's KV pool: the target pool's slots and
+        depth in the draft config's geometry, always bf16 (the draft is
+        cheap by construction)."""
+        self.draft_cache = T.init_cache(draft_cfg, self.ecfg.max_batch, self.ecfg.kv_len,
+                                        dtype=torch.bfloat16, device=self.device)
 
     def free_slots(self) -> list[int]:
         """Free slot indices, ascending (allocation order is index order)."""
@@ -74,9 +88,28 @@ class SlotPool:
         """Free a slot whose request finished (continuous batching)."""
         self.slot_req[slot] = None
 
+    def truncate(self, slot: int, keep_len: int) -> None:
+        """Invalidate every cache entry of ``slot`` (the draft pool's too) at
+        positions >= ``keep_len``: the ``pos`` leaves alone decide validity,
+        so this is a whole logical rollback, in place (the host-side sibling
+        of the speculative step's in-program rollback)."""
+        for cache in (self.cache, self.draft_cache):
+            for name, leaf in cache_leaves(cache):
+                if name == "pos":
+                    row = leaf[:, slot]
+                    row.copy_(torch.where(row >= keep_len, -1, row))
+
+    def valid_len(self, slot: int) -> int:
+        """1 + the highest valid cache position of ``slot`` (0 = empty): the
+        committed prefix a rollback left."""
+        return max(int(leaf[:, slot].max()) + 1
+                   for name, leaf in cache_leaves(self.cache) if name == "pos")
+
     def kill(self, slot: int) -> None:
         """Free ``slot`` and silence its device row so the decode sweep never
-        advances a dead request again."""
+        advances a dead request again.  The draft pool needs nothing: a dead
+        row's draft steps write nowhere, and the next request admitted to the
+        slot rewrites the slot's draft rows whole (``Executor.draft_prefill``)."""
         self.slot_req[slot] = None
         self.prefilling.pop(slot, None)
         self.anomalies[slot] = 0
@@ -84,3 +117,14 @@ class SlotPool:
             self.state["live"][slot] = False
         elif self.host is not None:
             self.host["slot_budget"][slot] = 0
+
+
+def cache_leaves(cache):
+    """(name, tensor) of every leaf of a slot pool (``T.init_cache``'s
+    tree; ``None`` has none), in a fixed order.  Axis 1 of every leaf is
+    the slot, axis 2 the cache entry (ring index)."""
+    if cache is None:
+        return
+    for group in cache["stack"]:
+        for unit in group.values():
+            yield from unit["attn"].items()

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the reference package; its entry points
-refuse to run quietly on the CPU; its configs are the reference's."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not the chip probes import JAX or the reference
+package; its entry points refuse to run quietly on the CPU; its configs
+are the reference's."""
 import ast
 import dataclasses
 import pathlib
@@ -14,7 +15,8 @@ from repro_torch.serving.engine import ServingEngine
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / name for name in ("chip_smoke.py", "chip_probe_attention.py",
+                              "chip_probe_qmatmul.py")]
 
 
 def _imports(path):
