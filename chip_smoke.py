@@ -82,6 +82,25 @@ Phases, each of which must pass or the script exits non-zero:
              ``SloScheduler`` (two classes), ``deadline_ms`` and a bounded
              queue: each request finished (with its budget), expired or
              shed, some of each; TTFT p50/p95 a class;
+4f. crash  — kill and restore between two steps (``serving/checkpoint.py``):
+             the engine phase's requests through an ``EngineCheckpointer``,
+             steps to a kill point (before any step, a prompt between
+             chunks, mid-decode), a snapshot, one more request (in the
+             journal only), two steps the crash throws away, the engine
+             dropped with its graphs; ``ServingEngine.restore`` into a fresh
+             engine (its own graphs captured), drained: every request once,
+             the streams of the uninterrupted run (the same requests at the
+             same steps) bit for bit, one restore and one replayed request.
+             qwen2.5-3b fp greedy and at temperature 0.8 at each kill kind,
+             w8kv8 at 0.8, ``spec_k`` 4 with an 8-bit self-draft at 0.8 and
+             with the draft model, ``fused=False``, and a child process
+             (``--crash-child``) SIGKILLed after its snapshot, restored in
+             this one; gemma2-9b w4kv4 (2 slots) killed mid-decode after the
+             4600-token prompt's rings wrapped.  Each case prints the snapshot's bytes,
+             the save split (device-to-host, digest, write, fsync) and the
+             restore split (read, engine build, load); then tokens/s of a
+             ``ServingFrontend`` drain with ``EngineCheckpointer(every=16)``
+             beside one without (a reading);
 5. crossbar — the PIM-MVM entry point ``pim_mvm`` on the shapes of
              ``benchmarks/kernel_micro.py``, f32 x (as there) and bf16 x,
              against its oracle and the fp product, with the kernel's launch
@@ -107,8 +126,11 @@ and prints no result.
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -141,6 +163,11 @@ SPEC_RUNS = {
     "gemma2-9b": [("fp", "bits8 eager", dict(spec_draft_bits=8))],
 }
 DRAFT_LAYERS, DRAFT_SEED = 4, 1     # the draft model: the target's config cut
+# the crash phase's gemma2-9b case: the pool cut to 2 slots, since its chunk
+# steps compute every row of the pool and the 4600-token prompt takes ~36 of
+# them in each of the two runs to the kill (at 8 slots the case took 61 s,
+# a 3.3 GB snapshot)
+CRASH_LONG_BATCH = 2
 # greedy streams may part from the plain run's where the plain logits'
 # top-1/top-2 margin is under phase logits' bound (verify and decode round
 # differently), relative to the logits' scale
@@ -1421,6 +1448,301 @@ def run_slo(torch, cfg, params, plain, kv_len):
           f"slo: finished {n_fin}, expired {n_dl}, shed {n_rej}: each must be above 0")
 
 
+# ---------------------------------------------------------------------------
+# crash safety
+# ---------------------------------------------------------------------------
+
+def crash_kind(engine, steps):
+    """Where a kill after ``steps`` engine steps lands (the reference's
+    chaos harness, ``benchmarks/perf_recovery.py``): before any step, with
+    a prompt between two chunks, or with requests decoding."""
+    if steps == 0:
+        return "post_admission"
+    if engine.pool.prefilling:
+        return "mid_prefill"
+    if any(r is not None for r in engine.pool.slot_req):
+        return "mid_decode"
+    return "drained"
+
+
+def crash_workload(cfg, long_prompts=()):
+    """The engine phase's 16 requests (and ``long_prompts``), and one more
+    that is submitted after the snapshot: the journal's only copy."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
+               for n in rng.integers(4, 385, N_REQUESTS)]
+    prompts += [rng.integers(0, cfg.vocab_size, size=n) for n in long_prompts]
+    return prompts, np.random.default_rng(1).integers(0, cfg.vocab_size, size=50)
+
+
+def crash_ecfg(run, kv_len, **paths):
+    from repro_torch.serving.engine import EngineConfig
+    return EngineConfig(**dict(dict(max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK,
+                                    max_new_tokens=NEW_TOKENS, impl="flash"),
+                               **QUANT_RUNS[run], **paths))
+
+
+def crash_dir(name):
+    """A fresh snapshot directory under the checkout's ``build/`` (ignored
+    by git), with the free space of its file system."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "crash")
+    path = os.path.join(root, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path, shutil.disk_usage(path).free / 1e9
+
+
+def collect(torch):
+    """Give back the memory of engines the caller dropped (their graphs'
+    memory pools among it)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def crash_outputs(engine, n):
+    """{uid: tokens} of a drained engine: every request finished once, with
+    its whole budget, and none failed or shed."""
+    out = {}
+    for r in engine.finished:
+        check(r.uid not in out, f"crash: request {r.uid} finished twice")
+        out[r.uid] = list(r.output)
+    check(not engine.failed and not engine.rejected and sorted(out) == list(range(n)),
+          f"crash: finished {sorted(out)} of {n}, failed {len(engine.failed)}")
+    check(all(len(o) == NEW_TOKENS for o in out.values()),
+          "crash: a request finished without its budget")
+    return out
+
+
+def uninterrupted(torch, cfg, params, ecfg, prompts, extra, until, draft=None):
+    """The run a crash must reproduce: the requests submitted at once, steps
+    until ``until(engine, steps)`` first holds (the kill point), the extra
+    request submitted there, then a drain.  Returns (the streams, the
+    number of steps to the kill point)."""
+    from repro_torch.serving.engine import ServingEngine
+    engine = ServingEngine(cfg, params, ecfg, device=DEVICE, draft=draft)
+    for p in prompts:
+        engine.submit(p)
+    steps = 0
+    while not until(engine, steps):
+        check(engine.queue or engine.pool.occupied(), "crash: the kill point never came")
+        engine.step()
+        steps += 1
+    engine.submit(extra)
+    engine.run_until_drained()
+    out = crash_outputs(engine, len(prompts) + 1)
+    del engine
+    collect(torch)
+    return out, steps
+
+
+def crash_first_half(cfg, params, ecfg, prompts, extra, kill_at, ckpt_dir, draft=None):
+    """The run that crashes: requests through an ``EngineCheckpointer``,
+    ``kill_at`` steps, a snapshot, the extra request (journal only), two
+    steps the crash throws away.  Returns the engine (for the caller to
+    drop), the snapshot's save split and the kind of the kill point."""
+    from repro_torch.serving.checkpoint import EngineCheckpointer
+    from repro_torch.serving.engine import ServingEngine
+    engine = ServingEngine(cfg, params, ecfg, device=DEVICE, draft=draft)
+    ck = EngineCheckpointer(engine, ckpt_dir)
+    for p in prompts:
+        ck.submit(p)
+    for _ in range(kill_at):
+        engine.step()
+    kind = crash_kind(engine, kill_at)
+    t0 = time.perf_counter()
+    ck.save()
+    save_s = dict(engine.save_s, save_s=time.perf_counter() - t0)
+    ck.submit(extra)
+    for _ in range(2):
+        engine.step()
+    return engine, save_s, kind
+
+
+def crash_restore(torch, cfg, params, ckpt_dir, want, draft=None):
+    """A fresh engine from the newest snapshot (its own graphs captured at
+    build), drained: its streams must be ``want`` bit for bit, with one
+    restore and one replayed request.  Returns the restore's split."""
+    from repro_torch.serving.engine import ServingEngine
+    t0 = time.perf_counter()
+    engine = ServingEngine.restore(cfg, params, ckpt_dir, device=DEVICE, draft=draft)
+    restore_s = dict(engine.restore_s, restore_s=time.perf_counter() - t0)
+    check((engine.executor.graphs is None) == (not engine.ecfg.fused),
+          "crash: the restored engine's programs were not captured")
+    engine.run_until_drained()
+    got = crash_outputs(engine, len(want))
+    st = engine.stats()
+    same = got == want
+    parted = sum(got[u] != want[u] for u in want)
+    del engine
+    collect(torch)
+    check(st["restores"] == 1 and st["replayed_requests"] == 1 and st["checkpoints_written"] == 1,
+          f"crash: restores {st['restores']}, replayed {st['replayed_requests']}, "
+          f"snapshots {st['checkpoints_written']}")
+    return restore_s, same, parted
+
+
+def print_crash(cfg, label, kind, kill_at, ckpt_dir, free_gb, save_s, restore_s, same, parted,
+                case_s):
+    snap = os.path.join(ckpt_dir, sorted(d for d in os.listdir(ckpt_dir)
+                                         if d.startswith("snap_"))[-1])
+    nbytes = sum(os.path.getsize(os.path.join(snap, f)) for f in os.listdir(snap))
+    print(f"crash arch={cfg.name} run={label} kind={kind} kill_at={kill_at} "
+          f"streams_identical={same} streams_parted={parted} snapshot_bytes={nbytes} "
+          f"free_gb_before={free_gb:.1f} case_s={case_s:.1f} "
+          + " ".join(f"{k}={v:.4f}" for k, v in {**save_s, **restore_s}.items()))
+    check(same, f"crash ({cfg.name} {label} {kind}): {parted} resumed streams part from "
+          f"the uninterrupted run's")
+
+
+def crash_case(torch, cfg, params, run, kv_len, kind, until=None, draft=None, long_prompts=(),
+               **paths):
+    """One kill and restore of ``kind`` (the first step where it holds, or
+    where ``until`` does) against the uninterrupted run with the same
+    requests submitted at the same steps."""
+    t0 = time.perf_counter()
+    label = run + "".join(f" {k}={v}" for k, v in paths.items())
+    ecfg = crash_ecfg(run, kv_len, **paths)
+    prompts, extra = crash_workload(cfg, long_prompts)
+    until = until or (lambda e, s: crash_kind(e, s) == kind)
+    want, kill_at = uninterrupted(torch, cfg, params, ecfg, prompts, extra, until, draft)
+    ckpt_dir, free_gb = crash_dir(f"{cfg.name}-{kind}")
+    engine, save_s, seen = crash_first_half(cfg, params, ecfg, prompts, extra, kill_at,
+                                            ckpt_dir, draft)
+    check(seen == kind, f"crash ({label}): the kill at step {kill_at} is {seen}, not {kind}")
+    held = local_positions(cfg, engine.pool.cache) if "local" in cfg.pattern else None
+    del engine                                 # the crash
+    collect(torch)
+    restore_s, same, parted = crash_restore(torch, cfg, params, ckpt_dir, want, draft)
+    print_crash(cfg, label, kind, kill_at, ckpt_dir, free_gb, save_s, restore_s, same, parted,
+                time.perf_counter() - t0)
+    shutil.rmtree(ckpt_dir)
+    return held
+
+
+def crash_child(ckpt_dir, kill_at):
+    """``chip_smoke.py --crash-child DIR STEPS``: the first half of a crash
+    in a process of its own (qwen2.5-3b fp at temperature 0.8, the weights
+    made from the same seed), which waits to be killed."""
+    import torch
+    sys.path.insert(0, SRC)
+    from repro_torch.config import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen2.5-3b")
+    params = make_params(torch, cfg)
+    prompts, extra = crash_workload(cfg)
+    engine, save_s, kind = crash_first_half(
+        cfg, params, crash_ecfg("fp", SERVED[cfg.name]["kv_len"], temperature=0.8),
+        prompts, extra, kill_at, ckpt_dir)
+    torch.cuda.synchronize()
+    print(f"crash-child ready kind={kind} " + json.dumps(save_s), flush=True)
+    time.sleep(600)
+    return 1
+
+
+def crash_sigkill(torch, cfg, params, kv_len):
+    """The first half of a crash in a child process, SIGKILLed once it has
+    saved, submitted the journal-only request and stepped on; the parent
+    restores and drains."""
+    t0 = time.perf_counter()
+    ecfg = crash_ecfg("fp", kv_len, temperature=0.8)
+    prompts, extra = crash_workload(cfg)
+    want, kill_at = uninterrupted(torch, cfg, params, ecfg, prompts, extra,
+                                  lambda e, s: crash_kind(e, s) == "mid_decode")
+    ckpt_dir, free_gb = crash_dir(f"{cfg.name}-sigkill")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--crash-child",
+                             ckpt_dir, str(kill_at)], stdout=subprocess.PIPE, text=True)
+    try:
+        ready = ""
+        for line in proc.stdout:
+            print(f"  child: {line.rstrip()}")
+            if line.startswith("crash-child ready"):
+                ready = line
+                break
+        check(ready, "crash: the child exited before it was ready")
+        proc.send_signal(signal.SIGKILL)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(rc == -signal.SIGKILL, f"crash: the child ended with {rc}, not SIGKILL")
+    kind = ready.split("kind=")[1].split()[0]
+    save_s = json.loads(ready.split(" ", 3)[3])
+    restore_s, same, parted = crash_restore(torch, cfg, params, ckpt_dir, want)
+    print_crash(cfg, "fp temperature=0.8 sigkill", kind, kill_at, ckpt_dir, free_gb, save_s,
+                restore_s, same, parted, time.perf_counter() - t0)
+    shutil.rmtree(ckpt_dir)
+
+
+def crash_cost(torch, cfg, params, kv_len):
+    """What periodic snapshots cost a user: tokens/s of one front-end drain
+    of the 16 requests with ``EngineCheckpointer(every=16)`` beside the same
+    drain without one (a reading, not a gate)."""
+    from repro_torch.serving.checkpoint import EngineCheckpointer
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.frontend import ServingFrontend
+    prompts, _ = crash_workload(cfg)
+    out = {}
+    for every in (0, 16):
+        engine = ServingEngine(cfg, params, crash_ecfg("fp", kv_len), device=DEVICE)
+        ckpt_dir, _ = crash_dir(f"{cfg.name}-every{every}")
+        ck = EngineCheckpointer(engine, ckpt_dir, every=every, keep=1) if every else None
+        front = ServingFrontend(engine, checkpointer=ck)
+        t0 = time.perf_counter()
+        for p in prompts:
+            front.submit(p)
+        front.drain()
+        torch.cuda.synchronize()
+        st = engine.stats()
+        out[every] = (st["tokens_per_s"], time.perf_counter() - t0, st["checkpoints_written"],
+                      st["decode_steps"])
+        del engine, front, ck
+        collect(torch)
+        shutil.rmtree(ckpt_dir)
+    (tps0, wall0, _, steps), (tps1, wall1, n, _) = out[0], out[16]
+    print(f"crash arch={cfg.name} frontend_every=16 tokens_per_s={tps1:.2f} wall_s={wall1:.3f} "
+          f"snapshots={n} plain_tokens_per_s={tps0:.2f} plain_wall_s={wall0:.3f} "
+          f"decode_steps={steps} ratio={tps1 / tps0:.4f}")
+    check(n > 0, "crash: the front end's checkpointer wrote no snapshot")
+
+
+def run_crash(torch, cfg, params, kv_len, long_prompts=()):
+    """Phase ``crash``: kill and restore between two steps at full width,
+    each resumed drain against the uninterrupted run bit for bit.  On
+    qwen2.5-3b: fp greedy and at temperature 0.8 at each kill kind,
+    w8kv8 at 0.8, an 8-bit self-draft at 0.8 and the draft model
+    (``spec_k`` 4), ``fused=False``, a child process SIGKILLed after its
+    snapshot, and the cost of ``every=16`` snapshots to a front end; on
+    gemma2-9b, w4kv4 with the 4600-token prompt killed mid-decode after
+    its rings wrapped, on a pool of ``CRASH_LONG_BATCH`` slots."""
+    drain = dict(kv_len=kv_len, long_prompts=long_prompts)
+    if cfg.name != "qwen2.5-3b":
+        long_uid = N_REQUESTS                      # the first long prompt's request
+
+        def wrapped(engine, steps):
+            req = next((r for r in engine.pool.slot_req if r and r.uid == long_uid), None)
+            return crash_kind(engine, steps) == "mid_decode" and req is not None \
+                and len(req.output) > 1
+        held = crash_case(torch, cfg, params, "w4kv4", kind="mid_decode", until=wrapped,
+                          max_batch=CRASH_LONG_BATCH, **drain)
+        print(f"crash arch={cfg.name} largest_position_held={held}")
+        check(held >= min(cfg.window, kv_len), "crash: no local ring wrapped before the kill")
+        return
+    for temperature in (0.0, 0.8):
+        for kind in ("post_admission", "mid_prefill", "mid_decode"):
+            crash_case(torch, cfg, params, "fp", kind=kind, temperature=temperature, **drain)
+    crash_case(torch, cfg, params, "w8kv8", kind="mid_decode", temperature=0.8, **drain)
+    crash_case(torch, cfg, params, "fp", kind="mid_decode", temperature=0.8, spec_k=SPEC_K,
+               spec_draft_bits=8, **drain)
+    crash_case(torch, cfg, params, "fp", kind="mid_decode", draft=draft_model(torch, cfg),
+               spec_k=SPEC_K, spec_draft="model", **drain)
+    crash_case(torch, cfg, params, "fp", kind="mid_decode", fused=False, **drain)
+    crash_sigkill(torch, cfg, params, kv_len)
+    crash_cost(torch, cfg, params, kv_len)
+
+
 def run_crossbar(torch):
     """The PIM-MVM entry point as ``examples/quickstart.py`` and
     ``benchmarks/kernel_micro.py`` drive it: program the crossbars
@@ -1642,6 +1964,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--crash-child"]:
+        return crash_child(sys.argv[2], int(sys.argv[3]))
     sys.path.insert(0, SRC)
     from repro_torch.config import get_config
     from repro_torch.kernels import build
@@ -1692,6 +2016,11 @@ def main():
             run_sampling(torch, cfg, params, serve["kv_len"], spec_k=SPEC_K, spec_draft_bits=8)
             run_slo(torch, cfg, params, plain["fp"], serve["kv_len"])
             done(f"sampling and slo of {arch}")
+        reset_launches()
+        run_crash(torch, cfg, params, **drain)
+        by_run[f"{arch} crash"] = read_launches()
+        done(f"crash of {arch}")
+        if arch == "qwen2.5-3b":
             by_run["crossbar"] = run_crossbar(torch)
         for run in ("fp", "w8kv8"):
             run_logits(torch, cfg, params, run, long_row=serve["logits_row"])

@@ -24,6 +24,8 @@ def main(argv=None):
                     help="attention impl (flash = the CUDA kernels)")
     ap.add_argument("--decode-chunk", type=int, default=1,
                     help="decode iterations per host sync")
+    ap.add_argument("--host-loop", action="store_true",
+                    help="use the host-looped step (fused=False)")
     ap.add_argument("--weight-bits", type=int, default=0, choices=[0, 4, 8],
                     help="weight-only quantisation (0 = native fp)")
     ap.add_argument("--weight-group", type=int, default=0,
@@ -48,7 +50,8 @@ def main(argv=None):
     engine = ServingEngine(cfg, params, EngineConfig(
         max_batch=args.max_batch, kv_len=args.kv_len,
         max_new_tokens=args.max_new_tokens, temperature=args.temperature,
-        seed=args.seed, impl=args.impl, decode_chunk=args.decode_chunk,
+        seed=args.seed, impl=args.impl, fused=not args.host_loop,
+        decode_chunk=args.decode_chunk,
         weight_bits=args.weight_bits, weight_group=args.weight_group,
         kv_bits=args.kv_bits), device=device)
 

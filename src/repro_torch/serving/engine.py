@@ -47,8 +47,10 @@ eagerly on the card too.  ``trace=True`` records each decode iteration's
 wall-clock split (``self.trace``, the ``trace_*`` keys of ``stats()``).
 
 The engine serves fp or quantised (``weight_bits``/``weight_group``/
-``kv_bits``).  A mesh (sharded serving) has no port yet: ``mesh=``
-raises ``NotImplementedError``.  The engine runs on ``"cuda"`` unless
+``kv_bits``).  :meth:`ServingEngine.restore` revives one from a snapshot
+(``serving/checkpoint.py``: snapshots, the admission journal, replay).
+A mesh (sharded serving) has no port yet: ``mesh=`` raises
+``NotImplementedError``.  The engine runs on ``"cuda"`` unless
 ``device="cpu"`` is passed.
 """
 from __future__ import annotations
@@ -249,6 +251,16 @@ class ServingEngine:
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_committed = 0
+        # crash safety (serving/checkpoint.py): snapshots committed on this
+        # engine's lineage, times its state was revived, journal-tail
+        # requests submitted again; the wall seconds of the last snapshot
+        # (d2h_s, digest_s, write_s, fsync_s) and of the restore that built
+        # this engine (read_s, build_s, load_s)
+        self.checkpoints_written = 0
+        self.restores = 0
+        self.replayed_requests = 0
+        self.save_s: dict = {}
+        self.restore_s: dict = {}
 
         S = ecfg.kv_len
         self._chunk = min(ecfg.prefill_chunk or min(128, S), S)
@@ -780,6 +792,20 @@ class ServingEngine:
             host["slot_budget"][slot] = budget - 1
             host["last_token"][slot] = int(first[0])
 
+    # -- crash safety -----------------------------------------------------------
+    @classmethod
+    def restore(cls, cfg: ModelConfig, params, ckpt_dir: str, *,
+                ecfg: Optional[EngineConfig] = None, device=None, mesh=None,
+                scheduler: Optional[Scheduler] = None, replay: bool = True,
+                draft: Optional[tuple] = None) -> "ServingEngine":
+        """Revive an engine from its newest intact snapshot in ``ckpt_dir``
+        (written by ``serving/checkpoint.py``), resuming bit for bit and
+        submitting again the journal's requests from after the snapshot.
+        See :func:`repro_torch.serving.checkpoint.restore_engine`."""
+        from repro_torch.serving.checkpoint import restore_engine
+        return restore_engine(cfg, params, ckpt_dir, ecfg=ecfg, device=device, mesh=mesh,
+                              scheduler=scheduler, replay=replay, draft=draft)
+
     # -- stats ---------------------------------------------------------------
     def _failure_stats(self) -> dict:
         by_status = collections.Counter(r.status for r in self.failed)
@@ -789,11 +815,9 @@ class ServingEngine:
             "failed_deadline": by_status.get(FAILED_DEADLINE, 0),
             "failed_anomaly": by_status.get(FAILED_ANOMALY, 0),
             "failed_max_iters": by_status.get(FAILED_MAX_ITERS, 0),
-            # the reference's checkpoints have no port yet: their counters
-            # stay 0, kept for key parity
-            "checkpoints_written": 0,
-            "restores": 0,
-            "replayed_requests": 0,
+            "checkpoints_written": self.checkpoints_written,
+            "restores": self.restores,
+            "replayed_requests": self.replayed_requests,
         }
 
     def stats(self) -> dict:

@@ -14,7 +14,9 @@ Cooperative, not threaded: the engine mutates device state and host
 bookkeeping with no locking, so all progress happens on the caller's
 thread inside :meth:`pump` — one engine iteration plus delivery of any new
 tokens to their streams.  Callbacks fire synchronously in submission
-order.  The reference's ``checkpointer=`` (crash safety) has no port yet.
+order.  With a ``checkpointer=`` (``serving/checkpoint.py``'s
+``EngineCheckpointer``) every submit goes through its fsync'd journal and
+every pump offers it a snapshot (``maybe_save``).
 """
 from __future__ import annotations
 
@@ -77,17 +79,20 @@ class TokenStream:
 class ServingFrontend:
     def __init__(self, engine: ServingEngine, *, checkpointer=None,
                  sleep: Callable[[float], None] = time.sleep):
-        if checkpointer is not None:
-            raise NotImplementedError("a checkpointer (crash safety) has no port yet")
         self.engine = engine
+        self.checkpointer = checkpointer
         self._sleep = sleep
         self.streams: list[TokenStream] = []
         self._live: list[TokenStream] = []
 
     def submit(self, prompt, max_new_tokens: Optional[int] = None, *,
                priority: int = 0, on_token: Optional[OnToken] = None) -> TokenStream:
-        """Enqueue one request and return its stream."""
-        req = self.engine.submit(prompt, max_new_tokens, priority=priority)
+        """Enqueue one request and return its stream; through the
+        checkpointer's journal when one is attached."""
+        if self.checkpointer is not None:
+            req = self.checkpointer.submit(prompt, max_new_tokens, priority=priority)
+        else:
+            req = self.engine.submit(prompt, max_new_tokens, priority=priority)
         stream = TokenStream(self, req, on_token)
         self.streams.append(stream)
         if not req.terminal:             # REJECTED never enters the engine
@@ -103,6 +108,8 @@ class ServingFrontend:
         its stream (callbacks fire here, in submission order).  Returns the
         number of occupied slots."""
         occupied = self.engine.step()
+        if self.checkpointer is not None:
+            self.checkpointer.maybe_save()
         still = []
         for stream in self._live:
             stream._deliver()

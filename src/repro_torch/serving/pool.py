@@ -18,7 +18,11 @@ One :class:`SlotPool` owns everything whose lifetime is "a slot":
   speculative step keeps in lockstep with the target's.
 
 The engine allocates and frees slots through this object; the executor
-updates ``(cache, state)`` and hands them back.
+updates ``(cache, state)`` and hands them back.  The checkpoint plane
+(``serving/checkpoint.py``) serialises the pool through :meth:`array_tree`
+/ :meth:`meta` and restores it through :meth:`load_array_tree` /
+:meth:`load_meta`, in the reference's tree layout (``cache/...``,
+``state/...``, ``draft/...``, ``host/...`` flat keys).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.ckpt import tree_items
 from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as T
 
@@ -78,10 +83,7 @@ class SlotPool:
         """The ``fused=False`` baseline's per-slot position, budget and last
         token, on the host."""
         if self.host is None:
-            B = self.ecfg.max_batch
-            self.host = {"slot_pos": np.zeros(B, np.int32),
-                         "slot_budget": np.zeros(B, np.int32),
-                         "last_token": np.zeros(B, np.int32)}
+            self.host = _zero_host(self.ecfg.max_batch)
         return self.host
 
     def release(self, slot: int) -> None:
@@ -117,6 +119,71 @@ class SlotPool:
             self.state["live"][slot] = False
         elif self.host is not None:
             self.host["slot_budget"][slot] = 0
+
+    # -- serialization API (serving/checkpoint.py) ------------------------------
+    def array_tree(self) -> dict:
+        """Every array leaf of the pool, in the snapshot's tree layout:
+        ``cache``, ``state``, the draft model's pool under ``draft`` once it
+        exists and the host arrays under ``host`` once they exist.  Leaves
+        are the live tensors: callers copy them."""
+        tree: dict = {"cache": self.cache, "state": self.state}
+        if self.draft_cache is not None:
+            tree["draft"] = self.draft_cache
+        if self.host is not None:
+            tree["host"] = dict(self.host)
+        return tree
+
+    def array_template(self, with_host: bool) -> dict:
+        """A structure-matching template for ``ckpt.unflatten_tree``, with
+        fresh zero host arrays when the snapshot carries them."""
+        tree = {k: v for k, v in self.array_tree().items() if k != "host"}
+        if with_host:
+            tree["host"] = _zero_host(self.ecfg.max_batch)
+        return tree
+
+    def load_array_tree(self, tree: dict) -> None:
+        """Adopt restored leaves.  Cache, state and draft leaves are copied
+        **in place** into the tensors the pool already holds (a CUDA graph
+        captured over the pool reads them by address), after every leaf was
+        checked: one of another shape or dtype is refused and nothing is
+        written.  Host arrays stay numpy."""
+        live = self.array_tree()
+        names = [k for k in ("cache", "state", "draft") if k in tree]
+        if any(k not in live for k in names):
+            raise ValueError("the restored tree has a draft pool, the pool has none")
+        dst = dict(tree_items({k: live[k] for k in names}))
+        src = dict(tree_items({k: tree[k] for k in names}))
+        missing = sorted(dst.keys() - src.keys())
+        if missing:
+            raise KeyError(f"restored tree lacks {missing[0]}")
+        for path, leaf in dst.items():
+            got = torch.as_tensor(src[path])
+            if tuple(got.shape) != tuple(leaf.shape) or got.dtype != leaf.dtype:
+                raise ValueError(f"restored leaf {path} is {got.dtype} {tuple(got.shape)}, "
+                                 f"the pool's {leaf.dtype} {tuple(leaf.shape)}")
+        for path, leaf in dst.items():
+            leaf.copy_(torch.as_tensor(src[path]))
+        if "host" in tree:
+            self.host = {k: np.array(v) for k, v in tree["host"].items()}
+
+    def meta(self) -> dict:
+        """JSON-safe slot bookkeeping for the snapshot's meta record."""
+        return {
+            "prefilling": [[int(s), int(start), int(budget)]
+                           for s, (start, budget) in self.prefilling.items()],
+            "slot_anomalies": list(self.anomalies),
+        }
+
+    def load_meta(self, prefilling, slot_anomalies) -> None:
+        self.prefilling = {int(s): (int(start), int(budget))
+                           for s, start, budget in prefilling}
+        self.anomalies = list(slot_anomalies)
+
+
+def _zero_host(B: int) -> dict[str, np.ndarray]:
+    """The ``fused=False`` baseline's host arrays, zeroed."""
+    return {"slot_pos": np.zeros(B, np.int32), "slot_budget": np.zeros(B, np.int32),
+            "last_token": np.zeros(B, np.int32)}
 
 
 def cache_leaves(cache):

@@ -239,3 +239,17 @@ def test_launcher_serves_each_registered_model_reduced_on_the_cpu(arch):
     stats = main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "3",
                   "--max-new-tokens", "4", "--kv-bits", "8"])
     assert stats["finished"] == 3 and stats["tokens"] == 12 and stats["kv_bits"] == 8
+
+
+def test_launcher_host_loop_takes_the_host_looped_step(monkeypatch):
+    """``--host-loop`` serves through the host-looped step (``fused=False``),
+    as the reference's launcher does."""
+    from repro_torch.launch.serve import main
+    steps = []
+    real = ServingEngine._step_host
+    monkeypatch.setattr(ServingEngine, "_step_host",
+                        lambda self: steps.append(self.ecfg.fused) or real(self))
+    stats = main(["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu", "--requests", "2",
+                  "--max-new-tokens", "3", "--host-loop"])
+    assert stats["finished"] == 2 and stats["tokens"] == 6
+    assert steps and not any(steps)

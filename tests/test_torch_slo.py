@@ -350,11 +350,6 @@ def test_frontend_rejected_stream_ends_immediately(model):
     assert fe.engine.stats()["rejected"] == 1
 
 
-def test_frontend_without_a_checkpointer_port():
-    with pytest.raises(NotImplementedError, match="checkpointer"):
-        ServingFrontend(object(), checkpointer=object())
-
-
 @pytest.mark.parametrize("rate,batch", [(4.0, 2), (200.0, 1)])
 def test_play_replays_a_workload_like_reference(model, rate, batch):
     """``play`` on a fake clock, at a rate the pool keeps up with and at one
