@@ -9,9 +9,11 @@ Phases, each of which must pass or the script exits non-zero:
 2. build   — the CUDA kernels of ``src/repro_torch/kernels/csrc`` built with
              nvcc (``repro_torch.kernels.build``);
 3. kernels — each of the five kernels against its plain PyTorch version on
-             the card, at the serving path's shapes (qwen2.5-3b's and
-             gemma2-9b's: every projection, the 5120-entry global pool and
-             the 4096-entry ring at head dim 256) and at edge cases
+             the card, at the serving path's shapes (qwen2.5-3b's,
+             gemma2-9b's and qwen3-moe-30b-a3b's: every projection, the
+             5120-entry global pool and the 4096-entry ring at head dim
+             256, qwen3-moe's 4 KV heads and its padded prefills) and at
+             edge cases
              (window, softcap, an empty slot, a pad-only tile, ragged
              lengths and shapes, GQA rep 1 and 8, f32, head_dim 256, int8 and
              int4, per-channel and per-group scales, M from 1 to 1024), with
@@ -33,10 +35,19 @@ Phases, each of which must pass or the script exits non-zero:
              at once must give what they give on one, bit for bit; the
              prefill also without segments at the shapes the sequential
              baseline launches (qwen2.5-3b's buckets of 8..1024 tokens,
-             gemma2-9b's exact lengths up to 4600 under its window);
+             gemma2-9b's exact lengths up to 4600 under its window); and
+             the port's own grouped matmul (``grouped_matmul.cu``, the MoE
+             layer's expert products) at qwen3-moe-30b-a3b's shapes (gate/up
+             K 2048 N 768, down K 768 N 2048; T 64, 1024 and 3072 rows routed
+             top-8 of 128) and edge cases (empty experts, every row to one
+             expert, T 1, groups below the M tile, N off the tile, CUDA cores
+             for f32 and odd N), each launched twice for the same bits, timed
+             with its plain version, ``torch._grouped_mm`` where the card's
+             torch has it (else a matmul a group) and its bound;
 4. engine  — the port's serving engine on full-width qwen2.5-3b and
-             gemma2-9b (42 layers, local 4096-entry rings and global layers,
-             head dim 256) with random bf16 weights, fp and then quantised
+             gemma2-9b (its depth cut to 22 of 42 layers for the script's
+             time; local 4096-entry rings and global layers, head dim 256)
+             with random bf16 weights, fp and then quantised
              (``w8kv8``, ``w4kv4``): 16 requests (prompts of 4..384 tokens,
              so chunked prefill runs; gemma2-9b adds one of 4600 tokens whose
              rings wrap), greedy, 32 new tokens each, with the launch count of
@@ -115,7 +126,21 @@ Phases, each of which must pass or the script exits non-zero:
 7. profile — torch.profiler over 4 full-pool decode steps and 2 chunk
              steps (8 rows of a 128-token chunk), fp and ``w8kv8``, of
              qwen2.5-3b and gemma2-9b, replayed and eager: device busy time,
-             wall time and kernels launched per step (read, not checked).
+             wall time and kernels launched per step (read, not checked);
+8. moe     — full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
+             experts top-8, 61 GB of random bf16 weights) built once every
+             earlier model is freed (the memory still allocated printed and
+             bounded), serving the engine phase's 16 requests at fp and
+             ``w8kv8``: each prompt admitted alone, padded to a chunk
+             multiple, its fused decode step (MoE layers through the
+             grouped matmul) replayed from its CUDA graph and again eagerly
+             (streams bit for bit, launches equal), the grouped matmul's
+             launches checked against the forward calls (three a MoE
+             layer), every launch of a kernel that phase 3 checked;
+             ``packed=False`` at fp against the default's streams up to
+             near-ties; flash against ref logits at fp and ``w8kv8``; a
+             profiled decode step at both (idle share, kernels a step, the
+             grouped matmul's share of busy time).
 
 Each model's weights are freed before the next is made.
 
@@ -174,14 +199,18 @@ CRASH_LONG_BATCH = 2
 NEAR_TIE = 5e-2
 # the slo phase: requests, the offered rate over what the plain drain
 # sustains, the bounded queue, and the deadline in plain decode times of a
-# request's budget
-SLO_REQUESTS, SLO_OVERLOAD, SLO_MAX_QUEUE, SLO_DEADLINE_BUDGETS = 48, 2.0, 4, 2.0
-# the served models at full width and depth: the pool's length, prompts
-# beside the 16 of 4..384 tokens, and a long row of the logits phase
-# (gemma2-9b's 4600 and 4200 wrap its 4096-entry local rings: in chunked
-# prefill and decode, and in the packed prefill's insert)
-SERVED = {"qwen2.5-3b": dict(kv_len=1024, long_prompts=(), logits_row=0),
-          "gemma2-9b": dict(kv_len=5120, long_prompts=(4600,), logits_row=4200)}
+# request's budget (1.5: at 2.0 a drain whose decode kept pace with the
+# arrivals let no request expire, and the phase then did not show the
+# deadlines at work)
+SLO_REQUESTS, SLO_OVERLOAD, SLO_MAX_QUEUE, SLO_DEADLINE_BUDGETS = 48, 2.0, 4, 1.5
+# the served models at full width: the pool's length, prompts beside the
+# 16 of 4..384 tokens, a long row of the logits phase (gemma2-9b's 4600
+# and 4200 wrap its 4096-entry local rings: in chunked prefill and decode,
+# and in the packed prefill's insert), and a depth cut: gemma2-9b's 42
+# layers to 22 (11 local/global pairs), for the script's time once phase
+# moe joined it (its phases took 299 s of 580 at full depth)
+SERVED = {"qwen2.5-3b": dict(kv_len=1024, long_prompts=(), logits_row=0, layers=0),
+          "gemma2-9b": dict(kv_len=5120, long_prompts=(4600,), logits_row=4200, layers=22)}
 # logits only, full width at a cut depth: one pattern period plus the
 # remainder (gemma3-27b: qk-norm at head dim 128; minitron-8b: the untied
 # 256000-column lm_head, ReLU^2 without GLU)
@@ -193,6 +222,23 @@ GEMMA2_DECODE = dict(B=8, Skv=5120, Hq=16, Hkv=8, hd=256, softcap=50.0)
 GEMMA2_RING = dict(B=8, Skv=4096, Hq=16, Hkv=8, hd=256, window=4096, softcap=50.0,
                    ring=True)
 GEMMA2_PREFILL = dict(S=128, Hq=16, Hkv=8, hd=256, window=4096, softcap=50.0)
+# the MoE phase: full-width, full-depth qwen3-moe-30b-a3b (61 GB of bf16
+# weights), its pool's length and the precisions it serves at; the memory
+# the earlier phases may leave allocated when its model is built
+MOE_ARCH, MOE_KV_LEN, MOE_RUNS = "qwen3-moe-30b-a3b", 1024, ("fp", "w8kv8")
+MOE_FREE_BEFORE_GIB = 2.0
+# qwen3-moe-30b-a3b's attention as the engine runs it: 8 slots, 32 query
+# heads over 4 KV heads of dim 128, a 1024-entry pool; its prefills are
+# batch-1 prompts padded to a chunk multiple (up to 384 tokens), or to a
+# power-of-two bucket (up to 512) under packed=False
+QWEN3_DECODE = dict(B=8, Skv=1024, Hq=32, Hkv=4, hd=128)
+QWEN3_PREFILL = dict(Hq=32, Hkv=4, hd=128, segmented=False)
+# the grouped matmul's shapes in qwen3-moe-30b-a3b: (K, N) of gate/up and
+# down, over 128 experts, at T = 8 slots x top-8 (decode) and 128 / 384
+# prompt tokens x top-8 (prefill)
+MOE_EXPERTS, MOE_TOP_K = 128, 8
+MOE_GMM_SHAPES = {"gate/up": (2048, 768), "down": (768, 2048)}
+MOE_GMM_ROWS = {"decode": 64, "prefill128": 1024, "prefill384": 3072}
 DEVICE = "cuda"
 
 
@@ -452,9 +498,13 @@ def run_kernel_checks(torch):
         "gemma2-9b global B8 Skv5120 Hq16 Hkv8 hd256 softcap50": GEMMA2_DECODE,
         "gemma2-9b ring B8 Skv4096 hd256 window4096 softcap50": GEMMA2_RING,
     }
+    # qwen3-moe-30b-a3b's pool (Hkv 4), from a generator of its own
+    rng_moe = np.random.default_rng(8)
+    moe_cases = {"qwen3-moe B8 Skv1024 Hq32 Hkv4 hd128": QWEN3_DECODE}
     errs = []
     for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
-                               + [(n, kw, rng_split) for n, kw in split_cases.items()]):
+                               + [(n, kw, rng_split) for n, kw in split_cases.items()]
+                               + [(n, kw, rng_moe) for n, kw in moe_cases.items()]):
         c = decode_case(torch, case_rng, **kw)
         k, v = c["pools"][0]
         args = dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"], window=c["window"],
@@ -496,7 +546,8 @@ def run_kernel_checks(torch):
         "max_abs_err": max(e["max_abs_err"] for e in errs),
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                              "shape", "kernel", "splits", "valid_entries")},
-        "gemma2_9b": decode_timing(torch, rng_split, GEMMA2_DECODE), "cases": errs}
+        "gemma2_9b": decode_timing(torch, rng_split, GEMMA2_DECODE),
+        "qwen3_moe": decode_timing(torch, rng_moe, QWEN3_DECODE), "cases": errs}
 
     # -- packed prefill -------------------------------------------------------
     cases = {
@@ -522,9 +573,15 @@ def run_kernel_checks(torch):
     cases["non-segmented S384 (a draft prefill, chunk-padded)"] = dict(S=384, segmented=False)
     cases.update({f"non-segmented gemma2-9b S{S} window4096 softcap50":
                   dict(GEMMA2_PREFILL, S=S, segmented=False) for S in (17, 384, 4600)})
+    # qwen3-moe-30b-a3b's batch-1 prefills: chunk multiples (padded
+    # admission) and the sequential baseline's buckets, from a generator of
+    # its own
+    moe_cases = {f"non-segmented qwen3-moe S{S} Hq32 Hkv4": dict(QWEN3_PREFILL, S=S)
+                 for S in (8, 16, 32, 64, 128, 256, 384, 512)}
     errs = []
-    for name, kw in cases.items():
-        c = prefill_case(torch, rng, **kw)
+    for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
+                               + [(n, kw, rng_moe) for n, kw in moe_cases.items()]):
+        c = prefill_case(torch, case_rng, **kw)
         args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"])
         out, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
             c["q"], c["k"], c["v"], **args), "prefill")
@@ -657,6 +714,7 @@ def run_quant_decode_checks(torch):
                                                            dtype=torch.float32),
         "gemma2-9b global B8 Skv5120 Hq16 Hkv8 hd256 softcap50": GEMMA2_DECODE,
         "gemma2-9b ring B8 Skv4096 hd256 window4096 softcap50": GEMMA2_RING,
+        "qwen3-moe B8 Skv1024 Hq32 Hkv4 hd128": QWEN3_DECODE,
     }
     errs = []
     for bits in (8, 4):
@@ -835,13 +893,14 @@ def check_matmul(torch, label, name, fwd, plain, x, *args, **kw):
 
 def projection_shapes(cfg):
     """(K, N) of each distinct dense projection of a model, named by its
-    weights: q, k and v, o, the MLP's (gate and up, down) and an untied
-    lm_head."""
+    weights: q, k and v, o, the MLP's (gate and up, down; none where every
+    layer is MoE) and an untied lm_head."""
     D, hd, hdv = cfg.d_model, cfg.head_dim, cfg.v_head_dim
+    mlp = (("w_up", (D, cfg.d_ff)), ("w_down", (cfg.d_ff, D))) \
+        if not all(cfg.moe_layer_mask()) else ()
     shapes = {}
     for what, kn in (("wq", (D, cfg.n_heads * hd)), ("wk/wv", (D, cfg.n_kv_heads * hd)),
-                     ("wo", (cfg.n_heads * hdv, D)), ("w_up", (D, cfg.d_ff)),
-                     ("w_down", (cfg.d_ff, D))) + \
+                     ("wo", (cfg.n_heads * hdv, D))) + mlp + \
             ((("lm_head", (D, cfg.vocab_size)),) if not cfg.tie_embeddings else ()):
         shapes.setdefault(kn, what)
     return shapes
@@ -903,6 +962,13 @@ def run_matmul_checks(torch):
         for bits in (8, 4):
             cases[f"qwen2.5-3b verify {what} int{bits} ({VERIFY_M}, {K}, {N})"] = (
                 VERIFY_M, K, N, bits, 0, None)
+    # qwen3-moe-30b-a3b's quantised projections (attention and the untied
+    # lm_head; its expert banks stay bf16) at int8, at the decode step's 8
+    # rows and its padded prefills' 128, 256 and 384; the lm_head at the
+    # decode step and a prefill's last row
+    for (K, N), what in projection_shapes(get_config(MOE_ARCH)).items():
+        for M in ((1, 8) if what == "lm_head" else (8, 128, 256, 384)):
+            cases[f"qwen3-moe {what} int8 ({M}, {K}, {N})"] = (M, K, N, 8, 0, None)
     errs = []
     for name, (M, K, N, bits, group, dtype) in cases.items():
         x, w = operands(M, K, N, dtype or torch.bfloat16)
@@ -997,6 +1063,177 @@ def run_matmul_checks(torch):
     return records
 
 
+# the kernels of grouped_matmul.cu (repro_torch.kernels.grouped_matmul.kernel.
+# Kernel: design, dtype) that some case of run_grouped_checks held against its
+# plain version
+CHECKED_GROUPED = set()
+
+
+def grouped_kernel_name(k):
+    return f"{k.design}/{k.dtype.split('.')[-1]}"
+
+
+def routed_sizes(rng, tokens, experts=MOE_EXPERTS, k=MOE_TOP_K):
+    """Group sizes of ``tokens`` tokens, each routed to ``k`` distinct
+    experts drawn uniformly (random weights route about so)."""
+    picks = np.stack([rng.choice(experts, k, replace=False) for _ in range(tokens)])
+    return np.bincount(picks.reshape(-1), minlength=experts)
+
+
+def grouped_operands(torch, g, sizes, K, N, dtype, copies=1):
+    """x (T, K) and ``copies`` expert banks (E, K, N), scaled as the
+    model's, and the offsets of ``sizes`` on the card."""
+    sizes = np.asarray(sizes)
+    x = torch.randn((int(sizes.sum()), K), generator=g, device=DEVICE).to(dtype)
+    ws = [(torch.randn((len(sizes), K, N), generator=g, device=DEVICE) / K ** 0.5).to(dtype)
+          for _ in range(copies)]
+    off = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32))
+    return x, ws, off.to(DEVICE)
+
+
+def grouped_library(torch, x, w, off):
+    """One PyTorch call computing the grouped product, where the card's
+    torch has one (``torch._grouped_mm``, private, a yardstick only), else a
+    ``torch.matmul`` a non-empty group with the sizes read first.  Returns
+    (a function of the bank, its name)."""
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            ends = off[1:].contiguous()
+            want = grouped_ref_f32(torch, x, w, off)
+            got = torch._grouped_mm(x, w, offs=ends).float()
+            if float((got - want).abs().max()) <= 1e-2 * max(1.0, float(want.abs().max())):
+                return (lambda wb: torch._grouped_mm(x, wb, offs=ends)), "torch._grouped_mm"
+        except (RuntimeError, TypeError) as e:
+            print(f"kernel grouped_matmul library torch._grouped_mm refused: {e!r:.200}")
+    bounds = off.tolist()
+    groups = [(e, bounds[e], bounds[e + 1]) for e in range(len(bounds) - 1)
+              if bounds[e + 1] > bounds[e]]
+
+    def loop(wb):
+        return [torch.matmul(x[a:b], wb[e]) for e, a, b in groups]
+    return loop, "torch.matmul a non-empty group (sizes read first)"
+
+
+def grouped_ref_f32(torch, x, w, off):
+    from repro_torch.kernels.grouped_matmul.kernel import grouped_matmul_plain
+    return grouped_matmul_plain(x.float(), w.float(), off)
+
+
+def expected_grouped_design(dtype, K, N):
+    """Tensor cores for bf16 with K and N multiples of 8 (the wrapper's
+    plan, every operand here 16-byte aligned); CUDA cores otherwise."""
+    import torch
+    return "tensor_core" if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 \
+        else "cuda_core"
+
+
+def run_grouped_checks(torch):
+    """The grouped matmul (``grouped_matmul.cu``) against its plain version
+    at qwen3-moe-30b-a3b's shapes and at edge cases, timed at the shapes
+    the MoE phase runs."""
+    from repro_torch.kernels.grouped_matmul.kernel import (grouped_matmul_fwd,
+                                                           grouped_matmul_plain,
+                                                           kernel_launches)
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    rng = np.random.default_rng(11)
+    bf16 = torch.bfloat16
+    cases = {}
+    for what, (K, N) in MOE_GMM_SHAPES.items():
+        for phase, T in MOE_GMM_ROWS.items():
+            cases[f"qwen3-moe {what} {phase} T{T} ({K}, {N})"] = (
+                routed_sizes(rng, T // MOE_TOP_K), K, N, bf16)
+    cases.update({
+        "empty experts first, between and last (64, 200)": ([0, 5, 0, 1, 9, 0], 64, 200, bf16),
+        "every row to one expert T3072 (2048, 768)": (
+            [0] * 40 + [3072] + [0] * 87, 2048, 768, bf16),
+        "T1 (2048, 768)": ([0, 1, 0], 2048, 768, bf16),
+        "groups smaller than the M tile (3, 17, 1, 64, 65)": ([3, 17, 1, 64, 65], 768, 2048,
+                                                              bf16),
+        "N200 not a multiple of the tile": (routed_sizes(rng, 8), 2048, 200, bf16),
+        "bf16 N36: CUDA cores": ([7, 0, 3, 12], 96, 36, bf16),
+        "f32 (2048, 768): CUDA cores": (routed_sizes(rng, 8), 2048, 768, torch.float32),
+        "f32 groups (0, 5, 0, 17), K100 N40": ([0, 5, 0, 17], 100, 40, torch.float32),
+    })
+    errs = []
+    for name, (sizes, K, N, dtype) in cases.items():
+        x, (w,), off = grouped_operands(torch, g, sizes, K, N, dtype)
+        out, kernel = ran_one(kernel_launches, lambda: grouped_matmul_fwd(x, w, off),
+                              "grouped matmul")
+        CHECKED_GROUPED.add(kernel)
+        again = grouped_matmul_fwd(x, w, off)
+        ref = grouped_matmul_plain(x, w, off)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = max(ref.float().abs().max().item(), 1e-30)
+        tol = MATMUL_TOL[str(dtype)]
+        same = torch.equal(out, again)
+        want = expected_grouped_design(dtype, K, N)
+        experts = int((np.asarray(sizes) > 0).sum())
+        print(f"kernel grouped_matmul case={name!r} T={x.shape[0]} experts={len(sizes)} "
+              f"selected={experts} design={kernel.design} "
+              f"kernel={grouped_kernel_name(kernel)} max_abs_err={err:.3e} "
+              f"rel_to_max={err / scale:.3e} tol={tol:g} repeat_identical={same}")
+        check(out.dtype == dtype and out.shape == ref.shape and np.isfinite(err)
+              and err <= tol * scale, f"grouped matmul disagrees with its plain version ({name})")
+        check(same, f"grouped matmul ({name}): a second launch gave other bits")
+        check(kernel.design == want, f"grouped matmul ({name}) ran on {kernel.design}, "
+              f"expected {want}")
+        errs.append({"case": name, "design": kernel.design, "max_abs_err": err,
+                     "rel_to_max": err / scale, "tol": tol})
+
+    def timed(what, phase):
+        """Device time at one of the MoE phase's shapes, cycling over expert
+        banks that span twice the L2 (a layer's bank is read once a step)."""
+        K, N = MOE_GMM_SHAPES[what]
+        T = MOE_GMM_ROWS[phase]
+        sizes = routed_sizes(np.random.default_rng(12), T // MOE_TOP_K)
+        selected = int((sizes > 0).sum())
+        copies = cold_copies(selected * K * N * 2)
+        x, ws, off = grouped_operands(torch, g, sizes, K, N, bf16, copies)
+        nxt = cycler(ws)
+        _, kernel = ran_one(kernel_launches, lambda: grouped_matmul_fwd(x, nxt(), off),
+                            "grouped matmul")
+        ms = device_ms(lambda: grouped_matmul_fwd(x, nxt(), off), 100)
+        plain_ms = device_ms(lambda: grouped_matmul_plain(x, nxt(), off), 3)
+        lib, lib_name = grouped_library(torch, x, ws[0], off)
+        library_ms = device_ms(lambda: lib(nxt()), 50)
+        # the selected experts' weights once, x and y once, the offsets
+        nbytes = selected * K * N * 2 + T * (K + N) * 2 + off.numel() * 4
+        b_ms, b_by = bound(nbytes, 2 * T * K * N, str(bf16))
+        print(f"kernel grouped_matmul timing {what} {phase} shape=({T}, {K}, {N}) "
+              f"selected_experts={selected} design={kernel.design} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} ({lib_name}) "
+              f"bound_ms={b_ms:.5f} ({b_by}) weight_rate_tb_s="
+              f"{selected * K * N * 2 / ms / 1e9:.3f}")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "library": lib_name, "bound_ms": b_ms, "bound_by": b_by,
+                "shape": [T, K, N], "selected_experts": selected, "design": kernel.design,
+                "copies": copies}
+
+    t = timed("gate/up", "decode")
+    return {"grouped_matmul": {
+        "name": "grouped_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+        "replaces": "src/repro/models/moe.py:211",
+        "replaces_note": "no TPU kernel: the port's own kernel for jax.lax.ragged_dot, "
+                         "an XLA op, in the reference's dropless MoE layer",
+        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                             "library", "shape", "selected_experts", "design")},
+        "down_decode": timed("down", "decode"),
+        "gate_up_prefill384": timed("gate/up", "prefill384"),
+        "down_prefill384": timed("down", "prefill384"),
+        "gate_up_prefill128": timed("gate/up", "prefill128"),
+        "cases": errs}}
+
+
+def check_grouped_checked(what, kernels):
+    """Every kernel of grouped_matmul.cu that ``what`` launched was held
+    against its plain version in run_grouped_checks."""
+    missed = sorted(grouped_kernel_name(k) for k in kernels if k not in CHECKED_GROUPED)
+    check(not missed, f"{what}: grouped matmul kernels launched but never checked: {missed}")
+
+
 # ---------------------------------------------------------------------------
 # engine and logits at full width
 # ---------------------------------------------------------------------------
@@ -1036,9 +1273,17 @@ def tensor_bytes(tree):
 
 def projections(cfg):
     """Dense projections of one forward call (each a dequant-matmul under
-    ``weight_bits``): q, k, v, o and the MLP's (three gated, two plain) in
-    every layer, and an untied lm_head once."""
-    return (4 + (3 if cfg.glu else 2)) * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+    ``weight_bits``): q, k, v, o in every layer, the MLP's (three gated, two
+    plain) in every layer that is not MoE (the experts stay bf16), and an
+    untied lm_head once."""
+    mlp = (3 if cfg.glu else 2) * sum(not m for m in cfg.moe_layer_mask())
+    return 4 * cfg.n_layers + mlp + (0 if cfg.tie_embeddings else 1)
+
+
+def grouped_products(cfg):
+    """Grouped matmul launches of one forward call: gate, up and down in
+    every MoE layer."""
+    return 3 * sum(cfg.moe_layer_mask())
 
 
 def local_positions(cfg, cache):
@@ -1046,7 +1291,7 @@ def local_positions(cfg, cache):
     from repro_torch.models.transformer import build_groups
     return max((int(cache["stack"][gi][f"u{ui}"]["attn"]["pos"].max())
                 for gi, spec in enumerate(build_groups(cfg))
-                for ui, kind in enumerate(spec.units) if kind == "local"), default=-1)
+                for ui, (kind, _) in enumerate(spec.units) if kind == "local"), default=-1)
 
 
 @contextlib.contextmanager
@@ -1068,11 +1313,14 @@ def expected_launches(cfg, st, bits, paths, draft):
     and every projection; a speculative step runs ``spec_k`` draft decode
     steps in the draft's layers (the target's own, or the draft model's and
     one catch-up step), and a verify through every target projection (its
-    attention takes the oracle); prefills run every target projection."""
+    attention takes the oracle); prefills run every target projection.
+    Every forward call (a decode step or a prefill) runs the grouped matmul
+    three times in each MoE layer."""
     steps, calls = st["decode_steps"], st["decode_steps"] + st["prefill_calls"]
     decode = "flash_decode_quant" if bits.get("kv_bits") else "flash_decode"
     want = {"flash_decode": 0, "flash_decode_quant": 0,
-            "quant_matmul": projections(cfg) * calls if bits.get("weight_bits") else 0}
+            "quant_matmul": projections(cfg) * calls if bits.get("weight_bits") else 0,
+            "grouped_matmul": grouped_products(cfg) * calls}
     k = paths.get("spec_k", 0)
     if not k:
         want[decode] = steps * cfg.n_layers
@@ -1129,11 +1377,14 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t_build
     graphs = engine.executor.graphs
+    packable = engine._packable
     check((graphs is None) == (eager or not paths.get("fused", True)),
           f"{label}: programs {'not ' if graphs is None else ''}captured")
     if graphs is not None:
+        # a stack that cannot be packed (MoE) captures its fused step alone
         want = ["spec_step" if paths.get("spec_k") else "fused_step"] + (
-            ["packed_prefill", "chunk_step"] if paths.get("packed", True) else [])
+            ["packed_prefill", "chunk_step"] if paths.get("packed", True) and packable
+            else [])
         check(sorted(graphs.graphs) == sorted(want), f"{label}: captured {sorted(graphs.graphs)}")
     reset_launches()
     t0 = time.perf_counter()
@@ -1144,7 +1395,9 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
     wall = time.perf_counter() - t0
     launches = read_launches()
     kernels, designs = read_kernels()
-    attn = {k: v.copy() for k, v in launch_counters().items() if k != "qmatmul"}
+    attn = {k: v.copy() for k, v in launch_counters().items()
+            if k not in ("qmatmul", "grouped_matmul")}
+    grouped = launch_counters()["grouped_matmul"].copy()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     qp = engine.executor.params
     params_gb = sum(tensor_bytes(t) for t in (*qp.parameters(), *qp.buffers())) / 1e9
@@ -1166,6 +1419,7 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
           + f"launches={json.dumps(launches)} "
           f"qmatmul_designs={json.dumps(designs)} "
           f"qmatmul_kernels={json.dumps({kernel_name(k): n for k, n in kernels.items()})} "
+          f"grouped_kernels={json.dumps({grouped_kernel_name(k): n for k, n in grouped.items()})} "
           + " ".join(f"{w}_kernels=" + json.dumps(
               {attention_kernel_name(k): n for k, n in c.items()}) for w, c in attn.items()))
     check(st["finished"] == len(prompts) and st["failed"] == 0,
@@ -1173,8 +1427,13 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
     outs = [r.output for r in sorted(engine.finished, key=lambda r: r.uid)]
     check(all(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o)
               for o in outs), f"engine ({label}) produced malformed token streams")
-    if paths.get("packed", True):
+    if paths.get("packed", True) and packable:
         check(any(n > CHUNK for n in st["prompt_lens"]), "no chunked prefill ran")
+    elif paths.get("packed", True):
+        # padded admission: one prefill a request, padded to a chunk multiple
+        check(st["prefill_calls"] == len(prompts) and
+              any(n > CHUNK for n in st["prompt_lens"]),
+              f"{label}: {st['prefill_calls']} padded prefills for {len(prompts)} requests")
     else:
         check(st["prefill_calls"] == len(prompts), f"{label}: {st['prefill_calls']} "
               f"prefill calls for {len(prompts)} requests")
@@ -1195,6 +1454,10 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
     check(designs == {"cuda_core": 0, "tensor_core": want_mm},
           f"{label}: qmatmul designs {designs}, want {want_mm} on tensor cores")
     check_kernels_checked(f"engine ({label})", kernels)
+    check_grouped_checked(f"engine ({label})", grouped)
+    # every grouped matmul on tensor cores (bf16, K and N multiples of 8)
+    check(all(k.design == "tensor_core" for k in grouped),
+          f"{label}: grouped matmul kernels {sorted(map(grouped_kernel_name, grouped))}")
     # a draft model prefills each request's prompt once, in its own layers
     prefills = launches["flash_prefill"] - (st["finished"] * draft[0].n_layers if draft else 0)
     check(prefills > 0 and prefills % cfg.n_layers == 0,
@@ -1216,7 +1479,7 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
     check(launches["pim_mvm"] == 0, f"{label}: the crossbar kernel ran in serving")
     return {"stats": st, "launches": launches, "designs": designs, "wall_s": wall,
             "peak_gib": peak_gib, "outputs": outs, "build_s": build_s, "prompts": prompts,
-            "kernels": {"qmatmul": kernels, **attn},
+            "kernels": {"qmatmul": kernels, "grouped_matmul": grouped, **attn},
             "params_gb": params_gb, "pool_gb": pool_gb}
 
 
@@ -1815,12 +2078,14 @@ def profiled(torch, arch, run, what, step, steps):
               [[e.key[:60], round(e.self_device_time_total / 1e3 / steps, 4), e.count // steps]
                for e in top]))
     return {"busy_ms": busy_ms, "kernels_per_step": launches, "wall_ms": step_ms,
-            "wall_ms_profiled": wall_ms}
+            "wall_ms_profiled": wall_ms,
+            "by_kernel_ms": {e.key: e.self_device_time_total / 1e3 / steps for e in kernels}}
 
 
 def run_profile(torch, cfg, params, run="fp", kv_len=1024, steps=4, chunk_steps=2):
     """Where a step's time goes, with every slot of the pool busy: ``steps``
-    fused decode steps, then ``chunk_steps`` chunked-prefill steps (the
+    fused decode steps, then (where the stack packs) ``chunk_steps``
+    chunked-prefill steps (the
     executor's ``chunk_step``, as the engine calls it for long prompts:
     all 8 rows with a 128-token chunk, M = 1024 rows a projection); each
     replayed from its CUDA graph, as the engine runs it, and then through
@@ -1840,6 +2105,9 @@ def run_profile(torch, cfg, params, run="fp", kv_len=1024, steps=4, chunk_steps=
     decode = profiled(torch, cfg.name, run, "decode_step replayed", engine.step, steps)
     decode_eager = profiled(torch, cfg.name, run, "decode_step eager", lambda: ex.fetch(
         ex.fused_step(pool.cache, pool.state)[2]), steps)
+    if not engine._packable:
+        # no chunk step: a stack that cannot be packed prefills a prompt a call
+        return {"decode_step": decode, "decode_step_eager": decode_eager}
 
     # chunk steps over the same pool: each row's next 128 tokens at
     # positions 32..159, no row final (the slots' state is left as it is)
@@ -1856,7 +2124,63 @@ def run_profile(torch, cfg, params, run="fp", kv_len=1024, steps=4, chunk_steps=
             "chunk_step": chunk, "chunk_step_eager": chunk_eager}
 
 
-def run_logits(torch, cfg, params, run="fp", long_row=0):
+class ForcedRouting:
+    """The MoE layers' expert choices recorded in one run (``"record"``)
+    and imposed, call by call, on the next (``"force"``), whose gates are
+    its own router's probabilities at the imposed experts, renormalised.
+    A top-k choice is discontinuous: where two experts' router logits are
+    near a tie, a last-bit difference between two runs swaps them and the
+    runs part by a whole expert's output, which grows over 48 layers.
+    Imposing one run's choices on the other leaves the numerics of the
+    kernels to compare.  Every choice the forced run's own router makes
+    otherwise is counted, with the gap between its own logits of the
+    experts it would have taken and those imposed, relative to the
+    token's largest router logit (at least 1): each must be a near-tie."""
+
+    def __init__(self):
+        self.mode, self.recorded, self.queue, self.at = "off", [], [], 0
+        self.tokens = self.swapped = 0
+        self.gaps = []
+
+    @contextlib.contextmanager
+    def installed(self, torch):
+        from repro_torch.models import moe
+        route = moe.route
+
+        def routed(p, x, cfg):
+            gates, idx = route(p, x, cfg)
+            if self.mode == "record":
+                self.recorded.append(idx.clone())
+            elif self.mode == "force":
+                forced = self.queue[self.at]
+                self.at += 1
+                if forced.shape[1] < idx.shape[1]:
+                    # a padded prompt's pad rows keep their own choices
+                    forced = torch.cat([forced, idx[:, forced.shape[1]:]], dim=1)
+                logits = x.float() @ p["router"].float()
+                probs = torch.softmax(logits, dim=-1)
+                g = torch.gather(probs, -1, forced)
+                gates = (g / g.sum(dim=-1, keepdim=True)).to(x.dtype)
+                own = torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, idx, True)
+                want = torch.zeros_like(own).scatter_(-1, forced, True)
+                differ = (own != want).any(dim=-1)
+                inf = torch.tensor(float("inf"), device=x.device)
+                gap = torch.where(own & ~want, logits, inf).amin(-1) - \
+                    torch.where(want & ~own, logits, -inf).amax(-1)
+                scale = logits.abs().amax(-1).clamp_min(1.0)
+                self.tokens += differ.numel()
+                self.swapped += int(differ.sum())
+                self.gaps += (gap / scale)[differ].tolist()
+                idx = forced
+            return gates, idx
+        moe.route = routed
+        try:
+            yield self
+        finally:
+            moe.route = route
+
+
+def run_logits(torch, cfg, params, run="fp", long_row=0, routing=None):
     """Packed prefill + 4 teacher-forced decode steps at full width,
     impl="flash" against impl="ref", each on its own slot pool.  Quantised
     (``QUANT_RUNS``), "ref" is the attention oracle over the pool
@@ -1867,7 +2191,12 @@ def run_logits(torch, cfg, params, run="fp", long_row=0):
     ring wraps in the packed insert, and the decode steps read it wrapped.
     The sequential baseline's first-token logits (a batch-1 prefill of each
     row, padded as the engine pads it) are held to the packed prefill's
-    under the same bound."""
+    under the same bound.  ``routing`` (a :class:`ForcedRouting`, for MoE
+    stacks): "ref" runs first and its expert choices are imposed on
+    "flash", each choice its router would make otherwise counted and held
+    to be a near-tie (``NEAR_TIE`` of the router logits' scale); each
+    sequential prefill takes its row's choices of the recorded packed
+    prefill."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import EngineConfig, _bucket_len
     from repro_torch.serving.executor import Executor
@@ -1893,7 +2222,11 @@ def run_logits(torch, cfg, params, run="fp", long_row=0):
     dev = lambda a: torch.from_numpy(np.asarray(a)).to(DEVICE)  # noqa: E731
 
     results = {}
-    for impl in ("flash", "ref"):
+    for impl in ("ref", "flash") if routing else ("flash", "ref"):
+        if routing and impl == "ref":
+            routing.mode, routing.recorded = "record", []
+        elif routing:
+            routing.mode, routing.queue, routing.at = "force", routing.recorded, 0
         ecfg = EngineConfig(max_batch=B, kv_len=kv_len, impl=impl, **QUANT_RUNS[run])
         ex = Executor(cfg, params, ecfg, device=torch.device(DEVICE))
         pool = SlotPool(cfg, ecfg, device=torch.device(DEVICE))
@@ -1906,9 +2239,18 @@ def run_logits(torch, cfg, params, run="fp", long_row=0):
                 bucketed = all(k == "global" for k in cfg.layer_kinds)
                 seq = []
                 for i, n in enumerate(lens):
+                    a = gather[i] - n + 1
                     row = np.zeros((1, _bucket_len(n, kv_len) if bucketed else n), np.int32)
-                    row[0, :n] = toks[0, gather[i] - n + 1:gather[i] + 1]
+                    row[0, :n] = toks[0, a:a + n]
+                    if routing:
+                        # the row's choices in the recorded packed prefill
+                        queue, at = routing.queue, routing.at
+                        routing.queue = [r[:, a:a + n] for r in
+                                         routing.recorded[:sum(cfg.moe_layer_mask())]]
+                        routing.at = 0
                     seq.append(ex.prefill(dev(row), n)[0].float())
+                    if routing:
+                        routing.queue, routing.at = queue, at
                 sequential = torch.cat(seq)
             ex.packed_insert(pool.cache, pc["stack"], dev(seg), dev(pos),
                               dev(seg_len), dev(active))
@@ -1940,7 +2282,78 @@ def run_logits(torch, cfg, params, run="fp", long_row=0):
           f"bound={limit:.4f} ref_scale={scale:.4f} finite={finite}")
     check(finite and max(diffs.values()) <= limit,
           f"flash and ref logits ({run}) disagree beyond the bound")
+    if routing:
+        gap = max(routing.gaps, default=0.0)
+        print(f"logits run={run} arch={cfg.name} forced_routing tokens={routing.tokens} "
+              f"own_choice_differs={routing.swapped} largest_gap={gap:.4f} "
+              f"near_tie={NEAR_TIE}")
+        check(routing.at == len(routing.queue) and routing.tokens > 0,
+              f"logits ({run}): {routing.at} forced calls of {len(routing.queue)} recorded")
+        check(gap <= NEAR_TIE, f"logits ({run}): the flash router would choose other "
+              f"experts {gap:.4f} of its logits' scale apart, not a near-tie")
     return diffs, limit
+
+
+def run_moe(torch, by_run):
+    """Phase moe: full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
+    experts, top-8), random bf16 weights, after every earlier model,
+    engine and graph pool is freed.  The engine phase's 16 requests at fp
+    and w8kv8, replayed and again eagerly (streams bit for bit, launches
+    equal), each prompt admitted alone and padded to a chunk multiple, the
+    grouped matmul launched three times a MoE layer of every forward call;
+    ``packed=False`` at fp (power-of-two buckets) against the default's
+    streams up to near-ties; flash against ref logits, the ref run's
+    expert choices imposed on the flash run (``ForcedRouting``); a
+    profiled decode step (wall and busy time, idle share, kernels a step, the grouped
+    matmul's share of busy time)."""
+    from repro_torch.config import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 2**30
+    print(f"moe memory_allocated_before_build_gib={before:.3f} "
+          f"bound_gib={MOE_FREE_BEFORE_GIB}")
+    check(before < MOE_FREE_BEFORE_GIB, f"moe: {before:.2f} GiB still allocated before "
+          f"the model is built")
+    cfg = get_config(MOE_ARCH)
+    params = make_params(torch, cfg)
+    drain = dict(kv_len=MOE_KV_LEN)
+    plain = {}
+    for run in MOE_RUNS:
+        r = plain[run] = run_engine(torch, cfg, params, run, **drain)
+        by_run[f"{MOE_ARCH} {run}"] = r["launches"]
+        run_graphs(torch, cfg, params, run, r, long_prompts=(), **drain)
+        st = r["stats"]
+        calls = st["decode_steps"] + st["prefill_calls"]
+        print(f"moe run={run} grouped_matmul_launches={r['launches']['grouped_matmul']} "
+              f"forward_calls={calls} moe_layers={sum(cfg.moe_layer_mask())} "
+              f"launches_a_layer=3")
+    seq = run_engine(torch, cfg, params, "fp", packed=False, **drain)
+    by_run[f"{MOE_ARCH} fp packed=False"] = seq["launches"]
+    divs = divergences(torch, cfg, params, "fp", seq["prompts"], plain["fp"]["outputs"],
+                       seq["outputs"])
+    print(f"moe packed=False streams_equal={seq['outputs'] == plain['fp']['outputs']} "
+          f"divergences={json.dumps([[u, t, round(m, 4), round(b, 4)] for u, t, m, b in divs])}")
+    check(all(m < b for _, _, m, b in divs),
+          "moe: a packed=False stream parts from the default's away from a near-tie")
+    for run in ("fp", "w8kv8"):
+        routing = ForcedRouting()
+        with routing.installed(torch):
+            run_logits(torch, cfg, params, run, routing=routing)
+    for run in MOE_RUNS:
+        d = run_profile(torch, cfg, params, run, kv_len=MOE_KV_LEN)["decode_step"]
+        gm = sum(ms for k, ms in d["by_kernel_ms"].items() if "grouped_matmul" in k)
+        st, r = plain[run]["stats"], plain[run]
+        print(f"moe profile run={run} decode_step_wall_ms={d['wall_ms']:.3f} "
+              f"busy_ms={d['busy_ms']:.3f} idle_share={1 - d['busy_ms'] / d['wall_ms']:.3f} "
+              f"kernels_per_step={d['kernels_per_step']:.0f} grouped_matmul_ms={gm:.3f} "
+              f"grouped_matmul_share_of_busy={gm / d['busy_ms']:.3f} "
+              f"params_gib={r['params_gb'] * 1e9 / 2**30:.3f} "
+              f"pool_gib={r['pool_gb'] * 1e9 / 2**30:.4f} peak_memory_gib={r['peak_gib']:.2f} "
+              f"tokens_per_s={st['tokens_per_s']:.2f} mean_ttft_s={st['mean_ttft_s']:.4f} "
+              f"mean_tpot_s={st['mean_tpot_s']:.5f}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def make_params(torch, cfg):
@@ -1990,6 +2403,7 @@ def main():
     records = run_kernel_checks(torch)
     records.update(run_quant_decode_checks(torch))
     records.update(run_matmul_checks(torch))
+    records.update(run_grouped_checks(torch))
     print(f"phase kernels done in {time.perf_counter() - t_kernels:.1f} s")
 
     start = time.perf_counter()
@@ -1999,6 +2413,8 @@ def main():
     by_run = {}            # launches of each main-path run, counted from 0 before it
     for arch, serve in SERVED.items():
         cfg = get_config(arch)
+        if serve["layers"]:
+            cfg = dataclasses.replace(cfg, n_layers=serve["layers"])
         params = make_params(torch, cfg)
         drain = dict(kv_len=serve["kv_len"], long_prompts=serve["long_prompts"])
         plain = {}
@@ -2036,6 +2452,8 @@ def main():
             run_logits(torch, cfg, params, run)
         del params
         print(f"phases of {arch} done at {time.perf_counter() - start:.1f} s")
+    run_moe(torch, by_run)
+    print(f"phases of {MOE_ARCH} done at {time.perf_counter() - start:.1f} s")
 
     for name, rec in records.items():
         rec["launches"] = sum(n[name] for n in by_run.values())

@@ -1,9 +1,11 @@
 """Model configuration for the PyTorch port (counterpart of ``repro.config``).
 
 A :class:`ModelConfig` describes one decoder-only transformer whose layers
-are global or local (sliding-window) attention blocks.  Only the fields
-those stacks read are kept; the architecture zoo's other families (MoE,
-MLA, SSM, recurrent, encoder/decoder) have no port yet.  The registry and
+are global or local (sliding-window) attention blocks, each followed by a
+dense MLP or, where :meth:`ModelConfig.moe_layer_mask` says so, a
+mixture-of-experts FFN.  Only the fields those stacks read are kept; the
+architecture zoo's other families (MLA, SSM, recurrent,
+encoder/decoder) have no port yet.  The registry and
 :func:`reduce_config` follow the reference, so ``get_config(name)`` gives
 the same published numbers in both packages.
 """
@@ -45,6 +47,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False       # gemma: embeddings scaled by sqrt(d_model)
     v_head_dim: int = 0  # 0 -> head_dim
+    # -- MoE ----------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    first_k_dense: int = 0          # the first k layers keep the dense MLP
+    capacity_factor: float = 1.25   # read only by the capacity paths (no port)
     # -- provenance ---------------------------------------------------------
     source: str = ""
     notes: str = ""
@@ -59,10 +68,20 @@ class ModelConfig:
                 raise ValueError(f"unknown layer kind {k!r}")
 
     @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
     def layer_kinds(self) -> tuple[str, ...]:
         """Per-layer kind for the decoder stack, pattern cycled."""
         p = self.pattern
         return tuple(p[i % len(p)] for i in range(self.n_layers))
+
+    def moe_layer_mask(self) -> tuple[bool, ...]:
+        """Which layers run the MoE FFN in place of the dense MLP."""
+        if not self.is_moe:
+            return tuple(False for _ in range(self.n_layers))
+        return tuple(i >= self.first_k_dense for i in range(self.n_layers))
 
 
 # ---------------------------------------------------------------------------
@@ -108,5 +127,9 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         d_ff=96,
         vocab_size=256,
         window=min(cfg.window, 16) if cfg.window else 0,
+        n_experts=min(cfg.n_experts, 8) if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        d_ff_expert=32 if cfg.d_ff_expert else 0,
         v_head_dim=16,
+        first_k_dense=min(cfg.first_k_dense, 1),
     )

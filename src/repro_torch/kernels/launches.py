@@ -2,8 +2,8 @@
 
 Each wrapper counts its launches on the host: ``<wrapper>.launches``, and
 a ``collections.Counter`` by kernel (``kernel_launches`` of the prefill
-and the dequant-matmul, ``kernel_launches`` and ``quant_kernel_launches``
-of the decodes).  A CUDA graph launches its kernels without running the
+the dequant-matmul and the grouped matmul, ``kernel_launches`` and
+``quant_kernel_launches`` of the decodes).  A CUDA graph launches its kernels without running the
 wrappers, so whoever replays one adds what its capture counted
 (:func:`since` before the capture, :func:`add` at each replay), and takes
 the capture's own counts back out (:func:`restore`): a capture launches
@@ -22,22 +22,25 @@ def wrappers() -> dict:
     from repro_torch.kernels.flash_attention.decode import (flash_decode_fwd,
                                                             flash_decode_quant_fwd)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.grouped_matmul.kernel import grouped_matmul_fwd
     from repro_torch.kernels.pim_mvm.kernel import pim_mvm_fwd
     from repro_torch.quant.kernel import quant_matmul_fwd
     return {"flash_decode": flash_decode_fwd, "flash_prefill": flash_attention_fwd,
             "flash_decode_quant": flash_decode_quant_fwd,
-            "quant_matmul": quant_matmul_fwd, "pim_mvm": pim_mvm_fwd}
+            "quant_matmul": quant_matmul_fwd, "pim_mvm": pim_mvm_fwd,
+            "grouped_matmul": grouped_matmul_fwd}
 
 
 def counters() -> dict:
-    """The per-kernel launch counters of qmatmul.cu, prefill.cu, decode.cu
-    and decode_quant.cu."""
+    """The per-kernel launch counters of qmatmul.cu, prefill.cu, decode.cu,
+    decode_quant.cu and grouped_matmul.cu."""
     from repro_torch.kernels.flash_attention.decode import kernel_launches as decode
     from repro_torch.kernels.flash_attention.decode import quant_kernel_launches
     from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill
+    from repro_torch.kernels.grouped_matmul.kernel import kernel_launches as grouped
     from repro_torch.quant.kernel import kernel_launches as qmatmul
     return {"qmatmul": qmatmul, "prefill": prefill, "decode": decode,
-            "decode_quant": quant_kernel_launches}
+            "decode_quant": quant_kernel_launches, "grouped_matmul": grouped}
 
 
 def snapshot() -> Launches:

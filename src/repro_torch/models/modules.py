@@ -13,27 +13,47 @@ from repro_torch.quant.ops import qdense
 # ---------------------------------------------------------------------------
 # init helpers — the reference's distributions: truncated normal on
 # [-2, 2] scaled by 1/sqrt(fan_in) (dense) or by 0.02 (embeddings).  A
-# stacked (repeats, K, N) weight draws each layer from the same law.
+# stacked (repeats, ...) weight draws each layer from the same law.
 # ---------------------------------------------------------------------------
 
-def _trunc_normal(shape, generator, std):
-    """Drawn on the generator's device; with no generator, a shape-only
-    tensor on the meta device."""
+# a leaf with more elements is drawn one repeat at a time (see _trunc_normal)
+WHOLE_DRAW_MAX = 2 ** 31
+
+
+def _trunc_normal(shape, generator, std, dtype, device):
+    """Drawn in f32 on the generator's device, stored in ``dtype`` on
+    ``device``; with no generator, a shape-only tensor on the meta device.
+
+    A leaf of at most ``WHOLE_DRAW_MAX`` elements is drawn whole.  A larger
+    one (a stacked expert bank: 48 x 128 x 2048 x 768 at qwen3-moe-30b-a3b,
+    38.7 GB of f32) is drawn one repeat at a time into the ``dtype`` tensor,
+    so that no f32 temporary holds more than one repeat.  Every leaf of the
+    dense models is below the limit, so their draws are the whole-leaf
+    draws they always were."""
     if generator is None:
-        return torch.empty(shape, dtype=torch.float32, device="meta")
-    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(std)
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def draw(s):
+        t = torch.empty(s, dtype=torch.float32, device=generator.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return t.mul_(std).to(device=device, dtype=dtype)
+
+    if math.prod(shape) <= WHOLE_DRAW_MAX:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for r in range(shape[0]):
+        out[r] = draw(shape[1:])
+    return out
 
 
 def dense_init(generator, shape, dtype, device, fan_in=None):
     fan_in = fan_in if fan_in is not None else shape[-2]
     std = 1.0 / math.sqrt(max(fan_in, 1))
-    return _trunc_normal(shape, generator, std).to(device=device, dtype=dtype)
+    return _trunc_normal(shape, generator, std, dtype, device)
 
 
 def embed_init(generator, shape, dtype, device):
-    return _trunc_normal(shape, generator, 0.02).to(device=device, dtype=dtype)
+    return _trunc_normal(shape, generator, 0.02, dtype, device)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import modules as M
 from repro_torch.models.attention import (apply_attention, init_attention,
                                           init_kv_cache)
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.quant.core import QuantTensor
 from repro_torch.quant.ops import qdense
 
@@ -36,15 +37,16 @@ from repro_torch.quant.ops import qdense
 
 @dataclasses.dataclass(frozen=True)
 class GroupSpec:
-    units: tuple[str, ...]   # layer kind of each unit of one pattern period
+    units: tuple[tuple[str, bool], ...]   # (layer kind, use_moe) of each unit
     repeats: int
 
 
 def build_groups(cfg: ModelConfig) -> list[GroupSpec]:
-    """One group per maximal run of identical pattern periods, plus a
-    remainder group — the reference's grouping, so group and unit indices
-    (and hence parameter names) match."""
-    units = cfg.layer_kinds
+    """One group per maximal run of identical pattern periods (a unit is a
+    layer kind and whether its FFN is MoE), plus a remainder group — the
+    reference's grouping, so group and unit indices (and hence parameter
+    names) match."""
+    units = tuple(zip(cfg.layer_kinds, cfg.moe_layer_mask()))
     period = len(cfg.pattern)
     n = len(units)
     groups: list[GroupSpec] = []
@@ -83,34 +85,28 @@ class QuantWeight(nn.Module):
 
 
 def _as_module(tree):
-    """Nested dict/list of tensors and QuantTensors -> ModuleDict/ModuleList/
-    ParameterDict with the same keys (frozen parameters: the port serves,
-    it does not train).  A ParameterDict holds a QuantWeight beside the
-    tensors of its dict (``wq`` beside ``bq``)."""
+    """Nested dict/list of tensors and QuantTensors -> ModuleList or
+    :class:`ParamTree` with the same keys (frozen parameters: the port
+    serves, it does not train)."""
     if isinstance(tree, list):
         return nn.ModuleList([_as_module(t) for t in tree])
-    if all(isinstance(t, (torch.Tensor, QuantTensor)) for t in tree.values()):
-        return nn.ParameterDict({
-            k: QuantWeight(t) if isinstance(t, QuantTensor)
-            else nn.Parameter(t, requires_grad=False) for k, t in tree.items()})
-    return nn.ModuleDict({k: _as_module(t) for k, t in tree.items()})
+    return ParamTree(tree)
 
 
-class Transformer(nn.ModuleDict):
-    """The parameters of one model, indexed like the reference's tree:
-    ``params["stack"][g]["u0"]["attn"]["wq"]``.  A tensor at the top of
-    the tree (the untied ``lm_head``) is a parameter of the module itself,
-    a quantised one a :class:`QuantWeight`, both under their own name."""
+class ParamTree(nn.ModuleDict):
+    """One dict of the parameter tree: its tensors are parameters of the
+    module, its QuantTensors :class:`QuantWeight` submodules and its dicts
+    and lists submodules, all under their own names, so a dict may mix them
+    (the MoE layer's ``router`` beside its ``experts``).  Indexed and
+    iterated like the dict."""
 
-    def __init__(self, cfg: ModelConfig, tree: dict):
-        super().__init__({k: _as_module(t) for k, t in tree.items()
-                          if isinstance(t, (dict, list))})
+    def __init__(self, tree: dict):
+        super().__init__()
         for k, t in tree.items():
-            if isinstance(t, QuantTensor):
-                self[k] = QuantWeight(t)
-            elif isinstance(t, torch.Tensor):
+            if isinstance(t, torch.Tensor):
                 self.register_parameter(k, nn.Parameter(t, requires_grad=False))
-        self.cfg = cfg
+            else:
+                self[k] = QuantWeight(t) if isinstance(t, QuantTensor) else _as_module(t)
 
     def __getitem__(self, key):
         if key in self._parameters:
@@ -119,6 +115,15 @@ class Transformer(nn.ModuleDict):
 
     def items(self):
         return [*super().items(), *self._parameters.items()]
+
+
+class Transformer(ParamTree):
+    """The parameters of one model, indexed like the reference's tree:
+    ``params["stack"][g]["u0"]["attn"]["wq"]``."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict):
+        super().__init__(tree)
+        self.cfg = cfg
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
@@ -136,13 +141,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
     stack = []
     for spec in build_groups(cfg):
         blk = {}
-        for ui in range(len(spec.units)):
+        for ui, (_, use_moe) in enumerate(spec.units):
+            ffn = (init_moe if use_moe else M.init_mlp)(
+                generator, cfg, repeats=spec.repeats, dtype=dtype, device=device)
             layer = {"ln1": M.init_norm((spec.repeats, cfg.d_model), device),
                      "attn": init_attention(generator, cfg, repeats=spec.repeats,
                                             dtype=dtype, device=device),
                      "ln2": M.init_norm((spec.repeats, cfg.d_model), device),
-                     "mlp": M.init_mlp(generator, cfg, repeats=spec.repeats,
-                                       dtype=dtype, device=device)}
+                     "moe" if use_moe else "mlp": ffn}
             if cfg.post_norm:
                 for name in ("ln1_post", "ln2_post"):
                     layer[name] = M.init_norm((spec.repeats, cfg.d_model), device)
@@ -170,8 +176,8 @@ def _layer(tree, r: int):
 # stack runner
 # ---------------------------------------------------------------------------
 
-def _apply_layer(p, x, *, cfg, kind, mode, pos, cache, impl, segments, kv_bits,
-                 kv_cap, length):
+def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
+                 kv_bits, kv_cap, length):
     h = M.rmsnorm(x, p["ln1"]["scale"])
     out, c = apply_attention(p["attn"], h, cfg=cfg, kind=kind, mode=mode,
                              pos=pos, cache=None if cache is None else cache["attn"],
@@ -181,7 +187,10 @@ def _apply_layer(p, x, *, cfg, kind, mode, pos, cache, impl, segments, kv_bits,
         out = M.rmsnorm(out, p["ln1_post"]["scale"])
     x = x + out
     h = M.rmsnorm(x, p["ln2"]["scale"])
-    ff = M.apply_mlp(p["mlp"], h, cfg, impl=impl)
+    if use_moe:
+        ff = apply_moe(p["moe"], h, cfg, mode=mode, impl=impl)
+    else:
+        ff = M.apply_mlp(p["mlp"], h, cfg, impl=impl)
     if cfg.post_norm:
         ff = M.rmsnorm(ff, p["ln2_post"]["scale"])
     x = x + ff
@@ -204,9 +213,10 @@ def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
             p_blk = _layer(gp, r)
             c_blk = None if gc is None else _layer(gc, r)
             c_out = {}
-            for ui, kind in enumerate(spec.units):
+            for ui, (kind, use_moe) in enumerate(spec.units):
                 x, c_out[f"u{ui}"] = _apply_layer(
-                    p_blk[f"u{ui}"], x, cfg=cfg, kind=kind, mode=mode, pos=pos,
+                    p_blk[f"u{ui}"], x, cfg=cfg, kind=kind, use_moe=use_moe, mode=mode,
+                    pos=pos,
                     cache=None if c_blk is None else c_blk[f"u{ui}"],
                     impl=impl, segments=segments, kv_bits=kv_bits, kv_cap=kv_cap,
                     length=length)
@@ -371,7 +381,7 @@ def init_cache(cfg: ModelConfig, batch: int, kv_len: int, *,
     caches = []
     for spec in build_groups(cfg):
         blk = {}
-        for ui, kind in enumerate(spec.units):
+        for ui, (kind, _) in enumerate(spec.units):
             one = init_kv_cache(cfg, kind, batch, kv_len, dtype, device,
                                 kv_bits=kv_bits)
             blk[f"u{ui}"] = {"attn": {

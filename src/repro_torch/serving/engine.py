@@ -28,6 +28,10 @@ iteration loop.  Each iteration runs:
 On a card the three programs (fused step, packed prefill, chunk step)
 are captured as CUDA graphs when the engine is built and replayed from
 then on (``executor.py``, ``graphs.py``); on the CPU they run eagerly.
+A stack that cannot be packed (MoE: packed prompts would share the
+experts' batch, as the reference rules) admits one prompt a call instead,
+right-padded to a chunk multiple and prefilled eagerly, and captures the
+fused step alone.
 With ``spec_k > 0`` the speculative step (``spec_k`` draft steps, one
 batched verify, acceptance and rollback) is captured in the fused step's
 place and commits up to ``spec_k + 1`` tokens a slot a step; a draft
@@ -125,11 +129,19 @@ def _bucket_len(plen: int, kv_len: int) -> int:
     return min(b, kv_len)
 
 
+def packable(cfg: ModelConfig) -> bool:
+    """Whether several prompts may share a packed prefill stream and a
+    prompt may continue chunk by chunk (the reference's ``_packable``:
+    attention-only stacks without MoE).  The port's layer kinds are all
+    attention, so only MoE makes a stack non-packable."""
+    return not cfg.is_moe
+
+
 def _check_spec(cfg: ModelConfig, ecfg: EngineConfig, draft) -> None:
     """What speculative decoding needs of the configuration (the
-    reference's checks and messages).  The port's stacks, a draft model's
-    too, are all attention-only (``ModelConfig`` takes no other layer
-    kind), which the verify's chunk pass needs."""
+    reference's checks and messages).  The port's layer kinds are all
+    attention, so a draft model's stack is attention-only, as the verify's
+    chunk pass needs."""
     if ecfg.spec_k < 0:
         raise ValueError(f"spec_k must be >= 0, got {ecfg.spec_k}")
     if not (ecfg.fused and ecfg.packed):
@@ -141,6 +153,11 @@ def _check_spec(cfg: ModelConfig, ecfg: EngineConfig, draft) -> None:
         raise ValueError(f"spec_draft must be 'self' or 'model', got {ecfg.spec_draft!r}")
     if ecfg.spec_draft_bits not in (0, 4, 8):
         raise ValueError(f"spec_draft_bits must be 0, 4 or 8, got {ecfg.spec_draft_bits}")
+    if not packable(cfg):
+        raise ValueError(
+            "speculative decoding needs a packable stack (attention-"
+            "only, no MoE/cross/encoder) — the verify step reuses "
+            "the segmented-prefill chunk path")
     caps = [ecfg.kv_len] + [cfg.window for k in cfg.layer_kinds if k == "local"]
     if ecfg.spec_k + 1 > min(caps):
         raise ValueError(
@@ -267,12 +284,16 @@ class ServingEngine:
         # pow2 bucketing (sequential baseline) is exact only where cache
         # index == token position: global layers, not rings
         self._bucketed = all(k == "global" for k in cfg.layer_kinds)
+        # packed prefill and chunked continuation need an attention-only
+        # stack without MoE; other stacks admit one padded prompt a call
+        self._packable = packable(cfg)
         if self.device.type == "cuda":
             # the programs this configuration runs, replayed from graphs
             decode = "spec_step" if ecfg.spec_k else "fused_step"
+            packed = ecfg.fused and ecfg.packed and self._packable
             programs = [name for name, used in (
-                (decode, ecfg.fused), ("packed_prefill", ecfg.fused and ecfg.packed),
-                ("chunk_step", ecfg.fused and ecfg.packed)) if used]
+                (decode, ecfg.fused), ("packed_prefill", packed),
+                ("chunk_step", packed)) if used]
             if programs:
                 self.executor.capture(self.pool, programs, chunk=self._chunk)
 
@@ -593,12 +614,21 @@ class ServingEngine:
         return self.finished
 
     # -- admission: packed ragged prefill + chunked continuation ---------------
+    def _pad_len(self, plen: int) -> int:
+        """Smallest chunk multiple >= plen (capped at kv_len): the padded
+        lengths of per-request prefill."""
+        C = self._chunk
+        return min(-(-max(plen, 1) // C) * C, self.ecfg.kv_len)
+
     def _admit_packed(self):
         B, C = self.ecfg.max_batch, self._chunk
         if self.pool.prefilling:
             self._continue_chunks()
         free = self.pool.free_slots()
         if not free or not self.queue:
+            return
+        if not self._packable:
+            self._admit_padded(free)
             return
 
         segs = []                      # (req, slot, off, take, final, budget)
@@ -715,10 +745,22 @@ class ServingEngine:
         if self.pool.draft_cache is None:
             return
         plen = len(req.prompt)
-        pad = min(-(-plen // self._chunk) * self._chunk, self.ecfg.kv_len)
-        toks = np.zeros((1, pad), np.int32)
+        toks = np.zeros((1, self._pad_len(plen)), np.int32)
         toks[0, :plen] = req.prompt
         self.executor.draft_prefill(self.pool.draft_cache, self._dev(toks), slot, plen)
+
+    def _admit_padded(self, free):
+        """Per-request admission for stacks that cannot be packed (MoE):
+        each prompt right-padded to a chunk multiple, one batch-1 prefill
+        and insert (eager on the card: a few padded lengths, no graph)."""
+        while free and self.queue:
+            nxt = self._pop_admissible()
+            if nxt is None:
+                break
+            req, plen, budget = nxt
+            toks = np.zeros((1, self._pad_len(plen)), np.int32)
+            toks[0, :plen] = req.prompt
+            self._admit_one(free.pop(0), req, toks, plen, budget)
 
     # -- admission: sequential baselines ---------------------------------------
     def _next_request(self, slot: int) -> Optional[tuple]:

@@ -8,7 +8,8 @@ reference model's softmax.
 
 Reduced qwen2.5-3b and gemma2-9b (16-entry local rings), the reference's
 f32 weights carried over in bf16, ``impl="flash"`` (the kernels' plain
-versions on the CPU).
+versions on the CPU); reduced qwen3-moe-30b-a3b for the programs of a
+stack that cannot be packed (the fused step and the padded prefill).
 """
 import re
 from pathlib import Path
@@ -29,7 +30,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels import launches
 from repro_torch.serving.engine import (DONE, FAILED_ANOMALY, FAILED_MAX_ITERS,
                                         EngineConfig, EngineStallError,
-                                        ServingEngine)
+                                        ServingEngine, packable)
 from repro_torch.serving.executor import PROGRAMS
 from repro_torch.serving.graphs import program_inputs
 
@@ -57,7 +58,7 @@ class HostReadGuard(TorchDispatchMode):
 @pytest.fixture(scope="module")
 def models():
     out = {}
-    for arch in ("qwen2.5-3b", "gemma2-9b"):
+    for arch in ("qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b"):
         cfg_j = jax_reduce_config(jax_get_config(arch))
         params_j = TJ.init_params(cfg_j, jax.random.PRNGKey(0), param_dtype=jnp.float32)
         cfg_t = reduce_config(get_config(arch))
@@ -99,13 +100,17 @@ def test_guard_refuses_each_host_read(read):
 @pytest.mark.parametrize("arch,kw", [
     ("qwen2.5-3b", {}), ("qwen2.5-3b", dict(kv_bits=8, decode_chunk=2)),
     ("qwen2.5-3b", dict(weight_bits=4, kv_bits=4, temperature=0.8)),
-    ("gemma2-9b", {}), ("gemma2-9b", dict(kv_bits=8, temperature=0.8))])
+    ("gemma2-9b", {}), ("gemma2-9b", dict(kv_bits=8, temperature=0.8)),
+    ("qwen3-moe-30b-a3b", {}), ("qwen3-moe-30b-a3b", dict(kv_bits=8, temperature=0.8))])
 def test_programs_read_nothing_back_to_the_host(models, arch, kw):
     """A whole drain with ``fused_step``, ``packed_prefill`` and
-    ``chunk_step`` each run under the guard: every program is capturable."""
+    ``chunk_step`` each run under the guard: every program is capturable.
+    A stack that cannot be packed (MoE) runs the fused step and, in the
+    packed programs' place, the padded prefill (``prefill_insert``)."""
     eng = _engine(models, arch, **kw)
     ex = eng.executor
-    calls = dict.fromkeys(PROGRAMS, 0)
+    programs = PROGRAMS if packable(eng.cfg) else ("fused_step", "prefill_insert")
+    calls = dict.fromkeys(programs, 0)
 
     def guarded(name, fn):
         def run(*args):
@@ -114,7 +119,7 @@ def test_programs_read_nothing_back_to_the_host(models, arch, kw):
                 return fn(*args)
         return run
 
-    for name in PROGRAMS:
+    for name in programs:
         setattr(ex, name, guarded(name, getattr(ex, name)))
     reqs = _submit_mix(eng)
     eng.run_until_drained()
@@ -122,11 +127,15 @@ def test_programs_read_nothing_back_to_the_host(models, arch, kw):
     assert all(n > 0 for n in calls.values()), calls
 
 
-@pytest.mark.parametrize("name", ["executor.py", "graphs.py"])
+@pytest.mark.parametrize("name", ["executor.py", "graphs.py", "models/moe.py",
+                                  "kernels/grouped_matmul/ops.py",
+                                  "kernels/grouped_matmul/ref.py"])
 def test_program_modules_hold_no_host_read(name):
-    """The serving programs' modules (and the attention layer they run)
-    spell no host read: the one transfer is ``Executor.fetch``'s."""
-    for path in (SRC / "serving" / name, SRC / "models" / "attention.py"):
+    """The serving programs' modules (and the attention layer they run),
+    the MoE layer and its grouped matmul spell no host read: the one
+    transfer is ``Executor.fetch``'s."""
+    module = SRC / name if "/" in name else SRC / "serving" / name
+    for path in (module, SRC / "models" / "attention.py"):
         text = path.read_text()
         for read in (r"\.nonzero\(", r"\.item\(\)", r"\.tolist\(\)", r"\.cpu\(\)"):
             assert not re.search(read, text), f"{path.name}: {read}"

@@ -56,6 +56,20 @@ def test_qwen_config_equals_the_reference_field_by_field():
     _same_fields("qwen2.5-3b")
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "minitron-8b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "minitron-8b",
+                                  "qwen3-moe-30b-a3b"])
 def test_zoo_config_equals_the_reference_field_by_field(arch):
     _same_fields(arch)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b"])
+def test_reduced_config_equals_the_reference_field_by_field(arch):
+    """``reduce_config`` cuts as the reference's does: for qwen3-moe-30b-a3b
+    8 experts, top-2, d_ff_expert 32, first_k_dense at most 1."""
+    from repro.config import reduce_config as jax_reduce_config
+    from repro_torch.config import reduce_config
+    port, ref = reduce_config(get_config(arch)), jax_reduce_config(jax_get_config(arch))
+    for f in dataclasses.fields(port):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    assert port.moe_layer_mask() == ref.moe_layer_mask()
+    assert port.is_moe == ref.is_moe == (arch == "qwen3-moe-30b-a3b")
