@@ -36,14 +36,21 @@ Phases, each of which must pass or the script exits non-zero:
              prefill also without segments at the shapes the sequential
              baseline launches (qwen2.5-3b's buckets of 8..1024 tokens,
              gemma2-9b's exact lengths up to 4600 under its window); and
-             the port's own grouped matmul (``grouped_matmul.cu``, the MoE
-             layer's expert products) at qwen3-moe-30b-a3b's shapes (gate/up
-             K 2048 N 768, down K 768 N 2048; T 64, 1024 and 3072 rows routed
-             top-8 of 128) and edge cases (empty experts, every row to one
-             expert, T 1, groups below the M tile, N off the tile, CUDA cores
-             for f32 and odd N), each launched twice for the same bits, timed
-             with its plain version, ``torch._grouped_mm`` where the card's
-             torch has it (else a matmul a group) and its bound;
+             the port's own MoE expert path (``grouped_matmul.cu``: the
+             grouped matmul, plain and with the gate scale, the fused
+             gate/up with its activation and row gather, the combine) at
+             qwen3-moe-30b-a3b's shapes (gate/up K 2048 N 768, down K 768
+             N 2048; T 64, 1024 and 3072 rows routed top-8 of 128) and edge
+             cases (empty experts, every row to one expert, T 1, groups
+             below the M tile, N off the tile, CUDA cores for f32, odd N and
+             K below the TMA box; silu, gelu and relu2; the combine at k 1,
+             2 and 8, in 16-byte pieces and element by element), each
+             launched twice for the same bits on the design its plan names,
+             timed at decode and prefill-384 with its plain version, its
+             bound and ``torch._grouped_mm`` where the card's torch has it
+             (else a matmul a group; for the combine ``index_add_``), the
+             fused gate/up also beside the unfused composition of the new
+             product;
 4. engine  — the port's serving engine on full-width qwen2.5-3b and
              gemma2-9b (its depth cut to 22 of 42 layers for the script's
              time; local 4096-entry rings and global layers, head dim 256)
@@ -133,14 +140,15 @@ Phases, each of which must pass or the script exits non-zero:
              bounded), serving the engine phase's 16 requests at fp and
              ``w8kv8``: each prompt admitted alone, padded to a chunk
              multiple, its fused decode step (MoE layers through the
-             grouped matmul) replayed from its CUDA graph and again eagerly
-             (streams bit for bit, launches equal), the grouped matmul's
-             launches checked against the forward calls (three a MoE
-             layer), every launch of a kernel that phase 3 checked;
-             ``packed=False`` at fp against the default's streams up to
-             near-ties; flash against ref logits at fp and ``w8kv8``; a
-             profiled decode step at both (idle share, kernels a step, the
-             grouped matmul's share of busy time).
+             expert path) replayed from its CUDA graph and again eagerly
+             (streams bit for bit, launches equal), the fused gate/up, the
+             down product and the combine each checked to launch once a
+             MoE layer of every forward call, every launch of a kernel that
+             phase 3 checked; ``packed=False`` at fp against the default's
+             streams up to near-ties; flash against ref logits at fp and
+             ``w8kv8``; a profiled decode step at both (idle share, kernels
+             a step, each expert-path kernel's time and share of busy
+             time).
 
 Each model's weights are freed before the next is made.
 
@@ -154,6 +162,7 @@ import functools
 import gc
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -1064,13 +1073,13 @@ def run_matmul_checks(torch):
 
 
 # the kernels of grouped_matmul.cu (repro_torch.kernels.grouped_matmul.kernel.
-# Kernel: design, dtype) that some case of run_grouped_checks held against its
-# plain version
+# Kernel: op, design, dtype) that some case of run_grouped_checks held against
+# its plain version
 CHECKED_GROUPED = set()
 
 
 def grouped_kernel_name(k):
-    return f"{k.design}/{k.dtype.split('.')[-1]}"
+    return f"{k.op}/{k.design}/{k.dtype.split('.')[-1]}"
 
 
 def routed_sizes(rng, tokens, experts=MOE_EXPERTS, k=MOE_TOP_K):
@@ -1078,6 +1087,20 @@ def routed_sizes(rng, tokens, experts=MOE_EXPERTS, k=MOE_TOP_K):
     experts drawn uniformly (random weights route about so)."""
     picks = np.stack([rng.choice(experts, k, replace=False) for _ in range(tokens)])
     return np.bincount(picks.reshape(-1), minlength=experts)
+
+
+def routing(torch, rng, tokens, experts=MOE_EXPERTS, k=MOE_TOP_K):
+    """``tokens`` tokens routed to ``k`` distinct experts each, drawn
+    uniformly and in any order, sorted as the MoE layer sorts them:
+    ``order`` (tokens * k,) int64, the stable argsort of the pairs by
+    expert, and the offsets (E + 1,) int32, both on the card, and the group
+    sizes."""
+    picks = np.stack([rng.choice(experts, k, replace=False) for _ in range(tokens)])
+    picks = picks.reshape(-1)
+    sizes = np.bincount(picks, minlength=experts)
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    order = np.argsort(picks, kind="stable").astype(np.int64)
+    return (torch.from_numpy(order).to(DEVICE), torch.from_numpy(off).to(DEVICE), sizes)
 
 
 def grouped_operands(torch, g, sizes, K, N, dtype, copies=1):
@@ -1095,22 +1118,24 @@ def grouped_library(torch, x, w, off):
     """One PyTorch call computing the grouped product, where the card's
     torch has one (``torch._grouped_mm``, private, a yardstick only), else a
     ``torch.matmul`` a non-empty group with the sizes read first.  Returns
-    (a function of the bank, its name)."""
+    (a function of the bank and, optionally, other rows than ``x``, its
+    name)."""
     if hasattr(torch, "_grouped_mm"):
         try:
             ends = off[1:].contiguous()
             want = grouped_ref_f32(torch, x, w, off)
             got = torch._grouped_mm(x, w, offs=ends).float()
             if float((got - want).abs().max()) <= 1e-2 * max(1.0, float(want.abs().max())):
-                return (lambda wb: torch._grouped_mm(x, wb, offs=ends)), "torch._grouped_mm"
+                return ((lambda wb, rows=x: torch._grouped_mm(rows, wb, offs=ends)),
+                        "torch._grouped_mm")
         except (RuntimeError, TypeError) as e:
             print(f"kernel grouped_matmul library torch._grouped_mm refused: {e!r:.200}")
     bounds = off.tolist()
     groups = [(e, bounds[e], bounds[e + 1]) for e in range(len(bounds) - 1)
               if bounds[e + 1] > bounds[e]]
 
-    def loop(wb):
-        return [torch.matmul(x[a:b], wb[e]) for e, a, b in groups]
+    def loop(wb, rows=x):
+        return [torch.matmul(rows[a:b], wb[e]) for e, a, b in groups]
     return loop, "torch.matmul a non-empty group (sizes read first)"
 
 
@@ -1120,23 +1145,59 @@ def grouped_ref_f32(torch, x, w, off):
 
 
 def expected_grouped_design(dtype, K, N):
-    """Tensor cores for bf16 with K and N multiples of 8 (the wrapper's
-    plan, every operand here 16-byte aligned); CUDA cores otherwise."""
+    """TMA for bf16 with K and N multiples of 8 and at least the 64 x 64
+    box (the wrapper's plan: every operand here is 16-byte aligned); CUDA
+    cores otherwise."""
     import torch
-    return "tensor_core" if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 \
-        else "cuda_core"
+    return "tma" if (dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0
+                     and min(K, N) >= 64) else "cuda_core"
+
+
+def grouped_case(torch, what, name, fn, plain, dtype, want):
+    """``fn`` (one launch of a kernel of grouped_matmul.cu) against its
+    plain version ``plain``, twice for the same bits, on the design
+    ``want``; the case's record."""
+    from repro_torch.kernels.grouped_matmul.kernel import kernel_launches
+    out, kernel = ran_one(kernel_launches, fn, what)
+    CHECKED_GROUPED.add(kernel)
+    again = fn()
+    ref = plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = max(ref.float().abs().max().item(), 1e-30)
+    tol = MATMUL_TOL[str(dtype)]
+    same = torch.equal(out, again)
+    print(f"kernel {what} case={name!r} design={kernel.design} "
+          f"kernel={grouped_kernel_name(kernel)} max_abs_err={err:.3e} "
+          f"rel_to_max={err / scale:.3e} tol={tol:g} repeat_identical={same} "
+          f"bits_equal_plain={torch.equal(out, ref)}")
+    check(out.dtype == dtype and out.shape == ref.shape and np.isfinite(err)
+          and err <= tol * scale, f"{what} disagrees with its plain version ({name})")
+    check(same, f"{what} ({name}): a second launch gave other bits")
+    check(kernel.design == want, f"{what} ({name}) ran on {kernel.design}, expected {want}")
+    return {"case": name, "kernel": grouped_kernel_name(kernel), "max_abs_err": err,
+            "rel_to_max": err / scale, "tol": tol}
+
+
+def grouped_bank(torch, g, E, K, N, dtype):
+    return (torch.randn((E, K, N), generator=g, device=DEVICE) / K ** 0.5).to(dtype)
 
 
 def run_grouped_checks(torch):
-    """The grouped matmul (``grouped_matmul.cu``) against its plain version
-    at qwen3-moe-30b-a3b's shapes and at edge cases, timed at the shapes
-    the MoE phase runs."""
-    from repro_torch.kernels.grouped_matmul.kernel import (grouped_matmul_fwd,
-                                                           grouped_matmul_plain,
-                                                           kernel_launches)
+    """The MoE expert path's kernels (``grouped_matmul.cu``: the product,
+    plain and scaled, the fused gate/up and the combine) against their
+    plain versions at qwen3-moe-30b-a3b's shapes and at edge cases, each
+    on the design its plan names; timed at the shapes the MoE phase runs
+    beside their bounds, plain versions, ``torch._grouped_mm`` and, for
+    gate/up, the unfused composition of the new product."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.grouped_matmul import kernel as G
     g = torch.Generator(device=DEVICE).manual_seed(11)
     rng = np.random.default_rng(11)
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
+    (Kg, Ng), (Kd, Nd) = MOE_GMM_SHAPES["gate/up"], MOE_GMM_SHAPES["down"]
+    # (sizes, K, N, dtype) of the products; the scaled product and gate/up
+    # run at the same sizes
     cases = {}
     for what, (K, N) in MOE_GMM_SHAPES.items():
         for phase, T in MOE_GMM_ROWS.items():
@@ -1145,43 +1206,54 @@ def run_grouped_checks(torch):
     cases.update({
         "empty experts first, between and last (64, 200)": ([0, 5, 0, 1, 9, 0], 64, 200, bf16),
         "every row to one expert T3072 (2048, 768)": (
-            [0] * 40 + [3072] + [0] * 87, 2048, 768, bf16),
-        "T1 (2048, 768)": ([0, 1, 0], 2048, 768, bf16),
-        "groups smaller than the M tile (3, 17, 1, 64, 65)": ([3, 17, 1, 64, 65], 768, 2048,
+            [0] * 40 + [3072] + [0] * 87, Kg, Ng, bf16),
+        "T1 (2048, 768)": ([0, 1, 0], Kg, Ng, bf16),
+        "groups smaller than the M tile (3, 17, 1, 64, 65)": ([3, 17, 1, 64, 65], Kd, Nd,
                                                               bf16),
-        "N200 not a multiple of the tile": (routed_sizes(rng, 8), 2048, 200, bf16),
+        "N200 not a multiple of the tile": (routed_sizes(rng, 8), Kg, 200, bf16),
         "bf16 N36: CUDA cores": ([7, 0, 3, 12], 96, 36, bf16),
-        "f32 (2048, 768): CUDA cores": (routed_sizes(rng, 8), 2048, 768, torch.float32),
-        "f32 groups (0, 5, 0, 17), K100 N40": ([0, 5, 0, 17], 100, 40, torch.float32),
+        "bf16 K48 below the box: CUDA cores": ([4, 9], 48, 64, bf16),
+        "f32 (2048, 768): CUDA cores": (routed_sizes(rng, 8), Kg, Ng, f32),
+        "f32 groups (0, 5, 0, 17), K100 N40": ([0, 5, 0, 17], 100, 40, f32),
     })
-    errs = []
+    errs = {"grouped_matmul": [], "grouped_gate_up": [], "combine": []}
     for name, (sizes, K, N, dtype) in cases.items():
-        x, (w,), off = grouped_operands(torch, g, sizes, K, N, dtype)
-        out, kernel = ran_one(kernel_launches, lambda: grouped_matmul_fwd(x, w, off),
-                              "grouped matmul")
-        CHECKED_GROUPED.add(kernel)
-        again = grouped_matmul_fwd(x, w, off)
-        ref = grouped_matmul_plain(x, w, off)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        scale = max(ref.float().abs().max().item(), 1e-30)
-        tol = MATMUL_TOL[str(dtype)]
-        same = torch.equal(out, again)
+        x, (w, wu), off = grouped_operands(torch, g, sizes, K, N, dtype, copies=2)
+        T = x.shape[0]
         want = expected_grouped_design(dtype, K, N)
-        experts = int((np.asarray(sizes) > 0).sum())
-        print(f"kernel grouped_matmul case={name!r} T={x.shape[0]} experts={len(sizes)} "
-              f"selected={experts} design={kernel.design} "
-              f"kernel={grouped_kernel_name(kernel)} max_abs_err={err:.3e} "
-              f"rel_to_max={err / scale:.3e} tol={tol:g} repeat_identical={same}")
-        check(out.dtype == dtype and out.shape == ref.shape and np.isfinite(err)
-              and err <= tol * scale, f"grouped matmul disagrees with its plain version ({name})")
-        check(same, f"grouped matmul ({name}): a second launch gave other bits")
-        check(kernel.design == want, f"grouped matmul ({name}) ran on {kernel.design}, "
-              f"expected {want}")
-        errs.append({"case": name, "design": kernel.design, "max_abs_err": err,
-                     "rel_to_max": err / scale, "tol": tol})
+        plan = G.plan(x, w, x.new_empty((T, N)), wu)
+        print(f"kernel grouped plan case={name!r} design={plan.design} rule={plan.rule!r}")
+        check(plan.design == want, f"plan ({name}): {plan.design}, expected {want}")
+        errs["grouped_matmul"].append(grouped_case(
+            torch, "grouped_matmul", name, lambda: G.grouped_matmul_fwd(x, w, off),
+            lambda: G.grouped_matmul_plain(x, w, off), dtype, want))
+        gates = torch.rand((T,), generator=g, device=DEVICE).to(dtype)
+        errs["grouped_matmul"].append(grouped_case(
+            torch, "grouped_matmul", f"scaled {name}",
+            lambda: G.grouped_matmul_fwd(x, w, off, gates),
+            lambda: G.grouped_matmul_plain(x, w, off, gates), dtype, want))
+        # gate/up reads its rows through an index: T + 3 tokens, each sorted
+        # row one of them, in any order
+        xt = torch.randn((T + 3, K), generator=g, device=DEVICE).to(dtype)
+        rows = torch.randint(0, T + 3, (T,), generator=g, device=DEVICE)
+        for act in ("silu",) + (("gelu", "relu2") if "decode" in name else ()):
+            errs["grouped_gate_up"].append(grouped_case(
+                torch, "grouped_gate_up", f"{act} {name}",
+                lambda: G.grouped_gate_up_fwd(xt, rows, w, wu, off, act),
+                lambda: G.grouped_gate_up_plain(xt, rows, w, wu, off, act), dtype, want))
+    # the combine: k 1, 2 and 8, each token's experts drawn in any order
+    for k, tokens, D, dtype in ((8, 8, Nd, bf16), (8, 128, Nd, bf16), (8, 384, Nd, bf16),
+                                (1, 64, Nd, bf16), (2, 32, Nd, bf16), (8, 8, 36, bf16),
+                                (2, 16, Nd, f32), (8, 5, 37, f32)):
+        order, _, _ = routing(torch, rng, tokens, k=k)
+        ys = torch.randn((tokens * k, D), generator=g, device=DEVICE).to(dtype)
+        want = "vec16" if D * ys.element_size() % 16 == 0 else "scalar"
+        errs["combine"].append(grouped_case(
+            torch, "combine", f"k{k} tokens{tokens} D{D} {str(dtype)[6:]}",
+            lambda: G.combine_fwd(ys, order, k), lambda: G.combine_plain(ys, order, k),
+            dtype, want))
 
-    def timed(what, phase):
+    def product_timing(what, phase, scaled=False):
         """Device time at one of the MoE phase's shapes, cycling over expert
         banks that span twice the L2 (a layer's bank is read once a step)."""
         K, N = MOE_GMM_SHAPES[what]
@@ -1190,41 +1262,148 @@ def run_grouped_checks(torch):
         selected = int((sizes > 0).sum())
         copies = cold_copies(selected * K * N * 2)
         x, ws, off = grouped_operands(torch, g, sizes, K, N, bf16, copies)
+        gates = torch.rand((T,), generator=g, device=DEVICE).to(bf16) if scaled else None
         nxt = cycler(ws)
-        _, kernel = ran_one(kernel_launches, lambda: grouped_matmul_fwd(x, nxt(), off),
-                            "grouped matmul")
-        ms = device_ms(lambda: grouped_matmul_fwd(x, nxt(), off), 100)
-        plain_ms = device_ms(lambda: grouped_matmul_plain(x, nxt(), off), 3)
+        _, kernel = ran_one(G.kernel_launches,
+                            lambda: G.grouped_matmul_fwd(x, nxt(), off, gates), "grouped matmul")
+        ms = device_ms(lambda: G.grouped_matmul_fwd(x, nxt(), off, gates), 100)
+        plain_ms = device_ms(lambda: G.grouped_matmul_plain(x, nxt(), off, gates), 3)
         lib, lib_name = grouped_library(torch, x, ws[0], off)
         library_ms = device_ms(lambda: lib(nxt()), 50)
-        # the selected experts' weights once, x and y once, the offsets
-        nbytes = selected * K * N * 2 + T * (K + N) * 2 + off.numel() * 4
+        # the selected experts' weights once, x and y once, the offsets (and
+        # the scales)
+        nbytes = selected * K * N * 2 + T * (K + N) * 2 + off.numel() * 4 + (2 * T if scaled
+                                                                            else 0)
         b_ms, b_by = bound(nbytes, 2 * T * K * N, str(bf16))
-        print(f"kernel grouped_matmul timing {what} {phase} shape=({T}, {K}, {N}) "
-              f"selected_experts={selected} design={kernel.design} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} ({lib_name}) "
+        label = ("scaled " if scaled else "") + what
+        print(f"kernel grouped_matmul timing {label} {phase} shape=({T}, {K}, {N}) "
+              f"selected_experts={selected} kernel={grouped_kernel_name(kernel)} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} ({lib_name}, unscaled) "
               f"bound_ms={b_ms:.5f} ({b_by}) weight_rate_tb_s="
-              f"{selected * K * N * 2 / ms / 1e9:.3f}")
+              f"{selected * K * N * 2 / ms / 1e9:.3f} library_over_kernel={library_ms / ms:.3f}")
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "library": lib_name, "bound_ms": b_ms, "bound_by": b_by,
-                "shape": [T, K, N], "selected_experts": selected, "design": kernel.design,
-                "copies": copies}
+                "shape": [T, K, N], "selected_experts": selected,
+                "kernel": grouped_kernel_name(kernel), "copies": copies}
 
-    t = timed("gate/up", "decode")
-    return {"grouped_matmul": {
-        "name": "grouped_matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
-        "replaces": "src/repro/models/moe.py:211",
-        "replaces_note": "no TPU kernel: the port's own kernel for jax.lax.ragged_dot, "
-                         "an XLA op, in the reference's dropless MoE layer",
-        "max_abs_err": max(e["max_abs_err"] for e in errs),
-        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                             "library", "shape", "selected_experts", "design")},
-        "down_decode": timed("down", "decode"),
-        "gate_up_prefill384": timed("gate/up", "prefill384"),
-        "down_prefill384": timed("down", "prefill384"),
-        "gate_up_prefill128": timed("gate/up", "prefill128"),
-        "cases": errs}}
+    def gate_up_timing(phase):
+        """The fused gate/up against its plain version, the library's
+        composition (the gather, two ``torch._grouped_mm`` and silu * mul)
+        and the same composition on the new product."""
+        T = MOE_GMM_ROWS[phase]
+        tokens = T // MOE_TOP_K
+        order, off, sizes = routing(torch, np.random.default_rng(13), tokens)
+        selected = int((sizes > 0).sum())
+        copies = cold_copies(2 * selected * Kg * Ng * 2)
+        x = torch.randn((tokens, Kg), generator=g, device=DEVICE).to(bf16)
+        rows = order // MOE_TOP_K
+        pairs = [(grouped_bank(torch, g, MOE_EXPERTS, Kg, Ng, bf16),
+                  grouped_bank(torch, g, MOE_EXPERTS, Kg, Ng, bf16)) for _ in range(copies)]
+        nxt = cycler(pairs)
+
+        def fused():
+            wg, wu = nxt()
+            return G.grouped_gate_up_fwd(x, rows, wg, wu, off, "silu")
+
+        def unfused():
+            wg, wu = nxt()
+            xs = x[rows]
+            return F.silu(G.grouped_matmul_fwd(xs, wg, off)) * G.grouped_matmul_fwd(xs, wu, off)
+
+        def plain():
+            wg, wu = nxt()
+            return G.grouped_gate_up_plain(x, rows, wg, wu, off, "silu")
+
+        _, kernel = ran_one(G.kernel_launches, fused, "grouped gate/up")
+        ms = device_ms(fused, 100)
+        unfused_ms = device_ms(unfused, 100)
+        plain_ms = device_ms(plain, 3)
+        lib, lib_name = grouped_library(torch, x[rows], pairs[0][0], off)
+
+        def library():
+            wg, wu = nxt()
+            xs = x[rows]
+            return F.silu(lib(wg, xs)) * lib(wu, xs)
+        library_ms = device_ms(library, 50)
+        # both banks' selected experts once, the token rows, the row index
+        # and h once, the offsets
+        nbytes = (2 * selected * Kg * Ng * 2 + tokens * Kg * 2 + T * 8 + T * Ng * 2
+                  + off.numel() * 4)
+        b_ms, b_by = bound(nbytes, 2 * 2 * T * Kg * Ng, str(bf16))
+        print(f"kernel grouped_gate_up timing {phase} shape=({T}, {Kg}, {Ng}) tokens={tokens} "
+              f"selected_experts={selected} kernel={grouped_kernel_name(kernel)} ms={ms:.4f} "
+              f"unfused_new_product_ms={unfused_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} (x[rows], 2 x {lib_name}, silu * mul) "
+              f"bound_ms={b_ms:.5f} ({b_by}) weight_rate_tb_s="
+              f"{2 * selected * Kg * Ng * 2 / ms / 1e9:.3f} unfused_over_fused="
+              f"{unfused_ms / ms:.3f} library_over_fused={library_ms / ms:.3f}")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "library": f"x[rows], two {lib_name}, silu * mul", "unfused_ms": unfused_ms,
+                "unfused": "x[rows], two grouped_matmul_fwd, silu * mul", "bound_ms": b_ms,
+                "bound_by": b_by, "shape": [T, Kg, Ng], "selected_experts": selected,
+                "kernel": grouped_kernel_name(kernel), "copies": copies}
+
+    def combine_timing(phase):
+        """The combine against its plain version and ``index_add_`` into
+        zeros (the same sums in the order the atomics land)."""
+        T = MOE_GMM_ROWS[phase]
+        tokens = T // MOE_TOP_K
+        order, _, _ = routing(torch, np.random.default_rng(14), tokens)
+        yss = [torch.randn((T, Nd), generator=g, device=DEVICE).to(bf16)
+               for _ in range(cold_copies(T * Nd * 2))]
+        nxt = cycler(yss)
+        tok = order // MOE_TOP_K
+        _, kernel = ran_one(G.kernel_launches, lambda: G.combine_fwd(nxt(), order, MOE_TOP_K),
+                            "combine")
+        ms = device_ms(lambda: G.combine_fwd(nxt(), order, MOE_TOP_K), 100)
+        plain_ms = device_ms(lambda: G.combine_plain(nxt(), order, MOE_TOP_K), 20)
+        library_ms = device_ms(lambda: torch.zeros((tokens, Nd), dtype=bf16, device=DEVICE)
+                               .index_add_(0, tok, nxt()), 50)
+        nbytes = T * Nd * 2 + tokens * Nd * 2 + T * 8
+        b_ms, b_by = bound(nbytes, T * Nd, str(bf16))
+        print(f"kernel combine timing {phase} rows={T} tokens={tokens} D={Nd} "
+              f"kernel={grouped_kernel_name(kernel)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} (zeros + index_add_) bound_ms={b_ms:.5f} ({b_by})")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "library": "torch.zeros + index_add_", "bound_ms": b_ms, "bound_by": b_by,
+                "shape": [T, Nd], "tokens": tokens, "kernel": grouped_kernel_name(kernel)}
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library", "shape",
+            "kernel")
+    source = "src/repro_torch/kernels/csrc/grouped_matmul.cu"
+    note = ("no TPU kernel: the port's own kernel for jax.lax.ragged_dot, an XLA op, in "
+            "the reference's dropless MoE layer")
+    down = product_timing("down", "decode", scaled=True)
+    gate_up = gate_up_timing("decode")
+    comb = combine_timing("decode")
+    return {
+        "grouped_matmul": {
+            "name": "grouped_matmul", "route": "cuda", "source": source,
+            "replaces": "src/repro/models/moe.py:213", "replaces_note": note,
+            "max_abs_err": max(e["max_abs_err"] for e in errs["grouped_matmul"]),
+            **{k: down[k] for k in keys}, "timed": "scaled down product, decode",
+            "scaled_down_prefill384": product_timing("down", "prefill384", scaled=True),
+            "gate_up_decode": product_timing("gate/up", "decode"),
+            "down_decode": product_timing("down", "decode"),
+            "gate_up_prefill384": product_timing("gate/up", "prefill384"),
+            "down_prefill384": product_timing("down", "prefill384"),
+            "gate_up_prefill128": product_timing("gate/up", "prefill128"),
+            "cases": errs["grouped_matmul"]},
+        "grouped_gate_up": {
+            "name": "grouped_gate_up", "route": "cuda", "source": source,
+            "replaces": "src/repro/models/moe.py:211", "replaces_note": note,
+            "max_abs_err": max(e["max_abs_err"] for e in errs["grouped_gate_up"]),
+            **{k: gate_up[k] for k in keys}, "unfused_ms": gate_up["unfused_ms"],
+            "timed": "silu, decode", "prefill384": gate_up_timing("prefill384"),
+            "cases": errs["grouped_gate_up"]},
+        "combine": {
+            "name": "combine", "route": "cuda", "source": source,
+            "replaces": "src/repro/models/moe.py:215",
+            "replaces_note": "no TPU kernel: the reference's scatter-add (an XLA op) of "
+                             "the weighted expert rows",
+            "max_abs_err": max(e["max_abs_err"] for e in errs["combine"]),
+            **{k: comb[k] for k in keys}, "timed": "decode",
+            "prefill384": combine_timing("prefill384"), "cases": errs["combine"]}}
 
 
 def check_grouped_checked(what, kernels):
@@ -1280,10 +1459,10 @@ def projections(cfg):
     return 4 * cfg.n_layers + mlp + (0 if cfg.tie_embeddings else 1)
 
 
-def grouped_products(cfg):
-    """Grouped matmul launches of one forward call: gate, up and down in
-    every MoE layer."""
-    return 3 * sum(cfg.moe_layer_mask())
+def moe_layers(cfg):
+    """MoE layers of the stack: one forward call launches the fused gate/up,
+    the down product and the combine once in each."""
+    return sum(cfg.moe_layer_mask())
 
 
 def local_positions(cfg, cache):
@@ -1314,13 +1493,14 @@ def expected_launches(cfg, st, bits, paths, draft):
     steps in the draft's layers (the target's own, or the draft model's and
     one catch-up step), and a verify through every target projection (its
     attention takes the oracle); prefills run every target projection.
-    Every forward call (a decode step or a prefill) runs the grouped matmul
-    three times in each MoE layer."""
+    Every forward call (a decode step or a prefill) runs the fused gate/up,
+    the down product and the combine once in each MoE layer."""
     steps, calls = st["decode_steps"], st["decode_steps"] + st["prefill_calls"]
     decode = "flash_decode_quant" if bits.get("kv_bits") else "flash_decode"
     want = {"flash_decode": 0, "flash_decode_quant": 0,
             "quant_matmul": projections(cfg) * calls if bits.get("weight_bits") else 0,
-            "grouped_matmul": grouped_products(cfg) * calls}
+            **dict.fromkeys(("grouped_gate_up", "grouped_matmul", "combine"),
+                            moe_layers(cfg) * calls)}
     k = paths.get("spec_k", 0)
     if not k:
         want[decode] = steps * cfg.n_layers
@@ -1455,8 +1635,9 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
           f"{label}: qmatmul designs {designs}, want {want_mm} on tensor cores")
     check_kernels_checked(f"engine ({label})", kernels)
     check_grouped_checked(f"engine ({label})", grouped)
-    # every grouped matmul on tensor cores (bf16, K and N multiples of 8)
-    check(all(k.design == "tensor_core" for k in grouped),
+    # every expert product on the TMA design (bf16, K and N multiples of 8),
+    # every combine in 16-byte pieces
+    check(all(k.design in ("tma", "vec16") for k in grouped),
           f"{label}: grouped matmul kernels {sorted(map(grouped_kernel_name, grouped))}")
     # a draft model prefills each request's prompt once, in its own layers
     prefills = launches["flash_prefill"] - (st["finished"] * draft[0].n_layers if draft else 0)
@@ -2300,12 +2481,13 @@ def run_moe(torch, by_run):
     engine and graph pool is freed.  The engine phase's 16 requests at fp
     and w8kv8, replayed and again eagerly (streams bit for bit, launches
     equal), each prompt admitted alone and padded to a chunk multiple, the
-    grouped matmul launched three times a MoE layer of every forward call;
-    ``packed=False`` at fp (power-of-two buckets) against the default's
-    streams up to near-ties; flash against ref logits, the ref run's
-    expert choices imposed on the flash run (``ForcedRouting``); a
-    profiled decode step (wall and busy time, idle share, kernels a step, the grouped
-    matmul's share of busy time)."""
+    fused gate/up, the down product and the combine each launched once a
+    MoE layer of every forward call; ``packed=False`` at fp (power-of-two
+    buckets) against the default's streams up to near-ties; flash against
+    ref logits, the ref run's expert choices imposed on the flash run
+    (``ForcedRouting``); a profiled decode step (wall and busy time, idle
+    share, kernels a step, each expert-path kernel's time and share of
+    busy time)."""
     from repro_torch.config import get_config
     gc.collect()
     torch.cuda.empty_cache()
@@ -2324,9 +2506,12 @@ def run_moe(torch, by_run):
         run_graphs(torch, cfg, params, run, r, long_prompts=(), **drain)
         st = r["stats"]
         calls = st["decode_steps"] + st["prefill_calls"]
-        print(f"moe run={run} grouped_matmul_launches={r['launches']['grouped_matmul']} "
-              f"forward_calls={calls} moe_layers={sum(cfg.moe_layer_mask())} "
-              f"launches_a_layer=3")
+        per_layer = {n: r["launches"][n] / (calls * moe_layers(cfg)) for n in EXPERT_PATH}
+        print(f"moe run={run} forward_calls={calls} moe_layers={moe_layers(cfg)} "
+              + " ".join(f"{n}_launches={r['launches'][n]}" for n in EXPERT_PATH)
+              + f" launches_a_layer_a_call={json.dumps(per_layer)}")
+        check(all(v == 1 for v in per_layer.values()),
+              f"moe ({run}): expert-path launches a layer and call {per_layer}")
     seq = run_engine(torch, cfg, params, "fp", packed=False, **drain)
     by_run[f"{MOE_ARCH} fp packed=False"] = seq["launches"]
     divs = divergences(torch, cfg, params, "fp", seq["prompts"], plain["fp"]["outputs"],
@@ -2341,12 +2526,18 @@ def run_moe(torch, by_run):
             run_logits(torch, cfg, params, run, routing=routing)
     for run in MOE_RUNS:
         d = run_profile(torch, cfg, params, run, kv_len=MOE_KV_LEN)["decode_step"]
-        gm = sum(ms for k, ms in d["by_kernel_ms"].items() if "grouped_matmul" in k)
+        ms = dict.fromkeys(EXPERT_PATH, 0.0)
+        for key, t in d["by_kernel_ms"].items():
+            if expert_kernel(key):
+                ms[expert_kernel(key)] += t
         st, r = plain[run]["stats"], plain[run]
         print(f"moe profile run={run} decode_step_wall_ms={d['wall_ms']:.3f} "
               f"busy_ms={d['busy_ms']:.3f} idle_share={1 - d['busy_ms'] / d['wall_ms']:.3f} "
-              f"kernels_per_step={d['kernels_per_step']:.0f} grouped_matmul_ms={gm:.3f} "
-              f"grouped_matmul_share_of_busy={gm / d['busy_ms']:.3f} "
+              f"kernels_per_step={d['kernels_per_step']:.0f} "
+              + " ".join(f"{n}_ms={t:.3f} {n}_share_of_busy={t / d['busy_ms']:.3f} "
+                         for n, t in ms.items())
+              + f"expert_path_ms={sum(ms.values()):.3f} "
+              f"expert_path_share_of_busy={sum(ms.values()) / d['busy_ms']:.3f} "
               f"params_gib={r['params_gb'] * 1e9 / 2**30:.3f} "
               f"pool_gib={r['pool_gb'] * 1e9 / 2**30:.4f} peak_memory_gib={r['peak_gib']:.2f} "
               f"tokens_per_s={st['tokens_per_s']:.2f} mean_ttft_s={st['mean_ttft_s']:.4f} "
@@ -2354,6 +2545,23 @@ def run_moe(torch, by_run):
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# the MoE layer's expert path: its wrappers, each launched once a MoE layer
+# of every forward call
+EXPERT_PATH = ("grouped_gate_up", "grouped_matmul", "combine")
+
+
+def expert_kernel(name):
+    """The expert-path wrapper whose kernel the profiler recorded as
+    ``name`` (gmm_tma / gmm_cc by their mode: 2 the fused gate/up, 0 and 1
+    the product), else None."""
+    if "combine_kernel" in name:
+        return "combine"
+    m = re.search(r"gmm_tma<(\d)", name) or re.search(r"gmm_cc<[^,]+, (\d)", name)
+    if m:
+        return "grouped_gate_up" if m.group(1) == "2" else "grouped_matmul"
+    return None
 
 
 def make_params(torch, cfg):

@@ -5,10 +5,11 @@
 Every token's ``top_k`` experts are computed: no capacity, so a token's
 output depends on no other token (a padded prompt's pad rows cannot move
 a live row) and shapes are static in ``B * S * top_k``.  The (token,
-expert) pairs are sorted by expert and the three expert products run as
-grouped matmuls (``kernels/grouped_matmul``) over the sorted rows, whose
-group offsets stay on the device: nothing here reads the host, so the
-engine's captured decode step holds the layer.
+expert) pairs are sorted by expert and the expert path runs as three
+kernels (``kernels/grouped_matmul``) over the sorted rows, whose group
+offsets stay on the device: gate/up with the activation and the row
+gather, down with the gate scale, and the ordered combine.  Nothing here
+reads the host, so the engine's captured decode step holds the layer.
 
 Not ported: the capacity-sort dispatch, ``_apply_gshard`` (both for
 training and sharded execution) and ``router_aux_loss`` (training).
@@ -19,7 +20,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+from repro_torch.kernels.grouped_matmul.ops import combine, grouped_gate_up, grouped_matmul
 from repro_torch.models import modules as M
 
 SERVING_MODES = ("prefill", "decode")
@@ -78,33 +79,23 @@ def apply_moe(p, x, cfg, *, mode: str, impl: str = "flash"):
 
 def _apply_dropless(p, x, gates, idx, cfg):
     """Sort the (token, expert) pairs by expert (stable, so a token's pairs
-    keep their order within an expert), three grouped matmuls over the
-    sorted rows, then each token's ``k`` weighted rows summed in ascending
-    expert id, rounding to x's dtype after each add: the order in which the
+    keep their order within an expert), then three kernels over the sorted
+    rows: gate/up (``act(x[tok] @ w_gate) * (x[tok] @ w_up)``, the token
+    rows gathered in its loads), down times each pair's gate, and the
+    combine: each token's ``k`` weighted rows summed in ascending expert
+    id, rounding to x's dtype after each add, the order in which the
     reference's scatter-add over the stably sorted pairs sums them.  The
     sum is a gather and adds, no atomics, so it is the same from run to
     run."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    act = M.activation(cfg.act)
     we = p["experts"]
     xf = x.reshape(B * S, D)
     flat_e = idx.reshape(-1)                                  # (B*S*k,)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    xs = xf[order // k]                                       # (B*S*k, D) by expert
     experts = torch.arange(E + 1, dtype=sorted_e.dtype, device=x.device)
     offsets = torch.searchsorted(sorted_e, experts, out_int32=True)   # (E+1,)
-    h = act(grouped_matmul(xs, we["w_gate"], offsets)) * \
-        grouped_matmul(xs, we["w_up"], offsets)
-    ys = grouped_matmul(h, we["w_down"], offsets)
-    ys = ys * gates.reshape(-1)[order][:, None]
-    # each pair's place in the sorted rows; a token's k places, ascending,
-    # are its experts in ascending id
-    inv = torch.empty_like(order).scatter_(
-        0, order, torch.arange(order.numel(), dtype=order.dtype, device=x.device))
-    places = torch.sort(inv.reshape(B * S, k), dim=1).values
-    y = ys[places[:, 0]]
-    for j in range(1, k):
-        y = y + ys[places[:, j]]
-    return y.reshape(B, S, D)
+    h = grouped_gate_up(xf, order // k, we["w_gate"], we["w_up"], offsets, cfg.act)
+    ys = grouped_matmul(h, we["w_down"], offsets, scale=gates.reshape(-1)[order])
+    return combine(ys, order, k).reshape(B, S, D)

@@ -16,7 +16,7 @@ from repro_torch.serving.engine import ServingEngine
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / name for name in ("chip_smoke.py", "chip_probe_attention.py",
-                              "chip_probe_qmatmul.py")]
+                              "chip_probe_grouped.py", "chip_probe_qmatmul.py")]
 
 
 def _imports(path):
