@@ -50,7 +50,12 @@ Phases, each of which must pass or the script exits non-zero:
              bound and ``torch._grouped_mm`` where the card's torch has it
              (else a matmul a group; for the combine ``index_add_``), the
              fused gate/up also beside the unfused composition of the new
-             product;
+             product; and the paper's Table 3 models' shapes (MHA: the decode
+             over a 1024-entry pool and the 128-token packed prefill of
+             llama2-7b at head dim 128, gpt-j at 256 on CUDA cores, bert-large
+             and bert-base at 64; llama2-7b's kv8 and kv4 decode and its int8
+             projections), each timed beside its plain version, its bound and
+             the library call (but bert-base's, which times as bert-large's);
 4. engine  — the port's serving engine on full-width qwen2.5-3b and
              gemma2-9b (its depth cut to 22 of 42 layers for the script's
              time; local 4096-entry rings and global layers, head dim 256)
@@ -134,6 +139,22 @@ Phases, each of which must pass or the script exits non-zero:
              steps (8 rows of a 128-token chunk), fp and ``w8kv8``, of
              qwen2.5-3b and gemma2-9b, replayed and eager: device busy time,
              wall time and kernels launched per step (read, not checked);
+7a. paper — the paper's Table 3 models at full width and depth with
+             random bf16 weights: llama2-7b (32 layers, MHA 32/32), gpt-j (28,
+             the parallel block, head dim 256), bert-large (24, LayerNorm,
+             biases, learned positions) and bert-base (12), each serving the
+             engine phase's 16 requests with ``kv_len`` 1024 at fp (llama2-7b
+             also ``w8kv8``), replayed and again eagerly (streams bit for bit,
+             launches equal and as the run's steps and calls reckon them,
+             every kernel one that phase 3 held), a profiled decode step
+             (wall and busy time, idle share), tokens/s, TTFT, TPOT and peak
+             memory; flash against ref logits (llama2-7b fp and w8kv8, gpt-j,
+             bert-large); Plane B's ``cosim_from_engine`` (64 chiplets) after
+             llama2-7b's drains and gpt-j's fp drain, turned into
+             ``benchmarks/perf_cosim.py``'s per-architecture rows (every key,
+             every value finite: 2.5D-HI, HAIMA_chiplet and TransPIM_chiplet
+             beside the engine's measured step time), and the Table-4 anchors
+             (bert-base and gpt-j at 64 tokens) beside the paper's targets;
 8. moe     — full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
              experts top-8, 61 GB of random bf16 weights) built once every
              earlier model is freed (the memory still allocated printed and
@@ -248,6 +269,36 @@ QWEN3_PREFILL = dict(Hq=32, Hkv=4, hd=128, segmented=False)
 MOE_EXPERTS, MOE_TOP_K = 128, 8
 MOE_GMM_SHAPES = {"gate/up": (2048, 768), "down": (768, 2048)}
 MOE_GMM_ROWS = {"decode": 64, "prefill128": 1024, "prefill384": 3072}
+# the paper's Table 3 models (phase paper), full width and depth, in the
+# order served; the precisions each serves at, those whose flash logits are
+# held against ref, and the drains fed to Plane B's cosim_from_engine
+PAPER_MODELS = ("llama2-7b", "gpt-j", "bert-large", "bert-base")
+PAPER_KV_LEN = 1024
+PAPER_RUNS = {"llama2-7b": ("fp", "w8kv8")}
+PAPER_LOGITS = {"llama2-7b": ("fp", "w8kv8"), "gpt-j": ("fp",), "bert-large": ("fp",)}
+PAPER_COSIM = {("llama2-7b", "fp"), ("gpt-j", "fp"), ("llama2-7b", "w8kv8")}
+PAPER_CHIPLETS = 64
+# the keys of a row of benchmarks/perf_cosim.py's per-architecture records
+# (its _ARCH_KEYS), which phase paper builds from each cosim_from_engine
+# record and its single-stream replay
+COSIM_ARCH_KEYS = {"ttft_ms", "decode_step_ms", "decode_tok_s", "tokens_per_s",
+                   "energy_per_token_mj", "prefill_gb", "decode_gb",
+                   "decode_traffic_frac", "batch", "batch_uplift"}
+# the Table-4 anchors' bounds on |log(simulated / paper)|, as the reference's
+# tests hold them: the 2.5D-HI fit of two scalars to its two anchors, each
+# baseline's fit of its two to its own
+ANCHOR_LOG_TOL = {"2.5D-HI": 0.15, "HAIMA_chiplet": 0.02, "TransPIM_chiplet": 0.02}
+# their attention as the engine runs it: 8 slots, a 1024-entry pool, MHA
+# (rep 1) at head dims 128 (llama2-7b), 256 (gpt-j) and 64 (bert); packed
+# prefills of a 128-token stream
+LLAMA_DECODE = dict(B=8, Skv=1024, Hq=32, Hkv=32, hd=128)
+GPTJ_DECODE = dict(B=8, Skv=1024, Hq=16, Hkv=16, hd=256)
+BERT_LARGE_DECODE = dict(B=8, Skv=1024, Hq=16, Hkv=16, hd=64)
+BERT_BASE_DECODE = dict(B=8, Skv=1024, Hq=12, Hkv=12, hd=64)
+PAPER_DECODE = {"llama2-7b": LLAMA_DECODE, "gpt-j": GPTJ_DECODE,
+                "bert-large": BERT_LARGE_DECODE, "bert-base": BERT_BASE_DECODE}
+PAPER_PREFILL = {arch: dict(S=128, Hq=kw["Hq"], Hkv=kw["Hkv"], hd=kw["hd"])
+                 for arch, kw in PAPER_DECODE.items()}
 DEVICE = "cuda"
 
 
@@ -510,10 +561,16 @@ def run_kernel_checks(torch):
     # qwen3-moe-30b-a3b's pool (Hkv 4), from a generator of its own
     rng_moe = np.random.default_rng(8)
     moe_cases = {"qwen3-moe B8 Skv1024 Hq32 Hkv4 hd128": QWEN3_DECODE}
+    # the paper's models (MHA at head dims 128, 256 and 64), from a
+    # generator of their own
+    rng_paper = np.random.default_rng(9)
+    paper_cases = {f"{arch} B8 Skv1024 Hq{kw['Hq']} Hkv{kw['Hkv']} hd{kw['hd']}": kw
+                   for arch, kw in PAPER_DECODE.items()}
     errs = []
     for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
                                + [(n, kw, rng_split) for n, kw in split_cases.items()]
-                               + [(n, kw, rng_moe) for n, kw in moe_cases.items()]):
+                               + [(n, kw, rng_moe) for n, kw in moe_cases.items()]
+                               + [(n, kw, rng_paper) for n, kw in paper_cases.items()]):
         c = decode_case(torch, case_rng, **kw)
         k, v = c["pools"][0]
         args = dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"], window=c["window"],
@@ -556,7 +613,10 @@ def run_kernel_checks(torch):
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                              "shape", "kernel", "splits", "valid_entries")},
         "gemma2_9b": decode_timing(torch, rng_split, GEMMA2_DECODE),
-        "qwen3_moe": decode_timing(torch, rng_moe, QWEN3_DECODE), "cases": errs}
+        "qwen3_moe": decode_timing(torch, rng_moe, QWEN3_DECODE),
+        **{arch.replace("-", "_").replace(".", "_"): decode_timing(torch, rng_paper, kw)
+           for arch, kw in PAPER_DECODE.items() if arch != "bert-base"},
+        "cases": errs}
 
     # -- packed prefill -------------------------------------------------------
     cases = {
@@ -587,6 +647,9 @@ def run_kernel_checks(torch):
     # its own
     moe_cases = {f"non-segmented qwen3-moe S{S} Hq32 Hkv4": dict(QWEN3_PREFILL, S=S)
                  for S in (8, 16, 32, 64, 128, 256, 384, 512)}
+    # the paper's models' packed prefills (a 128-token stream, MHA)
+    cases.update({f"{arch} S128 Hq{kw['Hq']} Hkv{kw['Hkv']} hd{kw['hd']}": kw
+                  for arch, kw in PAPER_PREFILL.items()})
     errs = []
     for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
                                + [(n, kw, rng_moe) for n, kw in moe_cases.items()]):
@@ -620,7 +683,10 @@ def run_kernel_checks(torch):
         "max_abs_err": max(e["max_abs_err"] for e in errs),
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                              "shape", "kernel", "attended_pairs")},
-        "gemma2_9b": prefill_timing(torch, rng, GEMMA2_PREFILL), "cases": errs}
+        "gemma2_9b": prefill_timing(torch, rng, GEMMA2_PREFILL),
+        **{arch.replace("-", "_"): prefill_timing(torch, rng_paper, kw)
+           for arch, kw in PAPER_PREFILL.items() if arch != "bert-base"},
+        "cases": errs}
     return records
 
 
@@ -724,6 +790,7 @@ def run_quant_decode_checks(torch):
         "gemma2-9b global B8 Skv5120 Hq16 Hkv8 hd256 softcap50": GEMMA2_DECODE,
         "gemma2-9b ring B8 Skv4096 hd256 window4096 softcap50": GEMMA2_RING,
         "qwen3-moe B8 Skv1024 Hq32 Hkv4 hd128": QWEN3_DECODE,
+        "llama2-7b B8 Skv1024 Hq32 Hkv32 hd128": LLAMA_DECODE,
     }
     errs = []
     for bits in (8, 4):
@@ -770,6 +837,7 @@ def run_quant_decode_checks(torch):
 
     t8, t4 = (quant_decode_timing(torch, rng, bits, {}) for bits in (8, 4))
     g8, g4 = (quant_decode_timing(torch, rng, bits, GEMMA2_DECODE) for bits in (8, 4))
+    llama8 = quant_decode_timing(torch, np.random.default_rng(9), 8, LLAMA_DECODE)
     return {"flash_decode_quant": {
         "name": "flash_decode_quant", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_quant.cu",
@@ -778,7 +846,8 @@ def run_quant_decode_checks(torch):
         **{k: t8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                               "shape", "valid_entries", "kernel")},
         "library": "scaled_dot_product_attention over the pools dequantised to bf16",
-        "kv_bits": 8, "kv4": t4, "gemma2_9b": {"kv8": g8, "kv4": g4}, "cases": errs}}
+        "kv_bits": 8, "kv4": t4, "gemma2_9b": {"kv8": g8, "kv4": g4},
+        "llama2_7b": {"kv8": llama8}, "cases": errs}}
 
 
 def quant_decode_timing(torch, rng, bits, kw):
@@ -978,6 +1047,12 @@ def run_matmul_checks(torch):
     for (K, N), what in projection_shapes(get_config(MOE_ARCH)).items():
         for M in ((1, 8) if what == "lm_head" else (8, 128, 256, 384)):
             cases[f"qwen3-moe {what} int8 ({M}, {K}, {N})"] = (M, K, N, 8, 0, None)
+    # llama2-7b's projections at int8 (phase paper's w8kv8): the decode
+    # step's 8 rows, the packed prefill's 128 and the chunk step's 1024; its
+    # untied lm_head at the decode step and a prefill's last rows
+    for (K, N), what in projection_shapes(get_config("llama2-7b")).items():
+        for M in ((1, 8) if what == "lm_head" else (8, 128, 1024)):
+            cases[f"llama2-7b {what} int8 ({M}, {K}, {N})"] = (M, K, N, 8, 0, None)
     errs = []
     for name, (M, K, N, bits, group, dtype) in cases.items():
         x, w = operands(M, K, N, dtype or torch.bfloat16)
@@ -1039,7 +1114,9 @@ def run_matmul_checks(torch):
         chunk_step_int4_w_down=shape_record(1024, 11008, 2048, 4),
         gemma2_9b={"decode_w_up_int8": shape_record(8, 3584, 14336, 8),
                    "decode_w_down_int4": shape_record(8, 14336, 3584, 4),
-                   "chunk_step_w_up_int8": shape_record(1024, 3584, 14336, 8)})}
+                   "chunk_step_w_up_int8": shape_record(1024, 3584, 14336, 8)},
+        llama2_7b={"decode_w_up_int8": shape_record(8, 4096, 11008, 8),
+                   "decode_w_down_int8": shape_record(8, 11008, 4096, 8)})}
 
     # -- the crossbar layout --------------------------------------------------
     cases = {"kernel_micro (256, 1024, 512)": (256, 1024, 512, None),
@@ -1516,7 +1593,7 @@ def expected_launches(cfg, st, bits, paths, draft):
 
 
 def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager=False,
-               draft=None, warm=True, **paths):
+               draft=None, warm=True, after=None, **paths):
     """One drain of the 16 requests (and ``long_prompts``), fp or quantised
     (``QUANT_RUNS``), traced, with every kernel's launches counted over that
     drain alone.  The default path replays its programs from CUDA graphs;
@@ -1526,7 +1603,8 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
     ``warm``: drain two requests on an engine of the same configuration
     first (cuBLAS handles, allocator pools, kernel modules); a model's later
     runs find these warm (an engine's capture runs each program once before
-    it records it)."""
+    it records it).  ``after``: called with the drained engine once its
+    checks pass."""
     from repro_torch.kernels.launches import counters as launch_counters
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
@@ -1658,6 +1736,8 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
     check_attention_checked(f"engine ({label}) quantised decode", attn["decode_quant"],
                             CHECKED_DECODE_QUANT)
     check(launches["pim_mvm"] == 0, f"{label}: the crossbar kernel ran in serving")
+    if after is not None:
+        after(engine)
     return {"stats": st, "launches": launches, "designs": designs, "wall_s": wall,
             "peak_gib": peak_gib, "outputs": outs, "build_s": build_s, "prompts": prompts,
             "kernels": {"qmatmul": kernels, "grouped_matmul": grouped, **attn},
@@ -2268,7 +2348,8 @@ def run_profile(torch, cfg, params, run="fp", kv_len=1024, steps=4, chunk_steps=
     fused decode steps, then (where the stack packs) ``chunk_steps``
     chunked-prefill steps (the
     executor's ``chunk_step``, as the engine calls it for long prompts:
-    all 8 rows with a 128-token chunk, M = 1024 rows a projection); each
+    all 8 rows with a 128-token chunk, M = 1024 rows a projection; none at
+    ``chunk_steps=0``); each
     replayed from its CUDA graph, as the engine runs it, and then through
     the eager method (the decode step with its fetch, as ``step`` does)."""
     from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -2286,7 +2367,7 @@ def run_profile(torch, cfg, params, run="fp", kv_len=1024, steps=4, chunk_steps=
     decode = profiled(torch, cfg.name, run, "decode_step replayed", engine.step, steps)
     decode_eager = profiled(torch, cfg.name, run, "decode_step eager", lambda: ex.fetch(
         ex.fused_step(pool.cache, pool.state)[2]), steps)
-    if not engine._packable:
+    if not engine._packable or not chunk_steps:
         # no chunk step: a stack that cannot be packed prefills a prompt a call
         return {"decode_step": decode, "decode_step_eager": decode_eager}
 
@@ -2475,6 +2556,113 @@ def run_logits(torch, cfg, params, run="fp", long_row=0, routing=None):
     return diffs, limit
 
 
+def run_paper(torch, by_run):
+    """Phase paper: the paper's Table 3 models at full width and depth,
+    random bf16 weights (seed 0), each freed before the next, serving the
+    engine phase's 16 requests (``kv_len`` 1024): each run replayed from
+    its graphs and again eagerly (streams bit for bit, launches equal, as
+    ``expected_launches`` reckons them, every kernel one that phase 3
+    held), its decode step profiled; flash against ref logits; Plane B's
+    ``cosim_from_engine`` after the drains ``PAPER_COSIM`` names, and the
+    Table-4 anchors."""
+    from repro_torch.config import get_config
+    for arch in PAPER_MODELS:
+        cfg = get_config(arch)
+        params = make_params(torch, cfg)
+        for run in PAPER_RUNS.get(arch, ("fp",)):
+            after = functools.partial(paper_cosim, cfg, run) \
+                if (arch, run) in PAPER_COSIM else None
+            r = run_engine(torch, cfg, params, run, kv_len=PAPER_KV_LEN, after=after)
+            by_run[f"{arch} {run}"] = r["launches"]
+            e = run_graphs(torch, cfg, params, run, r, kv_len=PAPER_KV_LEN, long_prompts=())
+            d = run_profile(torch, cfg, params, run, kv_len=PAPER_KV_LEN,
+                            chunk_steps=0)["decode_step"]
+            st = r["stats"]
+            print(f"paper arch={arch} run={run} layers={cfg.n_layers} d_model={cfg.d_model} "
+                  f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} "
+                  f"tokens_per_s={st['tokens_per_s']:.2f} "
+                  f"tokens_per_s_eager={e['stats']['tokens_per_s']:.2f} "
+                  f"mean_ttft_s={st['mean_ttft_s']:.4f} ttft_p95_s={st['ttft_p95_s']:.4f} "
+                  f"mean_tpot_s={st['mean_tpot_s']:.5f} "
+                  f"decode_step_wall_ms={st['trace_decode_step_s'] * 1e3:.3f} "
+                  f"profiled_decode_step_wall_ms={d['wall_ms']:.3f} "
+                  f"busy_ms={d['busy_ms']:.3f} idle_share={1 - d['busy_ms'] / d['wall_ms']:.3f} "
+                  f"kernels_per_step={d['kernels_per_step']:.0f} "
+                  f"peak_memory_gib={r['peak_gib']:.2f} "
+                  f"params_gib={r['params_gb'] * 1e9 / 2**30:.3f} "
+                  f"pool_gib={r['pool_gb'] * 1e9 / 2**30:.4f}")
+        for run in PAPER_LOGITS.get(arch, ()):
+            run_logits(torch, cfg, params, run)
+        del params
+        gc.collect()
+    paper_anchors()
+    torch.cuda.empty_cache()
+
+
+def paper_cosim(cfg, run, engine):
+    """Plane B on the card's host: ``cosim_from_engine`` of a drained
+    engine on its (full-size) config and the same mix single-streamed,
+    turned into ``benchmarks/perf_cosim.py``'s per-architecture rows; every
+    key there and every value finite, printed beside the engine's measured
+    step time."""
+    from repro_torch.core.cosim import ARCHS, cosim_from_engine, cosim_mix, mix_from_stats
+    t0 = time.perf_counter()
+    rec = cosim_from_engine(engine, cfg=cfg, n_chiplets=PAPER_CHIPLETS)
+    single = cosim_mix(cfg, mix_from_stats(engine.stats()), PAPER_CHIPLETS, batch=1)
+    mix = rec["mix"]
+    rows = {}
+    for arch in ARCHS:
+        g, g1 = rec["archs"][arch], single[arch]
+        tok_s = g["batch"] / max(g["decode_step_s"], 1e-30)
+        rows[arch] = {
+            "ttft_ms": g["ttft_s"] * 1e3, "decode_step_ms": g["decode_step_s"] * 1e3,
+            "decode_tok_s": tok_s, "tokens_per_s": g["tokens_per_s"],
+            "energy_per_token_mj": g["energy_per_token_j"] * 1e3,
+            "prefill_gb": g["prefill_bytes"] / 2**30, "decode_gb": g["decode_bytes"] / 2**30,
+            "decode_traffic_frac": g["decode_traffic_frac"], "batch": g["batch"],
+            "batch_uplift": tok_s / max(g1["batch"] / max(g1["decode_step_s"], 1e-30), 1e-30)}
+        check(set(rows[arch]) == COSIM_ARCH_KEYS,
+              f"cosim ({cfg.name} {run}): keys {sorted(rows[arch])}")
+        check(all(np.isfinite(v) for v in rows[arch].values()),
+              f"cosim ({cfg.name} {run} {arch}): a value is not finite: {rows[arch]}")
+    check(mix["requests"] == engine.stats()["finished"] and mix["measured_step_s"] > 0,
+          f"cosim ({cfg.name} {run}): mix {mix}")
+    print(f"paper cosim arch={cfg.name} run={run} chiplets={PAPER_CHIPLETS} "
+          f"requests={mix['requests']} prefill_tokens={mix['prefill_tokens']} "
+          f"decode_tokens={mix['decode_tokens']} effective_batch={mix['effective_batch']} "
+          f"weight_bits={mix['weight_bits']} kv_bits={mix['kv_bits']} "
+          f"h100_decode_step_ms={mix['measured_step_s'] * 1e3:.3f} "
+          f"h100_tokens_per_s={engine.stats()['tokens_per_s']:.2f} "
+          f"seconds={time.perf_counter() - t0:.2f} "
+          + " ".join(f"{a}:" + json.dumps({k: round(float(rows[a][k]), 4) for k in (
+              "ttft_ms", "decode_step_ms", "tokens_per_s", "energy_per_token_mj")})
+              for a in ARCHS))
+    print(f"paper cosim_rows arch={cfg.name} run={run} " + json.dumps(rows))
+
+
+def paper_anchors():
+    """The Table-4 anchors through Plane B: ``simulate_2p5d_hi`` and the two
+    baselines on bert-base and gpt-j at 64 tokens, on the simulator's
+    chiplet counts, each beside its paper target and held to the bound
+    the reference's tests hold it to."""
+    from repro_torch.config import get_config
+    from repro_torch.core.baselines import simulate_haima_chiplet, simulate_transpim_chiplet
+    from repro_torch.core.simulator import ANCHORS, simulate_2p5d_hi
+    from repro_torch.core.traffic import Workload
+    sims = {"2.5D-HI": simulate_2p5d_hi, "HAIMA_chiplet": simulate_haima_chiplet,
+            "TransPIM_chiplet": simulate_transpim_chiplet}
+    for arch, rows in ANCHORS.items():
+        for model, n, chips, target in rows:
+            ms = sims[arch](Workload.from_config(get_config(model), seq_len=n),
+                            chips).latency_s * 1e3
+            err = abs(float(np.log(ms / target)))
+            print(f"paper table4 arch={arch} model={model} seq_len={n} chiplets={chips} "
+                  f"latency_ms={ms:.3f} paper_ms={target} abs_log_ratio={err:.4f} "
+                  f"bound={ANCHOR_LOG_TOL[arch]}")
+            check(np.isfinite(ms) and err < ANCHOR_LOG_TOL[arch],
+                  f"table4 ({arch} {model}): {ms:.3f} ms against the paper's {target}")
+
+
 def run_moe(torch, by_run):
     """Phase moe: full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
     experts, top-8), random bf16 weights, after every earlier model,
@@ -2660,6 +2848,8 @@ def main():
             run_logits(torch, cfg, params, run)
         del params
         print(f"phases of {arch} done at {time.perf_counter() - start:.1f} s")
+    run_paper(torch, by_run)
+    print(f"phases of the paper's models done at {time.perf_counter() - start:.1f} s")
     run_moe(torch, by_run)
     print(f"phases of {MOE_ARCH} done at {time.perf_counter() - start:.1f} s")
 

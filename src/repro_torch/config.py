@@ -1,11 +1,14 @@
 """Model configuration for the PyTorch port (counterpart of ``repro.config``).
 
-A :class:`ModelConfig` describes one decoder-only transformer whose layers
-are global or local (sliding-window) attention blocks, each followed by a
-dense MLP or, where :meth:`ModelConfig.moe_layer_mask` says so, a
-mixture-of-experts FFN.  Only the fields those stacks read are kept; the
-architecture zoo's other families (MLA, SSM, recurrent,
-encoder/decoder) have no port yet.  The registry and
+A :class:`ModelConfig` describes one transformer whose layers are global
+or local (sliding-window) attention blocks, each followed by a dense MLP
+(with or without biases, sequential or GPT-J's parallel block) or, where
+:meth:`ModelConfig.moe_layer_mask` says so, a mixture-of-experts FFN,
+under RMSNorm or LayerNorm, with RoPE or a learned absolute-position
+table.  The encoder family (bert) is served through the same causal
+serving paths.  The encoder/decoder fields are kept so that the paper's
+bart configs register, but no such stack is served yet; the architecture
+zoo's other families (MLA, SSM, recurrent) have no port yet.  The registry and
 :func:`reduce_config` follow the reference, so ``get_config(name)`` gives
 the same published numbers in both packages.
 """
@@ -38,12 +41,17 @@ class ModelConfig:
     final_softcap: float = 0.0
     qk_norm: bool = False           # per-head RMS norm of q and k (gemma3)
     qkv_bias: bool = False
+    mlp_bias: bool = False          # bert/bart: biases on the MLP
     rope_theta: float = 10_000.0
     rope_theta_local: float = 0.0
+    use_rope: bool = True           # bert/bart: learned absolute positions
+    max_abs_positions: int = 0      # the position table's size (no rope)
     # -- MLP --------------------------------------------------------------
     act: str = "silu"               # silu | gelu | relu2
     glu: bool = True                # gated (w_gate, w_up) MLP vs plain
+    parallel_block: bool = False    # GPT-J: attention and MLP in parallel
     post_norm: bool = False         # gemma2/3: norms after each sublayer
+    norm: str = "rmsnorm"           # rmsnorm | layernorm
     tie_embeddings: bool = False
     embed_scale: bool = False       # gemma: embeddings scaled by sqrt(d_model)
     v_head_dim: int = 0  # 0 -> head_dim
@@ -54,6 +62,10 @@ class ModelConfig:
     d_ff_expert: int = 0
     first_k_dense: int = 0          # the first k layers keep the dense MLP
     capacity_factor: float = 1.25   # read only by the capacity paths (no port)
+    # -- encoder/decoder (registered, not served) ---------------------------
+    n_encoder_layers: int = 0       # 0 -> decoder-only
+    encoder_pattern: tuple[str, ...] = ("global",)
+    cross_attn_decoder: bool = False  # enc-dec: each decoder block has cross
     # -- provenance ---------------------------------------------------------
     source: str = ""
     notes: str = ""
@@ -63,7 +75,7 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.v_head_dim == 0:
             object.__setattr__(self, "v_head_dim", self.head_dim)
-        for k in self.pattern:
+        for k in self.pattern + self.encoder_pattern:
             if k not in LAYER_KINDS:
                 raise ValueError(f"unknown layer kind {k!r}")
 
@@ -76,6 +88,12 @@ class ModelConfig:
         """Per-layer kind for the decoder stack, pattern cycled."""
         p = self.pattern
         return tuple(p[i % len(p)] for i in range(self.n_layers))
+
+    @property
+    def encoder_layer_kinds(self) -> tuple[str, ...]:
+        """Per-layer kind for the encoder stack, pattern cycled."""
+        p = self.encoder_pattern
+        return tuple(p[i % len(p)] for i in range(self.n_encoder_layers))
 
     def moe_layer_mask(self) -> tuple[bool, ...]:
         """Which layers run the MoE FFN in place of the dense MLP."""
@@ -105,11 +123,12 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_REGISTRY)}") from None
 
 
-def reduce_config(cfg: ModelConfig) -> ModelConfig:
+def reduce_config(cfg: ModelConfig, *, seq_len: int = 32) -> ModelConfig:
     """Shrink a config to smoke-test size with the reference's rules: same
     pattern kinds and attention flavour, tiny dims, one full pattern period
     (at least two layers, plus a remainder layer when the full model has
-    one)."""
+    one); a position table of ``max(2 * seq_len, 64)`` rows where the model
+    has one, and two encoder layers where it has an encoder."""
     n_layers = max(len(cfg.pattern), 2)
     if cfg.n_layers % len(cfg.pattern):
         n_layers += 1
@@ -131,5 +150,7 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
         d_ff_expert=32 if cfg.d_ff_expert else 0,
         v_head_dim=16,
+        n_encoder_layers=2 if cfg.n_encoder_layers else 0,
+        max_abs_positions=max(seq_len * 2, 64) if cfg.max_abs_positions else 0,
         first_k_dense=min(cfg.first_k_dense, 1),
     )

@@ -21,10 +21,12 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.quant.core import QuantTensor, quantize_params
 
-# leaves that stay f32 (cast at use): biases and (scale - 1) norm vectors,
-# the per-head q/k norms among them, and the MoE router, which the
-# reference keeps in f32 (its logits are f32)
-_F32_LEAVES = ("bq", "bk", "bv", "scale", "q_norm", "k_norm", "router")
+# leaves that stay f32 (cast at use): biases (attention, MLP, LayerNorm)
+# and norm vectors, the per-head q/k norms among them, and the MoE router,
+# which the reference keeps in f32 (its logits are f32).  Every other leaf,
+# the embedding and the position table among them, is stored in ``dtype``.
+_F32_LEAVES = ("bq", "bk", "bv", "b_up", "b_down", "scale", "bias", "q_norm", "k_norm",
+               "router")
 
 
 def _is_quant(leaf) -> bool:

@@ -246,7 +246,8 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
     q, k = q.reshape(B, S, Hq, hd), k.reshape(B, S, Hkv, hd)
     if cfg.qk_norm:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
-    q, k = apply_rope(q, pos, theta), apply_rope(k, pos, theta)
+    if cfg.use_rope:
+        q, k = apply_rope(q, pos, theta), apply_rope(k, pos, theta)
     v = v.reshape(B, S, Hkv, hdv)
 
     if mode == "prefill":

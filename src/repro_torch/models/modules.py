@@ -1,6 +1,6 @@
-"""Shared building blocks: rmsnorm, activations, RoPE, the dense MLP
-(gated or plain) and the init helpers (counterpart of the reference's
-``models/modules.py``)."""
+"""Shared building blocks: norms (RMSNorm, LayerNorm), activations, RoPE,
+the dense MLP (gated or plain, with or without biases) and the init
+helpers (counterpart of the reference's ``models/modules.py``)."""
 from __future__ import annotations
 
 import math
@@ -68,8 +68,28 @@ def rmsnorm(x, scale, eps=1e-6):
     return out.to(x.dtype)
 
 
-def init_norm(shape, device):
-    return {"scale": torch.zeros(shape, dtype=torch.float32, device=device)}  # scale - 1
+def layernorm(x, scale, bias, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def init_norm(cfg, shape, device):
+    """LayerNorm stores its scale (ones) and a bias; RMSNorm stores
+    (scale - 1)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones(shape, **f32), "bias": torch.zeros(shape, **f32)}
+    return {"scale": torch.zeros(shape, **f32)}
+
+
+def apply_norm(p, x):
+    if "bias" in p:
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
 
 
 # ---------------------------------------------------------------------------
@@ -114,23 +134,36 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 def init_mlp(generator, cfg, *, repeats, dtype, device):
-    """The reference creates these in f32 and casts them at use; the port
-    stores them in the compute dtype — the same numbers at half the memory."""
+    """The reference creates the weights in f32 and casts them at use; the
+    port stores them in the compute dtype — the same numbers at half the
+    memory.  With ``mlp_bias``, biases ``b_up`` and ``b_down`` (f32 zeros,
+    cast at use)."""
     d, f = cfg.d_model, cfg.d_ff
     p = {}
     if cfg.glu:
         p["w_gate"] = dense_init(generator, (repeats, d, f), dtype, device)
     p["w_up"] = dense_init(generator, (repeats, d, f), dtype, device)
     p["w_down"] = dense_init(generator, (repeats, f, d), dtype, device, fan_in=f)
+    if cfg.mlp_bias:
+        p["b_up"] = torch.zeros((repeats, f), dtype=torch.float32, device=device)
+        p["b_down"] = torch.zeros((repeats, d), dtype=torch.float32, device=device)
     return p
 
 
 def apply_mlp(p, x, cfg, impl: str = "flash"):
-    """Each projection through ``qdense``: fp or a quantised weight."""
+    """Each projection through ``qdense``: fp or a quantised weight.  The
+    plain MLP adds ``b_up`` before the activation; ``b_down`` follows the
+    down projection."""
     act = activation(cfg.act)
     dt = x.dtype
     if cfg.glu:
         h = act(qdense(x, p["w_gate"], dt, impl=impl)) * qdense(x, p["w_up"], dt, impl=impl)
     else:
-        h = act(qdense(x, p["w_up"], dt, impl=impl))
-    return qdense(h, p["w_down"], dt, impl=impl)
+        h = qdense(x, p["w_up"], dt, impl=impl)
+        if "b_up" in p:
+            h = h + p["b_up"].to(dt)
+        h = act(h)
+    y = qdense(h, p["w_down"], dt, impl=impl)
+    if "b_down" in p:
+        y = y + p["b_down"].to(dt)
+    return y

@@ -46,9 +46,10 @@ def init_moe(generator, cfg, *, repeats, dtype, device):
 
 
 def shared_config(cfg):
-    """The shared experts' MLP: gated, ``n_shared_experts * d_ff_expert``
-    wide."""
-    return dataclasses.replace(cfg, glu=True, d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
+    """The shared experts' MLP: gated, without biases (whatever the dense
+    MLP's ``mlp_bias``), ``n_shared_experts * d_ff_expert`` wide."""
+    return dataclasses.replace(cfg, glu=True, mlp_bias=False,
+                               d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
 
 
 def route(p, x, cfg):

@@ -15,6 +15,7 @@ buffers: ``stack.<group>.u<i>.attn.wq.q`` and ``...wq.scale``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -113,6 +114,9 @@ class ParamTree(nn.ModuleDict):
             return self._parameters[key]
         return super().__getitem__(key)
 
+    def __contains__(self, key):
+        return key in self._parameters or super().__contains__(key)
+
     def items(self):
         return [*super().items(), *self._parameters.items()]
 
@@ -130,32 +134,44 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
                 device=None, dtype=torch.bfloat16) -> Transformer:
     """Random parameters with the reference's distributions, drawn with
     ``generator`` (on the generator's device) and stored on ``device``.
-    Weights and the embedding are stored in ``dtype``; biases and norm
-    scales in f32, cast at use.  ``generator=None`` with ``device="meta"``
-    builds only the names and shapes."""
+    Weights, the embedding and the position table are stored in ``dtype``;
+    biases and norm vectors in f32, cast at use.  ``generator=None`` with
+    ``device="meta"`` builds only the names and shapes.  A parallel block
+    (GPT-J) holds ``ln1``, ``attn`` and ``mlp`` alone."""
+    if cfg.n_encoder_layers or cfg.cross_attn_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder/decoder stacks (cross-attention) have no port yet")
     device = resolve_device(device)
     if generator is None and device.type != "meta":
         raise ValueError("init_params draws with an explicit torch.Generator")
     tree = {"embed": {"tok": M.embed_init(
         generator, (cfg.vocab_size, cfg.d_model), dtype, device)}}
+    if not cfg.use_rope and cfg.max_abs_positions:
+        tree["embed"]["pos"] = M.embed_init(
+            generator, (cfg.max_abs_positions, cfg.d_model), dtype, device)
     stack = []
     for spec in build_groups(cfg):
         blk = {}
         for ui, (_, use_moe) in enumerate(spec.units):
-            ffn = (init_moe if use_moe else M.init_mlp)(
-                generator, cfg, repeats=spec.repeats, dtype=dtype, device=device)
-            layer = {"ln1": M.init_norm((spec.repeats, cfg.d_model), device),
+            norm = functools.partial(M.init_norm, cfg, (spec.repeats, cfg.d_model), device)
+            layer = {"ln1": norm(),
                      "attn": init_attention(generator, cfg, repeats=spec.repeats,
-                                            dtype=dtype, device=device),
-                     "ln2": M.init_norm((spec.repeats, cfg.d_model), device),
-                     "moe" if use_moe else "mlp": ffn}
+                                            dtype=dtype, device=device)}
+            if cfg.parallel_block:
+                layer["mlp"] = M.init_mlp(generator, cfg, repeats=spec.repeats,
+                                          dtype=dtype, device=device)
+                blk[f"u{ui}"] = layer
+                continue
+            layer["ln2"] = norm()
+            layer["moe" if use_moe else "mlp"] = (init_moe if use_moe else M.init_mlp)(
+                generator, cfg, repeats=spec.repeats, dtype=dtype, device=device)
             if cfg.post_norm:
                 for name in ("ln1_post", "ln2_post"):
-                    layer[name] = M.init_norm((spec.repeats, cfg.d_model), device)
+                    layer[name] = norm()
             blk[f"u{ui}"] = layer
         stack.append(blk)
     tree["stack"] = stack
-    tree["final_norm"] = M.init_norm((cfg.d_model,), device)
+    tree["final_norm"] = M.init_norm(cfg, (cfg.d_model,), device)
     if not cfg.tie_embeddings:
         tree["lm_head"] = M.dense_init(generator, (cfg.d_model, cfg.vocab_size), dtype,
                                        device)
@@ -178,21 +194,24 @@ def _layer(tree, r: int):
 
 def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
                  kv_bits, kv_cap, length):
-    h = M.rmsnorm(x, p["ln1"]["scale"])
+    h = M.apply_norm(p["ln1"], x)
     out, c = apply_attention(p["attn"], h, cfg=cfg, kind=kind, mode=mode,
                              pos=pos, cache=None if cache is None else cache["attn"],
                              impl=impl, segments=segments, kv_bits=kv_bits,
                              kv_cap=kv_cap, length=length)
+    if cfg.parallel_block:
+        # GPT-J: attention and the MLP both read ln1's output
+        return x + out + M.apply_mlp(p["mlp"], h, cfg, impl=impl), {"attn": c}
     if cfg.post_norm:
-        out = M.rmsnorm(out, p["ln1_post"]["scale"])
+        out = M.apply_norm(p["ln1_post"], out)
     x = x + out
-    h = M.rmsnorm(x, p["ln2"]["scale"])
+    h = M.apply_norm(p["ln2"], x)
     if use_moe:
         ff = apply_moe(p["moe"], h, cfg, mode=mode, impl=impl)
     else:
         ff = M.apply_mlp(p["mlp"], h, cfg, impl=impl)
     if cfg.post_norm:
-        ff = M.rmsnorm(ff, p["ln2_post"]["scale"])
+        ff = M.apply_norm(p["ln2_post"], ff)
     x = x + ff
     return x, {"attn": c}
 
@@ -246,13 +265,30 @@ def round_to(x: float, dtype: torch.dtype) -> float:
     return float(np.float16(x)) if dtype == torch.float16 else float(f32)
 
 
-def embed_tokens(params, cfg, tokens, dtype):
+def take_rows(table, idx):
+    """``table[idx]`` with the reference's ``jnp.take`` semantics, and no
+    index out of range ever reaching the device: an index in ``[-n, 0)``
+    wraps to ``idx + n``, and any other outside ``[0, n)`` gives a row of
+    NaN (an out-of-range gather on a card is a device-side assert, which
+    inside a captured graph ends the context)."""
+    n = table.shape[0]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    inside = (idx >= 0) & (idx < n)
+    return torch.where(inside[..., None], table[idx.clamp(0, n - 1)], float("nan"))
+
+
+def embed_tokens(params, cfg, tokens, pos, dtype):
     """The embedding rows in ``dtype``; with ``embed_scale``, times
     sqrt(d_model) rounded to ``dtype`` first, as the reference multiplies
-    (59.75 in bf16 at d_model 3584)."""
+    (59.75 in bf16 at d_model 3584).  Without RoPE, plus the learned
+    position table's rows at ``pos`` (:func:`take_rows`: a position past
+    the table gives NaN, and its request fails as the reference's does)."""
     h = params["embed"]["tok"][tokens].to(dtype)
     if cfg.embed_scale:
         h = h * round_to(math.sqrt(cfg.d_model), dtype)
+    if not cfg.use_rope:
+        h = h + take_rows(params["embed"]["pos"], pos).to(dtype)
     return h
 
 
@@ -289,11 +325,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, impl="flash",
     B, S = tokens.shape
     length = S if length is None else length
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    h = embed_tokens(params, cfg, tokens, compute_dtype)
+    h = embed_tokens(params, cfg, tokens, pos, compute_dtype)
     h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
                           mode="prefill", pos=pos, impl=impl, kv_bits=kv_bits,
                           kv_cap=kv_cap, length=length)
-    h = M.rmsnorm(h, params["final_norm"]["scale"])
+    h = M.apply_norm(params["final_norm"], h)
     logits = unembed(params, cfg, h[:, length - 1:length], impl)[:, 0]
     return logits, {"stack": caches}
 
@@ -303,18 +339,19 @@ def prefill_packed(params, cfg: ModelConfig, tokens, positions, segments,
                    kv_bits: int = 0):
     """Packed ragged prefill: several prompts in one ``(1, C)`` stream.
 
-    ``positions`` are within-prompt positions (RoPE), ``segments`` per-token
+    ``positions`` are within-prompt positions (RoPE, or the position
+    table's rows, where a pad reads row 0), ``segments`` per-token
     prompt ids (-1 = pad) — a query never attends across a prompt
     boundary.  ``gather_idx`` (n_seg,) picks the packed index of each
     prompt's last token; returns (logits (n_seg, V), raw per-token cache) —
     cache leaves keep the packed stream layout (k/v, or with ``kv_bits`` the
     code and scale planes, and pos), the caller scatters segments into KV
     slots."""
-    h = embed_tokens(params, cfg, tokens, compute_dtype)
+    h = embed_tokens(params, cfg, tokens, positions.clamp_min(0), compute_dtype)
     h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
                           mode="prefill", pos=positions, impl=impl,
                           segments=segments, kv_bits=kv_bits)
-    h = M.rmsnorm(h, params["final_norm"]["scale"])
+    h = M.apply_norm(params["final_norm"], h)
     last = h[0][gather_idx][:, None]                    # (n_seg, 1, D)
     logits = unembed(params, cfg, last, impl)[:, 0]
     return logits, {"stack": caches}
@@ -329,10 +366,10 @@ def chunk_prefill_step(params, cfg: ModelConfig, cache, tokens, pos, take_idx,
     of each row's last real chunk token.  The chunk's K/V is written into
     each row's cache in place, and the chunk attends to the whole cache.
     Returns (logits (B, V) at take_idx, cache)."""
-    h = embed_tokens(params, cfg, tokens, compute_dtype)
+    h = embed_tokens(params, cfg, tokens, pos.clamp_min(0), compute_dtype)
     h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
                           mode="chunk", pos=pos, caches=cache["stack"], impl=impl)
-    h = M.rmsnorm(h, params["final_norm"]["scale"])
+    h = M.apply_norm(params["final_norm"], h)
     idx = take_idx.long()[:, None, None].expand(-1, 1, h.shape[-1])
     last = torch.gather(h, 1, idx)                      # (B, 1, D)
     logits = unembed(params, cfg, last, impl)[:, 0]
@@ -348,22 +385,23 @@ def verify_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
     the logits kept at every position: those at index ``i`` are the
     distribution of the token after ``tokens[:, i]``.  Returns (logits
     (B, C, V), cache)."""
-    h = embed_tokens(params, cfg, tokens, compute_dtype)
+    h = embed_tokens(params, cfg, tokens, pos.clamp_min(0), compute_dtype)
     h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
                           mode="chunk", pos=pos, caches=cache["stack"], impl=impl)
-    h = M.rmsnorm(h, params["final_norm"]["scale"])
+    h = M.apply_norm(params["final_norm"], h)
     return unembed(params, cfg, h, impl), {"stack": caches}
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
                 compute_dtype=torch.bfloat16):
     """One decode step.  tokens (B,), pos (B,) -> (logits (B, V), cache);
-    the cache is updated in place."""
+    the cache is updated in place.  A dead slot's ``pos`` -1 reads the
+    position table's last row, as the reference's gather does."""
     pos2 = pos[:, None]
-    h = embed_tokens(params, cfg, tokens[:, None], compute_dtype)
+    h = embed_tokens(params, cfg, tokens[:, None], pos2, compute_dtype)
     h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
                           mode="decode", pos=pos2, caches=cache["stack"], impl=impl)
-    h = M.rmsnorm(h, params["final_norm"]["scale"])
+    h = M.apply_norm(params["final_norm"], h)
     logits = unembed(params, cfg, h, impl)[:, 0]
     return logits, {"stack": caches}
 

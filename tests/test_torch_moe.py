@@ -163,6 +163,35 @@ def test_shared_experts_and_first_k_dense_match_reference(replace):
     np.testing.assert_allclose(got, want, atol=F32_TOL * scale, rtol=0)
 
 
+def test_shared_experts_take_no_mlp_bias_as_the_reference():
+    """With ``mlp_bias=True`` the dense layer's MLP has ``b_up``/``b_down``
+    and the shared experts' MLP has none, in both packages (the reference
+    builds it with ``mlp_bias=False``): the port's own tree has the
+    reference's names and shapes, the shared leaves carry over unchanged,
+    and the logits match with the dense biases drawn non-zero."""
+    cfg_j, cfg_t = _configs(n_shared_experts=1, first_k_dense=1, mlp_bias=True)
+    host = jax.device_get(TJ.init_params(cfg_j, jax.random.PRNGKey(6),
+                                         param_dtype=jnp.float32))
+    dense, shared = host["stack"][0]["u0"]["mlp"], host["stack"][1]["u0"]["moe"]["shared"]
+    assert set(shared) == {"w_gate", "w_up", "w_down"}
+    assert {"b_up", "b_down"} <= set(dense)
+    rng = np.random.default_rng(6)
+    for k in ("b_up", "b_down"):
+        dense[k] = rng.standard_normal(dense[k].shape).astype(np.float32)
+    params_t = params_from_jax(host, cfg_t, device="cpu", dtype=torch.float32)
+    own = T.init_params(cfg_t, None, device="meta")
+    assert {n: tuple(p.shape) for n, p in own.named_parameters()} == \
+        {n: tuple(p.shape) for n, p in params_t.named_parameters()}
+    got = params_t["stack"][1]["u0"]["moe"]["shared"]
+    assert {n for n, _ in got.items()} == set(shared)
+    for k, v in shared.items():
+        np.testing.assert_array_equal(got[k].numpy(), v)
+    want, out = _model_logits(cfg_j, cfg_t, jax.tree_util.tree_map(jnp.asarray, host),
+                              params_t)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(out, want, atol=F32_TOL * scale, rtol=0)
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantize_params_leaves_every_expert_leaf_fp(bits):
     """The port quantises the leaves the reference quantises (attention,

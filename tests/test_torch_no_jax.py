@@ -62,10 +62,27 @@ def test_zoo_config_equals_the_reference_field_by_field(arch):
     _same_fields(arch)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b"])
+# the paper's Table 3 (``configs/paper_models.py``)
+PAPER_ARCHS = ("bert-base", "bert-large", "bart-base", "bart-large", "gpt-j", "llama2-7b")
+
+
+@pytest.mark.parametrize("arch", PAPER_ARCHS)
+def test_paper_config_equals_the_reference_field_by_field(arch):
+    from repro.config import PAPER_ARCHS as REF_PAPER_ARCHS
+    assert set(PAPER_ARCHS) == set(REF_PAPER_ARCHS)
+    _same_fields(arch)
+    port, ref = get_config(arch), jax_get_config(arch)
+    assert port.layer_kinds == ref.layer_kinds
+    assert port.encoder_layer_kinds == ref.encoder_layer_kinds
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b",
+                                  *PAPER_ARCHS])
 def test_reduced_config_equals_the_reference_field_by_field(arch):
     """``reduce_config`` cuts as the reference's does: for qwen3-moe-30b-a3b
-    8 experts, top-2, d_ff_expert 32, first_k_dense at most 1."""
+    8 experts, top-2, d_ff_expert 32, first_k_dense at most 1; for the
+    paper's models a 64-row position table and two encoder layers where
+    they have them."""
     from repro.config import reduce_config as jax_reduce_config
     from repro_torch.config import reduce_config
     port, ref = reduce_config(get_config(arch)), jax_reduce_config(jax_get_config(arch))
@@ -73,3 +90,10 @@ def test_reduced_config_equals_the_reference_field_by_field(arch):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
     assert port.moe_layer_mask() == ref.moe_layer_mask()
     assert port.is_moe == ref.is_moe == (arch == "qwen3-moe-30b-a3b")
+    assert port.encoder_layer_kinds == ref.encoder_layer_kinds
+    if arch in PAPER_ARCHS:
+        for seq_len in (16, 32, 100):
+            a, b = reduce_config(get_config(arch), seq_len=seq_len), \
+                jax_reduce_config(jax_get_config(arch), seq_len=seq_len)
+            assert (a.max_abs_positions, a.n_encoder_layers) == \
+                (b.max_abs_positions, b.n_encoder_layers)

@@ -139,6 +139,22 @@ def test_gemma2_engine_matches_reference_engine(monkeypatch, case):
     _compare_engines(monkeypatch, "gemma2-9b", **QUANT_CASES.get(case, {}))
 
 
+# the paper's Table 3 models through the engine (packed prefill, chunked
+# continuation, the fused step), fp and w8kv8: gpt-j's parallel block,
+# bert-base's LayerNorm, biases and learned positions (prompts of up to 23
+# tokens and 8 new ones stay inside its 64-row table; kv_len 64), and
+# llama2-7b at fp
+PAPER_CASES = [(arch, case) for arch in ("gpt-j", "bert-base") for case in ("fp", "w8kv8")] \
+    + [("llama2-7b", "fp")]
+
+
+@pytest.mark.parametrize("arch,case", PAPER_CASES)
+def test_paper_engine_matches_reference_engine(monkeypatch, arch, case):
+    eng_j, eng_t = _compare_engines(monkeypatch, arch, **QUANT_CASES.get(case, {}))
+    # the 23-token prompt continued chunk by chunk
+    assert max(eng_t.stats()["prompt_lens"]) > SETTINGS["prefill_chunk"]
+
+
 # the reference's golden baseline cases (tests/test_layering.py), at fp and
 # w8kv8 on qwen2.5-3b, and the sequential path on gemma2-9b, whose
 # batch-1 prefill of prompts up to 23 tokens fills its 16-entry rings
@@ -231,13 +247,18 @@ def test_mesh_raises():
         ServingEngine(cfg, params, EngineConfig(), device="cpu", mesh=object())
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "gemma3-27b", "minitron-8b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "gemma3-27b", "minitron-8b",
+                                  "llama2-7b", "gpt-j", "bert-base", "bert-large"])
 def test_launcher_serves_each_registered_model_reduced_on_the_cpu(arch):
     """``python -m repro_torch.launch.serve --arch <id> --reduced --device
-    cpu``: every request finishes with its budget of tokens."""
+    cpu``: every request finishes with its budget of tokens.  A model with a
+    learned position table (bert) serves a pool within its 64 rows."""
     from repro_torch.launch.serve import main
+    table = get_config(arch).max_abs_positions
     stats = main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "3",
-                  "--max-new-tokens", "4", "--kv-bits", "8"])
+                  "--max-new-tokens", "4", "--kv-bits", "8"]
+                 + (["--kv-len", str(reduce_config(get_config(arch)).max_abs_positions)]
+                    if table else []))
     assert stats["finished"] == 3 and stats["tokens"] == 12 and stats["kv_bits"] == 8
 
 
