@@ -56,6 +56,11 @@ Phases, each of which must pass or the script exits non-zero:
              and bert-base at 64; llama2-7b's kv8 and kv4 decode and its int8
              projections), each timed beside its plain version, its bound and
              the library call (but bert-base's, which times as bert-large's);
+             and recurrentgemma-9b's (MQA rep 16 at head dim 256: the fp and
+             quantised decodes over its 2048-entry rings, wrapped and not,
+             the prefill without segments at its padded lengths 128..4608
+             under window 2048, its int8 projections and the RG-LRU's
+             ``w_gate`` at 8..4608 rows), each timed likewise;
 4. engine  — the port's serving engine on full-width qwen2.5-3b and
              gemma2-9b (its depth cut to 22 of 42 layers for the script's
              time; local 4096-entry rings and global layers, head dim 256)
@@ -169,7 +174,26 @@ Phases, each of which must pass or the script exits non-zero:
              streams up to near-ties; flash against ref logits at fp and
              ``w8kv8``; a profiled decode step at both (idle share, kernels
              a step, each expert-path kernel's time and share of busy
-             time).
+             time);
+9. recurrent — once every earlier model is freed: full-width, full-depth
+             mamba2-130m (24 SSD layers; no attention, no quantised
+             projection, so no kernel of the port runs) and
+             recurrentgemma-9b (26 RG-LRU and 12 local MQA layers, 9.4 B
+             parameters), each serving the engine phase's 16 requests and
+             a 4600-token prompt (``kv_len`` 5120) through padded
+             admission, replayed and eagerly (streams bit for bit,
+             launches equal and as reckoned: attention kernels in the
+             local layers only, ``w_gate`` among the quantised
+             projections); mamba2 at fp, with ``packed=False`` (streams
+             held to the default's up to near-ties) and ``fused=False``
+             (bit for bit the sequential path's), its capture leaving the
+             pool's recurrent leaves as they were, its padded prefill's
+             cache held against other pads (bit for bit) and against the
+             unpadded prefill (f32), the chunked scan against the
+             recurrence iterated, and a kill and restore mid-decode;
+             recurrentgemma at fp and ``w8kv8`` with flash against ref
+             logits; each a profiled decode step with the recurrent ops'
+             device time and share, tokens/s, TTFT, TPOT and peak memory.
 
 Each model's weights are freed before the next is made.
 
@@ -299,7 +323,39 @@ PAPER_DECODE = {"llama2-7b": LLAMA_DECODE, "gpt-j": GPTJ_DECODE,
                 "bert-large": BERT_LARGE_DECODE, "bert-base": BERT_BASE_DECODE}
 PAPER_PREFILL = {arch: dict(S=128, Hq=kw["Hq"], Hkv=kw["Hkv"], hd=kw["hd"])
                  for arch, kw in PAPER_DECODE.items()}
+# phase recurrent: mamba2-130m (24 SSD layers) and recurrentgemma-9b (38
+# layers, 12 x (rec, rec, local) + 2 rec) at full width and depth, each
+# serving the engine phase's 16 requests and one of 4600 tokens (one prompt
+# a call, padded to a chunk multiple: 4608 tokens, 18 SSD chunks of 256)
+# over 5120-entry pools, whose 2048-entry local rings the long prompt wraps;
+# the precisions recurrentgemma-9b serves at
+MAMBA_ARCH, RGEMMA_ARCH = "mamba2-130m", "recurrentgemma-9b"
+RECURRENT_KV_LEN, RECURRENT_LONG = 5120, (4600,)
+RGEMMA_RUNS = ("fp", "w8kv8")
+# recurrentgemma-9b's attention as the engine runs it: 8 slots, 16 query
+# heads over one KV head (MQA: rep 16) of dim 256, 2048-entry local rings
+# (window 2048), no softcap; its prefills are batch-1 prompts without
+# segments, padded to a chunk multiple (128, 256, 384; 4608 for the
+# 4600-token prompt)
+RGEMMA_POOL = dict(B=8, Skv=2048, Hq=16, Hkv=1, hd=256, window=2048)
+RGEMMA_RING = dict(RGEMMA_POOL, ring=True)
+RGEMMA_PREFILL = dict(Hq=16, Hkv=1, hd=256, window=2048, segmented=False)
+RGEMMA_PREFILL_LENGTHS = (128, 256, 384, 4608)
+# the rows of its quantised projections: the decode step's 8 and the
+# padded prefills' lengths
+RGEMMA_MATMUL_ROWS = (8,) + RGEMMA_PREFILL_LENGTHS
+# the bound on a chunked SSD scan's final state against the one-token
+# recurrence iterated over the 4600 tokens, f32, relative to the state's
+# scale: the two sum ~4600 decayed terms in other orders
+SCAN_STEP_TOL = 1e-4
+# the bound on mamba2-130m's padded prefill cache against the unpadded
+# one, f32, each leaf relative to its scale: the 4608-row and 4600-row
+# products run other cuBLAS kernels (the first layer's conv inputs already
+# differ in their last bits), the scans sum in other trees, and 24 layers
+# carry the differences on
+UNPADDED_TOL = 1e-4
 DEVICE = "cuda"
+CARD = ""                          # nvidia-smi's name and power limit of the card
 
 
 class SmokeFailure(RuntimeError):
@@ -566,11 +622,18 @@ def run_kernel_checks(torch):
     rng_paper = np.random.default_rng(9)
     paper_cases = {f"{arch} B8 Skv1024 Hq{kw['Hq']} Hkv{kw['Hkv']} hd{kw['hd']}": kw
                    for arch, kw in PAPER_DECODE.items()}
+    # recurrentgemma-9b's local rings (MQA, rep 16 at head dim 256), wrapped
+    # and not, from a generator of their own
+    rng_rg = np.random.default_rng(10)
+    rg_cases = {"recurrentgemma-9b ring B8 Skv2048 Hq16 Hkv1 hd256 window2048": RGEMMA_RING,
+                "recurrentgemma-9b pool B8 Skv2048 Hq16 Hkv1 hd256 window2048 (not wrapped)":
+                    RGEMMA_POOL}
     errs = []
     for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
                                + [(n, kw, rng_split) for n, kw in split_cases.items()]
                                + [(n, kw, rng_moe) for n, kw in moe_cases.items()]
-                               + [(n, kw, rng_paper) for n, kw in paper_cases.items()]):
+                               + [(n, kw, rng_paper) for n, kw in paper_cases.items()]
+                               + [(n, kw, rng_rg) for n, kw in rg_cases.items()]):
         c = decode_case(torch, case_rng, **kw)
         k, v = c["pools"][0]
         args = dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"], window=c["window"],
@@ -616,6 +679,7 @@ def run_kernel_checks(torch):
         "qwen3_moe": decode_timing(torch, rng_moe, QWEN3_DECODE),
         **{arch.replace("-", "_").replace(".", "_"): decode_timing(torch, rng_paper, kw)
            for arch, kw in PAPER_DECODE.items() if arch != "bert-base"},
+        "recurrentgemma_9b": decode_timing(torch, rng_rg, RGEMMA_RING),
         "cases": errs}
 
     # -- packed prefill -------------------------------------------------------
@@ -650,9 +714,15 @@ def run_kernel_checks(torch):
     # the paper's models' packed prefills (a 128-token stream, MHA)
     cases.update({f"{arch} S128 Hq{kw['Hq']} Hkv{kw['Hkv']} hd{kw['hd']}": kw
                   for arch, kw in PAPER_PREFILL.items()})
+    # recurrentgemma-9b's padded prefills (MQA rep 16, head dim 256, window
+    # 2048; the kernel takes no length: the 4600-token prompt's 8 pad rows
+    # attend causally like real ones and are never read), from rng_rg
+    rg_cases = {f"non-segmented recurrentgemma-9b S{S} Hq16 Hkv1 hd256 window2048":
+                dict(RGEMMA_PREFILL, S=S) for S in RGEMMA_PREFILL_LENGTHS}
     errs = []
     for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
-                               + [(n, kw, rng_moe) for n, kw in moe_cases.items()]):
+                               + [(n, kw, rng_moe) for n, kw in moe_cases.items()]
+                               + [(n, kw, rng_rg) for n, kw in rg_cases.items()]):
         c = prefill_case(torch, case_rng, **kw)
         args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"])
         out, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
@@ -686,15 +756,18 @@ def run_kernel_checks(torch):
         "gemma2_9b": prefill_timing(torch, rng, GEMMA2_PREFILL),
         **{arch.replace("-", "_"): prefill_timing(torch, rng_paper, kw)
            for arch, kw in PAPER_PREFILL.items() if arch != "bert-base"},
+        "recurrentgemma_9b": prefill_timing(torch, rng_rg, dict(RGEMMA_PREFILL, S=4608),
+                                            iters=20),
         "cases": errs}
     return records
 
 
-def prefill_timing(torch, rng, kw):
-    """Device time of the packed prefill at a shape (``prefill_case``'s
-    keywords; three prompts and pad), beside its plain version, its bound
-    and ``scaled_dot_product_attention`` with the same mask (without a
-    softcap, which it lacks)."""
+def prefill_timing(torch, rng, kw, iters=200):
+    """Device time of the prefill at a shape (``prefill_case``'s keywords;
+    three prompts and pad, or one causal stream without segments), beside
+    its plain version, its bound and ``scaled_dot_product_attention`` with
+    the same mask (without a softcap, which it lacks); ``iters`` calls of
+    the kernel and the library, a tenth as many of the plain version."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_fwd,
                                                             flash_attention_plain)
@@ -705,24 +778,28 @@ def prefill_timing(torch, rng, kw):
     args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"])
     _, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
         c["q"], c["k"], c["v"], **args), "prefill")
-    ms = device_ms(lambda: flash_attention_fwd(c["q"], c["k"], c["v"], **args), 200)
-    plain_ms = device_ms(lambda: flash_attention_plain(c["q"], c["k"], c["v"], **args), 20)
-    seg = c["segments"][0]
+    ms = device_ms(lambda: flash_attention_fwd(c["q"], c["k"], c["v"], **args), iters)
+    plain_ms = device_ms(lambda: flash_attention_plain(c["q"], c["k"], c["v"], **args),
+                         max(2, iters // 10))
     idx = torch.arange(S, device=DEVICE)
-    lib_mask = ((seg[:, None] == seg[None, :]) & (seg[:, None] >= 0)
-                & (idx[None, :] <= idx[:, None]))
+    lib_mask = idx[None, :] <= idx[:, None]
+    if c["segments"] is not None:
+        seg = c["segments"][0]
+        lib_mask &= (seg[:, None] == seg[None, :]) & (seg[:, None] >= 0)
     if c["window"]:
         lib_mask &= idx[:, None] - idx[None, :] < c["window"]
     lib_mask = lib_mask[None, None]
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        c["q"], c["k"], c["v"], attn_mask=lib_mask, enable_gqa=True), 200)
+        c["q"], c["k"], c["v"], attn_mask=lib_mask, enable_gqa=True), iters)
     pairs = int(lib_mask.sum().item())                     # attended (q, k) pairs
     esz = c["q"].element_size()
-    nbytes = (2 * Hq * S * hd + 2 * Hkv * S * hd) * esz + c["seg_np"].nbytes
+    nbytes = (2 * Hq * S * hd + 2 * Hkv * S * hd) * esz + \
+        (c["seg_np"].nbytes if c["seg_np"] is not None else 0)
     flops = 4 * pairs * Hq * hd
     b_ms, b_by = bound(nbytes, flops, str(c["q"].dtype))
     name = attention_kernel_name(kernel)
     print(f"kernel flash_prefill timing shape={[1, S, Hq, Hkv, hd]} kernel={name} "
+          f"segmented={c['segments'] is not None} window={c['window']} "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
           f"bound_ms={b_ms:.5f} ({b_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -791,6 +868,9 @@ def run_quant_decode_checks(torch):
         "gemma2-9b ring B8 Skv4096 hd256 window4096 softcap50": GEMMA2_RING,
         "qwen3-moe B8 Skv1024 Hq32 Hkv4 hd128": QWEN3_DECODE,
         "llama2-7b B8 Skv1024 Hq32 Hkv32 hd128": LLAMA_DECODE,
+        "recurrentgemma-9b ring B8 Skv2048 Hq16 Hkv1 hd256 window2048": RGEMMA_RING,
+        "recurrentgemma-9b pool B8 Skv2048 Hq16 Hkv1 hd256 window2048 (not wrapped)":
+            RGEMMA_POOL,
     }
     errs = []
     for bits in (8, 4):
@@ -838,6 +918,7 @@ def run_quant_decode_checks(torch):
     t8, t4 = (quant_decode_timing(torch, rng, bits, {}) for bits in (8, 4))
     g8, g4 = (quant_decode_timing(torch, rng, bits, GEMMA2_DECODE) for bits in (8, 4))
     llama8 = quant_decode_timing(torch, np.random.default_rng(9), 8, LLAMA_DECODE)
+    rgemma8 = quant_decode_timing(torch, np.random.default_rng(10), 8, RGEMMA_RING)
     return {"flash_decode_quant": {
         "name": "flash_decode_quant", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_quant.cu",
@@ -847,7 +928,8 @@ def run_quant_decode_checks(torch):
                               "shape", "valid_entries", "kernel")},
         "library": "scaled_dot_product_attention over the pools dequantised to bf16",
         "kv_bits": 8, "kv4": t4, "gemma2_9b": {"kv8": g8, "kv4": g4},
-        "llama2_7b": {"kv8": llama8}, "cases": errs}}
+        "llama2_7b": {"kv8": llama8}, "recurrentgemma_9b": {"kv8": rgemma8},
+        "cases": errs}}
 
 
 def quant_decode_timing(torch, rng, bits, kw):
@@ -972,13 +1054,14 @@ def check_matmul(torch, label, name, fwd, plain, x, *args, **kw):
 def projection_shapes(cfg):
     """(K, N) of each distinct dense projection of a model, named by its
     weights: q, k and v, o, the MLP's (gate and up, down; none where every
-    layer is MoE) and an untied lm_head."""
+    layer is MoE), the RG-LRU's gate and an untied lm_head."""
     D, hd, hdv = cfg.d_model, cfg.head_dim, cfg.v_head_dim
     mlp = (("w_up", (D, cfg.d_ff)), ("w_down", (cfg.d_ff, D))) \
         if not all(cfg.moe_layer_mask()) else ()
+    rec = (("rec w_gate", (D, cfg.lru_width)),) if "recurrent" in cfg.layer_kinds else ()
     shapes = {}
     for what, kn in (("wq", (D, cfg.n_heads * hd)), ("wk/wv", (D, cfg.n_kv_heads * hd)),
-                     ("wo", (cfg.n_heads * hdv, D))) + mlp + \
+                     ("wo", (cfg.n_heads * hdv, D))) + mlp + rec + \
             ((("lm_head", (D, cfg.vocab_size)),) if not cfg.tie_embeddings else ()):
         shapes.setdefault(kn, what)
     return shapes
@@ -1053,6 +1136,12 @@ def run_matmul_checks(torch):
     for (K, N), what in projection_shapes(get_config("llama2-7b")).items():
         for M in ((1, 8) if what == "lm_head" else (8, 128, 1024)):
             cases[f"llama2-7b {what} int8 ({M}, {K}, {N})"] = (M, K, N, 8, 0, None)
+    # recurrentgemma-9b's projections at int8 (its w8kv8 run): attention's
+    # and the MLP's, and the RG-LRU's w_gate (4096 x 4096, q's shape), at
+    # the decode step's 8 rows and the padded prefills' 128..4608
+    for (K, N), what in projection_shapes(get_config(RGEMMA_ARCH)).items():
+        for M in RGEMMA_MATMUL_ROWS:
+            cases[f"recurrentgemma-9b {what} int8 ({M}, {K}, {N})"] = (M, K, N, 8, 0, None)
     errs = []
     for name, (M, K, N, bits, group, dtype) in cases.items():
         x, w = operands(M, K, N, dtype or torch.bfloat16)
@@ -1116,7 +1205,10 @@ def run_matmul_checks(torch):
                    "decode_w_down_int4": shape_record(8, 14336, 3584, 4),
                    "chunk_step_w_up_int8": shape_record(1024, 3584, 14336, 8)},
         llama2_7b={"decode_w_up_int8": shape_record(8, 4096, 11008, 8),
-                   "decode_w_down_int8": shape_record(8, 11008, 4096, 8)})}
+                   "decode_w_down_int8": shape_record(8, 11008, 4096, 8)},
+        recurrentgemma_9b={"decode_w_gate_int8": shape_record(8, 4096, 4096, 8),
+                           "decode_w_up_int8": shape_record(8, 4096, 12288, 8),
+                           "decode_w_down_int8": shape_record(8, 12288, 4096, 8)})}
 
     # -- the crossbar layout --------------------------------------------------
     cases = {"kernel_micro (256, 1024, 512)": (256, 1024, 512, None),
@@ -1527,13 +1619,24 @@ def tensor_bytes(tree):
     return sum(tensor_bytes(t) for t in tree)
 
 
+def attention_layers(cfg):
+    """Layers that run attention, and so launch its kernels: the global and
+    local layers, not the recurrent kinds (``ssm``, ``recurrent``)."""
+    return sum(k in ("global", "local") for k in cfg.layer_kinds)
+
+
 def projections(cfg):
     """Dense projections of one forward call (each a dequant-matmul under
-    ``weight_bits``): q, k, v, o in every layer, the MLP's (three gated, two
-    plain) in every layer that is not MoE (the experts stay bf16), and an
-    untied lm_head once."""
-    mlp = (3 if cfg.glu else 2) * sum(not m for m in cfg.moe_layer_mask())
-    return 4 * cfg.n_layers + mlp + (0 if cfg.tie_embeddings else 1)
+    ``weight_bits``): q, k, v, o in every attention layer, the MLP's (three
+    gated, two plain) in every layer that has one and is not MoE (the
+    experts stay bf16; an SSD layer has none), the RG-LRU's ``w_gate`` in
+    every recurrent layer (its other projections and Mamba's are no
+    ``QUANT_PARAM_KEYS`` name and stay bf16), and an untied lm_head once."""
+    kinds = cfg.layer_kinds
+    mlp = (3 if cfg.glu else 2) * sum(not m and k != "ssm"
+                                      for k, m in zip(kinds, cfg.moe_layer_mask()))
+    return 4 * attention_layers(cfg) + mlp + kinds.count("recurrent") + \
+        (0 if cfg.tie_embeddings else 1)
 
 
 def moe_layers(cfg):
@@ -1565,8 +1668,8 @@ def eager_programs():
 
 def expected_launches(cfg, st, bits, paths, draft):
     """Launches of the decodes and the dequant-matmul that a drain with the
-    stats ``st`` makes: a decode step runs every layer's decode attention
-    and every projection; a speculative step runs ``spec_k`` draft decode
+    stats ``st`` makes: a decode step runs every attention layer's decode
+    attention and every projection; a speculative step runs ``spec_k`` draft decode
     steps in the draft's layers (the target's own, or the draft model's and
     one catch-up step), and a verify through every target projection (its
     attention takes the oracle); prefills run every target projection.
@@ -1580,11 +1683,11 @@ def expected_launches(cfg, st, bits, paths, draft):
                             moe_layers(cfg) * calls)}
     k = paths.get("spec_k", 0)
     if not k:
-        want[decode] = steps * cfg.n_layers
+        want[decode] = steps * attention_layers(cfg)
     elif paths.get("spec_draft") == "model":
-        want["flash_decode"] = steps * (k + 1) * draft[0].n_layers
+        want["flash_decode"] = steps * (k + 1) * attention_layers(draft[0])
     else:
-        want[decode] = steps * k * cfg.n_layers
+        want[decode] = steps * k * attention_layers(cfg)
         # a self-draft is quantised at spec_draft_bits (default 8), or is
         # the serving params themselves
         if paths.get("spec_draft_bits", 8) or bits.get("weight_bits"):
@@ -1717,9 +1820,11 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
     # every combine in 16-byte pieces
     check(all(k.design in ("tma", "vec16") for k in grouped),
           f"{label}: grouped matmul kernels {sorted(map(grouped_kernel_name, grouped))}")
-    # a draft model prefills each request's prompt once, in its own layers
+    # a draft model prefills each request's prompt once, in its own layers;
+    # a stack without attention (mamba2) launches no prefill kernel
     prefills = launches["flash_prefill"] - (st["finished"] * draft[0].n_layers if draft else 0)
-    check(prefills > 0 and prefills % cfg.n_layers == 0,
+    n_attn = attention_layers(cfg)
+    check((prefills > 0) == (n_attn > 0) and prefills % max(n_attn, 1) == 0,
           f"{label}: prefill kernel launches {launches['flash_prefill']}")
     # every packed prefill on the design its head dim calls for (tensor cores
     # at 64/128, CUDA cores at 256), in kernels that phase 3 checked
@@ -1729,7 +1834,7 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
           f"{run}: {on} of {launches['flash_prefill']} prefill launches on {want_pf}")
     if not paths.get("packed", True):
         # one non-segmented prefill a request and layer
-        check(launches["flash_prefill"] == st["prefill_calls"] * cfg.n_layers,
+        check(launches["flash_prefill"] == st["prefill_calls"] * n_attn,
               f"{label}: prefill launches {launches['flash_prefill']}")
     check_attention_checked(f"engine ({label}) prefill", attn["prefill"], CHECKED_PREFILL)
     check_attention_checked(f"engine ({label}) decode", attn["decode"], CHECKED_DECODE)
@@ -2752,6 +2857,323 @@ def expert_kernel(name):
     return None
 
 
+# ---------------------------------------------------------------------------
+# phase recurrent: the SSD and RG-LRU layer kinds
+# ---------------------------------------------------------------------------
+
+def recurrent_leaves(cache):
+    """The recurrent units' ``conv`` and ``state``/``h`` leaves of a pool."""
+    return [leaf for group in cache["stack"] for unit in group.values()
+            if "attn" not in unit for leaf in unit.values()]
+
+
+def cache_items(cache):
+    """(path, leaf) of a prefill's cache tree, in a fixed order."""
+    return [(f"stack/{gi}/{u}/{name}", leaf) for gi, group in enumerate(cache["stack"])
+            for u, unit in sorted(group.items()) for name, leaf in sorted(unit.items())]
+
+
+def mamba_padded_prefill(torch, cfg, params):
+    """Mamba2-130m's padded prefill at full width: the 4600-token prompt
+    right-padded to 4608 (18 chunks of 256) with ``length`` 4600, as
+    padded admission runs it.
+
+    1. Pads never enter: the same prompt under other pad tokens gives every
+       cache leaf (each layer's ``conv`` and ``state``) bit for bit, in
+       bf16 as the engine runs it;
+    2. against the unpadded prefill of the 4600 tokens (one chunk of 4600:
+       ``ssd_scan``'s fallback), f32: every layer's ``conv`` and ``state``
+       within ``UNPADDED_TOL`` of the leaf's scale.  Not bit for bit, nor
+       within ``test_padded_prefill_state_exact``'s elementwise 1e-5 + 1e-3
+       relative: on the card the two lengths' products run other GEMM
+       kernels, so even the first layer's conv inputs part in their last
+       bits (the reference's rule is for two layers of width 64 on a CPU,
+       whose products do not depend on the rows beside them); item 1
+       holds the pads bit for bit instead;
+    3. the first layer's chunked scan (its inputs recorded in the padded f32
+       prefill) against ``ssd_step`` iterated over the 4600 real tokens in
+       f32: the final state within ``SCAN_STEP_TOL`` of its scale."""
+    from repro_torch.models import ssm as ST
+    from repro_torch.models import transformer as T
+    n, pad = RECURRENT_LONG[0], -(-RECURRENT_LONG[0] // CHUNK) * CHUNK
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, cfg.vocab_size, n)
+    rows = np.zeros((2, pad), np.int64)
+    rows[:, :n] = prompt
+    rows[1, n:] = rng.integers(0, cfg.vocab_size, pad - n)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        caches = [T.prefill(params, cfg, dev(r[None]), kv_cap=pad, length=n)[1]
+                  for r in rows]
+        a, b = cache_items(caches[0]), cache_items(caches[1])
+        pads_out = all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+        del caches, a, b
+        recorded = []
+        scan = ST.ssd_scan
+
+        def recording(*args, **kw):
+            out = scan(*args, **kw)
+            if not recorded:
+                recorded.append((args, out[1]))
+            return out
+        ST.ssd_scan = recording
+        try:
+            padded = cache_items(T.prefill(params, cfg, dev(rows[:1]), kv_cap=pad, length=n,
+                                           compute_dtype=torch.float32)[1])
+        finally:
+            ST.ssd_scan = scan
+        exact = cache_items(T.prefill(params, cfg, dev(prompt[None]), kv_cap=pad,
+                                      compute_dtype=torch.float32)[1])
+        first_conv = float((padded[0][1] - exact[0][1]).abs().max())
+        worst = {}
+        for (path, x), (_, y) in zip(padded, exact):
+            name = path.rsplit("/", 1)[-1]
+            rel = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+            worst[name] = max(worst.get(name, 0.0), rel)
+        within = max(worst.values()) <= UNPADDED_TOL
+        (x, dt, A, Bm, Cm), final = recorded[0]
+        state = torch.zeros_like(final)
+        for t in range(n):
+            _, state = ST.ssd_step(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t], state)
+        scale = max(1.0, float(state.abs().max()))
+        scan_err = float((final - state).abs().max())
+    print(f"recurrent arch={cfg.name} padded_prefill length={n} stream={pad} "
+          f"chunks={pad // cfg.ssm_chunk} pads_never_enter_bit_for_bit={pads_out} "
+          f"first_layer_conv_max_abs_diff={first_conv:.3e} "
+          f"unpadded_rel_to_scale={json.dumps(worst)} bound={UNPADDED_TOL} "
+          f"scan_vs_steps_max_abs={scan_err:.3e} "
+          f"state_scale={scale:.4f} scan_bound={SCAN_STEP_TOL * scale:.3e} "
+          f"seconds={time.perf_counter() - t0:.2f}")
+    check(pads_out, "recurrent: a pad token moved the padded prefill's cache")
+    check(within, "recurrent: the padded prefill's cache parts from the unpadded prefill's")
+    check(scan_err <= SCAN_STEP_TOL * scale, "recurrent: the chunked scan's final state "
+          "parts from the recurrence iterated")
+
+
+def recurrent_ops_ms(torch, cfg, params):
+    """Device time (ms) of a decode step's recurrent ops alone: in each SSD
+    layer its conv, SiLU, softplus, ``ssd_step``, the skip and the gated
+    norm; in each RG-LRU layer its conv, the gates (two f32 products with
+    wa and wi), the recurrence and the GELU gating: the layer's
+    projections left out.  One layer timed at the pool's 8 slots, cycling
+    over caches and weights that span twice the L2 (each layer reads its
+    own), times the layers of the kind."""
+    import torch.nn.functional as F
+    from repro_torch.models import rglru as RT
+    from repro_torch.models import ssm as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import rmsnorm
+    kind = "ssm" if "ssm" in cfg.layer_kinds else "recurrent"
+    gi, ui = next((gi, ui) for gi, spec in enumerate(T.build_groups(cfg))
+                  for ui, (k, _) in enumerate(spec.units) if k == kind)
+    p = T._layer(params["stack"][gi], 0)[f"u{ui}"]
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    B, bf16 = MAX_BATCH, torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+    if kind == "ssm":
+        m = p["mamba"]
+        d_inner, H, P, N, G = ST._dims(cfg)
+        xbc, z, dt_raw = randn(B, 1, d_inner + 2 * G * N), randn(B, 1, d_inner), randn(B, 1, H)
+        nbytes = tensor_bytes(ST.init_ssm_cache(cfg, B, bf16, "meta"))
+        caches = [ST.init_ssm_cache(cfg, B, bf16, DEVICE) for _ in range(cold_copies(nbytes))]
+        layers = [m] * len(caches)
+
+        def step(c, m):
+            u, conv = ST.causal_conv(xbc, m["conv_w"], m["conv_b"], c["conv"])
+            u = F.silu(u)
+            xs = u[..., :d_inner].reshape(B, 1, H, P)
+            dt = F.softplus(dt_raw.float() + m["dt_bias"])
+            y, st = ST.ssd_step(xs[:, 0], dt[:, 0], -torch.exp(m["A_log"]),
+                                u[:, 0, d_inner:d_inner + G * N].reshape(B, G, N),
+                                u[:, 0, d_inner + G * N:].reshape(B, G, N), c["state"])
+            c["conv"].copy_(conv)
+            c["state"].copy_(st)
+            y = y[:, None] + xs * m["D"][None, None, :, None].to(bf16)
+            return rmsnorm(y.reshape(B, 1, d_inner) * F.silu(z), m["norm"])
+    else:
+        W = cfg.lru_width
+        u0, gate = randn(B, 1, W), randn(B, 1, W)
+        gates_bytes = 2 * W * W * 4
+        n = cold_copies(gates_bytes)
+        # distinct f32 gate weights for each copy, as each layer reads its own
+        layers = [dict(p["rec"], wa=randn(W, W, dtype=torch.float32) / W ** 0.5,
+                       wi=randn(W, W, dtype=torch.float32) / W ** 0.5) for _ in range(n)]
+        caches = [RT.init_rglru_cache(cfg, B, bf16, DEVICE) for _ in range(n)]
+
+        def step(c, r):
+            u, conv = ST.causal_conv(u0, r["conv_w"], r["conv_b"], c["conv"])
+            a, b = RT._rglru_core(u, r)
+            h = a[:, 0] * c["h"] + b[:, 0]
+            c["conv"].copy_(conv)
+            c["h"].copy_(h)
+            return F.gelu(gate, approximate="tanh") * h[:, None].to(bf16)
+    nxt = cycler(list(zip(caches, layers)))
+    with torch.no_grad():
+        ms = device_ms(lambda: step(*nxt()), 50)
+    n_layers = cfg.layer_kinds.count(kind)
+    return {"kind": kind, "layer_ms": ms, "layers": n_layers, "step_ms": ms * n_layers}
+
+
+def run_recurrent_logits(torch, cfg, params, run="fp"):
+    """Flash against ref logits of a stack that cannot be packed: each of
+    four prompts (30, 61, 17 and 4600 tokens) prefilled alone, padded to a
+    chunk multiple as padded admission pads it, inserted into its slot (the
+    long one wraps its rings), then 4 teacher-forced decode steps; each impl
+    on its own pool, held to ``run_logits``' bound (5e-2 of ref's scale)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.executor import Executor
+    from repro_torch.serving.pool import SlotPool
+    rng = np.random.default_rng(1)
+    lens = (30, 61, 17) + RECURRENT_LONG
+    B = len(lens)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    steps = rng.integers(0, cfg.vocab_size, (4, B)).astype(np.int32)
+    dev = lambda a: torch.from_numpy(np.asarray(a)).to(DEVICE)  # noqa: E731
+    results = {}
+    for impl in ("flash", "ref"):
+        ecfg = EngineConfig(max_batch=B, kv_len=RECURRENT_KV_LEN, impl=impl,
+                            **QUANT_RUNS[run])
+        ex = Executor(cfg, params, ecfg, device=torch.device(DEVICE))
+        pool = SlotPool(cfg, ecfg, device=torch.device(DEVICE))
+        out = []
+        with torch.no_grad():
+            first = []
+            for slot, (n, prompt) in enumerate(zip(lens, prompts)):
+                row = np.zeros((1, -(-n // CHUNK) * CHUNK), np.int32)
+                row[0, :n] = prompt
+                logits, pc = ex.prefill(dev(row), n)
+                ex.insert(pool.cache, pc, slot, n)
+                first.append(logits.float())
+                del pc
+            if "local" in cfg.pattern:
+                check(local_positions(cfg, pool.cache) >= cfg.window,
+                      f"logits ({run}): the local ring did not wrap")
+            out.append(torch.cat(first))
+            for s in range(4):
+                logits, _ = T.decode_step(ex.params, cfg, pool.cache, dev(steps[s]),
+                                          dev(np.asarray(lens, np.int32) + s), impl=impl)
+                out.append(logits.float())
+        del ex, pool
+        results[impl] = out
+    names = ["prefill"] + [f"decode{s}" for s in range(4)]
+    scale = max(float(r.abs().max()) for r in results["ref"])
+    limit = 5e-2 * max(1.0, scale)
+    diffs = {n: float((a - b).abs().max()) for n, a, b in
+             zip(names, results["flash"], results["ref"])}
+    finite = all(bool(torch.isfinite(r).all()) for r in results["flash"])
+    print(f"logits run={run} arch={cfg.name} layers={cfg.n_layers} rows={list(lens)} "
+          f"padded_admission=True kv_len={RECURRENT_KV_LEN} max_abs_diff={json.dumps(diffs)} "
+          f"bound={limit:.4f} ref_scale={scale:.4f} finite={finite}")
+    check(finite and max(diffs.values()) <= limit,
+          f"flash and ref logits ({cfg.name} {run}) disagree beyond the bound")
+    return diffs, limit
+
+
+def print_recurrent_profile(torch, cfg, params, run, r, ops):
+    """The replayed decode step (profiled: wall, busy, idle share, kernels
+    a step), the recurrent ops' share of its busy time, and the drain's
+    tokens/s, TTFT, TPOT and peak memory, with the card's name and power
+    limit."""
+    d = run_profile(torch, cfg, params, run, kv_len=RECURRENT_KV_LEN)["decode_step"]
+    st = r["stats"]
+    print(f"recurrent profile arch={cfg.name} run={run} card={CARD!r} "
+          f"layers={cfg.n_layers} decode_step_wall_ms={d['wall_ms']:.3f} "
+          f"busy_ms={d['busy_ms']:.3f} idle_share={1 - d['busy_ms'] / d['wall_ms']:.3f} "
+          f"kernels_per_step={d['kernels_per_step']:.0f} "
+          f"recurrent_ops_ms={ops['step_ms']:.3f} ({ops['layers']} {ops['kind']} layers x "
+          f"{ops['layer_ms']:.4f}) recurrent_ops_share_of_busy="
+          f"{ops['step_ms'] / d['busy_ms']:.3f} "
+          f"tokens_per_s={st['tokens_per_s']:.2f} mean_ttft_s={st['mean_ttft_s']:.4f} "
+          f"ttft_p95_s={st['ttft_p95_s']:.4f} mean_tpot_s={st['mean_tpot_s']:.5f} "
+          f"decode_step_wall_ms_drain={st['trace_decode_step_s'] * 1e3:.3f} "
+          f"peak_memory_gib={r['peak_gib']:.2f} "
+          f"params_gib={r['params_gb'] * 1e9 / 2**30:.3f} "
+          f"pool_gib={r['pool_gb'] * 1e9 / 2**30:.4f}")
+
+
+def run_recurrent(torch, by_run):
+    """Phase recurrent: mamba2-130m and recurrentgemma-9b at full width and
+    depth, random bf16 weights (seed 0), once every earlier model is freed,
+    each serving the engine phase's 16 requests and a 4600-token prompt
+    (``kv_len`` 5120) through padded admission.
+
+    mamba2-130m: fp replayed and eagerly (streams bit for bit, launches
+    equal; no attention and no quantised projection: no kernel of the
+    port runs), ``packed=False`` (exact-length prefills, the 4600-token one
+    the single-chunk scan) against the default's streams up to near-ties,
+    and ``fused=False`` against ``packed=False`` bit for bit; the engine's
+    capture leaves the pool's recurrent leaves as they were; the padded
+    prefill's cache (``mamba_padded_prefill``); a kill and restore
+    mid-decode, bit for bit; a profiled decode step.
+
+    recurrentgemma-9b: fp and w8kv8, replayed and eagerly (streams bit for
+    bit, launches equal and as ``expected_launches`` reckons them: the
+    decodes and prefills in its 12 local layers, the RG-LRU's ``w_gate``
+    among the quantised projections), the long prompt's rings wrapped;
+    flash against ref logits at both; a profiled decode step at both.
+
+    Each profile prints the recurrent ops' device time and share."""
+    from repro_torch.config import get_config
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    collect(torch)
+    before = torch.cuda.memory_allocated() / 2**30
+    print(f"recurrent memory_allocated_before_build_gib={before:.3f} "
+          f"bound_gib={MOE_FREE_BEFORE_GIB}")
+    check(before < MOE_FREE_BEFORE_GIB, f"recurrent: {before:.2f} GiB still allocated")
+    drain = dict(kv_len=RECURRENT_KV_LEN, long_prompts=RECURRENT_LONG)
+    t0 = time.perf_counter()
+
+    cfg = get_config(MAMBA_ARCH)
+    params = make_params(torch, cfg)
+    engine = ServingEngine(cfg, params, EngineConfig(
+        max_batch=MAX_BATCH, kv_len=RECURRENT_KV_LEN, prefill_chunk=CHUNK), device=DEVICE)
+    zero = all(not bool(leaf.any()) for leaf in recurrent_leaves(engine.pool.cache))
+    print(f"recurrent arch={cfg.name} captured={sorted(engine.executor.graphs.graphs)} "
+          f"recurrent_leaves_zero_after_capture={zero}")
+    check(zero, "recurrent: the capture moved the pool's recurrent leaves")
+    del engine
+    plain = run_engine(torch, cfg, params, "fp", **drain)
+    by_run[f"{MAMBA_ARCH} fp"] = plain["launches"]
+    run_graphs(torch, cfg, params, "fp", plain, **drain)
+    seq = run_engine(torch, cfg, params, "fp", packed=False, **drain)
+    host = run_engine(torch, cfg, params, "fp", fused=False, **drain)
+    divs = divergences(torch, cfg, params, "fp", seq["prompts"], plain["outputs"],
+                       seq["outputs"])
+    same_host = host["outputs"] == seq["outputs"]
+    print(f"recurrent arch={cfg.name} packed=False streams_equal={seq['outputs'] == plain['outputs']} "
+          f"divergences={json.dumps([[u, t, round(m, 4), round(b, 4)] for u, t, m, b in divs])} "
+          f"fused=False streams_equal_packed_false={same_host}")
+    check(all(m < b for _, _, m, b in divs),
+          f"recurrent ({cfg.name}): a packed=False stream parts from the default's away "
+          f"from a near-tie")
+    check(same_host, f"recurrent ({cfg.name}): the host-looped streams differ from the "
+          f"sequential fused path's")
+    mamba_padded_prefill(torch, cfg, params)
+    crash_case(torch, cfg, params, "fp", kind="mid_decode", **drain)
+    print_recurrent_profile(torch, cfg, params, "fp", plain,
+                            recurrent_ops_ms(torch, cfg, params))
+    del params, plain, seq, host
+    collect(torch)
+    print(f"recurrent arch={MAMBA_ARCH} done at {time.perf_counter() - t0:.1f} s")
+
+    cfg = get_config(RGEMMA_ARCH)
+    params = make_params(torch, cfg)
+    ops = recurrent_ops_ms(torch, cfg, params)
+    for run in RGEMMA_RUNS:
+        r = run_engine(torch, cfg, params, run, **drain)
+        by_run[f"{RGEMMA_ARCH} {run}"] = r["launches"]
+        run_graphs(torch, cfg, params, run, r, **drain)
+        run_recurrent_logits(torch, cfg, params, run)
+        print_recurrent_profile(torch, cfg, params, run, r, ops)
+    del params
+    collect(torch)
+    print(f"recurrent arch={RGEMMA_ARCH} done at {time.perf_counter() - t0:.1f} s")
+
+
 def make_params(torch, cfg):
     """Random bf16 weights (seed 0) on the card, after the last model's are
     freed."""
@@ -2784,6 +3206,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
+    global CARD
+    CARD = smi
     print(f"device: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -2852,6 +3276,8 @@ def main():
     print(f"phases of the paper's models done at {time.perf_counter() - start:.1f} s")
     run_moe(torch, by_run)
     print(f"phases of {MOE_ARCH} done at {time.perf_counter() - start:.1f} s")
+    run_recurrent(torch, by_run)
+    print(f"phases of the recurrent models done at {time.perf_counter() - start:.1f} s")
 
     for name, rec in records.items():
         rec["launches"] = sum(n[name] for n in by_run.values())

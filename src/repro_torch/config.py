@@ -5,10 +5,11 @@ or local (sliding-window) attention blocks, each followed by a dense MLP
 (with or without biases, sequential or GPT-J's parallel block) or, where
 :meth:`ModelConfig.moe_layer_mask` says so, a mixture-of-experts FFN,
 under RMSNorm or LayerNorm, with RoPE or a learned absolute-position
-table.  The encoder family (bert) is served through the same causal
-serving paths.  The encoder/decoder fields are kept so that the paper's
-bart configs register, but no such stack is served yet; the architecture
-zoo's other families (MLA, SSM, recurrent) have no port yet.  The registry and
+table; or a recurrent layer: a Mamba-2 SSD block (``"ssm"``) or an RG-LRU
+block followed by its MLP (``"recurrent"``).  The encoder family (bert) is
+served through the same causal serving paths.  The encoder/decoder fields
+are kept so that the paper's bart configs register, but no such stack is
+served yet; MLA has no port yet.  The registry and
 :func:`reduce_config` follow the reference, so ``get_config(name)`` gives
 the same published numbers in both packages.
 """
@@ -17,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 
 # Layer kinds the port's model library can run
-LAYER_KINDS = ("global", "local")
+LAYER_KINDS = ("global", "local", "recurrent", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +63,15 @@ class ModelConfig:
     d_ff_expert: int = 0
     first_k_dense: int = 0          # the first k layers keep the dense MLP
     capacity_factor: float = 1.25   # read only by the capacity paths (no port)
+    # -- SSM (mamba2) -------------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    conv_width: int = 4
+    ssm_chunk: int = 256
+    # -- recurrent (RG-LRU / griffin) --------------------------------------
+    lru_width: int = 0
     # -- encoder/decoder (registered, not served) ---------------------------
     n_encoder_layers: int = 0       # 0 -> decoder-only
     encoder_pattern: tuple[str, ...] = ("global",)
@@ -128,14 +138,17 @@ def reduce_config(cfg: ModelConfig, *, seq_len: int = 32) -> ModelConfig:
     pattern kinds and attention flavour, tiny dims, one full pattern period
     (at least two layers, plus a remainder layer when the full model has
     one); a position table of ``max(2 * seq_len, 64)`` rows where the model
-    has one, and two encoder layers where it has an encoder."""
+    has one, two encoder layers where it has an encoder, and the SSM's and
+    RG-LRU's widths cut as the reference cuts them (state 16, SSD head dim
+    16, chunk 8, LRU width 64).  A stack without attention keeps no KV
+    heads, and one without an MLP no ``d_ff``."""
     n_layers = max(len(cfg.pattern), 2)
     if cfg.n_layers % len(cfg.pattern):
         n_layers += 1
     n_heads = 4
-    n_kv = min(cfg.n_kv_heads, n_heads)
-    if n_heads % n_kv:
-        n_kv = 2
+    n_kv = min(cfg.n_kv_heads, n_heads) if cfg.n_kv_heads else 0
+    if n_kv and n_heads % n_kv:
+        n_kv = 2 if n_heads % 2 == 0 else 1
     return dataclasses.replace(
         cfg,
         n_layers=n_layers,
@@ -143,13 +156,17 @@ def reduce_config(cfg: ModelConfig, *, seq_len: int = 32) -> ModelConfig:
         n_heads=n_heads,
         n_kv_heads=n_kv,
         head_dim=16,
-        d_ff=96,
+        d_ff=96 if cfg.d_ff else 0,
         vocab_size=256,
         window=min(cfg.window, 16) if cfg.window else 0,
         n_experts=min(cfg.n_experts, 8) if cfg.n_experts else 0,
         top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
         d_ff_expert=32 if cfg.d_ff_expert else 0,
         v_head_dim=16,
+        ssm_state=16 if cfg.ssm_state else 0,
+        ssm_head_dim=16 if cfg.ssm_state else 64,
+        ssm_chunk=8,
+        lru_width=64 if cfg.lru_width else 0,
         n_encoder_layers=2 if cfg.n_encoder_layers else 0,
         max_abs_positions=max(seq_len * 2, 64) if cfg.max_abs_positions else 0,
         first_k_dense=min(cfg.first_k_dense, 1),

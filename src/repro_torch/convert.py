@@ -22,11 +22,16 @@ from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.quant.core import QuantTensor, quantize_params
 
 # leaves that stay f32 (cast at use): biases (attention, MLP, LayerNorm)
-# and norm vectors, the per-head q/k norms among them, and the MoE router,
-# which the reference keeps in f32 (its logits are f32).  Every other leaf,
-# the embedding and the position table among them, is stored in ``dtype``.
+# and norm vectors, the per-head q/k norms among them, the MoE router,
+# which the reference keeps in f32 (its logits are f32), and the f32 leaves
+# of the recurrent blocks: the convs, Mamba-2's A_log, D, dt_bias and norm
+# vector, and the RG-LRU's gates wa/wi (the reference multiplies them in
+# f32: stored in bf16 they would change the gates), ba, bi and lam.  Every
+# other leaf, the embedding and the position table among them, is stored
+# in ``dtype``.
 _F32_LEAVES = ("bq", "bk", "bv", "b_up", "b_down", "scale", "bias", "q_norm", "k_norm",
-               "router")
+               "router", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm",
+               "wa", "wi", "ba", "bi", "lam")
 
 
 def _is_quant(leaf) -> bool:

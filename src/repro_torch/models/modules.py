@@ -129,6 +129,16 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(positions, dim: int):
+    """Absolute sinusoidal embedding (..., dim) f32, the reference's stub
+    for a stack without RoPE and without a position table (mamba2)."""
+    half = dim // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device)
+                      * (math.log(10_000.0) / max(half - 1, 1)))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP (dense FFN): gated (act(x W_gate) * x W_up) or plain (act(x W_up))
 # ---------------------------------------------------------------------------

@@ -11,6 +11,13 @@ A quantised weight (a leaf of the tree that
 :func:`repro_torch.quant.core.quantize_params` returns) sits in the module
 as a :class:`QuantWeight`, whose code and scale planes are
 buffers: ``stack.<group>.u<i>.attn.wq.q`` and ``...wq.scale``.
+
+Besides the attention layers (``global``, ``local``), a unit may be a
+Mamba-2 SSD block (``ssm``: ``{"ln1", "mamba"}``) or an RG-LRU block and
+its MLP (``recurrent``: ``{"ln1", "rec", "ln2", "mlp"}``), as in the
+reference's tree.  Their caches are ``{"conv", "state"}`` and ``{"conv",
+"h"}``, held directly under ``u<i>``; they run prefill (exact at
+``length``) and decode, not the packed prefill or the chunk step.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ from repro_torch.models import modules as M
 from repro_torch.models.attention import (apply_attention, init_attention,
                                           init_kv_cache)
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.rglru import apply_rglru, init_rglru, init_rglru_cache
+from repro_torch.models.ssm import apply_mamba, init_mamba, init_ssm_cache
 from repro_torch.quant.core import QuantTensor
 from repro_torch.quant.ops import qdense
 
@@ -137,7 +146,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
     Weights, the embedding and the position table are stored in ``dtype``;
     biases and norm vectors in f32, cast at use.  ``generator=None`` with
     ``device="meta"`` builds only the names and shapes.  A parallel block
-    (GPT-J) holds ``ln1``, ``attn`` and ``mlp`` alone."""
+    (GPT-J) holds ``ln1``, ``attn`` and ``mlp`` alone; an ``ssm`` unit
+    ``ln1`` and ``mamba``, a ``recurrent`` one ``ln1``, ``rec``, ``ln2`` and
+    ``mlp``."""
     if cfg.n_encoder_layers or cfg.cross_attn_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder/decoder stacks (cross-attention) have no port yet")
@@ -152,8 +163,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
     stack = []
     for spec in build_groups(cfg):
         blk = {}
-        for ui, (_, use_moe) in enumerate(spec.units):
+        for ui, (kind, use_moe) in enumerate(spec.units):
             norm = functools.partial(M.init_norm, cfg, (spec.repeats, cfg.d_model), device)
+            init = dict(repeats=spec.repeats, dtype=dtype, device=device)
+            if kind == "ssm":
+                blk[f"u{ui}"] = {"ln1": norm(), "mamba": init_mamba(generator, cfg, **init)}
+                continue
+            if kind == "recurrent":
+                blk[f"u{ui}"] = {"ln1": norm(), "rec": init_rglru(generator, cfg, **init),
+                                 "ln2": norm(), "mlp": M.init_mlp(generator, cfg, **init)}
+                continue
             layer = {"ln1": norm(),
                      "attn": init_attention(generator, cfg, repeats=spec.repeats,
                                             dtype=dtype, device=device)}
@@ -194,6 +213,16 @@ def _layer(tree, r: int):
 
 def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
                  kv_bits, kv_cap, length):
+    if kind in ("ssm", "recurrent"):
+        h = M.apply_norm(p["ln1"], x)
+        if kind == "ssm":
+            out, c = apply_mamba(p["mamba"], h, cfg=cfg, mode=mode, cache=cache,
+                                 length=length)
+            return x + out, c
+        out, c = apply_rglru(p["rec"], h, cfg=cfg, mode=mode, cache=cache, length=length,
+                             impl=impl)
+        x = x + out
+        return x + M.apply_mlp(p["mlp"], M.apply_norm(p["ln2"], x), cfg, impl=impl), c
     h = M.apply_norm(p["ln1"], x)
     out, c = apply_attention(p["attn"], h, cfg=cfg, kind=kind, mode=mode,
                              pos=pos, cache=None if cache is None else cache["attn"],
@@ -283,12 +312,17 @@ def embed_tokens(params, cfg, tokens, pos, dtype):
     sqrt(d_model) rounded to ``dtype`` first, as the reference multiplies
     (59.75 in bf16 at d_model 3584).  Without RoPE, plus the learned
     position table's rows at ``pos`` (:func:`take_rows`: a position past
-    the table gives NaN, and its request fails as the reference's does)."""
+    the table gives NaN, and its request fails as the reference's does), or
+    where there is no table (mamba2), the reference's sinusoidal
+    embedding of ``pos``."""
     h = params["embed"]["tok"][tokens].to(dtype)
     if cfg.embed_scale:
         h = h * round_to(math.sqrt(cfg.d_model), dtype)
     if not cfg.use_rope:
-        h = h + take_rows(params["embed"]["pos"], pos).to(dtype)
+        if "pos" in params["embed"]:
+            h = h + take_rows(params["embed"]["pos"], pos).to(dtype)
+        else:
+            h = h + M.sinusoidal_positions(pos, cfg.d_model).to(dtype)
     return h
 
 
@@ -321,7 +355,9 @@ def prefill(params, cfg: ModelConfig, tokens, *, impl="flash",
     (logits (B, V) at position ``length - 1``, cache): per group the
     layers' caches, exact at ``length`` with ``kv_cap`` entries (at least
     S; a ring of ``min(window, kv_cap)`` for local layers), quantised with
-    ``kv_bits``.  Causal masking makes attention exact under the pads."""
+    ``kv_bits``.  Causal masking makes attention exact under the pads; the
+    SSM and RG-LRU layers take ``length`` too (pads are identity steps and
+    never enter the conv state), so their caches are exact as well."""
     B, S = tokens.shape
     length = S if length is None else length
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
@@ -346,7 +382,11 @@ def prefill_packed(params, cfg: ModelConfig, tokens, positions, segments,
     prompt's last token; returns (logits (n_seg, V), raw per-token cache) —
     cache leaves keep the packed stream layout (k/v, or with ``kv_bits`` the
     code and scale planes, and pos), the caller scatters segments into KV
-    slots."""
+    slots.  Only attention layer kinds can be packed (SSM or recurrent
+    state would integrate across prompt boundaries)."""
+    if not all(k in ("global", "local") for k in cfg.layer_kinds):
+        raise ValueError(
+            f"packed prefill needs attention-only stacks, got {cfg.layer_kinds}")
     h = embed_tokens(params, cfg, tokens, positions.clamp_min(0), compute_dtype)
     h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
                           mode="prefill", pos=positions, impl=impl,
@@ -413,17 +453,23 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int, *,
                dtype=torch.bfloat16, device=None, kv_bits: int = 0):
     """The slot pool: per group, per unit, ``{"attn": {"k", "v", "pos"}}``
-    leaves (with ``kv_bits`` 8/4: ``{"k_q", "k_s", "v_q", "v_s", "pos"}``)
-    with a leading ``repeats`` axis."""
+    leaves (with ``kv_bits`` 8/4: ``{"k_q", "k_s", "v_q", "v_s", "pos"}``),
+    or for a recurrent unit ``{"conv", "state"}`` (ssm) or ``{"conv", "h"}``
+    (recurrent): ``conv`` in ``dtype``, ``state``/``h`` f32, whatever
+    ``kv_bits``.  Every leaf has a leading ``repeats`` axis."""
     device = resolve_device(device)
     caches = []
     for spec in build_groups(cfg):
         blk = {}
         for ui, (kind, _) in enumerate(spec.units):
-            one = init_kv_cache(cfg, kind, batch, kv_len, dtype, device,
-                                kv_bits=kv_bits)
-            blk[f"u{ui}"] = {"attn": {
-                k: t[None].repeat((spec.repeats,) + (1,) * t.dim())
-                for k, t in one.items()}}
+            if kind == "ssm":
+                one = init_ssm_cache(cfg, batch, dtype, device)
+            elif kind == "recurrent":
+                one = init_rglru_cache(cfg, batch, dtype, device)
+            else:
+                one = init_kv_cache(cfg, kind, batch, kv_len, dtype, device,
+                                    kv_bits=kv_bits)
+            one = {k: t[None].repeat((spec.repeats,) + (1,) * t.dim()) for k, t in one.items()}
+            blk[f"u{ui}"] = one if kind in ("ssm", "recurrent") else {"attn": one}
         caches.append(blk)
     return {"stack": caches}

@@ -28,10 +28,11 @@ iteration loop.  Each iteration runs:
 On a card the three programs (fused step, packed prefill, chunk step)
 are captured as CUDA graphs when the engine is built and replayed from
 then on (``executor.py``, ``graphs.py``); on the CPU they run eagerly.
-A stack that cannot be packed (MoE: packed prompts would share the
+A stack that cannot be packed (a recurrent layer kind, whose state would
+integrate across prompt boundaries, or MoE: packed prompts would share the
 experts' batch, as the reference rules) admits one prompt a call instead,
-right-padded to a chunk multiple and prefilled eagerly, and captures the
-fused step alone.
+right-padded to a chunk multiple with a prefill exact at the prompt's
+length, run eagerly, and captures the fused step alone.
 With ``spec_k > 0`` the speculative step (``spec_k`` draft steps, one
 batched verify, acceptance and rollback) is captured in the fused step's
 place and commits up to ``spec_k + 1`` tokens a slot a step; a draft
@@ -129,19 +130,25 @@ def _bucket_len(plen: int, kv_len: int) -> int:
     return min(b, kv_len)
 
 
+def attention_only(cfg: ModelConfig) -> bool:
+    """Whether every layer of the stack is an attention layer."""
+    return all(k in ("global", "local") for k in cfg.layer_kinds)
+
+
 def packable(cfg: ModelConfig) -> bool:
     """Whether several prompts may share a packed prefill stream and a
-    prompt may continue chunk by chunk (the reference's ``_packable``:
-    attention-only stacks without MoE).  The port's layer kinds are all
-    attention, so only MoE makes a stack non-packable."""
-    return not cfg.is_moe
+    prompt may continue chunk by chunk (the reference's ``_packable``):
+    attention-only stacks (SSM or recurrent state would integrate across
+    prompt boundaries) without MoE, cross-attention or an encoder."""
+    return attention_only(cfg) and not cfg.is_moe and not cfg.cross_attn_decoder \
+        and not cfg.n_encoder_layers
 
 
 def _check_spec(cfg: ModelConfig, ecfg: EngineConfig, draft) -> None:
     """What speculative decoding needs of the configuration (the
-    reference's checks and messages).  The port's layer kinds are all
-    attention, so a draft model's stack is attention-only, as the verify's
-    chunk pass needs."""
+    reference's checks and messages): a packable target, and a draft model
+    whose stack is attention-only, as the draft's decode and the verify's
+    chunk pass roll back by the ``pos`` leaves."""
     if ecfg.spec_k < 0:
         raise ValueError(f"spec_k must be >= 0, got {ecfg.spec_k}")
     if not (ecfg.fused and ecfg.packed):
@@ -169,6 +176,8 @@ def _check_spec(cfg: ModelConfig, ecfg: EngineConfig, draft) -> None:
         if draft[0].vocab_size != cfg.vocab_size:
             raise ValueError(f"draft vocab ({draft[0].vocab_size}) != target vocab "
                              f"({cfg.vocab_size})")
+        if not attention_only(draft[0]):
+            raise ValueError("draft model must be attention-only")
 
 
 class EngineStallError(RuntimeError):
@@ -285,7 +294,8 @@ class ServingEngine:
         # index == token position: global layers, not rings
         self._bucketed = all(k == "global" for k in cfg.layer_kinds)
         # packed prefill and chunked continuation need an attention-only
-        # stack without MoE; other stacks admit one padded prompt a call
+        # stack without MoE; other stacks (recurrent kinds, MoE) admit one
+        # padded prompt a call
         self._packable = packable(cfg)
         if self.device.type == "cuda":
             # the programs this configuration runs, replayed from graphs
@@ -750,9 +760,10 @@ class ServingEngine:
         self.executor.draft_prefill(self.pool.draft_cache, self._dev(toks), slot, plen)
 
     def _admit_padded(self, free):
-        """Per-request admission for stacks that cannot be packed (MoE):
-        each prompt right-padded to a chunk multiple, one batch-1 prefill
-        and insert (eager on the card: a few padded lengths, no graph)."""
+        """Per-request admission for stacks that cannot be packed (recurrent
+        kinds, MoE): each prompt right-padded to a chunk multiple, one
+        batch-1 prefill exact at its length and an insert (eager on the
+        card: a few padded lengths, no graph)."""
         while free and self.queue:
             nxt = self._pop_admissible()
             if nxt is None:

@@ -390,17 +390,19 @@ class Executor:
 
     def insert(self, cache, pcache, slot: int, length: int):
         """Copy a batch-1 prefill cache into slot ``slot`` of the pool, in
-        place, every leaf whole.  ``pos`` entries at cache indices >=
-        ``length`` are invalidated, so right-padding never leaves attendable
-        entries (ring caches hold only positions < length)."""
+        place, every leaf of every unit whole (attention K/V or codes, a
+        recurrent unit's ``conv`` and ``state``/``h``), cast to the pool's
+        dtype.  ``pos`` entries at cache indices >= ``length`` are
+        invalidated, so right-padding never leaves attendable entries (ring
+        caches hold only positions < length)."""
         for pool_g, one_g in zip(cache["stack"], pcache["stack"]):
             for unit, one in one_g.items():
-                pool = pool_g[unit]["attn"]
-                for name, leaf in one["attn"].items():
+                for (name, dst), (_, leaf) in zip(_unit_leaves(pool_g[unit]),
+                                                  _unit_leaves(one)):
                     if name == "pos":
                         idx = torch.arange(leaf.shape[-1], device=leaf.device)
                         leaf = torch.where(idx < length, leaf, -1)
-                    pool[name][:, slot].copy_(leaf[:, 0])
+                    dst[:, slot].copy_(leaf[:, 0])
         return cache
 
     @torch.no_grad()
@@ -414,6 +416,15 @@ class Executor:
         """Host-path sampling (``fused=False``): the sampled tokens, fetched.
         Draws come from the executor's generator, as on the fused path."""
         return self.fetch(self._sample(logits))
+
+
+def _unit_leaves(unit: dict):
+    """(name, tensor) of every leaf of one unit's cache, in a fixed order."""
+    for name, leaf in sorted(unit.items()):
+        if isinstance(leaf, dict):
+            yield from _unit_leaves(leaf)
+        else:
+            yield name, leaf
 
 
 def pool_args(name: str, pool) -> tuple:

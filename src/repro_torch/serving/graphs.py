@@ -11,6 +11,10 @@ What capture relies on:
 
 - **fixed shapes** per pool: ``(max_batch, kv_len, prefill_chunk,
   decode_chunk)``;
+- **a pool left as it was**: a dead slot's attention writes are dropped,
+  but the decode step advances every row's recurrent leaves (``conv``,
+  ``state``, ``h``), as the reference does, so those are copied before the
+  warm-up and written back after the capture;
 - **no host read** inside a program (``executor.py``, ``attention.py``);
 - **static tensors**: the pool's cache and state (and the draft model's
   pool, under speculative decoding) are written in place, so a graph
@@ -74,6 +78,10 @@ class ProgramGraphs:
         def call(name):
             return getattr(executor, name)(*pool_args(name, pool), *self.inputs[name])[2]
 
+        recurrent = [leaf for group in pool.cache["stack"] for unit in group.values()
+                     if "attn" not in unit for leaf in unit.values()]
+        saved = [leaf.clone() for leaf in recurrent]
+
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.stream):
             for name in programs:
@@ -88,6 +96,8 @@ class ProgramGraphs:
             launches.restore(before)
             self.graphs[name] = g
         torch.cuda.current_stream(dev).wait_stream(self.stream)
+        for leaf, before in zip(recurrent, saved):
+            leaf.copy_(before)
         gen.set_state(gen_state)
 
     def replay(self, name: str, host: tuple[np.ndarray, ...]) -> torch.Tensor:

@@ -3,8 +3,10 @@ the slotted KV cache, the per-slot decode state, and the slot lifecycle.
 
 One :class:`SlotPool` owns everything whose lifetime is "a slot":
 
-- the device KV cache built by ``models.transformer.init_cache`` (bf16,
-  or int8 codes with f32 scales under ``kv_bits``);
+- the device cache built by ``models.transformer.init_cache``: the KV
+  cache of the attention layers (bf16, or int8 codes with f32 scales under
+  ``kv_bits``) and the recurrent layers' ``conv`` (bf16) and
+  ``state``/``h`` (f32) leaves;
 - the fused-path device state: last token, position, budget and liveness
   per slot.  The state tensors, like the cache, are allocated once and
   every program writes them in place, so a CUDA graph captured over them
@@ -102,10 +104,11 @@ class SlotPool:
                     row.copy_(torch.where(row >= keep_len, -1, row))
 
     def valid_len(self, slot: int) -> int:
-        """1 + the highest valid cache position of ``slot`` (0 = empty): the
+        """1 + the highest valid cache position of ``slot`` (0 = empty, and
+        0 for a stack with no attention layer, which holds no ``pos``): the
         committed prefix a rollback left."""
-        return max(int(leaf[:, slot].max()) + 1
-                   for name, leaf in cache_leaves(self.cache) if name == "pos")
+        return max((int(leaf[:, slot].max()) + 1
+                    for name, leaf in cache_leaves(self.cache) if name == "pos"), default=0)
 
     def kill(self, slot: int) -> None:
         """Free ``slot`` and silence its device row so the decode sweep never
@@ -187,11 +190,14 @@ def _zero_host(B: int) -> dict[str, np.ndarray]:
 
 
 def cache_leaves(cache):
-    """(name, tensor) of every leaf of a slot pool (``T.init_cache``'s
-    tree; ``None`` has none), in a fixed order.  Axis 1 of every leaf is
-    the slot, axis 2 the cache entry (ring index)."""
+    """(name, tensor) of every attention leaf of a slot pool
+    (``T.init_cache``'s tree; ``None`` has none), in a fixed order.  Axis
+    1 of every leaf is the slot, axis 2 the cache entry (ring index).  A
+    recurrent unit's ``conv`` and ``state``/``h`` have no cache entries and
+    are not among them."""
     if cache is None:
         return
     for group in cache["stack"]:
         for unit in group.values():
-            yield from unit["attn"].items()
+            if "attn" in unit:
+                yield from unit["attn"].items()

@@ -16,8 +16,11 @@ device type is refused), and the draft model's pool, the speculative
 step's draws and the host-looped baseline's host arrays survive a restore.
 The front end drives a checkpointer.
 
-The reference's MLA and encoder-decoder pool round trips wait for those
-layer kinds in the port (``ROADMAP.md`` Queue 1 item 9).
+Reduced mamba2-130m and recurrentgemma-9b (padded admission, the
+recurrent ``conv`` and ``state``/``h`` leaves in the snapshot) are killed
+and restored the same way, and their snapshots held against the
+reference's.  The reference's MLA and encoder-decoder pool round trips
+wait for those layer kinds in the port (``ROADMAP.md`` Queue 1 item 9).
 """
 import dataclasses
 import json
@@ -568,6 +571,10 @@ def test_snapshot_and_restore_match_the_reference(model, tmp_path, kv_bits):
     turns last-bit differences into code steps); the meta records are
     equal but for times.  Restored and drained, the greedy streams equal the reference's
     restored streams but at a near-tie of the reference."""
+    _snapshot_and_restore_match(model, tmp_path, kv_bits)
+
+
+def _snapshot_and_restore_match(model, tmp_path, kv_bits, tol=BF16_LOGIT_TOL):
     (cfg_j, params_j), (cfg_t, params_t) = model["ref"], model["port"]
     settings = dict(SETTINGS, kv_bits=kv_bits)
     prompts = _prompts(cfg_t)
@@ -599,7 +606,7 @@ def test_snapshot_and_restore_match_the_reference(model, tmp_path, kv_bits):
         elif got.is_floating_point():
             want = want.astype(np.float32)
             err = float(np.abs(got.float().numpy() - want).max())
-            assert err <= BF16_LOGIT_TOL * max(1.0, float(np.abs(want).max())), (k, err)
+            assert err <= tol * max(1.0, float(np.abs(want).max())), (k, err)
         else:
             np.testing.assert_array_equal(got.numpy(), want, err_msg=k)
     assert _untimed(meta_t) == _untimed(meta_j)
@@ -620,3 +627,66 @@ def test_snapshot_and_restore_match_the_reference(model, tmp_path, kv_bits):
     for key in ("restores", "replayed_requests", "checkpoints_written", "decode_steps",
                 "prefill_calls", "host_transfers"):
         assert restored["port"].stats()[key] == restored["ref"].stats()[key], key
+
+
+# ---------------------------------------------------------------------------
+# the recurrent layer kinds: the snapshot carries the conv and state / h
+# leaves of every slot
+# ---------------------------------------------------------------------------
+
+RECURRENT = ("mamba2-130m", "recurrentgemma-9b")
+# float leaves of the recurrent models' snapshots, relative to their scale:
+# in bf16 the two packages part by a few roundings with depth (the
+# reference computes GELU and SiLU op by op in bf16, and bf16 matmuls sum
+# in another order), and recurrentgemma's fourth layer (the local layer's
+# K rows, behind two RG-LRU blocks and their MLPs) is 1.5% away
+RECURRENT_SNAPSHOT_TOL = 2e-2
+
+
+@pytest.fixture(scope="module")
+def recurrent():
+    """Reduced mamba2-130m and recurrentgemma-9b as ``model`` holds qwen:
+    the reference's f32 tree and the port's f32 copy of it."""
+    out = {}
+    for arch in RECURRENT:
+        cfg_j = jax_reduce_config(jax_get_config(arch))
+        params_j = TJ.init_params(cfg_j, jax.random.PRNGKey(0), param_dtype=jnp.float32)
+        cfg_t = reduce_config(get_config(arch))
+        out[arch] = {"ref": (cfg_j, params_j),
+                     "port": (cfg_t, params_from_jax(jax.device_get(params_j), cfg_t,
+                                                     device="cpu", dtype=torch.float32))}
+    return out
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("kill_at", [1, 3])
+def test_recurrent_kill_restore_bit_exact(recurrent, tmp_path, arch, kill_at):
+    """Killed after admission and mid-decode: the restored engine finishes
+    every request with the uninterrupted run's streams, bit for bit."""
+    eng = _check_resumed(recurrent[arch], _ecfg(), tmp_path, kill_at)
+    assert not eng._packable
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_snapshot_and_restore_match_the_reference(recurrent, tmp_path, arch):
+    """The reference's snapshot of the same kill schedule: the same leaf
+    names (``conv`` and ``state`` or ``h`` of every unit), shapes, dtypes
+    and values, the same meta record, and restored streams equal but at a
+    near-tie."""
+    _snapshot_and_restore_match(recurrent[arch], tmp_path, 0, tol=RECURRENT_SNAPSHOT_TOL)
+    _, meta, _ = sc.load_newest_intact(os.path.join(str(tmp_path), "port"))
+    arr, _, _ = sc.load_newest_intact(os.path.join(str(tmp_path), "port"))
+    leaves = {k.rsplit("/", 1)[-1] for k in arr if k.startswith("cache/")}
+    assert {"conv", "state" if arch == "mamba2-130m" else "h"} <= leaves
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_valid_len_of_a_recurrent_pool(recurrent, arch):
+    """``valid_len`` reads the ``pos`` leaves: 0 where the stack has none
+    (mamba2, as the reference's), the prompt's length on recurrentgemma's
+    local layers once a prompt is admitted."""
+    eng = _engine(recurrent[arch], _ecfg())
+    assert eng.pool.valid_len(0) == 0
+    eng.submit(np.arange(1, 6))
+    eng.step()
+    assert eng.pool.valid_len(0) == (0 if arch == "mamba2-130m" else 6)

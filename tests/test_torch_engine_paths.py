@@ -58,7 +58,8 @@ class HostReadGuard(TorchDispatchMode):
 @pytest.fixture(scope="module")
 def models():
     out = {}
-    for arch in ("qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b"):
+    for arch in ("qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b", "mamba2-130m",
+                 "recurrentgemma-9b"):
         cfg_j = jax_reduce_config(jax_get_config(arch))
         params_j = TJ.init_params(cfg_j, jax.random.PRNGKey(0), param_dtype=jnp.float32)
         cfg_t = reduce_config(get_config(arch))
@@ -101,12 +102,15 @@ def test_guard_refuses_each_host_read(read):
     ("qwen2.5-3b", {}), ("qwen2.5-3b", dict(kv_bits=8, decode_chunk=2)),
     ("qwen2.5-3b", dict(weight_bits=4, kv_bits=4, temperature=0.8)),
     ("gemma2-9b", {}), ("gemma2-9b", dict(kv_bits=8, temperature=0.8)),
-    ("qwen3-moe-30b-a3b", {}), ("qwen3-moe-30b-a3b", dict(kv_bits=8, temperature=0.8))])
+    ("qwen3-moe-30b-a3b", {}), ("qwen3-moe-30b-a3b", dict(kv_bits=8, temperature=0.8)),
+    ("mamba2-130m", {}), ("recurrentgemma-9b", dict(weight_bits=8, kv_bits=8,
+                                                    temperature=0.8))])
 def test_programs_read_nothing_back_to_the_host(models, arch, kw):
     """A whole drain with ``fused_step``, ``packed_prefill`` and
     ``chunk_step`` each run under the guard: every program is capturable.
-    A stack that cannot be packed (MoE) runs the fused step and, in the
-    packed programs' place, the padded prefill (``prefill_insert``)."""
+    A stack that cannot be packed (MoE, the recurrent kinds) runs the
+    fused step and, in the packed programs' place, the padded prefill
+    (``prefill_insert``)."""
     eng = _engine(models, arch, **kw)
     ex = eng.executor
     programs = PROGRAMS if packable(eng.cfg) else ("fused_step", "prefill_insert")
@@ -128,11 +132,13 @@ def test_programs_read_nothing_back_to_the_host(models, arch, kw):
 
 
 @pytest.mark.parametrize("name", ["executor.py", "graphs.py", "models/moe.py",
+                                  "models/ssm.py", "models/rglru.py",
                                   "kernels/grouped_matmul/ops.py",
                                   "kernels/grouped_matmul/ref.py"])
 def test_program_modules_hold_no_host_read(name):
     """The serving programs' modules (and the attention layer they run),
-    the MoE layer and its grouped matmul spell no host read: the one
+    the MoE layer and its grouped matmul, the SSD and RG-LRU blocks spell
+    no host read: the one
     transfer is ``Executor.fetch``'s."""
     module = SRC / name if "/" in name else SRC / "serving" / name
     for path in (module, SRC / "models" / "attention.py"):

@@ -168,6 +168,14 @@ def _compare_dequantised(codes, scale, codes_j, scale_j, bits, where):
 def _compare_cache(ct, cj, tol, what, dtype=np.float32, kv_bits=0):
     for gi, (gt, gj) in enumerate(zip(ct["stack"], cj["stack"])):
         for unit in gj:
+            if "attn" not in gj[unit]:
+                # a recurrent unit: conv and state / h
+                assert set(gt[unit]) == set(gj[unit])
+                for name, leaf in gj[unit].items():
+                    where = f"{what}: stack[{gi}].{unit}.{name}"
+                    assert tuple(gt[unit][name].shape) == leaf.shape, where
+                    _close(gt[unit][name], leaf, tol, where)
+                continue
             pool_t, pool_j = gt[unit]["attn"], gj[unit]["attn"]
             assert set(pool_t) == set(pool_j)
             for name, leaf in pool_j.items():
@@ -600,3 +608,70 @@ def test_chunk_longer_than_its_ring_matches_reference():
         for name in ("k", "v"):
             np.testing.assert_allclose(ct[name].numpy(), np.asarray(cj[name]),
                                        atol=2e-5, rtol=2e-5, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent layer kinds: reduced mamba2-130m (two SSD layers) and
+# recurrentgemma-9b (RG-LRU, RG-LRU, local MQA, RG-LRU), which serve through
+# the non-segmented prefill, the insert and decode (no packed prefill, no
+# chunk step)
+# ---------------------------------------------------------------------------
+
+RECURRENT_CASES = [(arch, case) for arch in ("mamba2-130m", "recurrentgemma-9b")
+                   for case in ("f32-ref", "f32-flash")] + \
+    [("recurrentgemma-9b", "w8kv8-f32-ref")]
+
+
+@pytest.mark.parametrize("arch,case", RECURRENT_CASES)
+def test_recurrent_prefill_insert_decode_match_reference(arch, case):
+    """A 19-token prompt right-padded to 24 (``length`` 19, ``kv_cap`` 48:
+    recurrentgemma's 16-entry ring wraps), its cache inserted into slot 1 of
+    a 3-slot pool as each engine inserts it (every leaf of every unit, the
+    recurrent ``conv`` and ``state``/``h`` among them), then three decode
+    steps with slots 0 and 2 dead (``pos`` -1: their attention writes
+    dropped, their recurrent leaves advanced, as the reference advances
+    them): logits and every pool leaf after each call, with the file's f32
+    bounds."""
+    from repro.serving.engine import EngineConfig as JaxEngineConfig
+    from repro.serving.executor import Executor as JaxExecutor
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.executor import Executor
+    cfg_j, cfg_t, tree = _reduced(arch)
+    _, impl, wbits, kvbits = CASES[case]
+    if wbits:
+        pt = TT.Transformer(cfg_t, quantize_params(
+            params_from_jax(tree, cfg_t, device="cpu", dtype=torch.float32), wbits))
+        tree = jax_quantize_params(tree, wbits)
+    else:
+        pt = params_from_jax(tree, cfg_t, device="cpu", dtype=torch.float32)
+    f32 = dict(compute_dtype=jnp.float32), dict(compute_dtype=torch.float32)
+    rng = np.random.default_rng(10)
+    S, length = 24, 19
+    toks = np.zeros((1, S), np.int32)
+    toks[0, :length] = rng.integers(0, cfg_t.vocab_size, length)
+    lj, cj = TJ.prefill(tree, cfg_j, {"tokens": jnp.asarray(toks)}, impl=impl, kv_cap=KV_LEN,
+                        length=jnp.int32(length), kv_bits=kvbits, **f32[0])
+    lt, ct = TT.prefill(pt, cfg_t, torch.from_numpy(toks), impl=impl, kv_cap=KV_LEN,
+                        length=length, kv_bits=kvbits, **f32[1])
+    _close(lt, lj, 2e-5, "prefill logits")
+    _compare_cache(ct, cj, 2e-5, "prefill cache", kv_bits=kvbits)
+    settings = dict(max_batch=B, kv_len=KV_LEN, kv_bits=kvbits)
+    pool_j = TJ.init_cache(cfg_j, B, KV_LEN, dtype=jnp.float32, kv_bits=kvbits)
+    pool_t = TT.init_cache(cfg_t, B, KV_LEN, dtype=torch.float32, device="cpu",
+                           kv_bits=kvbits)
+    pool_j = JaxExecutor(cfg_j, None, JaxEngineConfig(**settings))._insert_fn(
+        pool_j, cj, jnp.int32(1), jnp.int32(length))
+    Executor(cfg_t, None, EngineConfig(**settings), device="cpu").insert(pool_t, ct, 1, length)
+    _compare_cache(pool_t, pool_j, 2e-5, "inserted cache", kv_bits=kvbits)
+    for step in range(3):
+        tok = rng.integers(0, cfg_t.vocab_size, (B,)).astype(np.int32)
+        dpos = np.array([-1, length + step, -1], np.int32)
+        lj, pool_j = TJ.decode_step(tree, cfg_j, pool_j, jnp.asarray(tok), jnp.asarray(dpos),
+                                    impl=impl, **f32[0])
+        lt, pool_t = TT.decode_step(pt, cfg_t, pool_t, torch.from_numpy(tok),
+                                    torch.from_numpy(dpos), impl=impl, **f32[1])
+        _close(lt, lj, 2e-5, f"decode {step} logits")
+        _compare_cache(pool_t, pool_j, 2e-5, f"decode {step} cache", kv_bits=kvbits)
+    unit = pool_t["stack"][0]["u0"]
+    moved = unit["state" if arch == "mamba2-130m" else "h"][:, 0]
+    assert bool(moved.abs().max() > 0)          # a dead slot's recurrent leaves advance

@@ -57,9 +57,10 @@ def test_qwen_config_equals_the_reference_field_by_field():
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "minitron-8b",
-                                  "qwen3-moe-30b-a3b"])
+                                  "qwen3-moe-30b-a3b", "mamba2-130m", "recurrentgemma-9b"])
 def test_zoo_config_equals_the_reference_field_by_field(arch):
     _same_fields(arch)
+    assert get_config(arch).layer_kinds == jax_get_config(arch).layer_kinds
 
 
 # the paper's Table 3 (``configs/paper_models.py``)
@@ -77,12 +78,15 @@ def test_paper_config_equals_the_reference_field_by_field(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b",
-                                  *PAPER_ARCHS])
+                                  "mamba2-130m", "recurrentgemma-9b", *PAPER_ARCHS])
 def test_reduced_config_equals_the_reference_field_by_field(arch):
     """``reduce_config`` cuts as the reference's does: for qwen3-moe-30b-a3b
     8 experts, top-2, d_ff_expert 32, first_k_dense at most 1; for the
     paper's models a 64-row position table and two encoder layers where
-    they have them."""
+    they have them; mamba2-130m keeps no KV heads and no ``d_ff`` (2 SSD
+    layers of state 16, head dim 16, chunk 8), recurrentgemma-9b a full
+    period and its remainder layer (4 layers, 4/1 heads, LRU width 64,
+    window 16)."""
     from repro.config import reduce_config as jax_reduce_config
     from repro_torch.config import reduce_config
     port, ref = reduce_config(get_config(arch)), jax_reduce_config(jax_get_config(arch))
@@ -91,9 +95,31 @@ def test_reduced_config_equals_the_reference_field_by_field(arch):
     assert port.moe_layer_mask() == ref.moe_layer_mask()
     assert port.is_moe == ref.is_moe == (arch == "qwen3-moe-30b-a3b")
     assert port.encoder_layer_kinds == ref.encoder_layer_kinds
+    assert port.layer_kinds == ref.layer_kinds
+    if arch == "mamba2-130m":
+        assert (port.n_layers, port.d_model, port.n_kv_heads, port.d_ff) == (2, 64, 0, 0)
+        assert (port.ssm_state, port.ssm_head_dim, port.ssm_chunk) == (16, 16, 8)
+    if arch == "recurrentgemma-9b":
+        assert (port.n_layers, port.n_heads, port.n_kv_heads, port.lru_width,
+                port.window) == (4, 4, 1, 64, 16)
     if arch in PAPER_ARCHS:
         for seq_len in (16, 32, 100):
             a, b = reduce_config(get_config(arch), seq_len=seq_len), \
                 jax_reduce_config(jax_get_config(arch), seq_len=seq_len)
             assert (a.max_abs_positions, a.n_encoder_layers) == \
                 (b.max_abs_positions, b.n_encoder_layers)
+
+
+@pytest.mark.parametrize("change", [dict(n_kv_heads=0, d_ff=0), dict(n_kv_heads=3),
+                                    dict(n_kv_heads=0, n_heads=0, head_dim=16)])
+def test_reduce_config_keeps_no_kv_heads_and_no_mlp(change):
+    """``reduce_config`` of a stack without KV heads (an SSM stack) keeps
+    none, and one without an MLP no ``d_ff``, as the reference's does (the
+    port's divided by zero there); a KV-head count that does not divide the
+    4 reduced heads falls back to 2."""
+    from repro.config import reduce_config as jax_reduce_config
+    from repro_torch.config import reduce_config
+    port = reduce_config(dataclasses.replace(get_config("qwen2.5-3b"), **change))
+    ref = jax_reduce_config(dataclasses.replace(jax_get_config("qwen2.5-3b"), **change))
+    for f in dataclasses.fields(port):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name

@@ -1,6 +1,7 @@
 """The port's serving engine against the reference's, live, on the CPU, on
 reduced qwen2.5-3b and reduced gemma2-9b (its local ring through the
-engine).
+engine), the paper's models, and the recurrent layer kinds (reduced
+mamba2-130m and recurrentgemma-9b, admitted one padded prompt a call).
 
 Both engines serve the same prompts with the same weights (the reference's
 f32 tree, carried over by ``repro_torch.convert`` into bf16 — the values
@@ -174,6 +175,54 @@ def test_baseline_engine_matches_reference_engine(monkeypatch, arch, baseline, c
     assert eng_t.stats()["prefill_calls"] == len(PROMPT_LENS)   # one call a request
 
 
+# the recurrent layer kinds through padded admission (one prompt a call,
+# right-padded to a chunk multiple, its prefill exact at the prompt's
+# length): reduced mamba2-130m (two SSD layers) and recurrentgemma-9b
+# (RG-LRU, RG-LRU, local MQA, RG-LRU; prompts of up to 23 tokens wrap its
+# 16-entry ring); the default path, the baselines and recurrentgemma at
+# w8kv8 (its RG-LRU gate projections quantised with the MLP and attention)
+RECURRENT = ("mamba2-130m", "recurrentgemma-9b")
+RECURRENT_CASES = [(arch, case) for arch in RECURRENT
+                   for case in ("default", "unpacked", "hostpath")] \
+    + [("recurrentgemma-9b", "w8kv8")]
+
+
+@pytest.mark.parametrize("arch,case", RECURRENT_CASES)
+def test_recurrent_engine_matches_reference_engine(monkeypatch, arch, case):
+    paths = dict(BASELINES, **QUANT_CASES).get(case, {})
+    eng_j, eng_t = _compare_engines(monkeypatch, arch, **paths)
+    assert not eng_t._packable and not eng_j._packable
+    assert eng_t.stats()["prefill_calls"] == len(PROMPT_LENS)   # one call a request
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("role", ["target", "draft"])
+def test_speculative_decoding_refuses_recurrent_stacks(arch, role):
+    """``spec_k`` with a recurrent stack as the target, or as the draft
+    model of an attention target, raises the reference's ``ValueError``
+    in both packages."""
+    from repro_torch.models.transformer import init_params
+    target = arch if role == "target" else "qwen2.5-3b"
+    want = "packable stack" if role == "target" else "draft model must be attention-only"
+    ecfg = dict(spec_k=2, max_batch=2, kv_len=64,
+                spec_draft="self" if role == "target" else "model")
+    for get, reduce, init, build in (
+            (jax_get_config, jax_reduce_config,
+             lambda c: TJ.init_params(c, jax.random.PRNGKey(0)),
+             lambda c, p, d: JaxServingEngine(c, p, JaxEngineConfig(**ecfg), draft=d)),
+            (get_config, reduce_config,
+             lambda c: init_params(c, torch.Generator().manual_seed(0), device="cpu"),
+             lambda c, p, d: ServingEngine(c, p, EngineConfig(**ecfg), device="cpu",
+                                           draft=d))):
+        cfg = reduce(get(target))
+        draft = None
+        if role == "draft":
+            dcfg = reduce(get(arch))
+            draft = (dcfg, init(dcfg))
+        with pytest.raises(ValueError, match=want):
+            build(cfg, init(cfg), draft)
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_traced_engine_matches_reference_engine(monkeypatch, fused):
     """``trace=True``: the stats' keys equal the reference's, ``trace_*``
@@ -248,7 +297,8 @@ def test_mesh_raises():
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "gemma3-27b", "minitron-8b",
-                                  "llama2-7b", "gpt-j", "bert-base", "bert-large"])
+                                  "llama2-7b", "gpt-j", "bert-base", "bert-large",
+                                  "mamba2-130m", "recurrentgemma-9b"])
 def test_launcher_serves_each_registered_model_reduced_on_the_cpu(arch):
     """``python -m repro_torch.launch.serve --arch <id> --reduced --device
     cpu``: every request finishes with its budget of tokens.  A model with a
