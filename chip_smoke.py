@@ -60,7 +60,14 @@ Phases, each of which must pass or the script exits non-zero:
              quantised decodes over its 2048-entry rings, wrapped and not,
              the prefill without segments at its padded lengths 128..4608
              under window 2048, its int8 projections and the RG-LRU's
-             ``w_gate`` at 8..4608 rows), each timed likewise;
+             ``w_gate`` at 8..4608 rows), each timed likewise; and
+             deepseek-v2-236b's (MLA's prefill at q/k head dim 192 and v
+             128 over 128 heads on CUDA cores, in the layer's (B, S, H, d)
+             layout: its padded prompts of 128..384 tokens, a packed
+             stream, the buckets 32 and 64; its int8 ``wo``, dense MLP,
+             shared experts and 102400-column lm_head at 1..384 rows; the
+             expert path at 160 experts top-6, K 5120 N 1536 and back, T
+             48, 768 and 2304, the combine at k 6), each timed likewise;
 4. engine  — the port's serving engine on full-width qwen2.5-3b and
              gemma2-9b (its depth cut to 22 of 42 layers for the script's
              time; local 4096-entry rings and global layers, head dim 256)
@@ -194,6 +201,20 @@ Phases, each of which must pass or the script exits non-zero:
              recurrentgemma at fp and ``w8kv8`` with flash against ref
              logits; each a profiled decode step with the recurrent ops'
              device time and share, tokens/s, TTFT, TPOT and peak memory.
+10. mla   — once every earlier model is freed: deepseek-v2-236b at full
+             width (multi-head latent attention: a 512-wide latent and 64
+             RoPE dims shared by 128 heads; 160 experts of 1536 top-6 and 2
+             shared) with its depth cut to 8 of 60 layers (the dense first
+             layer and 7 MoE layers, ~58 GB), serving the 16 requests
+             (``kv_len`` 1024) through padded admission at fp and
+             ``w8kv8``, replayed and eagerly (streams bit for bit, launches
+             equal and as reckoned: a prefill kernel a layer on CUDA cores,
+             no decode kernel, the absorbed decode being plain PyTorch);
+             flash against ref logits under ``ForcedRouting``; a kill and
+             restore mid-decode at fp and a snapshot's latent pool (bf16
+             under ``kv_bits`` 8) restored bit for bit; a profiled decode
+             step at both with the absorbed attention's device time
+             (``mla_ms``) and the expert path's share.
 
 Each model's weights are freed before the next is made.
 
@@ -293,6 +314,8 @@ QWEN3_PREFILL = dict(Hq=32, Hkv=4, hd=128, segmented=False)
 MOE_EXPERTS, MOE_TOP_K = 128, 8
 MOE_GMM_SHAPES = {"gate/up": (2048, 768), "down": (768, 2048)}
 MOE_GMM_ROWS = {"decode": 64, "prefill128": 1024, "prefill384": 3072}
+QWEN3_GMM = dict(label="qwen3-moe", experts=MOE_EXPERTS, k=MOE_TOP_K, shapes=MOE_GMM_SHAPES,
+                 rows=MOE_GMM_ROWS)
 # the paper's Table 3 models (phase paper), full width and depth, in the
 # order served; the precisions each serves at, those whose flash logits are
 # held against ref, and the drains fed to Plane B's cosim_from_engine
@@ -354,6 +377,29 @@ SCAN_STEP_TOL = 1e-4
 # differ in their last bits), the scans sum in other trees, and 24 layers
 # carry the differences on
 UNPADDED_TOL = 1e-4
+# phase mla: deepseek-v2-236b at full width (d_model 5120, 128 heads, the
+# 512-wide latent and 64 RoPE dims, 160 experts of 1536 top-6 and 2 shared,
+# a 102400-row vocabulary) with its depth cut to 8 of 60 layers (the dense
+# first layer and 7 MoE layers: ~58 GB of bf16 weights, what the card holds
+# beside the pool), its pool's length and the precisions it serves at
+MLA_ARCH, MLA_LAYERS, MLA_KV_LEN, MLA_RUNS = "deepseek-v2-236b", 8, 1024, ("fp", "w8kv8")
+# its prefill attention as the engine runs it: batch-1 prompts padded to a
+# chunk multiple (128, 256, 384), 128 query heads over 128 KV heads, q/k
+# head dim 192 (128 + 64 RoPE), v 128, in the (B, S, H, d) layout the layer
+# passes; and the logits phase's packed 128-token stream and its
+# sequential prefills' buckets (32, 64)
+MLA_PREFILL = dict(Hq=128, Hkv=128, hd=192, hdv=128, segmented=False, bshd=True)
+MLA_PREFILL_LENGTHS = (128, 256, 384)
+# its expert path: (K, N) of gate/up and down over 160 experts, top-6, at
+# T = 8 slots x 6 (decode) and 128 / 384 prompt tokens x 6 (prefill)
+DS_EXPERTS, DS_TOP_K = 160, 6
+DS_GMM_SHAPES = {"gate/up": (5120, 1536), "down": (1536, 5120)}
+DS_GMM_ROWS = {"decode": 48, "prefill128": 768, "prefill384": 2304}
+# its quantised projections' rows: the decode step's 8 and the padded
+# prefills' lengths
+DS_GMM = dict(label="deepseek-v2", experts=DS_EXPERTS, k=DS_TOP_K, shapes=DS_GMM_SHAPES,
+              rows=DS_GMM_ROWS)
+MLA_MATMUL_ROWS = (8,) + MLA_PREFILL_LENGTHS
 DEVICE = "cuda"
 CARD = ""                          # nvidia-smi's name and power limit of the card
 
@@ -434,7 +480,10 @@ def decode_case(torch, rng, *, B=8, Skv=1024, Hq=16, Hkv=2, hd=128, lens=None,
 
 
 def prefill_case(torch, rng, *, S=128, Hq=16, Hkv=2, hd=128, lens=(37, 50, 20),
-                 window=0, softcap=0.0, segmented=True, dtype=None):
+                 window=0, softcap=0.0, segmented=True, dtype=None, hdv=None, bshd=False):
+    """Inputs of one prefill call, (1, H, S, d) each; V rows of ``hdv``
+    (default hd); ``bshd``: views of (1, S, H, d) tensors, as an attention
+    layer passes them (the MLA layer's q, k and v among them)."""
     dtype = dtype or torch.bfloat16
     dev = DEVICE
     seg = np.full((1, S), -1, np.int32)
@@ -443,9 +492,12 @@ def prefill_case(torch, rng, *, S=128, Hq=16, Hkv=2, hd=128, lens=(37, 50, 20),
         seg[0, off:off + n] = i
         off += n
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    q = torch.randn((1, Hq, S, hd), generator=g, device=dev).to(dtype)
-    k = torch.randn((1, Hkv, S, hd), generator=g, device=dev).to(dtype)
-    v = torch.randn((1, Hkv, S, hd), generator=g, device=dev).to(dtype)
+
+    def randn(H, d):
+        if bshd:
+            return torch.randn((1, S, H, d), generator=g, device=dev).to(dtype).transpose(1, 2)
+        return torch.randn((1, H, S, d), generator=g, device=dev).to(dtype)
+    q, k, v = randn(Hq, hd), randn(Hkv, hd), randn(Hkv, hdv or hd)
     return dict(q=q, k=k, v=v, window=window, softcap=softcap,
                 segments=torch.from_numpy(seg).to(dev) if segmented else None,
                 seg_np=seg if segmented else None)
@@ -503,11 +555,12 @@ def two_streams(torch, calls):
     return len(outs), all(torch.equal(out, alone[j]) for j, out in outs)
 
 
-def expected_prefill_design(dtype, hd):
-    """Tensor cores for bf16 with head dim 64 or 128 (prefill.cu's plan);
-    CUDA cores otherwise."""
+def expected_prefill_design(dtype, hd, hdv=None):
+    """Tensor cores for bf16 with q/k and v head dims equal, 64 or 128
+    (prefill.cu's plan); CUDA cores otherwise."""
     import torch
-    return "tensor_core" if dtype == torch.bfloat16 and hd in (64, 128) else "cuda_core"
+    return "tensor_core" if dtype == torch.bfloat16 and hd in (64, 128) and \
+        hdv in (None, hd) else "cuda_core"
 
 
 def check_attention_checked(what, kernels, checked):
@@ -719,10 +772,19 @@ def run_kernel_checks(torch):
     # attend causally like real ones and are never read), from rng_rg
     rg_cases = {f"non-segmented recurrentgemma-9b S{S} Hq16 Hkv1 hd256 window2048":
                 dict(RGEMMA_PREFILL, S=S) for S in RGEMMA_PREFILL_LENGTHS}
+    # deepseek-v2-236b's MLA prefills (hd 192, hdv 128, 128 heads: CUDA
+    # cores): its padded prompts, the logits phase's packed stream and its
+    # sequential buckets, from a generator of their own
+    rng_mla = np.random.default_rng(15)
+    mla_cases = {f"non-segmented deepseek-v2 MLA S{S} Hq128 hd192 hdv128": dict(MLA_PREFILL, S=S)
+                 for S in (32, 64) + MLA_PREFILL_LENGTHS}
+    mla_cases["deepseek-v2 MLA S128 Hq128 hd192 hdv128, 3 prompts + pad"] = dict(
+        MLA_PREFILL, S=128, segmented=True, lens=(30, 61, 17))
     errs = []
     for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
                                + [(n, kw, rng_moe) for n, kw in moe_cases.items()]
-                               + [(n, kw, rng_rg) for n, kw in rg_cases.items()]):
+                               + [(n, kw, rng_rg) for n, kw in rg_cases.items()]
+                               + [(n, kw, rng_mla) for n, kw in mla_cases.items()]):
         c = prefill_case(torch, case_rng, **kw)
         args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"])
         out, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
@@ -736,7 +798,7 @@ def run_kernel_checks(torch):
         if c["seg_np"] is not None:
             pad = torch.from_numpy(c["seg_np"][0] < 0).to(DEVICE)
             pad_ok = bool((out[:, :, pad] == 0).all())
-        want = expected_prefill_design(c["q"].dtype, c["q"].shape[-1])
+        want = expected_prefill_design(c["q"].dtype, c["q"].shape[-1], c["v"].shape[-1])
         print(f"kernel flash_prefill case={name!r} design={kernel.design} "
               f"kernel={attention_kernel_name(kernel)} max_abs_err={err:.3e} tol={tol:g}"
               f" pad_rows_zero={pad_ok}")
@@ -758,6 +820,7 @@ def run_kernel_checks(torch):
            for arch, kw in PAPER_PREFILL.items() if arch != "bert-base"},
         "recurrentgemma_9b": prefill_timing(torch, rng_rg, dict(RGEMMA_PREFILL, S=4608),
                                             iters=20),
+        "deepseek_v2_236b": prefill_timing(torch, rng_mla, dict(MLA_PREFILL, S=384), iters=20),
         "cases": errs}
     return records
 
@@ -774,7 +837,7 @@ def prefill_timing(torch, rng, kw, iters=200):
     from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill_launches
     c = prefill_case(torch, rng, **kw)
     _, Hq, S, hd = c["q"].shape
-    Hkv = c["k"].shape[1]
+    Hkv, hdv = c["k"].shape[1], c["v"].shape[-1]
     args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"])
     _, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
         c["q"], c["k"], c["v"], **args), "prefill")
@@ -793,17 +856,19 @@ def prefill_timing(torch, rng, kw, iters=200):
         c["q"], c["k"], c["v"], attn_mask=lib_mask, enable_gqa=True), iters)
     pairs = int(lib_mask.sum().item())                     # attended (q, k) pairs
     esz = c["q"].element_size()
-    nbytes = (2 * Hq * S * hd + 2 * Hkv * S * hd) * esz + \
+    # q and k of hd, v and out of hdv; QK^T and PV
+    nbytes = (Hq * S * (hd + hdv) + Hkv * S * (hd + hdv)) * esz + \
         (c["seg_np"].nbytes if c["seg_np"] is not None else 0)
-    flops = 4 * pairs * Hq * hd
+    flops = 2 * pairs * Hq * (hd + hdv)
     b_ms, b_by = bound(nbytes, flops, str(c["q"].dtype))
     name = attention_kernel_name(kernel)
-    print(f"kernel flash_prefill timing shape={[1, S, Hq, Hkv, hd]} kernel={name} "
+    shape = [1, S, Hq, Hkv, hd] + ([hdv] if hdv != hd else [])
+    print(f"kernel flash_prefill timing shape={shape} kernel={name} "
           f"segmented={c['segments'] is not None} window={c['window']} "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
           f"bound_ms={b_ms:.5f} ({b_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms, "shape": [1, S, Hq, Hkv, hd], "kernel": name,
+            "library_ms": library_ms, "shape": shape, "kernel": name,
             "design": kernel.design, "attended_pairs": pairs, "softcap": c["softcap"]}
 
 
@@ -1053,15 +1118,19 @@ def check_matmul(torch, label, name, fwd, plain, x, *args, **kw):
 
 def projection_shapes(cfg):
     """(K, N) of each distinct dense projection of a model, named by its
-    weights: q, k and v, o, the MLP's (gate and up, down; none where every
-    layer is MoE), the RG-LRU's gate and an untied lm_head."""
+    weights: q, k and v (an MLA layer's factors stay fp: none), o, the
+    MLP's (gate and up, down; none where every layer is MoE), the shared
+    experts' MLP, the RG-LRU's gate and an untied lm_head."""
     D, hd, hdv = cfg.d_model, cfg.head_dim, cfg.v_head_dim
+    qkv = () if cfg.is_mla else (("wq", (D, cfg.n_heads * hd)),
+                                 ("wk/wv", (D, cfg.n_kv_heads * hd)))
     mlp = (("w_up", (D, cfg.d_ff)), ("w_down", (cfg.d_ff, D))) \
         if not all(cfg.moe_layer_mask()) else ()
+    width = cfg.n_shared_experts * cfg.d_ff_expert
+    shared = (("shared w_up", (D, width)), ("shared w_down", (width, D))) if width else ()
     rec = (("rec w_gate", (D, cfg.lru_width)),) if "recurrent" in cfg.layer_kinds else ()
     shapes = {}
-    for what, kn in (("wq", (D, cfg.n_heads * hd)), ("wk/wv", (D, cfg.n_kv_heads * hd)),
-                     ("wo", (cfg.n_heads * hdv, D))) + mlp + rec + \
+    for what, kn in qkv + (("wo", (cfg.n_heads * hdv, D)),) + mlp + shared + rec + \
             ((("lm_head", (D, cfg.vocab_size)),) if not cfg.tie_embeddings else ()):
         shapes.setdefault(kn, what)
     return shapes
@@ -1142,6 +1211,15 @@ def run_matmul_checks(torch):
     for (K, N), what in projection_shapes(get_config(RGEMMA_ARCH)).items():
         for M in RGEMMA_MATMUL_ROWS:
             cases[f"recurrentgemma-9b {what} int8 ({M}, {K}, {N})"] = (M, K, N, 8, 0, None)
+    # deepseek-v2-236b's quantised projections at int8 (phase mla's w8kv8):
+    # the MLA layers' wo, the dense layer's MLP, the shared experts' and the
+    # untied lm_head, at the decode step's 8 rows and the padded prefills'
+    # 128, 256 and 384; the lm_head at the decode step and a prefill's last
+    # row
+    for (K, N), what in projection_shapes(
+            dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)).items():
+        for M in ((1, 8) if what == "lm_head" else MLA_MATMUL_ROWS):
+            cases[f"deepseek-v2 {what} int8 ({M}, {K}, {N})"] = (M, K, N, 8, 0, None)
     errs = []
     for name, (M, K, N, bits, group, dtype) in cases.items():
         x, w = operands(M, K, N, dtype or torch.bfloat16)
@@ -1208,7 +1286,11 @@ def run_matmul_checks(torch):
                    "decode_w_down_int8": shape_record(8, 11008, 4096, 8)},
         recurrentgemma_9b={"decode_w_gate_int8": shape_record(8, 4096, 4096, 8),
                            "decode_w_up_int8": shape_record(8, 4096, 12288, 8),
-                           "decode_w_down_int8": shape_record(8, 12288, 4096, 8)})}
+                           "decode_w_down_int8": shape_record(8, 12288, 4096, 8)},
+        deepseek_v2_236b={"decode_wo_int8": shape_record(8, 16384, 5120, 8),
+                          "prefill384_wo_int8": shape_record(384, 16384, 5120, 8),
+                          "decode_shared_w_up_int8": shape_record(8, 5120, 3072, 8),
+                          "decode_lm_head_int8": shape_record(8, 5120, 102400, 8)})}
 
     # -- the crossbar layout --------------------------------------------------
     cases = {"kernel_micro (256, 1024, 512)": (256, 1024, 512, None),
@@ -1368,10 +1450,11 @@ def run_grouped_checks(torch):
     # (sizes, K, N, dtype) of the products; the scaled product and gate/up
     # run at the same sizes
     cases = {}
-    for what, (K, N) in MOE_GMM_SHAPES.items():
-        for phase, T in MOE_GMM_ROWS.items():
-            cases[f"qwen3-moe {what} {phase} T{T} ({K}, {N})"] = (
-                routed_sizes(rng, T // MOE_TOP_K), K, N, bf16)
+    for label, m in (("qwen3-moe", QWEN3_GMM), ("deepseek-v2", DS_GMM)):
+        for what, (K, N) in m["shapes"].items():
+            for phase, T in m["rows"].items():
+                cases[f"{label} {what} {phase} T{T} ({K}, {N})"] = (
+                    routed_sizes(rng, T // m["k"], m["experts"], m["k"]), K, N, bf16)
     cases.update({
         "empty experts first, between and last (64, 200)": ([0, 5, 0, 1, 9, 0], 64, 200, bf16),
         "every row to one expert T3072 (2048, 768)": (
@@ -1411,10 +1494,13 @@ def run_grouped_checks(torch):
                 lambda: G.grouped_gate_up_fwd(xt, rows, w, wu, off, act),
                 lambda: G.grouped_gate_up_plain(xt, rows, w, wu, off, act), dtype, want))
     # the combine: k 1, 2 and 8, each token's experts drawn in any order
+    Dd = DS_GMM_SHAPES["down"][1]
     for k, tokens, D, dtype in ((8, 8, Nd, bf16), (8, 128, Nd, bf16), (8, 384, Nd, bf16),
                                 (1, 64, Nd, bf16), (2, 32, Nd, bf16), (8, 8, 36, bf16),
-                                (2, 16, Nd, f32), (8, 5, 37, f32)):
-        order, _, _ = routing(torch, rng, tokens, k=k)
+                                (2, 16, Nd, f32), (8, 5, 37, f32),
+                                (6, 8, Dd, bf16), (6, 128, Dd, bf16), (6, 384, Dd, bf16)):
+        order, _, _ = routing(torch, rng, tokens, experts=DS_EXPERTS if k == 6 else MOE_EXPERTS,
+                              k=k)
         ys = torch.randn((tokens * k, D), generator=g, device=DEVICE).to(dtype)
         want = "vec16" if D * ys.element_size() % 16 == 0 else "scalar"
         errs["combine"].append(grouped_case(
@@ -1422,12 +1508,14 @@ def run_grouped_checks(torch):
             lambda: G.combine_fwd(ys, order, k), lambda: G.combine_plain(ys, order, k),
             dtype, want))
 
-    def product_timing(what, phase, scaled=False):
-        """Device time at one of the MoE phase's shapes, cycling over expert
-        banks that span twice the L2 (a layer's bank is read once a step)."""
-        K, N = MOE_GMM_SHAPES[what]
-        T = MOE_GMM_ROWS[phase]
-        sizes = routed_sizes(np.random.default_rng(12), T // MOE_TOP_K)
+    def product_timing(what, phase, scaled=False, m=None):
+        """Device time at one of the MoE phase's shapes (or of the model
+        ``m``), cycling over expert banks that span twice the L2 (a layer's
+        bank is read once a step)."""
+        m = m or QWEN3_GMM
+        K, N = m["shapes"][what]
+        T = m["rows"][phase]
+        sizes = routed_sizes(np.random.default_rng(12), T // m["k"], m["experts"], m["k"])
         selected = int((sizes > 0).sum())
         copies = cold_copies(selected * K * N * 2)
         x, ws, off = grouped_operands(torch, g, sizes, K, N, bf16, copies)
@@ -1445,7 +1533,7 @@ def run_grouped_checks(torch):
                                                                             else 0)
         b_ms, b_by = bound(nbytes, 2 * T * K * N, str(bf16))
         label = ("scaled " if scaled else "") + what
-        print(f"kernel grouped_matmul timing {label} {phase} shape=({T}, {K}, {N}) "
+        print(f"kernel grouped_matmul timing {m['label']} {label} {phase} shape=({T}, {K}, {N}) "
               f"selected_experts={selected} kernel={grouped_kernel_name(kernel)} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} ({lib_name}, unscaled) "
               f"bound_ms={b_ms:.5f} ({b_by}) weight_rate_tb_s="
@@ -1455,19 +1543,22 @@ def run_grouped_checks(torch):
                 "shape": [T, K, N], "selected_experts": selected,
                 "kernel": grouped_kernel_name(kernel), "copies": copies}
 
-    def gate_up_timing(phase):
+    def gate_up_timing(phase, m=None):
         """The fused gate/up against its plain version, the library's
         composition (the gather, two ``torch._grouped_mm`` and silu * mul)
         and the same composition on the new product."""
-        T = MOE_GMM_ROWS[phase]
-        tokens = T // MOE_TOP_K
-        order, off, sizes = routing(torch, np.random.default_rng(13), tokens)
+        m = m or QWEN3_GMM
+        Kg, Ng = m["shapes"]["gate/up"]
+        T = m["rows"][phase]
+        tokens = T // m["k"]
+        order, off, sizes = routing(torch, np.random.default_rng(13), tokens, m["experts"],
+                                    m["k"])
         selected = int((sizes > 0).sum())
         copies = cold_copies(2 * selected * Kg * Ng * 2)
         x = torch.randn((tokens, Kg), generator=g, device=DEVICE).to(bf16)
-        rows = order // MOE_TOP_K
-        pairs = [(grouped_bank(torch, g, MOE_EXPERTS, Kg, Ng, bf16),
-                  grouped_bank(torch, g, MOE_EXPERTS, Kg, Ng, bf16)) for _ in range(copies)]
+        rows = order // m["k"]
+        pairs = [(grouped_bank(torch, g, m["experts"], Kg, Ng, bf16),
+                  grouped_bank(torch, g, m["experts"], Kg, Ng, bf16)) for _ in range(copies)]
         nxt = cycler(pairs)
 
         def fused():
@@ -1499,7 +1590,8 @@ def run_grouped_checks(torch):
         nbytes = (2 * selected * Kg * Ng * 2 + tokens * Kg * 2 + T * 8 + T * Ng * 2
                   + off.numel() * 4)
         b_ms, b_by = bound(nbytes, 2 * 2 * T * Kg * Ng, str(bf16))
-        print(f"kernel grouped_gate_up timing {phase} shape=({T}, {Kg}, {Ng}) tokens={tokens} "
+        print(f"kernel grouped_gate_up timing {m['label']} {phase} shape=({T}, {Kg}, {Ng}) "
+              f"tokens={tokens} "
               f"selected_experts={selected} kernel={grouped_kernel_name(kernel)} ms={ms:.4f} "
               f"unfused_new_product_ms={unfused_ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} (x[rows], 2 x {lib_name}, silu * mul) "
@@ -1512,25 +1604,27 @@ def run_grouped_checks(torch):
                 "bound_by": b_by, "shape": [T, Kg, Ng], "selected_experts": selected,
                 "kernel": grouped_kernel_name(kernel), "copies": copies}
 
-    def combine_timing(phase):
+    def combine_timing(phase, m=None):
         """The combine against its plain version and ``index_add_`` into
         zeros (the same sums in the order the atomics land)."""
-        T = MOE_GMM_ROWS[phase]
-        tokens = T // MOE_TOP_K
-        order, _, _ = routing(torch, np.random.default_rng(14), tokens)
+        m = m or QWEN3_GMM
+        k, Nd = m["k"], m["shapes"]["down"][1]
+        T = m["rows"][phase]
+        tokens = T // k
+        order, _, _ = routing(torch, np.random.default_rng(14), tokens, m["experts"], k)
         yss = [torch.randn((T, Nd), generator=g, device=DEVICE).to(bf16)
                for _ in range(cold_copies(T * Nd * 2))]
         nxt = cycler(yss)
-        tok = order // MOE_TOP_K
-        _, kernel = ran_one(G.kernel_launches, lambda: G.combine_fwd(nxt(), order, MOE_TOP_K),
+        tok = order // k
+        _, kernel = ran_one(G.kernel_launches, lambda: G.combine_fwd(nxt(), order, k),
                             "combine")
-        ms = device_ms(lambda: G.combine_fwd(nxt(), order, MOE_TOP_K), 100)
-        plain_ms = device_ms(lambda: G.combine_plain(nxt(), order, MOE_TOP_K), 20)
+        ms = device_ms(lambda: G.combine_fwd(nxt(), order, k), 100)
+        plain_ms = device_ms(lambda: G.combine_plain(nxt(), order, k), 20)
         library_ms = device_ms(lambda: torch.zeros((tokens, Nd), dtype=bf16, device=DEVICE)
                                .index_add_(0, tok, nxt()), 50)
         nbytes = T * Nd * 2 + tokens * Nd * 2 + T * 8
         b_ms, b_by = bound(nbytes, T * Nd, str(bf16))
-        print(f"kernel combine timing {phase} rows={T} tokens={tokens} D={Nd} "
+        print(f"kernel combine timing {m['label']} {phase} rows={T} tokens={tokens} k={k} D={Nd} "
               f"kernel={grouped_kernel_name(kernel)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} (zeros + index_add_) bound_ms={b_ms:.5f} ({b_by})")
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1557,6 +1651,9 @@ def run_grouped_checks(torch):
             "gate_up_prefill384": product_timing("gate/up", "prefill384"),
             "down_prefill384": product_timing("down", "prefill384"),
             "gate_up_prefill128": product_timing("gate/up", "prefill128"),
+            "deepseek_v2_236b": {
+                "scaled_down_decode": product_timing("down", "decode", True, DS_GMM),
+                "scaled_down_prefill384": product_timing("down", "prefill384", True, DS_GMM)},
             "cases": errs["grouped_matmul"]},
         "grouped_gate_up": {
             "name": "grouped_gate_up", "route": "cuda", "source": source,
@@ -1564,6 +1661,8 @@ def run_grouped_checks(torch):
             "max_abs_err": max(e["max_abs_err"] for e in errs["grouped_gate_up"]),
             **{k: gate_up[k] for k in keys}, "unfused_ms": gate_up["unfused_ms"],
             "timed": "silu, decode", "prefill384": gate_up_timing("prefill384"),
+            "deepseek_v2_236b": {"decode": gate_up_timing("decode", DS_GMM),
+                                 "prefill384": gate_up_timing("prefill384", DS_GMM)},
             "cases": errs["grouped_gate_up"]},
         "combine": {
             "name": "combine", "route": "cuda", "source": source,
@@ -1572,7 +1671,10 @@ def run_grouped_checks(torch):
                              "the weighted expert rows",
             "max_abs_err": max(e["max_abs_err"] for e in errs["combine"]),
             **{k: comb[k] for k in keys}, "timed": "decode",
-            "prefill384": combine_timing("prefill384"), "cases": errs["combine"]}}
+            "prefill384": combine_timing("prefill384"),
+            "deepseek_v2_236b": {"decode": combine_timing("decode", DS_GMM),
+                                 "prefill384": combine_timing("prefill384", DS_GMM)},
+            "cases": errs["combine"]}}
 
 
 def check_grouped_checked(what, kernels):
@@ -1625,18 +1727,34 @@ def attention_layers(cfg):
     return sum(k in ("global", "local") for k in cfg.layer_kinds)
 
 
+def decode_attention_layers(cfg):
+    """Layers whose decode runs a decode kernel: every attention layer but
+    MLA's, whose absorbed decode is plain PyTorch (the reference's is
+    jnp)."""
+    return 0 if cfg.is_mla else attention_layers(cfg)
+
+
+def attention_head_dim(cfg):
+    """The q/k head dim of the prefill kernel's calls: MLA's carries its
+    RoPE dims (128 + 64 at deepseek-v2)."""
+    return cfg.head_dim + (cfg.rope_head_dim if cfg.is_mla else 0)
+
+
 def projections(cfg):
     """Dense projections of one forward call (each a dequant-matmul under
-    ``weight_bits``): q, k, v, o in every attention layer, the MLP's (three
-    gated, two plain) in every layer that has one and is not MoE (the
-    experts stay bf16; an SSD layer has none), the RG-LRU's ``w_gate`` in
-    every recurrent layer (its other projections and Mamba's are no
-    ``QUANT_PARAM_KEYS`` name and stay bf16), and an untied lm_head once."""
+    ``weight_bits``): q, k, v, o in every attention layer (o alone in an
+    MLA layer, whose factors stay bf16), the MLP's (three gated, two plain)
+    in every layer that has one and is not MoE (the experts stay bf16; an
+    SSD layer has none), the shared experts' three in every MoE layer that
+    has them, the RG-LRU's ``w_gate`` in every recurrent layer (its other
+    projections and Mamba's are no ``QUANT_PARAM_KEYS`` name and stay bf16),
+    and an untied lm_head once."""
     kinds = cfg.layer_kinds
     mlp = (3 if cfg.glu else 2) * sum(not m and k != "ssm"
                                       for k, m in zip(kinds, cfg.moe_layer_mask()))
-    return 4 * attention_layers(cfg) + mlp + kinds.count("recurrent") + \
-        (0 if cfg.tie_embeddings else 1)
+    shared = 3 * moe_layers(cfg) if cfg.n_shared_experts else 0
+    return (1 if cfg.is_mla else 4) * attention_layers(cfg) + mlp + shared + \
+        kinds.count("recurrent") + (0 if cfg.tie_embeddings else 1)
 
 
 def moe_layers(cfg):
@@ -1674,7 +1792,8 @@ def expected_launches(cfg, st, bits, paths, draft):
     one catch-up step), and a verify through every target projection (its
     attention takes the oracle); prefills run every target projection.
     Every forward call (a decode step or a prefill) runs the fused gate/up,
-    the down product and the combine once in each MoE layer."""
+    the down product and the combine once in each MoE layer.  An MLA
+    layer's decode launches no decode kernel."""
     steps, calls = st["decode_steps"], st["decode_steps"] + st["prefill_calls"]
     decode = "flash_decode_quant" if bits.get("kv_bits") else "flash_decode"
     want = {"flash_decode": 0, "flash_decode_quant": 0,
@@ -1683,11 +1802,11 @@ def expected_launches(cfg, st, bits, paths, draft):
                             moe_layers(cfg) * calls)}
     k = paths.get("spec_k", 0)
     if not k:
-        want[decode] = steps * attention_layers(cfg)
+        want[decode] = steps * decode_attention_layers(cfg)
     elif paths.get("spec_draft") == "model":
-        want["flash_decode"] = steps * (k + 1) * attention_layers(draft[0])
+        want["flash_decode"] = steps * (k + 1) * decode_attention_layers(draft[0])
     else:
-        want[decode] = steps * k * attention_layers(cfg)
+        want[decode] = steps * k * decode_attention_layers(cfg)
         # a self-draft is quantised at spec_draft_bits (default 8), or is
         # the serving params themselves
         if paths.get("spec_draft_bits", 8) or bits.get("weight_bits"):
@@ -1827,8 +1946,9 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
     check((prefills > 0) == (n_attn > 0) and prefills % max(n_attn, 1) == 0,
           f"{label}: prefill kernel launches {launches['flash_prefill']}")
     # every packed prefill on the design its head dim calls for (tensor cores
-    # at 64/128, CUDA cores at 256), in kernels that phase 3 checked
-    want_pf = expected_prefill_design(torch.bfloat16, cfg.head_dim)
+    # at 64/128, CUDA cores at 256 and at MLA's 192/128), in kernels that
+    # phase 3 checked
+    want_pf = expected_prefill_design(torch.bfloat16, attention_head_dim(cfg))
     on = sum(n for k, n in attn["prefill"].items() if k.design == want_pf)
     check(on == launches["flash_prefill"],
           f"{run}: {on} of {launches['flash_prefill']} prefill launches on {want_pf}")
@@ -3174,6 +3294,142 @@ def run_recurrent(torch, by_run):
     print(f"recurrent arch={RGEMMA_ARCH} done at {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase mla: multi-head latent attention (deepseek-v2-236b)
+# ---------------------------------------------------------------------------
+
+def mla_ms(torch, cfg):
+    """Device time (ms) of a decode step's absorbed MLA attention alone
+    (``models.attention.mla_absorbed``: the latent queries through W_uk,
+    f32 scores over the pool's latents and RoPE keys, the softmax, the
+    latent context and W_uv; the layer's projections and the pool write
+    left out): one layer at the pool's 8 slots over all ``MLA_KV_LEN``
+    entries (the path computes every entry, valid or not), cycling over
+    pools and ``wkv_b`` that span twice the L2 (each layer reads its own),
+    times the layers."""
+    from repro_torch.models.attention import mla_absorbed
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    B, S, bf16 = MAX_BATCH, MLA_KV_LEN, torch.bfloat16
+    H, dn, dr, dv, kvr = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim,
+                          cfg.kv_lora_rank)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=DEVICE) * scale).to(bf16)
+    q_nope, q_rope = randn(B, 1, H, dn), randn(B, 1, H, dr)
+    pos = torch.full((B, 1), S - 1, dtype=torch.int32, device=DEVICE)
+    kv_pos = torch.arange(S, dtype=torch.int32, device=DEVICE).expand(B, S).contiguous()
+    nbytes = (B * S * (kvr + dr) + kvr * H * (dn + dv)) * 2
+    layers = [({"ckv": randn(B, S, kvr), "kr": randn(B, S, dr), "pos": kv_pos},
+               randn(kvr, H, dn + dv, scale=kvr ** -0.5)) for _ in range(cold_copies(nbytes))]
+    nxt = cycler(layers)
+    scale = (dn + dr) ** -0.5
+
+    def step():
+        cache, wkv_b = nxt()
+        return mla_absorbed(q_nope, q_rope, cache, pos, wkv_b, scale)
+    with torch.no_grad():
+        ms = device_ms(step, 50)
+    return {"layer_ms": ms, "layers": cfg.n_layers, "step_ms": ms * cfg.n_layers,
+            "bytes_a_layer": nbytes}
+
+
+def mla_snapshot_latents(torch, cfg, params, run):
+    """A snapshot taken mid-decode restored into a fresh engine (its graphs
+    captured at build): every pool leaf (``ckv``, ``kr`` in bf16 at every
+    ``kv_bits``, ``pos``) and the decode state bit for bit the snapshotted
+    engine's."""
+    from repro_torch.serving.checkpoint import EngineCheckpointer
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.pool import cache_leaves
+    prompts, _ = crash_workload(cfg)
+    ckpt_dir, _ = crash_dir(f"{cfg.name}-latents-{run}")
+    engine = ServingEngine(cfg, params, crash_ecfg(run, MLA_KV_LEN), device=DEVICE)
+    ck = EngineCheckpointer(engine, ckpt_dir)
+    for p in prompts[:MAX_BATCH]:
+        ck.submit(p)
+    for _ in range(2):
+        engine.step()
+    check(crash_kind(engine, 2) == "mid_decode", "mla: the snapshot is not mid-decode")
+    ck.save()
+    restored = ServingEngine.restore(cfg, params, ckpt_dir, device=DEVICE)
+    pairs = list(zip(cache_leaves(engine.pool.cache), cache_leaves(restored.pool.cache)))
+    same = all(torch.equal(a, b) for (_, a), (_, b) in pairs) and \
+        all(torch.equal(engine.pool.state[k], restored.pool.state[k]) for k in engine.pool.state)
+    dtypes = sorted({f"{n}:{str(a.dtype).split('.')[-1]}" for (n, a), _ in pairs})
+    held = int(sum((a >= 0).sum() for (n, a), _ in pairs if n == "pos"))
+    print(f"mla snapshot run={run} kv_bits={engine.ecfg.kv_bits} leaves={dtypes} "
+          f"valid_entries={held} restored_bit_for_bit={same}")
+    check(same and held > 0 and dtypes == ["ckv:bfloat16", "kr:bfloat16", "pos:int32"],
+          f"mla ({run}): the restored latent pool differs from the snapshotted one")
+    del engine, restored, ck
+    collect(torch)
+    shutil.rmtree(ckpt_dir)
+
+
+def run_mla(torch, by_run):
+    """Phase mla: deepseek-v2-236b at full width, its depth cut to
+    ``MLA_LAYERS`` (the dense first layer and 7 MoE layers of 160 experts),
+    random bf16 weights, once every earlier model is freed.  The engine
+    phase's 16 requests at fp and w8kv8 (``kv_len`` 1024) through padded
+    admission, replayed and again eagerly (streams bit for bit, launches
+    equal and as ``expected_launches`` reckons them: a prefill kernel a
+    layer on CUDA cores at head dims 192/128, no decode kernel, ``wo``, the
+    dense MLP, the shared experts and ``lm_head`` on the dequant-matmul at
+    w8kv8, the expert path in each MoE layer); flash against ref logits
+    with the ref run's expert choices imposed (``ForcedRouting``); a kill
+    and restore mid-decode at fp, and a snapshot's latent pool restored bit
+    for bit at w8kv8; a profiled decode step at both, with the absorbed
+    attention's device time (``mla_ms``) and the expert path's share."""
+    from repro_torch.config import get_config
+    collect(torch)
+    before = torch.cuda.memory_allocated() / 2**30
+    print(f"mla memory_allocated_before_build_gib={before:.3f} bound_gib={MOE_FREE_BEFORE_GIB}")
+    check(before < MOE_FREE_BEFORE_GIB, f"mla: {before:.2f} GiB still allocated")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    params = make_params(torch, cfg)
+    drain = dict(kv_len=MLA_KV_LEN)
+    plain = {}
+    for run in MLA_RUNS:
+        r = plain[run] = run_engine(torch, cfg, params, run, **drain)
+        by_run[f"{MLA_ARCH} {run}"] = r["launches"]
+        run_graphs(torch, cfg, params, run, r, long_prompts=(), **drain)
+    print(f"mla engine done at {time.perf_counter() - t0:.1f} s")
+    for run in MLA_RUNS:
+        routing = ForcedRouting()
+        with routing.installed(torch):
+            run_logits(torch, cfg, params, run, routing=routing)
+    crash_case(torch, cfg, params, "fp", kind="mid_decode", **drain)
+    mla_snapshot_latents(torch, cfg, params, "w8kv8")
+    print(f"mla logits and crash done at {time.perf_counter() - t0:.1f} s")
+    ops = mla_ms(torch, cfg)
+    for run in MLA_RUNS:
+        d = run_profile(torch, cfg, params, run, kv_len=MLA_KV_LEN)["decode_step"]
+        ms = dict.fromkeys(EXPERT_PATH, 0.0)
+        for key, t in d["by_kernel_ms"].items():
+            if expert_kernel(key):
+                ms[expert_kernel(key)] += t
+        st, r = plain[run]["stats"], plain[run]
+        print(f"mla profile arch={cfg.name} run={run} card={CARD!r} layers={cfg.n_layers} "
+              f"decode_step_wall_ms={d['wall_ms']:.3f} busy_ms={d['busy_ms']:.3f} "
+              f"idle_share={1 - d['busy_ms'] / d['wall_ms']:.3f} "
+              f"kernels_per_step={d['kernels_per_step']:.0f} "
+              f"mla_ms={ops['step_ms']:.3f} ({ops['layers']} layers x {ops['layer_ms']:.4f}) "
+              f"mla_share_of_busy={ops['step_ms'] / d['busy_ms']:.3f} "
+              f"expert_path_ms={sum(ms.values()):.3f} "
+              f"expert_path_share_of_busy={sum(ms.values()) / d['busy_ms']:.3f} "
+              + " ".join(f"{n}_ms={t:.3f}" for n, t in ms.items())
+              + f" tokens_per_s={st['tokens_per_s']:.2f} mean_ttft_s={st['mean_ttft_s']:.4f} "
+              f"ttft_p95_s={st['ttft_p95_s']:.4f} mean_tpot_s={st['mean_tpot_s']:.5f} "
+              f"decode_step_wall_ms_drain={st['trace_decode_step_s'] * 1e3:.3f} "
+              f"peak_memory_gib={r['peak_gib']:.2f} "
+              f"params_gib={r['params_gb'] * 1e9 / 2**30:.3f} "
+              f"pool_gib={r['pool_gb'] * 1e9 / 2**30:.4f}")
+    del params, plain
+    collect(torch)
+    print(f"mla arch={MLA_ARCH} done at {time.perf_counter() - t0:.1f} s")
+
+
 def make_params(torch, cfg):
     """Random bf16 weights (seed 0) on the card, after the last model's are
     freed."""
@@ -3278,6 +3534,8 @@ def main():
     print(f"phases of {MOE_ARCH} done at {time.perf_counter() - start:.1f} s")
     run_recurrent(torch, by_run)
     print(f"phases of the recurrent models done at {time.perf_counter() - start:.1f} s")
+    run_mla(torch, by_run)
+    print(f"phases of {MLA_ARCH} done at {time.perf_counter() - start:.1f} s")
 
     for name, rec in records.items():
         rec["launches"] = sum(n[name] for n in by_run.values())

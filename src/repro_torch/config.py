@@ -5,11 +5,13 @@ or local (sliding-window) attention blocks, each followed by a dense MLP
 (with or without biases, sequential or GPT-J's parallel block) or, where
 :meth:`ModelConfig.moe_layer_mask` says so, a mixture-of-experts FFN,
 under RMSNorm or LayerNorm, with RoPE or a learned absolute-position
-table; or a recurrent layer: a Mamba-2 SSD block (``"ssm"``) or an RG-LRU
+table, its attention standard (MHA/GQA/MQA) or, with ``kv_lora_rank``,
+DeepSeek's multi-head latent attention (:attr:`ModelConfig.is_mla`); or a
+recurrent layer: a Mamba-2 SSD block (``"ssm"``) or an RG-LRU
 block followed by its MLP (``"recurrent"``).  The encoder family (bert) is
 served through the same causal serving paths.  The encoder/decoder fields
 are kept so that the paper's bart configs register, but no such stack is
-served yet; MLA has no port yet.  The registry and
+served yet.  The registry and
 :func:`reduce_config` follow the reference, so ``get_config(name)`` gives
 the same published numbers in both packages.
 """
@@ -63,6 +65,10 @@ class ModelConfig:
     d_ff_expert: int = 0
     first_k_dense: int = 0          # the first k layers keep the dense MLP
     capacity_factor: float = 1.25   # read only by the capacity paths (no port)
+    # -- MLA (deepseek) ---------------------------------------------------
+    kv_lora_rank: int = 0           # the latent KV cache's width; 0 -> no MLA
+    q_lora_rank: int = 0            # the query's low rank (0: full rank, no port)
+    rope_head_dim: int = 0          # decoupled RoPE dims a head
     # -- SSM (mamba2) -------------------------------------------------------
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -92,6 +98,10 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
 
     @property
     def layer_kinds(self) -> tuple[str, ...]:
@@ -138,9 +148,10 @@ def reduce_config(cfg: ModelConfig, *, seq_len: int = 32) -> ModelConfig:
     pattern kinds and attention flavour, tiny dims, one full pattern period
     (at least two layers, plus a remainder layer when the full model has
     one); a position table of ``max(2 * seq_len, 64)`` rows where the model
-    has one, two encoder layers where it has an encoder, and the SSM's and
-    RG-LRU's widths cut as the reference cuts them (state 16, SSD head dim
-    16, chunk 8, LRU width 64).  A stack without attention keeps no KV
+    has one, two encoder layers where it has an encoder, and the SSM's,
+    RG-LRU's and MLA's widths cut as the reference cuts them (state 16, SSD
+    head dim 16, chunk 8, LRU width 64; latent 32, query rank 48, RoPE dims
+    8).  A stack without attention keeps no KV
     heads, and one without an MLP no ``d_ff``."""
     n_layers = max(len(cfg.pattern), 2)
     if cfg.n_layers % len(cfg.pattern):
@@ -162,6 +173,9 @@ def reduce_config(cfg: ModelConfig, *, seq_len: int = 32) -> ModelConfig:
         n_experts=min(cfg.n_experts, 8) if cfg.n_experts else 0,
         top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
         d_ff_expert=32 if cfg.d_ff_expert else 0,
+        kv_lora_rank=32 if cfg.kv_lora_rank else 0,
+        q_lora_rank=48 if cfg.q_lora_rank else 0,
+        rope_head_dim=8 if cfg.rope_head_dim else 0,
         v_head_dim=16,
         ssm_state=16 if cfg.ssm_state else 0,
         ssm_head_dim=16 if cfg.ssm_state else 64,

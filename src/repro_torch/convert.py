@@ -22,7 +22,8 @@ from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.quant.core import QuantTensor, quantize_params
 
 # leaves that stay f32 (cast at use): biases (attention, MLP, LayerNorm)
-# and norm vectors, the per-head q/k norms among them, the MoE router,
+# and norm vectors, the per-head q/k norms and MLA's latent norms among
+# them, the MoE router,
 # which the reference keeps in f32 (its logits are f32), and the f32 leaves
 # of the recurrent blocks: the convs, Mamba-2's A_log, D, dt_bias and norm
 # vector, and the RG-LRU's gates wa/wi (the reference multiplies them in
@@ -30,7 +31,7 @@ from repro_torch.quant.core import QuantTensor, quantize_params
 # other leaf, the embedding and the position table among them, is stored
 # in ``dtype``.
 _F32_LEAVES = ("bq", "bk", "bv", "b_up", "b_down", "scale", "bias", "q_norm", "k_norm",
-               "router", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm",
+               "kv_norm", "router", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm",
                "wa", "wi", "ba", "bi", "lam")
 
 

@@ -1,6 +1,7 @@
 """Attention layers: MHA/GQA/MQA with global or local (sliding-window,
-ring-buffer cache) attention (counterpart of the reference's
-``models/attention.py``, self-attention).
+ring-buffer cache) attention, and DeepSeek's multi-head latent attention
+(MLA) (counterpart of the reference's ``models/attention.py``,
+self-attention).
 
 The slot pool is fp (``k``/``v``) or, with ``kv_bits`` 8 or 4, quantised:
 int8 code planes ``k_q``/``v_q`` (two int4 codes a byte along the head
@@ -25,6 +26,14 @@ Serving modes:
 - ``mode="decode"`` — one token per slot, written at ``pos`` (``-1`` =
   dead slot, dropped), attending to the post-write cache.
 
+MLA (:func:`apply_mla`) caches one compressed latent a token, ``ckv``
+(``kv_lora_rank`` wide) and its RoPE key ``kr`` (``rope_head_dim``),
+shared by every head, in the compute dtype whatever ``kv_bits`` (the
+reference's documented exception).  Prefill expands the latents into
+per-head K/V and runs the prefill kernel (q/k head dim ``head_dim +
+rope_head_dim``, v ``v_head_dim``); decode and chunk run the absorbed
+path in latent space, plain PyTorch as the reference's is plain jnp.
+
 The reference's functional cache update becomes an **in-place** update
 of the pool tensors here: ``chunk``/``decode`` write into ``cache`` and
 return it, with fixed shapes and no read of device data by the host, so
@@ -34,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention.common import NEG_INF
 from repro_torch.kernels.flash_attention.ops import attention as flash_attention
 from repro_torch.models.modules import apply_rope, dense_init, rmsnorm
 from repro_torch.quant.core import (dequantize_kv, kv_cache_bits, quantize_kv,
@@ -67,14 +77,47 @@ def init_attention(generator, cfg, *, repeats, dtype, device):
     return p
 
 
+def init_mla(generator, cfg, *, repeats, dtype, device):
+    """The MLA projections, drawn as the reference draws them: the KV
+    down-projection ``wkv_a`` (latent and RoPE key), its norm, the
+    up-projection ``wkv_b`` (kvr, H, dn + dv) to per-head no-RoPE keys and
+    values, ``wo``, and the query's low-rank pair ``wq_a``/``q_norm``/
+    ``wq_b`` (qr, H, dn + dr).  Norm vectors are f32 (scale - 1).  The
+    reference's full-rank query (no ``q_lora_rank``) serves no registered
+    config and has no port."""
+    D, H, R = cfg.d_model, cfg.n_heads, repeats
+    dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    if not qr:
+        raise NotImplementedError(f"{cfg.name}: MLA without q_lora_rank has no port")
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "wkv_a": dense_init(generator, (R, D, kvr + dr), dtype, device),
+        "kv_norm": torch.zeros((R, kvr), **f32),
+        "wkv_b": dense_init(generator, (R, kvr, H, dn + dv), dtype, device, fan_in=kvr),
+        "wo": dense_init(generator, (R, H * dv, D), dtype, device, fan_in=H * dv),
+        "wq_a": dense_init(generator, (R, D, qr), dtype, device),
+        "q_norm": torch.zeros((R, qr), **f32),
+        "wq_b": dense_init(generator, (R, qr, H, dn + dr), dtype, device, fan_in=qr),
+    }
+
+
 # ---------------------------------------------------------------------------
 # KV caches
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg, kind: str, batch: int, kv_len: int, dtype, device,
                   kv_bits: int = 0):
-    """``kv_bits`` 0 keeps the fp pool; 8/4 allocate the quantised pool."""
+    """``kv_bits`` 0 keeps the fp pool; 8/4 allocate the quantised pool.
+    An MLA stack's pool is its latents ``ckv``/``kr`` in ``dtype`` and
+    ``pos``, at every ``kv_bits``."""
     Hkv, hd, hdv = cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
+    if cfg.is_mla:
+        return {
+            "ckv": torch.zeros((batch, kv_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+            "kr": torch.zeros((batch, kv_len, cfg.rope_head_dim), dtype=dtype, device=device),
+            "pos": torch.full((batch, kv_len), -1, dtype=torch.int32, device=device),
+        }
     cap = kv_len if kind == "global" else min(cfg.window, kv_len)
     if kv_bits in (4, 8):
         pack = 2 if kv_bits == 4 else 1
@@ -301,3 +344,101 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
 
     out = qdense(out.reshape(B, S, Hq * hdv), p["wo"], dt, impl=impl)
     return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# apply — MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def _mla_q(p, x, pos, cfg):
+    """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)): the low-rank query
+    (normed latent, then per-head up-projection), RoPE on its last dims."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    H, dn, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    cq = rmsnorm(x @ p["wq_a"].to(dt), p["q_norm"])
+    w = p["wq_b"].to(dt)
+    q = (cq @ w.reshape(w.shape[0], -1)).reshape(B, S, H, dn + dr)
+    return q[..., :dn], apply_rope(q[..., dn:], pos, cfg.rope_theta)
+
+
+def _mla_kv_latent(p, x, pos, cfg):
+    """(ckv (B, S, kvr) normed, kr (B, S, dr) with RoPE): what the cache
+    holds of a token."""
+    kvr = cfg.kv_lora_rank
+    ckv_full = x @ p["wkv_a"].to(x.dtype)
+    ckv = rmsnorm(ckv_full[..., :kvr], p["kv_norm"])
+    kr = apply_rope(ckv_full[..., None, kvr:], pos, cfg.rope_theta)[:, :, 0]
+    return ckv, kr
+
+
+def apply_mla(p, x, *, cfg, mode: str, pos, cache=None, impl: str = "flash",
+              segments=None, kv_cap: int = 0):
+    """MLA self-attention.  ``prefill``: the expanded path through the
+    prefill kernel (packed with ``segments``: the raw per-token latents,
+    ``pos`` -1 on pads; else the latents padded to ``kv_cap`` entries with
+    the stream's positions, pad rows included, as the reference's, which
+    takes no ``length``: the engine's insert invalidates them).  ``decode``
+    and ``chunk``: the latents written into the pool in place at ``pos``
+    (``pos < 0`` or past the pool dropped; slot == position), then the
+    absorbed path over the post-write pool: scores in f32 from
+    ``q_nope W_uk . ckv + q_rope . kr`` times ``(dn + dr) ** -0.5``, masked
+    to the finite ``NEG_INF``, softmax, a row with no valid entry exact
+    zeros, the weights cast to the compute dtype for ``w . ckv``, then
+    ``W_uv``.  Returns (out (B, S, D), cache)."""
+    if mode not in ("prefill", "chunk", "decode"):
+        raise NotImplementedError(
+            f"attention mode {mode!r} has no port yet: serving runs prefill, "
+            f"chunk and decode")
+    B, S, _ = x.shape
+    dt = x.dtype
+    H, dn, dr, dv = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    scale = (dn + dr) ** -0.5
+    q_nope, q_rope = _mla_q(p, x, pos, cfg)
+    ckv, kr = _mla_kv_latent(p, x, pos, cfg)
+    wkv_b = p["wkv_b"].to(dt)                           # (kvr, H, dn + dv)
+
+    if mode == "prefill":
+        kv = (ckv @ wkv_b.reshape(wkv_b.shape[0], -1)).reshape(B, S, H, dn + dv)
+        k = torch.cat([kv[..., :dn], kr[:, :, None].expand(B, S, H, dr)], dim=-1)
+        # the value block as rows of its own (the kernel's input, contiguous)
+        v = kv[..., dn:].contiguous()
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention(q, k, v, causal=True, scale=scale, impl=impl,
+                              segments=segments)
+        if segments is not None:
+            new_cache = {"ckv": ckv, "kr": kr, "pos": torch.where(segments >= 0, pos, -1)}
+        else:
+            cap = max(kv_cap, S)
+            new_cache = {"ckv": _pad_cache(ckv, cap), "kr": _pad_cache(kr, cap),
+                         "pos": _pad_pos(pos, cap)}
+    else:
+        cap = cache["ckv"].shape[1]
+        # the reference drops a write at pos < 0 or pos >= cap (slot == position)
+        new_cache = _ring_write(cache, {"ckv": ckv, "kr": kr},
+                                torch.where(pos < cap, pos, -1))
+        out = mla_absorbed(q_nope, q_rope, new_cache, pos, wkv_b, scale)
+
+    out = qdense(out.reshape(B, S, H * dv), p["wo"], dt, impl=impl)
+    return out, new_cache
+
+
+def mla_absorbed(q_nope, q_rope, cache, pos, wkv_b, scale: float):
+    """The absorbed attention of a decode or chunk step over the latent
+    pool ``cache`` (``ckv``, ``kr``, ``pos``): q_nope (B, S, H, dn) and
+    q_rope (B, S, H, dr) at positions ``pos`` (B, S), ``wkv_b`` (kvr, H,
+    dn + dv) in the compute dtype -> (B, S, H, dv) in q's dtype, before
+    ``wo``.  No read of device data by the host."""
+    dt, dn = q_nope.dtype, q_nope.shape[-1]
+    ckv_all, kr_all, kv_pos = cache["ckv"], cache["kr"], cache["pos"]
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, wkv_b[..., :dn])
+    logits = (torch.einsum("bqhr,bkr->bhqk", q_lat.float(), ckv_all.float())
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), kr_all.float())) * scale
+    mask = (kv_pos[:, None, None, :] <= pos[:, None, :, None]) & \
+        (kv_pos >= 0)[:, None, None, :]
+    logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    # a row with no valid entry (a chunk pad, a dead slot) gives zeros
+    w = torch.where(mask.any(dim=-1, keepdim=True), w, 0.0).to(dt)
+    ctx = torch.einsum("bhqk,bkr->bqhr", w, ckv_all.to(dt))
+    return torch.einsum("bqhr,rhd->bqhd", ctx, wkv_b[..., dn:])

@@ -17,7 +17,10 @@ Mamba-2 SSD block (``ssm``: ``{"ln1", "mamba"}``) or an RG-LRU block and
 its MLP (``recurrent``: ``{"ln1", "rec", "ln2", "mlp"}``), as in the
 reference's tree.  Their caches are ``{"conv", "state"}`` and ``{"conv",
 "h"}``, held directly under ``u<i>``; they run prefill (exact at
-``length``) and decode, not the packed prefill or the chunk step.
+``length``) and decode, not the packed prefill or the chunk step.  In an
+MLA stack (``cfg.is_mla``) every attention unit's ``attn`` holds the
+latent projections (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``,
+``kv_norm``, ``wkv_b``, ``wo``) and its cache ``{"ckv", "kr", "pos"}``.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models import modules as M
-from repro_torch.models.attention import (apply_attention, init_attention,
-                                          init_kv_cache)
+from repro_torch.models.attention import (apply_attention, apply_mla, init_attention,
+                                          init_kv_cache, init_mla)
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.rglru import apply_rglru, init_rglru, init_rglru_cache
 from repro_torch.models.ssm import apply_mamba, init_mamba, init_ssm_cache
@@ -174,8 +177,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
                                  "ln2": norm(), "mlp": M.init_mlp(generator, cfg, **init)}
                 continue
             layer = {"ln1": norm(),
-                     "attn": init_attention(generator, cfg, repeats=spec.repeats,
-                                            dtype=dtype, device=device)}
+                     "attn": (init_mla if cfg.is_mla else init_attention)(
+                         generator, cfg, repeats=spec.repeats, dtype=dtype, device=device)}
             if cfg.parallel_block:
                 layer["mlp"] = M.init_mlp(generator, cfg, repeats=spec.repeats,
                                           dtype=dtype, device=device)
@@ -224,10 +227,16 @@ def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
         x = x + out
         return x + M.apply_mlp(p["mlp"], M.apply_norm(p["ln2"], x), cfg, impl=impl), c
     h = M.apply_norm(p["ln1"], x)
-    out, c = apply_attention(p["attn"], h, cfg=cfg, kind=kind, mode=mode,
-                             pos=pos, cache=None if cache is None else cache["attn"],
-                             impl=impl, segments=segments, kv_bits=kv_bits,
-                             kv_cap=kv_cap, length=length)
+    c_self = None if cache is None else cache["attn"]
+    if cfg.is_mla:
+        # the latents stay in the compute dtype at every kv_bits, and the
+        # prefill's cache keeps the pad rows' positions (no length)
+        out, c = apply_mla(p["attn"], h, cfg=cfg, mode=mode, pos=pos, cache=c_self,
+                           impl=impl, segments=segments, kv_cap=kv_cap)
+    else:
+        out, c = apply_attention(p["attn"], h, cfg=cfg, kind=kind, mode=mode,
+                                 pos=pos, cache=c_self, impl=impl, segments=segments,
+                                 kv_bits=kv_bits, kv_cap=kv_cap, length=length)
     if cfg.parallel_block:
         # GPT-J: attention and the MLP both read ln1's output
         return x + out + M.apply_mlp(p["mlp"], h, cfg, impl=impl), {"attn": c}
@@ -453,7 +462,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int, *,
                dtype=torch.bfloat16, device=None, kv_bits: int = 0):
     """The slot pool: per group, per unit, ``{"attn": {"k", "v", "pos"}}``
-    leaves (with ``kv_bits`` 8/4: ``{"k_q", "k_s", "v_q", "v_s", "pos"}``),
+    leaves (with ``kv_bits`` 8/4: ``{"k_q", "k_s", "v_q", "v_s", "pos"}``;
+    an MLA stack's ``{"ckv", "kr", "pos"}`` in ``dtype`` whatever
+    ``kv_bits``),
     or for a recurrent unit ``{"conv", "state"}`` (ssm) or ``{"conv", "h"}``
     (recurrent): ``conv`` in ``dtype``, ``state``/``h`` f32, whatever
     ``kv_bits``.  Every leaf has a leading ``repeats`` axis."""

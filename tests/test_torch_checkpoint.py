@@ -19,8 +19,11 @@ The front end drives a checkpointer.
 Reduced mamba2-130m and recurrentgemma-9b (padded admission, the
 recurrent ``conv`` and ``state``/``h`` leaves in the snapshot) are killed
 and restored the same way, and their snapshots held against the
-reference's.  The reference's MLA and encoder-decoder pool round trips
-wait for those layer kinds in the port (``ROADMAP.md`` Queue 1 item 9).
+reference's.  So is reduced deepseek-v2-236b (multi-head latent
+attention, padded admission): its pool's ``ckv``/``kr`` latents stay bf16
+under ``kv_bits`` 8 and 4, in the pool and in the snapshot, as the
+reference's do.  The reference's encoder-decoder pool round trip waits for
+that stack in the port (``ROADMAP.md`` Queue 1 item 3).
 """
 import dataclasses
 import json
@@ -308,10 +311,13 @@ def test_quantised_pool_kill_restore_bit_exact(model, tmp_path, kv_bits):
     ("gemma2-9b", False, 8),               # GQA, global and local (ring) layers
     ("qwen2.5-3b", True, 8),               # MQA (one shared KV head)
     ("qwen2.5-3b", False, 4),              # packed int4 codes
+    ("deepseek-v2-236b", False, 8),        # MLA: the latents stay bf16
+    ("deepseek-v2-236b", False, 4),
 ])
 def test_slot_pool_serialisation_roundtrip(tmp_path, arch, mqa, kv_bits):
     """A slot pool with content in every leaf round-trips through the npz
-    with its leaf dtypes and bits."""
+    with its leaf dtypes and bits; an MLA pool holds no quantised plane
+    at any ``kv_bits`` (the reference's documented exception)."""
     cfg = reduce_config(get_config(arch))
     if mqa:
         cfg = dataclasses.replace(cfg, n_kv_heads=1)
@@ -327,6 +333,10 @@ def test_slot_pool_serialisation_roundtrip(tmp_path, arch, mqa, kv_bits):
     assert set(got) == set(want)
     for k in want:
         assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    if cfg.is_mla:
+        assert {k.split("/")[-1]: v.dtype for k, v in flat.items()} == \
+            {"ckv": torch.bfloat16, "kr": torch.bfloat16, "pos": torch.int32}
+        return
     assert {"k_q", "k_s", "v_q", "v_s", "pos"} == {k.split("/")[-1] for k in flat}
     if "local" in cfg.pattern:            # rings of `window` entries beside the global pool
         assert len({v.shape[2] for k, v in flat.items() if k.endswith("/pos")}) == 2
@@ -690,3 +700,37 @@ def test_valid_len_of_a_recurrent_pool(recurrent, arch):
     eng.submit(np.arange(1, 6))
     eng.step()
     assert eng.pool.valid_len(0) == (0 if arch == "mamba2-130m" else 6)
+
+
+# ---------------------------------------------------------------------------
+# multi-head latent attention: the snapshot carries the latent leaves
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mla():
+    """Reduced deepseek-v2-236b as ``model`` holds qwen: the reference's f32
+    tree and the port's f32 copy of it."""
+    cfg_j = jax_reduce_config(jax_get_config("deepseek-v2-236b"))
+    params_j = TJ.init_params(cfg_j, jax.random.PRNGKey(0), param_dtype=jnp.float32)
+    cfg_t = reduce_config(get_config("deepseek-v2-236b"))
+    return {"ref": (cfg_j, params_j),
+            "port": (cfg_t, params_from_jax(jax.device_get(params_j), cfg_t, device="cpu",
+                                            dtype=torch.float32))}
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_mla_kill_restore_bit_exact(mla, tmp_path, kv_bits):
+    """Killed mid-decode: the restored engine finishes every request with
+    the uninterrupted run's streams, bit for bit; the restored pool's
+    latents are bf16 under ``kv_bits`` 8 too."""
+    eng = _check_resumed(mla, _ecfg(kv_bits=kv_bits), tmp_path, kill_at=3)
+    kinds = {k.split("/")[-1]: v.dtype for k, v in sc.flatten_tree(eng.pool.cache).items()}
+    assert kinds == {"ckv": torch.bfloat16, "kr": torch.bfloat16, "pos": torch.int32}
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_mla_snapshot_and_restore_match_the_reference(mla, tmp_path, kv_bits):
+    """The reference's snapshot of the same kill schedule: the same latent
+    leaves, shapes, dtypes (bf16 under ``kv_bits`` 8) and values, the same
+    meta record, and restored streams equal but at a near-tie."""
+    _snapshot_and_restore_match(mla, tmp_path, kv_bits)

@@ -8,8 +8,9 @@ reference model's softmax.
 
 Reduced qwen2.5-3b and gemma2-9b (16-entry local rings), the reference's
 f32 weights carried over in bf16, ``impl="flash"`` (the kernels' plain
-versions on the CPU); reduced qwen3-moe-30b-a3b for the programs of a
-stack that cannot be packed (the fused step and the padded prefill).
+versions on the CPU); reduced qwen3-moe-30b-a3b and deepseek-v2-236b
+(multi-head latent attention) for the programs of a stack that cannot be
+packed (the fused step and the padded prefill).
 """
 import re
 from pathlib import Path
@@ -59,7 +60,7 @@ class HostReadGuard(TorchDispatchMode):
 def models():
     out = {}
     for arch in ("qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b", "mamba2-130m",
-                 "recurrentgemma-9b"):
+                 "recurrentgemma-9b", "deepseek-v2-236b"):
         cfg_j = jax_reduce_config(jax_get_config(arch))
         params_j = TJ.init_params(cfg_j, jax.random.PRNGKey(0), param_dtype=jnp.float32)
         cfg_t = reduce_config(get_config(arch))
@@ -104,7 +105,9 @@ def test_guard_refuses_each_host_read(read):
     ("gemma2-9b", {}), ("gemma2-9b", dict(kv_bits=8, temperature=0.8)),
     ("qwen3-moe-30b-a3b", {}), ("qwen3-moe-30b-a3b", dict(kv_bits=8, temperature=0.8)),
     ("mamba2-130m", {}), ("recurrentgemma-9b", dict(weight_bits=8, kv_bits=8,
-                                                    temperature=0.8))])
+                                                    temperature=0.8)),
+    ("deepseek-v2-236b", {}), ("deepseek-v2-236b", dict(weight_bits=8, kv_bits=8,
+                                                        temperature=0.8))])
 def test_programs_read_nothing_back_to_the_host(models, arch, kw):
     """A whole drain with ``fused_step``, ``packed_prefill`` and
     ``chunk_step`` each run under the guard: every program is capturable.
@@ -129,6 +132,35 @@ def test_programs_read_nothing_back_to_the_host(models, arch, kw):
     eng.run_until_drained()
     assert all(r.status == DONE for r in reqs)
     assert all(n > 0 for n in calls.values()), calls
+
+
+def test_mla_stack_refuses_spec_k_and_serves_every_baseline(models):
+    """Reduced deepseek-v2-236b: ``spec_k`` refused with the reference's
+    message (MoE: not packable); sequential admission (``packed=False``:
+    power-of-two buckets in place of chunk multiples; dropless routing and
+    causal attention keep every real row to itself) and the host-looped
+    step (``fused=False``) give the default path's greedy streams."""
+    from repro.serving.engine import EngineConfig as JaxEngineConfig
+    from repro.serving.engine import ServingEngine as JaxServingEngine
+    cfg_j, params_j, cfg_t, params_t = models["deepseek-v2-236b"]
+    settings = dict(max_batch=2, kv_len=32, spec_k=2)
+    with pytest.raises(ValueError, match="needs a packable stack") as port:
+        ServingEngine(cfg_t, params_t, EngineConfig(**settings), device="cpu")
+    with pytest.raises(ValueError, match="needs a packable stack") as ref:
+        JaxServingEngine(cfg_j, params_j, JaxEngineConfig(**settings))
+    assert str(port.value) == str(ref.value)
+    streams = {}
+    for name, kw in (("default", {}), ("unpacked", dict(packed=False)),
+                     ("hostpath", dict(fused=False))):
+        eng = _engine(models, "deepseek-v2-236b", **kw)
+        assert not eng._packable
+        reqs = _submit_mix(eng)
+        eng.run_until_drained()
+        assert all(r.status == DONE for r in reqs)
+        assert eng.stats()["prefill_calls"] == len(reqs)
+        streams[name] = [r.output for r in reqs]
+    assert streams["unpacked"] == streams["default"]
+    assert streams["hostpath"] == streams["default"]
 
 
 @pytest.mark.parametrize("name", ["executor.py", "graphs.py", "models/moe.py",

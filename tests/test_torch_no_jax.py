@@ -57,7 +57,8 @@ def test_qwen_config_equals_the_reference_field_by_field():
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "minitron-8b",
-                                  "qwen3-moe-30b-a3b", "mamba2-130m", "recurrentgemma-9b"])
+                                  "qwen3-moe-30b-a3b", "mamba2-130m", "recurrentgemma-9b",
+                                  "deepseek-v2-236b"])
 def test_zoo_config_equals_the_reference_field_by_field(arch):
     _same_fields(arch)
     assert get_config(arch).layer_kinds == jax_get_config(arch).layer_kinds
@@ -78,10 +79,12 @@ def test_paper_config_equals_the_reference_field_by_field(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b",
-                                  "mamba2-130m", "recurrentgemma-9b", *PAPER_ARCHS])
+                                  "mamba2-130m", "recurrentgemma-9b", "deepseek-v2-236b",
+                                  *PAPER_ARCHS])
 def test_reduced_config_equals_the_reference_field_by_field(arch):
     """``reduce_config`` cuts as the reference's does: for qwen3-moe-30b-a3b
-    8 experts, top-2, d_ff_expert 32, first_k_dense at most 1; for the
+    8 experts, top-2, d_ff_expert 32, first_k_dense at most 1; for
+    deepseek-v2-236b's MLA latent 32, query rank 48, RoPE dims 8; for the
     paper's models a 64-row position table and two encoder layers where
     they have them; mamba2-130m keeps no KV heads and no ``d_ff`` (2 SSD
     layers of state 16, head dim 16, chunk 8), recurrentgemma-9b a full
@@ -93,7 +96,8 @@ def test_reduced_config_equals_the_reference_field_by_field(arch):
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
     assert port.moe_layer_mask() == ref.moe_layer_mask()
-    assert port.is_moe == ref.is_moe == (arch == "qwen3-moe-30b-a3b")
+    assert port.is_moe == ref.is_moe == (arch in ("qwen3-moe-30b-a3b", "deepseek-v2-236b"))
+    assert port.is_mla == ref.is_mla == (arch == "deepseek-v2-236b")
     assert port.encoder_layer_kinds == ref.encoder_layer_kinds
     assert port.layer_kinds == ref.layer_kinds
     if arch == "mamba2-130m":
@@ -102,6 +106,9 @@ def test_reduced_config_equals_the_reference_field_by_field(arch):
     if arch == "recurrentgemma-9b":
         assert (port.n_layers, port.n_heads, port.n_kv_heads, port.lru_width,
                 port.window) == (4, 4, 1, 64, 16)
+    if arch == "deepseek-v2-236b":
+        assert (port.kv_lora_rank, port.q_lora_rank, port.rope_head_dim, port.v_head_dim,
+                port.first_k_dense) == (32, 48, 8, 16, 1)
     if arch in PAPER_ARCHS:
         for seq_len in (16, 32, 100):
             a, b = reduce_config(get_config(arch), seq_len=seq_len), \

@@ -1,7 +1,8 @@
 """The port's serving engine against the reference's, live, on the CPU, on
 reduced qwen2.5-3b and reduced gemma2-9b (its local ring through the
-engine), the paper's models, and the recurrent layer kinds (reduced
-mamba2-130m and recurrentgemma-9b, admitted one padded prompt a call).
+engine), the paper's models, the recurrent layer kinds (reduced
+mamba2-130m and recurrentgemma-9b, admitted one padded prompt a call) and
+multi-head latent attention (reduced deepseek-v2-236b, likewise).
 
 Both engines serve the same prompts with the same weights (the reference's
 f32 tree, carried over by ``repro_torch.convert`` into bf16 — the values
@@ -195,6 +196,19 @@ def test_recurrent_engine_matches_reference_engine(monkeypatch, arch, case):
     assert eng_t.stats()["prefill_calls"] == len(PROMPT_LENS)   # one call a request
 
 
+# multi-head latent attention: reduced deepseek-v2-236b (a dense first
+# layer, then MoE with shared experts; not packable), its prompts admitted
+# one padded prompt a call, its latent pool in bf16 at every kv_bits
+@pytest.mark.parametrize("case", ["fp", "w8kv8"])
+def test_mla_engine_matches_reference_engine(monkeypatch, case):
+    eng_j, eng_t = _compare_engines(monkeypatch, "deepseek-v2-236b",
+                                    **QUANT_CASES.get(case, {}))
+    assert not eng_t._packable and not eng_j._packable
+    assert eng_t.stats()["prefill_calls"] == len(PROMPT_LENS)   # one call a request
+    leaves = {k: v.dtype for g in eng_t.pool.cache["stack"] for k, v in g["u0"]["attn"].items()}
+    assert leaves == {"ckv": torch.bfloat16, "kr": torch.bfloat16, "pos": torch.int32}
+
+
 @pytest.mark.parametrize("arch", RECURRENT)
 @pytest.mark.parametrize("role", ["target", "draft"])
 def test_speculative_decoding_refuses_recurrent_stacks(arch, role):
@@ -298,7 +312,7 @@ def test_mesh_raises():
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "gemma3-27b", "minitron-8b",
                                   "llama2-7b", "gpt-j", "bert-base", "bert-large",
-                                  "mamba2-130m", "recurrentgemma-9b"])
+                                  "mamba2-130m", "recurrentgemma-9b", "deepseek-v2-236b"])
 def test_launcher_serves_each_registered_model_reduced_on_the_cpu(arch):
     """``python -m repro_torch.launch.serve --arch <id> --reduced --device
     cpu``: every request finishes with its budget of tokens.  A model with a
