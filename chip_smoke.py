@@ -215,6 +215,28 @@ Phases, each of which must pass or the script exits non-zero:
              under ``kv_bits`` 8) restored bit for bit; a profiled decode
              step at both with the absorbed attention's device time
              (``mla_ms``) and the expert path's share.
+11. cross  — once every earlier model is freed: the cross-attention
+             stacks, run as the reference runs them (its engine cannot
+             serve them): ``prefill`` with the source, then 32 greedy
+             ``decode_step`` calls over a cache whose cross entries stay
+             fixed, 8 requests of one prompt length: whisper-large-v3 at
+             full width and depth (32 + 32 layers; 1500 frames, a 4-token
+             prompt, ``kv_len`` 448) at fp and ``w8kv8``; bart-base and
+             bart-large (512 source tokens, a 32-token prompt);
+             llama-3.2-vision-90b at full width cut to 30 of 100 layers (24
+             self-attention and 6 gated cross layers, its gates set
+             non-zero; 1024 patch embeddings, a 64-token prompt).  Launches
+             of the main path as reckoned, flash against ref logits at the
+             prefill and every step, decode against a teacher-forced prefill,
+             cross leaves bit for bit unchanged, a zeroed source moving the
+             logits, int8 self codes beside bf16 cross leaves at ``w8kv8``,
+             every kernel one that phase 3 held (phase 3 holds and times the
+             prefill non-causal at whisper's encoder shape and with Sq !=
+             Skv at each cross shape, Sq > Skv, Skv below one key tile and
+             f32 on CUDA cores, the cross decodes with their split counts,
+             whisper's int8 projections up to the encoder's 12000 rows); a
+             profiled decode step of whisper and the vision stack and
+             whisper's encoder pass.
 
 Each model's weights are freed before the next is made.
 
@@ -400,6 +422,46 @@ DS_GMM_ROWS = {"decode": 48, "prefill128": 768, "prefill384": 2304}
 DS_GMM = dict(label="deepseek-v2", experts=DS_EXPERTS, k=DS_TOP_K, shapes=DS_GMM_SHAPES,
               rows=DS_GMM_ROWS)
 MLA_MATMUL_ROWS = (8,) + MLA_PREFILL_LENGTHS
+# phase cross: the cross-attention stacks through prefill with their source
+# and decode_step over a cache whose cross entries stay fixed, as the
+# reference runs them (its engine cannot serve them): whisper-large-v3 (32
+# encoder and 32 decoder layers, 1500 frames a request, a 4-token prompt,
+# kv_len 448, the decoder's context) at fp and w8kv8; the paper's bart-base
+# and bart-large (512 source tokens, a 32-token prompt); llama-3.2-vision-90b
+# at full width with its depth cut to 30 of 100 layers (six pattern
+# periods: 24 self-attention and 6 gated cross layers, ~55.5 GB of bf16
+# weights, what the card holds), 1024 patch embeddings, a 64-token prompt.
+# 8 requests a batch, one prompt length a batch, 32 greedy decode steps.
+# Phase 3 times these prefills in this many profiler windows: one window's
+# reading of a call this short has varied 3.6x between runs on one H100.
+CROSS_TIMING_WINDOWS = 5
+CROSS_MODELS = {
+    "whisper-large-v3": dict(layers=0, runs=("fp", "w8kv8"), prompt=4, kv_len=448,
+                             source=1500),
+    "bart-base": dict(layers=0, runs=("fp",), prompt=32, kv_len=1024, source=512),
+    "bart-large": dict(layers=0, runs=("fp",), prompt=32, kv_len=1024, source=512),
+    "llama-3.2-vision-90b": dict(layers=30, runs=("fp",), prompt=64, kv_len=1024,
+                                 source=1024),
+}
+CROSS_BATCH, CROSS_NEW_TOKENS = 8, 32
+# the decode steps whose logits are held to a prefill over the longer prefix
+CROSS_TF_STEPS = (0, 15, 31)
+# the vision stack's gates: zero at init, where tanh(0) = 0 leaves every
+# cross layer inert, so a wrong cross path would pass unseen
+CROSS_GATES = {"gate_attn": 0.5, "gate_mlp": 1.0}
+# the sources' scale, so that a zeroed source moves the logits past the
+# flash-vs-ref bound (a model whose source moves them less cannot tell a
+# dropped source from the kernels' drift): whisper's frames at unit
+# scale, a conv frontend's (at 0.02 they vanish beside the sinusoidal
+# positions); the vision stack's patches at 4, since random projections
+# of unit-scale patches give scores of unit spread, near-uniform attention
+# over the 1024 patches that averages the source away, where a trained
+# layer attends to a few
+CROSS_SOURCE_STD = {"audio": 1.0, "vlm": 4.0}
+# the whisper encoder's projection rows: 8 requests x 1500 frames
+WHISPER_ENCODER_ROWS = 8 * 1500
+# profiler windows device_ms takes before it gives up on a call
+PROFILE_TRIES = 3
 DEVICE = "cuda"
 CARD = ""                          # nvidia-smi's name and power limit of the card
 
@@ -417,20 +479,27 @@ def device_ms(fn, iters, warmup=3):
     """Mean device time of one call (ms): the kernel time torch.profiler
     records over ``iters`` calls, summed and divided by ``iters`` — what
     the card spends on a call, without the host's gaps between launches
-    (CUDA events around a loop of calls this small would time the host)."""
+    (CUDA events around a loop of calls this small would time the host).
+    Late in a long process the profiler now and then records no kernel of
+    a window at all: such a window is measured again, up to
+    ``PROFILE_TRIES`` windows, and a call none of them times fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    check(busy_us > 0, "the profiler recorded no device time")
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        if busy_us > 0:
+            break
+        print(f"device_ms: the profiler recorded no device time in window {attempt + 1}")
+    check(busy_us > 0, f"the profiler recorded no device time in {PROFILE_TRIES} windows")
     return busy_us / 1e3 / iters
 
 
@@ -480,12 +549,16 @@ def decode_case(torch, rng, *, B=8, Skv=1024, Hq=16, Hkv=2, hd=128, lens=None,
 
 
 def prefill_case(torch, rng, *, S=128, Hq=16, Hkv=2, hd=128, lens=(37, 50, 20),
-                 window=0, softcap=0.0, segmented=True, dtype=None, hdv=None, bshd=False):
-    """Inputs of one prefill call, (1, H, S, d) each; V rows of ``hdv``
-    (default hd); ``bshd``: views of (1, S, H, d) tensors, as an attention
-    layer passes them (the MLA layer's q, k and v among them)."""
+                 window=0, softcap=0.0, segmented=True, dtype=None, hdv=None, bshd=False,
+                 B=1, Skv=None, causal=True):
+    """Inputs of one prefill call, (B, H, S, d) each; V rows of ``hdv``
+    (default hd); ``bshd``: views of (B, S, H, d) tensors, as an attention
+    layer passes them (the MLA layer's q, k and v among them).  ``Skv``
+    (default S) keys and values: a cross-attention prefill's source, with
+    ``causal=False``.  Segments are one packed stream (B 1)."""
     dtype = dtype or torch.bfloat16
     dev = DEVICE
+    Skv = Skv or S
     seg = np.full((1, S), -1, np.int32)
     off = 0
     for i, n in enumerate(lens):
@@ -493,12 +566,12 @@ def prefill_case(torch, rng, *, S=128, Hq=16, Hkv=2, hd=128, lens=(37, 50, 20),
         off += n
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
 
-    def randn(H, d):
+    def randn(H, L, d):
         if bshd:
-            return torch.randn((1, S, H, d), generator=g, device=dev).to(dtype).transpose(1, 2)
-        return torch.randn((1, H, S, d), generator=g, device=dev).to(dtype)
-    q, k, v = randn(Hq, hd), randn(Hkv, hd), randn(Hkv, hdv or hd)
-    return dict(q=q, k=k, v=v, window=window, softcap=softcap,
+            return torch.randn((B, L, H, d), generator=g, device=dev).to(dtype).transpose(1, 2)
+        return torch.randn((B, H, L, d), generator=g, device=dev).to(dtype)
+    q, k, v = randn(Hq, S, hd), randn(Hkv, Skv, hd), randn(Hkv, Skv, hdv or hd)
+    return dict(q=q, k=k, v=v, window=window, softcap=softcap, causal=causal,
                 segments=torch.from_numpy(seg).to(dev) if segmented else None,
                 seg_np=seg if segmented else None)
 
@@ -568,6 +641,49 @@ def check_attention_checked(what, kernels, checked):
     ``what`` launched was held against its plain version in phase 3."""
     missed = sorted(attention_kernel_name(k) for k in kernels if k not in checked)
     check(not missed, f"{what}: attention kernels launched but never checked: {missed}")
+
+
+def cross_config(arch):
+    """The config phase cross runs: full width, the vision stack's depth
+    cut to ``CROSS_MODELS[arch]["layers"]``."""
+    from repro_torch.config import get_config
+    cfg, layers = get_config(arch), CROSS_MODELS[arch]["layers"]
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def cross_lengths(arch):
+    """The decoder's prefill lengths in phase cross: the prompt, and the
+    prefixes of the teacher-forced prefills (the prompt and the tokens up
+    to each step of ``CROSS_TF_STEPS``)."""
+    P = CROSS_MODELS[arch]["prompt"]
+    return (P,) + tuple(P + s + 1 for s in CROSS_TF_STEPS)
+
+
+def cross_attention_shapes():
+    """The attention calls of phase cross, 8 requests each, as (prefill,
+    decode, quantised decode) cases {name: keywords of prefill_case or
+    decode_case}: each encoder's non-causal self-attention over its source;
+    at each prefill length the decoder's causal self-attention and its
+    cross-attention (Sq the decoder's length, Skv the source); the
+    self-attention decode over the pool (quantised too at kv_bits 8) and
+    the cross decode over the source, every entry valid."""
+    prefill, decode, quant = {}, {}, {}
+    for arch, m in CROSS_MODELS.items():
+        cfg = cross_config(arch)
+        heads = dict(Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, hd=cfg.head_dim, B=CROSS_BATCH)
+        tag = f"{arch} B{CROSS_BATCH} Hq{cfg.n_heads} Hkv{cfg.n_kv_heads} hd{cfg.head_dim}"
+        one = dict(heads, segmented=False, bshd=True)
+        src = m["source"]
+        if cfg.n_encoder_layers:
+            prefill[f"{tag} encoder S{src} non-causal"] = dict(one, S=src, causal=False)
+        for L in cross_lengths(arch):
+            prefill[f"{tag} self S{L}"] = dict(one, S=L)
+            prefill[f"{tag} cross Sq{L} Skv{src}"] = dict(one, S=L, Skv=src, causal=False)
+        decode[f"{tag} self Skv{m['kv_len']}"] = dict(heads, Skv=m["kv_len"])
+        decode[f"{tag} cross Skv{src}"] = dict(heads, Skv=src, lens=[src] * CROSS_BATCH)
+        if any(QUANT_RUNS[r].get("kv_bits") for r in m["runs"]):
+            quant[f"{tag} self Skv{m['kv_len']}"] = dict(heads, Skv=m["kv_len"])
+    return prefill, decode, quant
 
 
 def decode_timing(torch, rng, kw):
@@ -681,12 +797,18 @@ def run_kernel_checks(torch):
     rg_cases = {"recurrentgemma-9b ring B8 Skv2048 Hq16 Hkv1 hd256 window2048": RGEMMA_RING,
                 "recurrentgemma-9b pool B8 Skv2048 Hq16 Hkv1 hd256 window2048 (not wrapped)":
                     RGEMMA_POOL}
+    # phase cross's shapes: the cross decodes over 1500, 512 and 1024
+    # entries (MHA rep 1 at hd 64, rep 8 at hd 128) and the decoders' pools,
+    # from a generator of their own
+    rng_cross = np.random.default_rng(16)
+    cross_prefill, cross_decode, _ = cross_attention_shapes()
     errs = []
     for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
                                + [(n, kw, rng_split) for n, kw in split_cases.items()]
                                + [(n, kw, rng_moe) for n, kw in moe_cases.items()]
                                + [(n, kw, rng_paper) for n, kw in paper_cases.items()]
-                               + [(n, kw, rng_rg) for n, kw in rg_cases.items()]):
+                               + [(n, kw, rng_rg) for n, kw in rg_cases.items()]
+                               + [(n, kw, rng_cross) for n, kw in cross_decode.items()]):
         c = decode_case(torch, case_rng, **kw)
         k, v = c["pools"][0]
         args = dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"], window=c["window"],
@@ -733,6 +855,8 @@ def run_kernel_checks(torch):
         **{arch.replace("-", "_").replace(".", "_"): decode_timing(torch, rng_paper, kw)
            for arch, kw in PAPER_DECODE.items() if arch != "bert-base"},
         "recurrentgemma_9b": decode_timing(torch, rng_rg, RGEMMA_RING),
+        **{f"{arch}_cross".replace("-", "_").replace(".", "_"): decode_timing(
+            torch, rng_cross, kw) for arch, kw in cross_decode_timed().items()},
         "cases": errs}
 
     # -- packed prefill -------------------------------------------------------
@@ -780,13 +904,28 @@ def run_kernel_checks(torch):
                  for S in (32, 64) + MLA_PREFILL_LENGTHS}
     mla_cases["deepseek-v2 MLA S128 Hq128 hd192 hdv128, 3 prompts + pad"] = dict(
         MLA_PREFILL, S=128, segmented=True, lens=(30, 61, 17))
+    # phase cross's prefills (non-causal, and Sq != Skv for the cross
+    # prefills), and edge cases: Sq > Skv, Skv below one key tile, f32 on
+    # CUDA cores; from rng_cross
+    cross_cases = dict(cross_prefill)
+    cross_cases.update({
+        "non-causal Sq100 > Skv40 B2 Hq4 Hkv2 hd64": dict(
+            B=2, S=100, Skv=40, Hq=4, Hkv=2, hd=64, segmented=False, causal=False),
+        "non-causal Skv20 below one key tile B3 Sq37 Hq8 Hkv8 hd128": dict(
+            B=3, S=37, Skv=20, Hq=8, Hkv=8, hd=128, segmented=False, causal=False),
+        "f32 non-causal B2 Sq37 Skv300 Hq4 Hkv4 hd64 (CUDA cores)": dict(
+            B=2, S=37, Skv=300, Hq=4, Hkv=4, hd=64, segmented=False, causal=False,
+            dtype=torch.float32),
+    })
     errs = []
     for name, kw, case_rng in ([(n, kw, rng) for n, kw in cases.items()]
                                + [(n, kw, rng_moe) for n, kw in moe_cases.items()]
                                + [(n, kw, rng_rg) for n, kw in rg_cases.items()]
-                               + [(n, kw, rng_mla) for n, kw in mla_cases.items()]):
+                               + [(n, kw, rng_mla) for n, kw in mla_cases.items()]
+                               + [(n, kw, rng_cross) for n, kw in cross_cases.items()]):
         c = prefill_case(torch, case_rng, **kw)
-        args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"])
+        args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"],
+                    causal=c["causal"])
         out, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
             c["q"], c["k"], c["v"], **args), "prefill")
         CHECKED_PREFILL.add(kernel)
@@ -821,55 +960,97 @@ def run_kernel_checks(torch):
         "recurrentgemma_9b": prefill_timing(torch, rng_rg, dict(RGEMMA_PREFILL, S=4608),
                                             iters=20),
         "deepseek_v2_236b": prefill_timing(torch, rng_mla, dict(MLA_PREFILL, S=384), iters=20),
+        **{what: prefill_timing(torch, rng_cross, kw, iters=50, windows=CROSS_TIMING_WINDOWS)
+           for what, kw in cross_prefill_timed().items()},
         "cases": errs}
     return records
 
 
-def prefill_timing(torch, rng, kw, iters=200):
+def cross_decode_timed():
+    """The cross decodes phase 3 times: whisper's over 1500 entries (MHA,
+    hd 64) and the vision stack's over 1024 (rep 8, hd 128)."""
+    _, decode, _ = cross_attention_shapes()
+    return {arch: next(kw for n, kw in decode.items() if n.startswith(arch) and "cross" in n)
+            for arch in ("whisper-large-v3", "llama-3.2-vision-90b")}
+
+
+def cross_prefill_timed():
+    """The prefills phase 3 times for phase cross: whisper's encoder
+    (non-causal, S 1500), and the cross prefills of whisper (Sq 4, Skv
+    1500), bart-large (Sq 32, Skv 512) and the vision stack (Sq 64, Skv
+    1024, 64/8 at hd 128)."""
+    prefill, _, _ = cross_attention_shapes()
+
+    def first(arch, part):
+        return next(kw for n, kw in prefill.items() if n.startswith(arch) and part in n)
+    w = "whisper-large-v3"
+    return {"whisper_large_v3_encoder": first(w, "encoder"),
+            "whisper_large_v3_cross": first(w, "cross"),
+            "bart_large_cross": first("bart-large", "cross"),
+            "llama_3_2_vision_90b_cross": first("llama-3.2-vision-90b", "cross")}
+
+
+def prefill_timing(torch, rng, kw, iters=200, windows=1):
     """Device time of the prefill at a shape (``prefill_case``'s keywords;
     three prompts and pad, or one causal stream without segments), beside
     its plain version, its bound and ``scaled_dot_product_attention`` with
     the same mask (without a softcap, which it lacks); ``iters`` calls of
-    the kernel and the library, a tenth as many of the plain version."""
+    the kernel and the library, a tenth as many of the plain version.
+    With ``windows`` > 1 the kernel and the library are each timed in that
+    many profiler windows: their medians are reported beside every
+    window's reading (``ms_windows``, ``library_ms_windows``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_fwd,
                                                             flash_attention_plain)
     from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill_launches
     c = prefill_case(torch, rng, **kw)
-    _, Hq, S, hd = c["q"].shape
-    Hkv, hdv = c["k"].shape[1], c["v"].shape[-1]
-    args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"])
+    B, Hq, S, hd = c["q"].shape
+    Hkv, Skv, hdv = c["k"].shape[1], c["k"].shape[2], c["v"].shape[-1]
+    args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"],
+                causal=c["causal"])
     _, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
         c["q"], c["k"], c["v"], **args), "prefill")
-    ms = device_ms(lambda: flash_attention_fwd(c["q"], c["k"], c["v"], **args), iters)
+    ms_windows = [device_ms(lambda: flash_attention_fwd(c["q"], c["k"], c["v"], **args),
+                            iters) for _ in range(windows)]
+    ms = float(np.median(ms_windows))
     plain_ms = device_ms(lambda: flash_attention_plain(c["q"], c["k"], c["v"], **args),
                          max(2, iters // 10))
-    idx = torch.arange(S, device=DEVICE)
-    lib_mask = idx[None, :] <= idx[:, None]
+    qi = torch.arange(S, device=DEVICE)[:, None]
+    kj = torch.arange(Skv, device=DEVICE)[None, :]
+    lib_mask = kj <= qi if c["causal"] else torch.ones((S, Skv), dtype=torch.bool,
+                                                        device=DEVICE)
     if c["segments"] is not None:
         seg = c["segments"][0]
         lib_mask &= (seg[:, None] == seg[None, :]) & (seg[:, None] >= 0)
     if c["window"]:
-        lib_mask &= idx[:, None] - idx[None, :] < c["window"]
+        lib_mask &= qi - kj < c["window"]
     lib_mask = lib_mask[None, None]
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+    library_ms_windows = [device_ms(lambda: F.scaled_dot_product_attention(
         c["q"], c["k"], c["v"], attn_mask=lib_mask, enable_gqa=True), iters)
-    pairs = int(lib_mask.sum().item())                     # attended (q, k) pairs
+        for _ in range(windows)]
+    library_ms = float(np.median(library_ms_windows))
+    pairs = B * int(lib_mask.sum().item())                 # attended (q, k) pairs
     esz = c["q"].element_size()
     # q and k of hd, v and out of hdv; QK^T and PV
-    nbytes = (Hq * S * (hd + hdv) + Hkv * S * (hd + hdv)) * esz + \
+    nbytes = B * (Hq * S * (hd + hdv) + Hkv * Skv * (hd + hdv)) * esz + \
         (c["seg_np"].nbytes if c["seg_np"] is not None else 0)
     flops = 2 * pairs * Hq * (hd + hdv)
     b_ms, b_by = bound(nbytes, flops, str(c["q"].dtype))
     name = attention_kernel_name(kernel)
-    shape = [1, S, Hq, Hkv, hd] + ([hdv] if hdv != hd else [])
-    print(f"kernel flash_prefill timing shape={shape} kernel={name} "
-          f"segmented={c['segments'] is not None} window={c['window']} "
+    shape = [B, S, Hq, Hkv, hd] + ([hdv] if hdv != hd else [])
+    print(f"kernel flash_prefill timing shape={shape} Skv={Skv} kernel={name} "
+          f"segmented={c['segments'] is not None} causal={c['causal']} window={c['window']} "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-          f"bound_ms={b_ms:.5f} ({b_by})")
+          f"bound_ms={b_ms:.5f} ({b_by})"
+          + ("" if windows == 1 else
+             f" ms_windows={[round(x, 4) for x in ms_windows]}"
+             f" library_ms_windows={[round(x, 4) for x in library_ms_windows]}"))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms, "shape": shape, "kernel": name,
-            "design": kernel.design, "attended_pairs": pairs, "softcap": c["softcap"]}
+            **({} if windows == 1 else {"ms_windows": ms_windows,
+                                        "library_ms_windows": library_ms_windows}),
+            "library_ms": library_ms, "shape": shape, "Skv": Skv, "causal": c["causal"],
+            "kernel": name, "design": kernel.design, "attended_pairs": pairs,
+            "softcap": c["softcap"]}
 
 
 def cold_copies(nbytes):
@@ -936,6 +1117,7 @@ def run_quant_decode_checks(torch):
         "recurrentgemma-9b ring B8 Skv2048 Hq16 Hkv1 hd256 window2048": RGEMMA_RING,
         "recurrentgemma-9b pool B8 Skv2048 Hq16 Hkv1 hd256 window2048 (not wrapped)":
             RGEMMA_POOL,
+        **cross_attention_shapes()[2],
     }
     errs = []
     for bits in (8, 4):
@@ -1220,6 +1402,18 @@ def run_matmul_checks(torch):
             dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)).items():
         for M in ((1, 8) if what == "lm_head" else MLA_MATMUL_ROWS):
             cases[f"deepseek-v2 {what} int8 ({M}, {K}, {N})"] = (M, K, N, 8, 0, None)
+    # whisper-large-v3's projections at int8 (phase cross's w8kv8): the
+    # decode step's 8 rows, the encoder's and the cross keys' and values'
+    # 8 x 1500 source rows, and 8 rows a prefill position at each of the
+    # decoder's prefill lengths
+    for arch, m in CROSS_MODELS.items():
+        if not any(QUANT_RUNS[r].get("weight_bits") for r in m["runs"]):
+            continue
+        rows = (CROSS_BATCH, CROSS_BATCH * m["source"]) + \
+            tuple(CROSS_BATCH * L for L in cross_lengths(arch))
+        for (K, N), what in projection_shapes(cross_config(arch)).items():
+            for M in rows:
+                cases[f"{arch} {what} int8 ({M}, {K}, {N})"] = (M, K, N, 8, 0, None)
     errs = []
     for name, (M, K, N, bits, group, dtype) in cases.items():
         x, w = operands(M, K, N, dtype or torch.bfloat16)
@@ -1290,7 +1484,10 @@ def run_matmul_checks(torch):
         deepseek_v2_236b={"decode_wo_int8": shape_record(8, 16384, 5120, 8),
                           "prefill384_wo_int8": shape_record(384, 16384, 5120, 8),
                           "decode_shared_w_up_int8": shape_record(8, 5120, 3072, 8),
-                          "decode_lm_head_int8": shape_record(8, 5120, 102400, 8)})}
+                          "decode_lm_head_int8": shape_record(8, 5120, 102400, 8)},
+        whisper_large_v3={"decode_w_up_int8": shape_record(8, 1280, 5120, 8),
+                          "encoder_w_up_int8": shape_record(WHISPER_ENCODER_ROWS, 1280,
+                                                            5120, 8)})}
 
     # -- the crossbar layout --------------------------------------------------
     cases = {"kernel_micro (256, 1024, 512)": (256, 1024, 512, None),
@@ -3430,6 +3627,218 @@ def run_mla(torch, by_run):
     print(f"mla arch={MLA_ARCH} done at {time.perf_counter() - t0:.1f} s")
 
 
+def cross_source(torch, cfg, g):
+    """The source of phase cross's 8 requests, on the card, by the keyword
+    ``prefill`` takes: frames (whisper) and patch embeddings (the vision
+    stack) normal at ``CROSS_SOURCE_STD``, bart's encoder tokens uniform
+    ids."""
+    shape = (CROSS_BATCH, CROSS_MODELS[cfg.name]["source"])
+    if cfg.family in ("audio", "vlm"):
+        x = torch.randn(shape + (cfg.d_model,), generator=g,
+                        device=DEVICE) * CROSS_SOURCE_STD[cfg.family]
+        return {"frames" if cfg.family == "audio" else "image_embeds": x}
+    return {"encoder_tokens": torch.randint(0, cfg.vocab_size, shape, generator=g,
+                                            device=DEVICE, dtype=torch.int32)}
+
+
+def cross_units(cfg, cache):
+    """(self, cross) leaves of a decoder cache, {path: tensor}: a cross
+    unit's bare {"k", "v"} and a decoder unit's "cross" are cross leaves,
+    its "attn" self leaves."""
+    from repro_torch.models.transformer import build_groups
+    own, cross = {}, {}
+    for gi, spec in enumerate(build_groups(cfg)):
+        for ui, (kind, _) in enumerate(spec.units):
+            unit = cache["stack"][gi][f"u{ui}"]
+            parts = {"cross": unit} if kind == "cross" else unit
+            for part, leaves in parts.items():
+                for name, t in leaves.items():
+                    (cross if part == "cross" else own)[f"{gi}/u{ui}/{part}/{name}"] = t
+    return own, cross
+
+
+def cross_expected_launches(cfg, run):
+    """Launches of phase cross's main path (a prefill, then
+    ``CROSS_NEW_TOKENS`` decode steps): the prefill runs the prefill kernel
+    in every encoder layer (non-causal), every self-attention layer
+    (causal) and every cross-attention (non-causal, Sq != Skv); each decode
+    step a decode in each of them but the encoder's, the self-attention's
+    on the quantised pool at kv_bits 8; at weight_bits 8 every projection
+    runs the dequant-matmul: q, k, v, o of the encoder's, self and cross
+    attention at the prefill, q and o of a cross-attention at a decode step
+    (its keys and values are cached), the MLP of every layer (the gated
+    cross layers' too), and an untied lm_head."""
+    kinds = cfg.layer_kinds
+    own = kinds.count("global")
+    cross = kinds.count("cross") + (own if cfg.cross_attn_decoder else 0)
+    enc, steps = cfg.n_encoder_layers, CROSS_NEW_TOKENS
+    bits = QUANT_RUNS[run]
+    want = {"flash_prefill": enc + own + cross,
+            "flash_decode": steps * (cross + (0 if bits.get("kv_bits") else own)),
+            "flash_decode_quant": steps * own if bits.get("kv_bits") else 0}
+    if bits.get("weight_bits"):
+        mlp, head = (3 if cfg.glu else 2), (0 if cfg.tie_embeddings else 1)
+        prefill = 4 * (enc + own + cross) + mlp * (enc + len(kinds)) + head
+        step = 4 * own + 2 * cross + mlp * len(kinds) + head
+        want["quant_matmul"] = prefill + steps * step
+    return want
+
+
+def run_cross_model(torch, cfg, params, run, by_run):
+    """One workload of phase cross: 8 requests of one prompt length and
+    their source through ``prefill`` (``kv_cap`` the model's ``kv_len``),
+    then ``CROSS_NEW_TOKENS`` greedy ``decode_step`` calls, with
+    ``impl="flash"``: the main path, its launches counted from 0 and held
+    to ``cross_expected_launches``, timed on the host clock.  Then: the
+    same steps with ``impl="ref"`` fed the flash run's tokens, logits within
+    5e-2 of their scale at the prefill and every step; the decode steps of
+    ``CROSS_TF_STEPS`` against a prefill over the longer prefix (the
+    reference's ``_decode_matches_prefill``), the same bound; every cross
+    leaf bit for bit what the prefill wrote; at w8kv8 the self leaves int8
+    codes and the cross leaves bf16; at fp a zeroed source moving the
+    logits by more than the flash-vs-ref bound; and every kernel the model launched one that phase 3 held
+    against its plain version."""
+    from repro_torch.kernels.flash_attention.decode import kernel_launches as decode_kernels
+    from repro_torch.kernels.flash_attention.decode import quant_kernel_launches
+    from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill_kernels
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.core import quantize_params
+    from repro_torch.quant.kernel import kernel_launches as qmatmul_kernels
+    m, bits = CROSS_MODELS[cfg.name], QUANT_RUNS[run]
+    if bits.get("weight_bits"):
+        params = T.Transformer(cfg, quantize_params(params, bits["weight_bits"]))
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    B, P, steps = CROSS_BATCH, m["prompt"], CROSS_NEW_TOKENS
+    toks = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    src = cross_source(torch, cfg, g)
+    kw = dict(kv_cap=m["kv_len"], kv_bits=bits.get("kv_bits", 0))
+    positions = [torch.full((B,), P + s, dtype=torch.int32, device=DEVICE)
+                 for s in range(steps + 1)]
+
+    # -- the main path, counted ------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = T.prefill(params, cfg, toks, impl="flash", **kw, **src)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        flash, fed = [logits.float()], []
+        for s in range(steps):
+            fed.append(logits.argmax(-1).int())
+            logits, cache = T.decode_step(params, cfg, cache, fed[-1], positions[s],
+                                          impl="flash")
+            flash.append(logits.float())
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches()
+    by_run[f"{cfg.name} {run}"] = launches
+    want = cross_expected_launches(cfg, run)
+    wrong = {n: (c, want.get(n, 0)) for n, c in launches.items() if c != want.get(n, 0)}
+    print(f"cross launches arch={cfg.name} run={run} {json.dumps(launches)}")
+    check(not wrong, f"cross ({cfg.name} {run}): launches (got, reckoned) {wrong}")
+    own, cross = cross_units(cfg, cache)
+    if bits.get("kv_bits"):
+        check(all(t.dtype == torch.int8 for n, t in own.items() if n.endswith("_q")) and
+              any(n.endswith("_q") for n in own),
+              f"cross ({cfg.name} {run}): the self-attention pool is not int8 codes")
+    check(cross and all(t.dtype == torch.bfloat16 for t in cross.values()),
+          f"cross ({cfg.name} {run}): the cross leaves are not bf16")
+
+    # -- checks ------------------------------------------------------------
+    with torch.no_grad():
+        # the cross leaves after the decode steps against a fresh prefill's
+        # (the prefill is deterministic: the same kernels on the same inputs)
+        _, again = T.prefill(params, cfg, toks, impl="flash", **kw, **src)
+        same_cross = all(torch.equal(t, cross_units(cfg, again)[1][n]) for n, t in cross.items())
+        del again
+        logits, ref_cache = T.prefill(params, cfg, toks, impl="ref", **kw, **src)
+        ref = [logits.float()]
+        for s in range(steps):
+            logits, ref_cache = T.decode_step(params, cfg, ref_cache, fed[s], positions[s],
+                                              impl="ref")
+            ref.append(logits.float())
+        del ref_cache
+        tf = {}
+        for s in CROSS_TF_STEPS:
+            prefix = torch.cat([toks, torch.stack(fed[:s + 1], dim=1)], dim=1)
+            tf[s] = T.prefill(params, cfg, prefix, impl="flash", **kw, **src)[0].float()
+        moved = None
+        if not bits:
+            zero = {k: torch.zeros_like(v) for k, v in src.items()}
+            moved = float((T.prefill(params, cfg, toks, impl="flash", **kw, **zero)[0].float()
+                           - flash[0]).abs().max())
+    scale = max(float(r.abs().max()) for r in ref)
+    limit = 5e-2 * max(1.0, scale)
+    ref_diff = max(float((a - b).abs().max()) for a, b in zip(flash, ref))
+    tf_diff = max(float((flash[s + 1] - t).abs().max()) for s, t in tf.items())
+    finite = all(bool(torch.isfinite(x).all()) for x in flash)
+    print(f"cross logits arch={cfg.name} run={run} layers={cfg.n_layers}+{cfg.n_encoder_layers} "
+          f"prompt={P} source={m['source']} steps={steps} flash_vs_ref={ref_diff:.4f} "
+          f"decode_vs_teacher_forced={tf_diff:.4f} bound={limit:.4f} ref_scale={scale:.4f} "
+          f"cross_leaves_unchanged={same_cross} finite={finite}"
+          + ("" if moved is None else f" zeroed_source_moves={moved:.4f}"))
+    check(finite and ref_diff <= limit, f"cross ({cfg.name} {run}): flash and ref logits "
+          f"{ref_diff:.4f} apart, bound {limit:.4f}")
+    check(tf_diff <= limit, f"cross ({cfg.name} {run}): decode and teacher-forced prefill "
+          f"{tf_diff:.4f} apart, bound {limit:.4f}")
+    check(same_cross, f"cross ({cfg.name} {run}): decode changed a cross leaf")
+    check(moved is None or moved > limit,
+          f"cross ({cfg.name} {run}): a zeroed source left the logits ({moved})")
+    check_attention_checked(f"cross {cfg.name} {run}", prefill_kernels, CHECKED_PREFILL)
+    check_attention_checked(f"cross {cfg.name} {run}", decode_kernels, CHECKED_DECODE)
+    check_attention_checked(f"cross {cfg.name} {run}", quant_kernel_launches,
+                            CHECKED_DECODE_QUANT)
+    check_kernels_checked(f"cross {cfg.name} {run}", qmatmul_kernels)
+
+    out = {"prefill_ms": (t1 - t0) * 1e3, "decode_step_ms": (t2 - t1) * 1e3 / steps,
+           "tokens_per_s": B * steps / (t2 - t1), "peak_gib": torch.cuda.max_memory_allocated()
+           / 2**30, "pool_gib": tensor_bytes(own) / 2**30,
+           "cross_gib": tensor_bytes(cross) / 2**30}
+    if run == "fp" and cfg.family in ("audio", "vlm"):
+        with torch.no_grad():
+            step = functools.partial(T.decode_step, params, cfg, cache, fed[-1],
+                                     positions[steps], impl="flash")
+            d = profiled(torch, cfg.name, run, "decode_step", step, 4)
+            out.update(decode_busy_ms=d["busy_ms"], decode_wall_ms=d["wall_ms"],
+                       decode_kernels=d["kernels_per_step"])
+            if cfg.n_encoder_layers:
+                e = profiled(torch, cfg.name, run, "encoder", functools.partial(
+                    T.run_encoder, params, cfg, **src), 2)
+                out.update(encoder_busy_ms=e["busy_ms"], encoder_wall_ms=e["wall_ms"])
+    print(f"cross arch={cfg.name} run={run} card={CARD!r} "
+          + " ".join(f"{k}={v:.4f}" for k, v in out.items()))
+    return out
+
+
+def run_cross(torch, by_run):
+    """Phase cross: once every earlier model is freed, each model of
+    ``CROSS_MODELS`` with random bf16 weights (seed 0; the vision stack's
+    gates set to ``CROSS_GATES``) through ``run_cross_model`` at each of
+    its precisions, then freed."""
+    collect(torch)
+    before = torch.cuda.memory_allocated() / 2**30
+    print(f"cross memory_allocated_before_build_gib={before:.3f} bound_gib={MOE_FREE_BEFORE_GIB}")
+    check(before < MOE_FREE_BEFORE_GIB, f"cross: {before:.2f} GiB still allocated")
+    for arch, m in CROSS_MODELS.items():
+        t0 = time.perf_counter()
+        cfg = cross_config(arch)
+        params = make_params(torch, cfg)
+        with torch.no_grad():
+            for gi, spec in enumerate(params["stack"]):
+                for unit in spec.values():
+                    for name, value in CROSS_GATES.items():
+                        if name in unit:
+                            unit[name].fill_(value)
+        for run in m["runs"]:
+            run_cross_model(torch, cfg, params, run, by_run)
+        del params
+        collect(torch)
+        print(f"cross arch={arch} done in {time.perf_counter() - t0:.1f} s")
+
+
 def make_params(torch, cfg):
     """Random bf16 weights (seed 0) on the card, after the last model's are
     freed."""
@@ -3536,6 +3945,8 @@ def main():
     print(f"phases of the recurrent models done at {time.perf_counter() - start:.1f} s")
     run_mla(torch, by_run)
     print(f"phases of {MLA_ARCH} done at {time.perf_counter() - start:.1f} s")
+    run_cross(torch, by_run)
+    print(f"phases of the cross-attention models done at {time.perf_counter() - start:.1f} s")
 
     for name, rec in records.items():
         rec["launches"] = sum(n[name] for n in by_run.values())

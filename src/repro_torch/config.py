@@ -8,10 +8,13 @@ under RMSNorm or LayerNorm, with RoPE or a learned absolute-position
 table, its attention standard (MHA/GQA/MQA) or, with ``kv_lora_rank``,
 DeepSeek's multi-head latent attention (:attr:`ModelConfig.is_mla`); or a
 recurrent layer: a Mamba-2 SSD block (``"ssm"``) or an RG-LRU
-block followed by its MLP (``"recurrent"``).  The encoder family (bert) is
-served through the same causal serving paths.  The encoder/decoder fields
-are kept so that the paper's bart configs register, but no such stack is
-served yet.  The registry and
+block followed by its MLP (``"recurrent"``); or a gated cross-attention
+layer (``"cross"``, the vision stack's) that attends to a source held
+fixed for the request.  The encoder family (bert) is served through the
+same causal serving paths.  An encoder/decoder stack (whisper, bart:
+``n_encoder_layers`` and ``cross_attn_decoder``) and a stack with cross
+layers run through ``prefill``/``decode_step`` with their source, not
+through the serving engine, as in the reference.  The registry and
 :func:`reduce_config` follow the reference, so ``get_config(name)`` gives
 the same published numbers in both packages.
 """
@@ -20,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 # Layer kinds the port's model library can run
-LAYER_KINDS = ("global", "local", "recurrent", "ssm")
+LAYER_KINDS = ("global", "local", "recurrent", "ssm", "cross")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,10 +81,12 @@ class ModelConfig:
     ssm_chunk: int = 256
     # -- recurrent (RG-LRU / griffin) --------------------------------------
     lru_width: int = 0
-    # -- encoder/decoder (registered, not served) ---------------------------
+    # -- encoder/decoder and cross-attention sources -----------------------
     n_encoder_layers: int = 0       # 0 -> decoder-only
     encoder_pattern: tuple[str, ...] = ("global",)
     cross_attn_decoder: bool = False  # enc-dec: each decoder block has cross
+    frontend: str = "none"          # none | audio_stub | vision_stub
+    n_frontend_tokens: int = 1024   # the cross source's length (cross caches)
     # -- provenance ---------------------------------------------------------
     source: str = ""
     notes: str = ""
@@ -151,7 +156,7 @@ def reduce_config(cfg: ModelConfig, *, seq_len: int = 32) -> ModelConfig:
     has one, two encoder layers where it has an encoder, and the SSM's,
     RG-LRU's and MLA's widths cut as the reference cuts them (state 16, SSD
     head dim 16, chunk 8, LRU width 64; latent 32, query rank 48, RoPE dims
-    8).  A stack without attention keeps no KV
+    8), and a cross source of 16 entries.  A stack without attention keeps no KV
     heads, and one without an MLP no ``d_ff``."""
     n_layers = max(len(cfg.pattern), 2)
     if cfg.n_layers % len(cfg.pattern):
@@ -183,5 +188,6 @@ def reduce_config(cfg: ModelConfig, *, seq_len: int = 32) -> ModelConfig:
         lru_width=64 if cfg.lru_width else 0,
         n_encoder_layers=2 if cfg.n_encoder_layers else 0,
         max_abs_positions=max(seq_len * 2, 64) if cfg.max_abs_positions else 0,
+        n_frontend_tokens=16,
         first_k_dense=min(cfg.first_k_dense, 1),
     )

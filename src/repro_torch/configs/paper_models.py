@@ -1,7 +1,9 @@
 """The paper's own workload table (Table 3) as runnable configs of the port.
 
-bert-base/large, gpt-j and llama2-7b are served; bart-base/large are
-registered for Plane B (``repro_torch.core``) and wait for cross-attention.
+bert-base/large, gpt-j and llama2-7b are served by the engine;
+bart-base/large (encoder/decoder, read by Plane B in ``repro_torch.core``)
+run through ``prefill(..., encoder_tokens=)`` and ``decode_step``, as in
+the reference.
 """
 from repro_torch.config import ModelConfig, register
 

@@ -27,12 +27,13 @@ from repro_torch.quant.core import QuantTensor, quantize_params
 # which the reference keeps in f32 (its logits are f32), and the f32 leaves
 # of the recurrent blocks: the convs, Mamba-2's A_log, D, dt_bias and norm
 # vector, and the RG-LRU's gates wa/wi (the reference multiplies them in
-# f32: stored in bf16 they would change the gates), ba, bi and lam.  Every
-# other leaf, the embedding and the position table among them, is stored
-# in ``dtype``.
+# f32: stored in bf16 they would change the gates), ba, bi and lam, and the
+# gated cross layers' scalar gates gate_attn/gate_mlp.  Every other leaf,
+# the embedding, the position table and the encoder's and cross
+# projections among them, is stored in ``dtype``.
 _F32_LEAVES = ("bq", "bk", "bv", "b_up", "b_down", "scale", "bias", "q_norm", "k_norm",
                "kv_norm", "router", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm",
-               "wa", "wi", "ba", "bi", "lam")
+               "wa", "wi", "ba", "bi", "lam", "gate_attn", "gate_mlp")
 
 
 def _is_quant(leaf) -> bool:

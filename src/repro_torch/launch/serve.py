@@ -39,11 +39,12 @@ def main(argv=None):
     from repro_torch import resolve_device
     from repro_torch.config import get_config, reduce_config
     from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.engine import EngineConfig, ServingEngine, check_servable
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
+    check_servable(cfg)       # before any weight is drawn
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=device, dtype=torch.bfloat16)

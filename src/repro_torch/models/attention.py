@@ -1,7 +1,7 @@
 """Attention layers: MHA/GQA/MQA with global or local (sliding-window,
-ring-buffer cache) attention, and DeepSeek's multi-head latent attention
-(MLA) (counterpart of the reference's ``models/attention.py``,
-self-attention).
+ring-buffer cache) attention, cross-attention to a fixed source, and
+DeepSeek's multi-head latent attention (MLA) (counterpart of the
+reference's ``models/attention.py``).
 
 The slot pool is fp (``k``/``v``) or, with ``kv_bits`` 8 or 4, quantised:
 int8 code planes ``k_q``/``v_q`` (two int4 codes a byte along the head
@@ -24,7 +24,15 @@ Serving modes:
   row are written into the KV cache at explicit positions (``pos < 0`` =
   pad, dropped) and attend to the pre-write cache plus the chunk;
 - ``mode="decode"`` — one token per slot, written at ``pos`` (``-1`` =
-  dead slot, dropped), attending to the post-write cache.
+  dead slot, dropped), attending to the post-write cache;
+- ``mode="encode"`` — an encoder's cache-free forward (the reference's
+  ``train`` mode, as a forward pass only: no backward), without a causal
+  mask.
+
+Cross-attention (:func:`apply_cross_attention`, ``kind="cross"``) reads
+keys and values projected from a source (an encoder's output, or patch
+embeddings): its cache is ``{"k", "v"}`` in the compute dtype at every
+``kv_bits`` with no ``pos``, written by prefill and only read after.
 
 MLA (:func:`apply_mla`) caches one compressed latent a token, ``ckv``
 (``kv_lora_rank`` wide) and its RoPE key ``kr`` (``rope_head_dim``),
@@ -55,7 +63,10 @@ from repro_torch.quant.ops import qdense
 # init
 # ---------------------------------------------------------------------------
 
-def init_attention(generator, cfg, *, repeats, dtype, device):
+def init_attention(generator, cfg, *, repeats, dtype, device, cross: bool = False):
+    """q/k/v/o projections, with the biases of ``qkv_bias`` and the
+    per-head q/k norms of ``qk_norm``; a cross projection (``cross``)
+    takes no q/k norm, as the reference's."""
     D = cfg.d_model
     Hq, Hkv, hd, hdv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
     R = repeats
@@ -66,7 +77,7 @@ def init_attention(generator, cfg, *, repeats, dtype, device):
         "wo": dense_init(generator, (R, Hq * hdv, D), dtype, device, fan_in=Hq * hdv),
     }
     f32 = dict(dtype=torch.float32, device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         # (scale - 1) of the per-head rms norms of q and k, as the reference's
         p["q_norm"] = torch.zeros((R, hd), **f32)
         p["k_norm"] = torch.zeros((R, hd), **f32)
@@ -107,11 +118,16 @@ def init_mla(generator, cfg, *, repeats, dtype, device):
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg, kind: str, batch: int, kv_len: int, dtype, device,
-                  kv_bits: int = 0):
+                  kv_bits: int = 0, n_cross: int = 0):
     """``kv_bits`` 0 keeps the fp pool; 8/4 allocate the quantised pool.
     An MLA stack's pool is its latents ``ckv``/``kr`` in ``dtype`` and
-    ``pos``, at every ``kv_bits``."""
+    ``pos``, at every ``kv_bits``.  A cross cache (``kind="cross"``) is the
+    source's keys and values, ``n_cross`` entries in ``dtype`` at every
+    ``kv_bits`` and no ``pos`` (every entry valid), as the reference's."""
     Hkv, hd, hdv = cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
+    if kind == "cross":
+        return {"k": torch.zeros((batch, n_cross, Hkv, hd), dtype=dtype, device=device),
+                "v": torch.zeros((batch, n_cross, Hkv, hdv), dtype=dtype, device=device)}
     if cfg.is_mla:
         return {
             "ckv": torch.zeros((batch, kv_len, cfg.kv_lora_rank), dtype=dtype, device=device),
@@ -259,19 +275,60 @@ def _commit_kv(cache, new_k, new_v, pos):
 # apply
 # ---------------------------------------------------------------------------
 
+def apply_cross_attention(p, x, *, cfg, mode: str, cache=None, cross_src=None,
+                          impl: str = "flash"):
+    """Attention of x (B, S, D) to a source held fixed for the request.
+    ``prefill``/``encode``: K and V projected from ``cross_src`` (B, S_src,
+    D), with the biases, and attended without a causal mask through the
+    prefill kernel (Sq != Skv); prefill returns them as the cache ``{"k",
+    "v"}``.  ``decode``/``chunk``: the cache is read and never written,
+    through the decode route with every query at position ``Skv`` over
+    entries ``arange(Skv)`` -- the reference's way to say "non-causal" to a
+    causal decode kernel.  Returns (out (B, S, D), cache)."""
+    B, S, _ = x.shape
+    Hq, Hkv, hd, hdv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
+    dt = x.dtype
+    q = qdense(x, p["wq"], dt, impl=impl)
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+    q = q.reshape(B, S, Hq, hd)
+    if mode in ("decode", "chunk"):
+        k, v = cache["k"], cache["v"]
+        Skv = k.shape[1]
+        kv_pos = torch.arange(Skv, dtype=torch.int32, device=x.device).expand(B, Skv)
+        q_pos = torch.full((B, S), Skv, dtype=torch.int32, device=x.device)
+        out = flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
+                              softcap=cfg.attn_softcap, impl=impl)
+        new_cache = cache
+    else:
+        src = cross_src.to(dt)
+        k = qdense(src, p["wk"], dt, impl=impl)
+        v = qdense(src, p["wv"], dt, impl=impl)
+        if "bk" in p:
+            k = k + p["bk"].to(dt)
+            v = v + p["bv"].to(dt)
+        k, v = k.reshape(B, -1, Hkv, hd), v.reshape(B, -1, Hkv, hdv)
+        out = flash_attention(q, k, v, causal=False, softcap=cfg.attn_softcap, impl=impl)
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    return qdense(out.reshape(B, S, Hq * hdv), p["wo"], dt, impl=impl), new_cache
+
+
 def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
                     impl: str = "flash", segments=None, kv_bits: int = 0,
                     kv_cap: int = 0, length=None):
     """x (B, S, D); pos (B, S) int32 (decode: (B, 1); chunk: -1 = pad).
     Prefill: ``kv_bits`` returns a quantised cache; without ``segments``,
     ``kv_cap`` is the cache's capacity (at least S) and ``length`` the
-    prompt's true length (default S).  Returns (out (B, S, D), cache)."""
-    if kind not in ("global", "local"):
-        raise NotImplementedError(f"layer kind {kind!r} has no port yet")
-    if mode not in ("prefill", "chunk", "decode"):
+    prompt's true length (default S).  ``encode`` is an encoder's
+    cache-free forward (the reference's ``train`` mode as a forward pass,
+    without a causal mask; no cache returned).  Returns (out (B, S, D),
+    cache)."""
+    if mode not in ("prefill", "chunk", "decode", "encode"):
         raise NotImplementedError(
             f"attention mode {mode!r} has no port yet: serving runs prefill, "
-            f"chunk and decode")
+            f"chunk and decode, an encoder encode")
+    if kind not in ("global", "local"):
+        raise NotImplementedError(f"layer kind {kind!r} has no port yet")
     B, S, D = x.shape
     Hq, Hkv, hd, hdv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
     dt = x.dtype
@@ -293,7 +350,11 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
         q, k = apply_rope(q, pos, theta), apply_rope(k, pos, theta)
     v = v.reshape(B, S, Hkv, hdv)
 
-    if mode == "prefill":
+    if mode == "encode":
+        out = flash_attention(q, k, v, causal=False, window=window,
+                              softcap=cfg.attn_softcap, impl=impl)
+        new_cache = None
+    elif mode == "prefill":
         out = flash_attention(q, k, v, causal=True, window=window,
                               softcap=cfg.attn_softcap, impl=impl,
                               segments=segments)

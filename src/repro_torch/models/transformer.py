@@ -21,6 +21,16 @@ reference's tree.  Their caches are ``{"conv", "state"}`` and ``{"conv",
 MLA stack (``cfg.is_mla``) every attention unit's ``attn`` holds the
 latent projections (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``,
 ``kv_norm``, ``wkv_b``, ``wo``) and its cache ``{"ckv", "kr", "pos"}``.
+
+Cross-attention: an encoder/decoder stack (whisper, bart) holds an
+``encoder`` stack and ``encoder_norm`` beside the decoder's, whose layers
+each add ``ln_cross``/``cross`` (cache ``{"attn", "cross"}``); the vision
+stack's ``cross`` units are gated layers (``gate_attn``, ``gate_mlp``; cache
+the bare ``{"k", "v"}``).  Their source goes to :func:`prefill` by keyword
+(``frames``, ``encoder_tokens``, ``image_embeds``); :func:`decode_step`
+reads the cross caches and never writes them.  These stacks run through
+``prefill``/``decode_step`` only: the serving engine refuses them, as the
+reference's cannot serve them.
 """
 from __future__ import annotations
 
@@ -35,8 +45,9 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models import modules as M
-from repro_torch.models.attention import (apply_attention, apply_mla, init_attention,
-                                          init_kv_cache, init_mla)
+from repro_torch.models.attention import (apply_attention, apply_cross_attention,
+                                          apply_mla, init_attention, init_kv_cache,
+                                          init_mla)
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.rglru import apply_rglru, init_rglru, init_rglru_cache
 from repro_torch.models.ssm import apply_mamba, init_mamba, init_ssm_cache
@@ -54,13 +65,18 @@ class GroupSpec:
     repeats: int
 
 
-def build_groups(cfg: ModelConfig) -> list[GroupSpec]:
+def build_groups(cfg: ModelConfig, *, encoder: bool = False) -> list[GroupSpec]:
     """One group per maximal run of identical pattern periods (a unit is a
     layer kind and whether its FFN is MoE), plus a remainder group — the
     reference's grouping, so group and unit indices (and hence parameter
-    names) match."""
-    units = tuple(zip(cfg.layer_kinds, cfg.moe_layer_mask()))
-    period = len(cfg.pattern)
+    names) match.  ``encoder``: the encoder stack's groups (its pattern,
+    no MoE)."""
+    if encoder:
+        kinds, period = cfg.encoder_layer_kinds, len(cfg.encoder_pattern)
+        units = tuple((k, False) for k in kinds)
+    else:
+        units = tuple(zip(cfg.layer_kinds, cfg.moe_layer_mask()))
+        period = len(cfg.pattern)
     n = len(units)
     groups: list[GroupSpec] = []
     full = n // period
@@ -142,29 +158,15 @@ class Transformer(ParamTree):
         self.cfg = cfg
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
-                device=None, dtype=torch.bfloat16) -> Transformer:
-    """Random parameters with the reference's distributions, drawn with
-    ``generator`` (on the generator's device) and stored on ``device``.
-    Weights, the embedding and the position table are stored in ``dtype``;
-    biases and norm vectors in f32, cast at use.  ``generator=None`` with
-    ``device="meta"`` builds only the names and shapes.  A parallel block
-    (GPT-J) holds ``ln1``, ``attn`` and ``mlp`` alone; an ``ssm`` unit
-    ``ln1`` and ``mamba``, a ``recurrent`` one ``ln1``, ``rec``, ``ln2`` and
-    ``mlp``."""
-    if cfg.n_encoder_layers or cfg.cross_attn_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder/decoder stacks (cross-attention) have no port yet")
-    device = resolve_device(device)
-    if generator is None and device.type != "meta":
-        raise ValueError("init_params draws with an explicit torch.Generator")
-    tree = {"embed": {"tok": M.embed_init(
-        generator, (cfg.vocab_size, cfg.d_model), dtype, device)}}
-    if not cfg.use_rope and cfg.max_abs_positions:
-        tree["embed"]["pos"] = M.embed_init(
-            generator, (cfg.max_abs_positions, cfg.d_model), dtype, device)
+def _init_stack(generator, cfg, groups, *, causal: bool, dtype, device):
+    """The layers of one stack, group by group.  A decoder layer of an
+    encoder/decoder stack (``cross_attn_decoder`` and ``causal``) holds
+    ``ln_cross`` and ``cross`` between attention and its MLP; a ``cross``
+    unit (the vision stack's gated layer) ``ln1``, ``attn`` (a cross
+    projection), ``gate_attn``, ``ln2``, ``mlp`` and ``gate_mlp``, the
+    gates f32 zeros, as the reference's."""
     stack = []
-    for spec in build_groups(cfg):
+    for spec in groups:
         blk = {}
         for ui, (kind, use_moe) in enumerate(spec.units):
             norm = functools.partial(M.init_norm, cfg, (spec.repeats, cfg.d_model), device)
@@ -176,24 +178,64 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
                 blk[f"u{ui}"] = {"ln1": norm(), "rec": init_rglru(generator, cfg, **init),
                                  "ln2": norm(), "mlp": M.init_mlp(generator, cfg, **init)}
                 continue
+            if kind == "cross":
+                gate = functools.partial(torch.zeros, (spec.repeats,), dtype=torch.float32,
+                                         device=device)
+                blk[f"u{ui}"] = {"ln1": norm(),
+                                 "attn": init_attention(generator, cfg, cross=True, **init),
+                                 "gate_attn": gate(), "ln2": norm(),
+                                 "mlp": M.init_mlp(generator, cfg, **init),
+                                 "gate_mlp": gate()}
+                continue
             layer = {"ln1": norm(),
-                     "attn": (init_mla if cfg.is_mla else init_attention)(
-                         generator, cfg, repeats=spec.repeats, dtype=dtype, device=device)}
+                     "attn": (init_mla if cfg.is_mla else init_attention)(generator, cfg,
+                                                                          **init)}
             if cfg.parallel_block:
-                layer["mlp"] = M.init_mlp(generator, cfg, repeats=spec.repeats,
-                                          dtype=dtype, device=device)
+                layer["mlp"] = M.init_mlp(generator, cfg, **init)
                 blk[f"u{ui}"] = layer
                 continue
+            if cfg.cross_attn_decoder and causal:
+                layer["ln_cross"] = norm()
+                layer["cross"] = init_attention(generator, cfg, cross=True, **init)
             layer["ln2"] = norm()
             layer["moe" if use_moe else "mlp"] = (init_moe if use_moe else M.init_mlp)(
-                generator, cfg, repeats=spec.repeats, dtype=dtype, device=device)
+                generator, cfg, **init)
             if cfg.post_norm:
                 for name in ("ln1_post", "ln2_post"):
                     layer[name] = norm()
             blk[f"u{ui}"] = layer
         stack.append(blk)
-    tree["stack"] = stack
+    return stack
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None, *,
+                device=None, dtype=torch.bfloat16) -> Transformer:
+    """Random parameters with the reference's distributions, drawn with
+    ``generator`` (on the generator's device) and stored on ``device``.
+    Weights, the embedding and the position table are stored in ``dtype``;
+    biases, norm vectors and the cross layers' gates in f32, cast at use.
+    ``generator=None`` with ``device="meta"`` builds only the names and
+    shapes.  A parallel block (GPT-J) holds ``ln1``, ``attn`` and ``mlp``
+    alone; an ``ssm`` unit ``ln1`` and ``mamba``, a ``recurrent`` one
+    ``ln1``, ``rec``, ``ln2`` and ``mlp``.  An encoder/decoder stack adds
+    ``encoder`` (its layers) and ``encoder_norm``.  Without RoPE a learned
+    position table ``embed.pos``, but for audio (whisper), whose tokens
+    take sinusoidal positions, as the reference's."""
+    device = resolve_device(device)
+    if generator is None and device.type != "meta":
+        raise ValueError("init_params draws with an explicit torch.Generator")
+    tree = {"embed": {"tok": M.embed_init(
+        generator, (cfg.vocab_size, cfg.d_model), dtype, device)}}
+    if not cfg.use_rope and cfg.family != "audio" and cfg.max_abs_positions:
+        tree["embed"]["pos"] = M.embed_init(
+            generator, (cfg.max_abs_positions, cfg.d_model), dtype, device)
+    kw = dict(dtype=dtype, device=device)
+    tree["stack"] = _init_stack(generator, cfg, build_groups(cfg), causal=True, **kw)
     tree["final_norm"] = M.init_norm(cfg, (cfg.d_model,), device)
+    if cfg.n_encoder_layers:
+        tree["encoder"] = _init_stack(generator, cfg, build_groups(cfg, encoder=True),
+                                      causal=False, **kw)
+        tree["encoder_norm"] = M.init_norm(cfg, (cfg.d_model,), device)
     if not cfg.tie_embeddings:
         tree["lm_head"] = M.dense_init(generator, (cfg.d_model, cfg.vocab_size), dtype,
                                        device)
@@ -215,7 +257,16 @@ def _layer(tree, r: int):
 # ---------------------------------------------------------------------------
 
 def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
-                 kv_bits, kv_cap, length):
+                 kv_bits, kv_cap, length, cross_src=None):
+    if kind == "cross":
+        # the vision stack's gated layer: tanh of the f32 gates, cast to x's
+        # dtype, on both residuals; its cache is the bare {"k", "v"}
+        out, c = apply_cross_attention(p["attn"], M.apply_norm(p["ln1"], x), cfg=cfg,
+                                       mode=mode, cache=cache, cross_src=cross_src,
+                                       impl=impl)
+        x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
+        ff = M.apply_mlp(p["mlp"], M.apply_norm(p["ln2"], x), cfg, impl=impl)
+        return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ff, c
     if kind in ("ssm", "recurrent"):
         h = M.apply_norm(p["ln1"], x)
         if kind == "ssm":
@@ -243,6 +294,15 @@ def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
     if cfg.post_norm:
         out = M.apply_norm(p["ln1_post"], out)
     x = x + out
+    blk_cache = {"attn": c}
+    if "cross" in p:
+        # an encoder/decoder stack's decoder layer: cross-attention to the
+        # encoder's output between attention and the MLP, cached under "cross"
+        out, blk_cache["cross"] = apply_cross_attention(
+            p["cross"], M.apply_norm(p["ln_cross"], x), cfg=cfg, mode=mode,
+            cache=None if cache is None else cache["cross"], cross_src=cross_src,
+            impl=impl)
+        x = x + out
     h = M.apply_norm(p["ln2"], x)
     if use_moe:
         ff = apply_moe(p["moe"], h, cfg, mode=mode, impl=impl)
@@ -251,16 +311,21 @@ def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
     if cfg.post_norm:
         ff = M.apply_norm(p["ln2_post"], ff)
     x = x + ff
-    return x, {"attn": c}
+    return x, (None if mode == "encode" else blk_cache)
 
 
 def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
-              impl="flash", segments=None, kv_bits=0, kv_cap=0, length=None):
+              impl="flash", segments=None, kv_bits=0, kv_cap=0, length=None,
+              cross_src=None):
     """Run every layer.  ``prefill`` returns the per-layer caches stacked
     as ``(repeats, ...)`` per group (quantised with ``kv_bits``): raw
     per-token with ``segments``, else exact at ``length`` with ``kv_cap``
     entries (a ring for local layers); ``chunk``/``decode`` update the pool
-    ``caches`` in place and return them."""
+    ``caches`` in place and return them (a cross cache is read, never
+    written); ``encode`` (an encoder, without a causal mask) returns no
+    cache.
+    ``cross_src`` (B, S_src, D) is what the cross-attention of a prefill or
+    an encode attends to."""
     new_caches = []
     for gi, spec in enumerate(groups):
         gp = stack[gi]
@@ -276,9 +341,10 @@ def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
                     pos=pos,
                     cache=None if c_blk is None else c_blk[f"u{ui}"],
                     impl=impl, segments=segments, kv_bits=kv_bits, kv_cap=kv_cap,
-                    length=length)
+                    length=length, cross_src=cross_src)
             outs.append(c_out)
-        new_caches.append(gc if gc is not None else _stack_trees(outs))
+        if mode != "encode":
+            new_caches.append(gc if gc is not None else _stack_trees(outs))
     return x, new_caches
 
 
@@ -353,12 +419,65 @@ def unembed(params, cfg, h, impl="flash"):
 
 
 # ---------------------------------------------------------------------------
+# the cross-attention source
+# ---------------------------------------------------------------------------
+
+def needs_source(cfg: ModelConfig) -> bool:
+    """An encoder/decoder stack or one with cross layers: its prefill takes
+    a source (``frames``, ``encoder_tokens`` or ``image_embeds``)."""
+    return bool(cfg.n_encoder_layers or cfg.cross_attn_decoder or "cross" in cfg.layer_kinds)
+
+
+def run_encoder(params, cfg: ModelConfig, *, frames=None, encoder_tokens=None,
+                impl="flash", compute_dtype=torch.bfloat16):
+    """The encoder's output (B, S_src, D) after ``encoder_norm``: audio
+    (whisper) takes the frame embeddings ``frames`` (B, S_src, D) in the
+    compute dtype plus sinusoidal positions; a text encoder (bart) embeds
+    ``encoder_tokens`` (B, S_src) with the position table.  Its layers run
+    without a causal mask and return no cache."""
+    if cfg.family == "audio":
+        if frames is None:
+            raise ValueError(f"{cfg.name}: prefill needs frames= (B, frames, d_model)")
+        h = frames.to(compute_dtype)
+        B, S = h.shape[:2]
+        pos = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
+        h = h + M.sinusoidal_positions(pos, cfg.d_model).to(compute_dtype)
+    else:
+        if encoder_tokens is None:
+            raise ValueError(f"{cfg.name}: prefill needs encoder_tokens= (B, S_src)")
+        B, S = encoder_tokens.shape
+        pos = torch.arange(S, dtype=torch.int32, device=encoder_tokens.device).expand(B, S)
+        h = embed_tokens(params, cfg, encoder_tokens, pos, compute_dtype)
+    h, _ = run_stack(params["encoder"], h, cfg=cfg, groups=build_groups(cfg, encoder=True),
+                     mode="encode", pos=pos, impl=impl)
+    return M.apply_norm(params["encoder_norm"], h)
+
+
+def cross_source(params, cfg: ModelConfig, *, frames=None, encoder_tokens=None,
+                 image_embeds=None, impl="flash", compute_dtype=torch.bfloat16):
+    """What the cross-attention of a prefill attends to: the encoder's
+    output (:func:`run_encoder`), the patch embeddings ``image_embeds`` (B,
+    n_frontend_tokens, D) of a vision stack in the compute dtype, or None
+    for a stack without cross-attention.  A stack that needs a source and
+    is given none raises."""
+    if cfg.n_encoder_layers:
+        return run_encoder(params, cfg, frames=frames, encoder_tokens=encoder_tokens,
+                           impl=impl, compute_dtype=compute_dtype)
+    if needs_source(cfg):
+        if image_embeds is None:
+            raise ValueError(f"{cfg.name}: prefill needs image_embeds= "
+                             f"(B, n_frontend_tokens, d_model)")
+        return image_embeds.to(compute_dtype)
+    return None
+
+
+# ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
 
 def prefill(params, cfg: ModelConfig, tokens, *, impl="flash",
             compute_dtype=torch.bfloat16, kv_cap: int = 0, length=None,
-            kv_bits: int = 0):
+            kv_bits: int = 0, frames=None, encoder_tokens=None, image_embeds=None):
     """One right-padded prompt a row: ``tokens`` (B, S) at positions
     ``arange(S)``, ``length`` (an int, default S) of them real.  Returns
     (logits (B, V) at position ``length - 1``, cache): per group the
@@ -366,14 +485,24 @@ def prefill(params, cfg: ModelConfig, tokens, *, impl="flash",
     S; a ring of ``min(window, kv_cap)`` for local layers), quantised with
     ``kv_bits``.  Causal masking makes attention exact under the pads; the
     SSM and RG-LRU layers take ``length`` too (pads are identity steps and
-    never enter the conv state), so their caches are exact as well."""
+    never enter the conv state), so their caches are exact as well.
+
+    A stack with cross-attention takes its source, named after the
+    reference's batch keys: ``frames`` (whisper), ``encoder_tokens``
+    (bart) or ``image_embeds`` (the vision stack); without it this raises.
+    Its cross caches are the source's keys and values in the compute dtype
+    at every ``kv_bits``, which :func:`decode_step` reads and never
+    writes."""
     B, S = tokens.shape
     length = S if length is None else length
+    cross_src = cross_source(params, cfg, frames=frames, encoder_tokens=encoder_tokens,
+                             image_embeds=image_embeds, impl=impl,
+                             compute_dtype=compute_dtype)
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     h = embed_tokens(params, cfg, tokens, pos, compute_dtype)
     h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
                           mode="prefill", pos=pos, impl=impl, kv_bits=kv_bits,
-                          kv_cap=kv_cap, length=length)
+                          kv_cap=kv_cap, length=length, cross_src=cross_src)
     h = M.apply_norm(params["final_norm"], h)
     logits = unembed(params, cfg, h[:, length - 1:length], impl)[:, 0]
     return logits, {"stack": caches}
@@ -444,8 +573,9 @@ def verify_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
                 compute_dtype=torch.bfloat16):
     """One decode step.  tokens (B,), pos (B,) -> (logits (B, V), cache);
-    the cache is updated in place.  A dead slot's ``pos`` -1 reads the
-    position table's last row, as the reference's gather does."""
+    the cache is updated in place (its cross caches read, never written).
+    A dead slot's ``pos`` -1 reads the position table's last row, as the
+    reference's gather does."""
     pos2 = pos[:, None]
     h = embed_tokens(params, cfg, tokens[:, None], pos2, compute_dtype)
     h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
@@ -467,8 +597,13 @@ def init_cache(cfg: ModelConfig, batch: int, kv_len: int, *,
     ``kv_bits``),
     or for a recurrent unit ``{"conv", "state"}`` (ssm) or ``{"conv", "h"}``
     (recurrent): ``conv`` in ``dtype``, ``state``/``h`` f32, whatever
-    ``kv_bits``.  Every leaf has a leading ``repeats`` axis."""
+    ``kv_bits``.  A ``cross`` unit holds the bare ``{"k", "v"}`` of
+    ``n_frontend_tokens`` entries, and a decoder unit of an encoder/decoder
+    stack ``{"attn": ..., "cross": {"k", "v"}}``, the cross leaves in
+    ``dtype`` at every ``kv_bits``.  Every leaf has a leading ``repeats``
+    axis."""
     device = resolve_device(device)
+    n_cross = cfg.n_frontend_tokens
     caches = []
     for spec in build_groups(cfg):
         blk = {}
@@ -477,10 +612,22 @@ def init_cache(cfg: ModelConfig, batch: int, kv_len: int, *,
                 one = init_ssm_cache(cfg, batch, dtype, device)
             elif kind == "recurrent":
                 one = init_rglru_cache(cfg, batch, dtype, device)
+            elif kind == "cross":
+                one = init_kv_cache(cfg, "cross", batch, kv_len, dtype, device,
+                                    n_cross=n_cross)
             else:
-                one = init_kv_cache(cfg, kind, batch, kv_len, dtype, device,
-                                    kv_bits=kv_bits)
-            one = {k: t[None].repeat((spec.repeats,) + (1,) * t.dim()) for k, t in one.items()}
-            blk[f"u{ui}"] = one if kind in ("ssm", "recurrent") else {"attn": one}
+                one = {"attn": init_kv_cache(cfg, kind, batch, kv_len, dtype, device,
+                                             kv_bits=kv_bits)}
+                if cfg.cross_attn_decoder:
+                    one["cross"] = init_kv_cache(cfg, "cross", batch, kv_len, dtype,
+                                                 device, n_cross=n_cross)
+            blk[f"u{ui}"] = _repeat_tree(one, spec.repeats)
         caches.append(blk)
     return {"stack": caches}
+
+
+def _repeat_tree(tree, repeats: int):
+    """Each leaf of a nested dict with a leading ``repeats`` axis."""
+    if isinstance(tree, torch.Tensor):
+        return tree[None].repeat((repeats,) + (1,) * tree.dim())
+    return {k: _repeat_tree(t, repeats) for k, t in tree.items()}

@@ -55,7 +55,9 @@ The engine serves fp or quantised (``weight_bits``/``weight_group``/
 ``kv_bits``).  :meth:`ServingEngine.restore` revives one from a snapshot
 (``serving/checkpoint.py``: snapshots, the admission journal, replay).
 A mesh (sharded serving) has no port yet: ``mesh=`` raises
-``NotImplementedError``.  The engine runs on ``"cuda"`` unless
+``NotImplementedError``, as does a cross-attention stack (whisper, bart,
+the vision stack: :func:`check_servable`), which the reference's engine
+cannot serve either.  The engine runs on ``"cuda"`` unless
 ``device="cpu"`` is passed.
 """
 from __future__ import annotations
@@ -70,6 +72,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
+from repro_torch.models.transformer import needs_source
 from repro_torch.serving.executor import Executor
 from repro_torch.serving.pool import SlotPool
 from repro_torch.serving.scheduler import FifoScheduler, Scheduler
@@ -142,6 +145,20 @@ def packable(cfg: ModelConfig) -> bool:
     prompt boundaries) without MoE, cross-attention or an encoder."""
     return attention_only(cfg) and not cfg.is_moe and not cfg.cross_attn_decoder \
         and not cfg.n_encoder_layers
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Refuse a stack the engine cannot serve: an encoder/decoder stack or
+    one with cross layers needs its source at prefill, which the engine's
+    requests do not carry (the reference's engine cannot serve them
+    either).  They run through ``models.transformer.prefill`` with the
+    source and ``decode_step``."""
+    if needs_source(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the serving engine does not serve cross-attention stacks "
+            f"(encoder/decoder or cross layers); run it through "
+            f"repro_torch.models.transformer.prefill(..., frames=|encoder_tokens=|"
+            f"image_embeds=) and decode_step")
 
 
 def _check_spec(cfg: ModelConfig, ecfg: EngineConfig, draft) -> None:
@@ -231,6 +248,7 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, ecfg: Optional[EngineConfig] = None,
                  *, device=None, scheduler: Optional[Scheduler] = None, mesh=None,
                  draft: Optional[tuple] = None):
+        check_servable(cfg)
         self.cfg = cfg
         self.ecfg = ecfg = ecfg if ecfg is not None else EngineConfig()
         if ecfg.weight_bits not in (0, 4, 8):

@@ -313,17 +313,19 @@ def test_quantised_pool_kill_restore_bit_exact(model, tmp_path, kv_bits):
     ("qwen2.5-3b", False, 4),              # packed int4 codes
     ("deepseek-v2-236b", False, 8),        # MLA: the latents stay bf16
     ("deepseek-v2-236b", False, 4),
+    ("bart-large", False, 8),              # enc-dec: the cross leaves stay bf16
 ])
 def test_slot_pool_serialisation_roundtrip(tmp_path, arch, mqa, kv_bits):
     """A slot pool with content in every leaf round-trips through the npz
     with its leaf dtypes and bits; an MLA pool holds no quantised plane
-    at any ``kv_bits`` (the reference's documented exception)."""
+    at any ``kv_bits``, nor does an encoder/decoder stack's cross cache
+    (the reference's documented exceptions)."""
     cfg = reduce_config(get_config(arch))
     if mqa:
         cfg = dataclasses.replace(cfg, n_kv_heads=1)
     cache = T.init_cache(cfg, 2, 32, device="cpu", kv_bits=kv_bits)
     g = torch.Generator().manual_seed(0)
-    for leaf in (t for g_ in cache["stack"] for u in g_.values() for t in u["attn"].values()):
+    for _, leaf in tree_items(cache):
         leaf.copy_(torch.randint(1, 5, leaf.shape, generator=g).to(leaf.dtype))
     flat = sc.flatten_tree(cache)
     path = os.path.join(str(tmp_path), "pool.npz")
@@ -337,6 +339,11 @@ def test_slot_pool_serialisation_roundtrip(tmp_path, arch, mqa, kv_bits):
         assert {k.split("/")[-1]: v.dtype for k, v in flat.items()} == \
             {"ckv": torch.bfloat16, "kr": torch.bfloat16, "pos": torch.int32}
         return
+    if cfg.cross_attn_decoder:
+        cross = {k: v.dtype for k, v in flat.items() if "/cross/" in k}
+        assert cross and set(cross.values()) == {torch.bfloat16}
+        assert {k.split("/")[-1] for k in cross} == {"k", "v"}
+        flat = {k: v for k, v in flat.items() if "/cross/" not in k}
     assert {"k_q", "k_s", "v_q", "v_s", "pos"} == {k.split("/")[-1] for k in flat}
     if "local" in cfg.pattern:            # rings of `window` entries beside the global pool
         assert len({v.shape[2] for k, v in flat.items() if k.endswith("/pos")}) == 2

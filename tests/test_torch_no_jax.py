@@ -16,7 +16,8 @@ from repro_torch.serving.engine import ServingEngine
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / name for name in ("chip_smoke.py", "chip_probe_attention.py",
-                              "chip_probe_grouped.py", "chip_probe_qmatmul.py")]
+                              "chip_probe_grouped.py", "chip_probe_qmatmul.py",
+                              "chip_probe_cross_source.py")]
 
 
 def _imports(path):
@@ -56,9 +57,20 @@ def test_qwen_config_equals_the_reference_field_by_field():
     _same_fields("qwen2.5-3b")
 
 
+def test_registry_names_the_reference_archs():
+    """Every arch the reference registers is registered by the port, the
+    cross-attention stacks (whisper, the vision stack) among them."""
+    from repro.config import _REGISTRY as REF_REGISTRY
+    from repro_torch.config import _REGISTRY
+    get_config("qwen2.5-3b"), jax_get_config("qwen2.5-3b")
+    assert set(_REGISTRY) == set(REF_REGISTRY)
+    assert {"whisper-large-v3", "llama-3.2-vision-90b"} <= set(_REGISTRY)
+
+
 @pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-27b", "minitron-8b",
                                   "qwen3-moe-30b-a3b", "mamba2-130m", "recurrentgemma-9b",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "whisper-large-v3",
+                                  "llama-3.2-vision-90b"])
 def test_zoo_config_equals_the_reference_field_by_field(arch):
     _same_fields(arch)
     assert get_config(arch).layer_kinds == jax_get_config(arch).layer_kinds
@@ -80,6 +92,7 @@ def test_paper_config_equals_the_reference_field_by_field(arch):
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b",
                                   "mamba2-130m", "recurrentgemma-9b", "deepseek-v2-236b",
+                                  "whisper-large-v3", "llama-3.2-vision-90b",
                                   *PAPER_ARCHS])
 def test_reduced_config_equals_the_reference_field_by_field(arch):
     """``reduce_config`` cuts as the reference's does: for qwen3-moe-30b-a3b
@@ -109,6 +122,10 @@ def test_reduced_config_equals_the_reference_field_by_field(arch):
     if arch == "deepseek-v2-236b":
         assert (port.kv_lora_rank, port.q_lora_rank, port.rope_head_dim, port.v_head_dim,
                 port.first_k_dense) == (32, 48, 8, 16, 1)
+    if arch in ("whisper-large-v3", "llama-3.2-vision-90b", "bart-base", "bart-large"):
+        # the cross source cut to 16 entries, the encoder to two layers
+        assert port.n_frontend_tokens == ref.n_frontend_tokens == 16
+        assert port.n_encoder_layers == (0 if arch.startswith("llama") else 2)
     if arch in PAPER_ARCHS:
         for seq_len in (16, 32, 100):
             a, b = reduce_config(get_config(arch), seq_len=seq_len), \

@@ -5,7 +5,7 @@ RMSNorm otherwise), the MLP with its biases (bert) or gated (llama2-7b),
 the learned position table's gather (``jnp.take``'s semantics: -1 wraps
 to the last row, past the table gives NaN), one whole layer (GPT-J's
 parallel block among them), the quantiser leaving the new leaves fp, bart
-registered but refused, and a request whose positions run past the table
+initialised and its prefill held to the reference's, and a request whose positions run past the table
 failing as the reference's does.
 
 Tolerances: f32 to 2e-5 of the tensor's scale (at least 1), bf16 to 1e-2,
@@ -175,16 +175,35 @@ def test_layer_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", ["bart-base", "bart-large"])
 def test_bart_is_registered_but_not_served(arch):
-    """The encoder/decoder configs register (Plane B reads them) and
-    ``init_params`` refuses them, on any device."""
+    """The encoder/decoder configs register (Plane B reads them), the port
+    draws bart's tree (encoder, ``encoder_norm``, the decoder's
+    ``ln_cross``/``cross``) on the CPU and as shapes alone, the reduced
+    model's prefill over encoder tokens gives the reference's logits in
+    f32 (2e-5 of their scale), and the serving engine refuses it, as the
+    reference's cannot serve it."""
     cfg = get_config(arch)
     assert cfg.n_encoder_layers and cfg.cross_attn_decoder
     assert cfg.encoder_layer_kinds == jax_get_config(arch).encoder_layer_kinds
-    for c in (cfg, reduce_config(cfg)):
-        with pytest.raises(NotImplementedError, match="cross-attention"):
-            T.init_params(c, torch.Generator().manual_seed(0), device="cpu")
-        with pytest.raises(NotImplementedError, match="cross-attention"):
-            T.init_params(c, None, device="meta")
+    cfg_j, cfg_t = _cfgs(arch)
+    own = T.init_params(cfg_t, torch.Generator().manual_seed(0), device="cpu")
+    meta = T.init_params(cfg, None, device="meta")
+    for m in (own, meta):
+        names = {n for n, _ in m.named_parameters()}
+        assert {"encoder_norm.scale", "encoder.0.u0.attn.wq", "stack.0.u0.cross.wq",
+                "stack.0.u0.ln_cross.bias", "embed.pos"} <= names
+    tree = jax.device_get(TJ.init_params(cfg_j, jax.random.PRNGKey(3), param_dtype=jnp.float32))
+    pt = params_from_jax(tree, cfg_t, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg_t.vocab_size, (2, 9)).astype(np.int32)
+    src = rng.integers(0, cfg_t.vocab_size, (2, 13)).astype(np.int32)
+    lj, _ = TJ.prefill(tree, cfg_j, {"tokens": jnp.asarray(toks),
+                                     "encoder_tokens": jnp.asarray(src)},
+                       impl="flash", compute_dtype=jnp.float32)
+    lt, _ = T.prefill(pt, cfg_t, torch.from_numpy(toks), compute_dtype=torch.float32,
+                      encoder_tokens=torch.from_numpy(src))
+    _close(lt, lj, 2e-5, "logits")
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        ServingEngine(cfg_t, own, device="cpu")
 
 
 @pytest.mark.parametrize("bits", [8, 4])
