@@ -69,7 +69,7 @@ Phases, each of which must pass or the script exits non-zero:
              expert path at 160 experts top-6, K 5120 N 1536 and back, T
              48, 768 and 2304, the combine at k 6), each timed likewise;
 4. engine  — the port's serving engine on full-width qwen2.5-3b and
-             gemma2-9b (its depth cut to 22 of 42 layers for the script's
+             gemma2-9b (its depth cut to 12 of 42 layers for the script's
              time; local 4096-entry rings and global layers, head dim 256)
              with random bf16 weights, fp and then quantised
              (``w8kv8``, ``w4kv4``): 16 requests (prompts of 4..384 tokens,
@@ -167,8 +167,8 @@ Phases, each of which must pass or the script exits non-zero:
              every value finite: 2.5D-HI, HAIMA_chiplet and TransPIM_chiplet
              beside the engine's measured step time), and the Table-4 anchors
              (bert-base and gpt-j at 64 tokens) beside the paper's targets;
-8. moe     — full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
-             experts top-8, 61 GB of random bf16 weights) built once every
+8. moe     — full-width qwen3-moe-30b-a3b (cut to 24 of 48 layers, 128
+             experts top-8, 30.6 GB of random bf16 weights) built once every
              earlier model is freed (the memory still allocated printed and
              bounded), serving the engine phase's 16 requests at fp and
              ``w8kv8``: each prompt admitted alone, padded to a chunk
@@ -237,6 +237,26 @@ Phases, each of which must pass or the script exits non-zero:
              whisper's int8 projections up to the encoder's 12000 rows); a
              profiled decode step of whisper and the vision stack and
              whisper's encoder pass.
+12. train  — once every earlier model is freed: the port's training path,
+             which runs no kernel of the port (the reference trains on its
+             attention oracle; the phase checks that its steps launch
+             none): qwen2.5-3b at full width and depth through
+             ``Trainer.run`` (f32 master weights, bf16 compute, remat on;
+             train_4k cut to 4 rows of 1024 tokens of ``LMDataPipeline``)
+             for 8 steps at a stated learning rate: loss and gnorm finite,
+             the mean loss of the last 3 steps below that of the first 3,
+             every leaf moved; the step's wall and busy time, tokens/s,
+             peak memory and 6 N tokens over the step time at 989 TFLOP/s.
+             The model cut to 2 layers, f32: one batch's loss, gnorm and
+             every gradient on the card against the CPU, then AdamW from
+             the same gradients on both; the gradients' int8 codes and
+             scales (``compress_decompress``) bit for bit on both and about
+             4x below f32.  One MoE layer at qwen3-moe-30b-a3b's full width
+             through the capacity path, forward and backward at 512 tokens,
+             card against CPU.  The 2-layer trainer saved at step 2 and
+             restored into a new ``Trainer`` (parameters, moments, count and
+             data state bit for bit), both continued 2 steps bit for bit
+             under deterministic algorithms.
 
 Each model's weights are freed before the next is made.
 
@@ -304,10 +324,11 @@ SLO_REQUESTS, SLO_OVERLOAD, SLO_MAX_QUEUE, SLO_DEADLINE_BUDGETS = 48, 2.0, 4, 1.
 # 16 of 4..384 tokens, a long row of the logits phase (gemma2-9b's 4600
 # and 4200 wrap its 4096-entry local rings: in chunked prefill and decode,
 # and in the packed prefill's insert), and a depth cut: gemma2-9b's 42
-# layers to 22 (11 local/global pairs), for the script's time once phase
-# moe joined it (its phases took 299 s of 580 at full depth)
+# layers to 12 (6 local/global pairs), for the script's time (22 once
+# phase moe joined it, its phases 299 s of 580 at full depth; 12 once phase
+# train did: at 22 its phases took 207 s of a 1188 s run on a slow host)
 SERVED = {"qwen2.5-3b": dict(kv_len=1024, long_prompts=(), logits_row=0, layers=0),
-          "gemma2-9b": dict(kv_len=5120, long_prompts=(4600,), logits_row=4200, layers=22)}
+          "gemma2-9b": dict(kv_len=5120, long_prompts=(4600,), logits_row=4200, layers=12)}
 # logits only, full width at a cut depth: one pattern period plus the
 # remainder (gemma3-27b: qk-norm at head dim 128; minitron-8b: the untied
 # 256000-column lm_head, ReLU^2 without GLU)
@@ -319,10 +340,12 @@ GEMMA2_DECODE = dict(B=8, Skv=5120, Hq=16, Hkv=8, hd=256, softcap=50.0)
 GEMMA2_RING = dict(B=8, Skv=4096, Hq=16, Hkv=8, hd=256, window=4096, softcap=50.0,
                    ring=True)
 GEMMA2_PREFILL = dict(S=128, Hq=16, Hkv=8, hd=256, window=4096, softcap=50.0)
-# the MoE phase: full-width, full-depth qwen3-moe-30b-a3b (61 GB of bf16
-# weights), its pool's length and the precisions it serves at; the memory
-# the earlier phases may leave allocated when its model is built
-MOE_ARCH, MOE_KV_LEN, MOE_RUNS = "qwen3-moe-30b-a3b", 1024, ("fp", "w8kv8")
+# the MoE phase: qwen3-moe-30b-a3b at full width, its depth cut to 24 of 48
+# layers (every layer MoE; 30.6 GB of bf16 weights) for the script's time
+# once phase train joined it (no check of the phase depends on depth), its
+# pool's length and the precisions it serves at; the memory the earlier
+# phases may leave allocated when its model is built
+MOE_ARCH, MOE_LAYERS, MOE_KV_LEN, MOE_RUNS = "qwen3-moe-30b-a3b", 24, 1024, ("fp", "w8kv8")
 MOE_FREE_BEFORE_GIB = 2.0
 # qwen3-moe-30b-a3b's attention as the engine runs it: 8 slots, 32 query
 # heads over 4 KV heads of dim 128, a 1024-entry pool; its prefills are
@@ -462,6 +485,19 @@ CROSS_SOURCE_STD = {"audio": 1.0, "vlm": 4.0}
 WHISPER_ENCODER_ROWS = 8 * 1500
 # profiler windows device_ms takes before it gives up on a call
 PROFILE_TRIES = 3
+# phase train: qwen2.5-3b at full width and depth through the port's
+# Trainer (f32 master weights, bf16 compute, remat on), train_4k (4096
+# tokens x 256 rows) cut to 1024 x 4 for one card and the script's time;
+# its learning rate, warmup and schedule length
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = "qwen2.5-3b", 1024, 4, 8
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+# card against CPU: the model cut to 2 layers at full width, f32, one batch
+# of 2 x 128 tokens; one MoE layer at qwen3-moe-30b-a3b's full width (the
+# capacity path) at 512 tokens; the bounds (loss and gnorm relative,
+# gradients and AdamW updates over each leaf's scale)
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 128
+TRAIN_MOE_ARCH, TRAIN_MOE_TOKENS = "qwen3-moe-30b-a3b", 512
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_TOL = 1e-5, 1e-4, 1e-4, 1e-6
 DEVICE = "cuda"
 CARD = ""                          # nvidia-smi's name and power limit of the card
 
@@ -2814,7 +2850,7 @@ class ForcedRouting:
     its own router's probabilities at the imposed experts, renormalised.
     A top-k choice is discontinuous: where two experts' router logits are
     near a tie, a last-bit difference between two runs swaps them and the
-    runs part by a whole expert's output, which grows over 48 layers.
+    runs part by a whole expert's output, which grows over the layers.
     Imposing one run's choices on the other leaves the numerics of the
     kernels to compare.  Every choice the forced run's own router makes
     otherwise is counted, with the gap between its own logits of the
@@ -3086,13 +3122,13 @@ def paper_anchors():
 
 
 def run_moe(torch, by_run):
-    """Phase moe: full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
-    experts, top-8), random bf16 weights, after every earlier model,
-    engine and graph pool is freed.  The engine phase's 16 requests at fp
-    and w8kv8, replayed and again eagerly (streams bit for bit, launches
-    equal), each prompt admitted alone and padded to a chunk multiple, the
-    fused gate/up, the down product and the combine each launched once a
-    MoE layer of every forward call; ``packed=False`` at fp (power-of-two
+    """Phase moe: full-width qwen3-moe-30b-a3b (its depth cut to
+    ``MOE_LAYERS`` of 48, 128 experts, top-8), random bf16 weights, after
+    every earlier model, engine and graph pool is freed.  The engine
+    phase's 16 requests at fp and w8kv8, replayed and again eagerly
+    (streams bit for bit, launches equal), each prompt admitted alone and
+    padded to a chunk multiple, the fused gate/up, the down product and the
+    combine each launched once a MoE layer of every forward call; ``packed=False`` at fp (power-of-two
     buckets) against the default's streams up to near-ties; flash against
     ref logits, the ref run's expert choices imposed on the flash run
     (``ForcedRouting``); a profiled decode step (wall and busy time, idle
@@ -3106,7 +3142,7 @@ def run_moe(torch, by_run):
           f"bound_gib={MOE_FREE_BEFORE_GIB}")
     check(before < MOE_FREE_BEFORE_GIB, f"moe: {before:.2f} GiB still allocated before "
           f"the model is built")
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     params = make_params(torch, cfg)
     drain = dict(kv_len=MOE_KV_LEN)
     plain = {}
@@ -3839,6 +3875,370 @@ def run_cross(torch, by_run):
         print(f"cross arch={arch} done in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase train
+# ---------------------------------------------------------------------------
+
+def train_flat(tree):
+    """{``/``-joined path: tensor} of a tree of tensors (no copy)."""
+    from repro_torch.ckpt import tree_items
+    return dict(tree_items(tree))
+
+
+def train_close(torch, what, got, want, tol):
+    """Every leaf of ``got`` finite and within ``tol`` of its scale (its
+    largest magnitude) in ``want``, both {path: tensor}, compared in f32 on
+    ``got``'s device; returns the largest error over scale."""
+    check(set(got) == set(want), f"train {what}: leaves differ")
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key].detach().float()
+        w = w.detach().to(g.device).float()
+        check(bool(torch.isfinite(g).all()), f"train {what}: {key} not finite")
+        scale, err = float(w.abs().max()), float((g - w).abs().max())
+        check(err <= tol * scale, f"train {what}: {key} off by {err:.3e} at scale {scale:.3e}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def train_full(torch):
+    """The full model through ``Trainer.run``: ``TRAIN_STEPS`` steps, then
+    one host-timed and one profiled step; the checks and the readings."""
+    from repro_torch.config import ShapeSpec, get_config
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, ShapeSpec("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH),
+                      opt_cfg=OptConfig(**TRAIN_OPT), tcfg=TrainerConfig(remat=True),
+                      seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(trainer.params))
+    print(f"train arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"params={n_params} master=f32 compute=bf16 remat=True batch={TRAIN_BATCH} "
+          f"seq={TRAIN_SEQ} opt={json.dumps(TRAIN_OPT)} built in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    before = {k: v.detach().to("cpu", copy=True) for k, v in train_flat(trainer.params).items()}
+    ms = trainer.run(TRAIN_STEPS)
+    losses, gnorms = [m["loss"] for m in ms], [m["gnorm"] for m in ms]
+    print(f"train losses={json.dumps(losses)} gnorms={json.dumps(gnorms)} "
+          f"lrs={json.dumps([m['lr'] for m in ms])} "
+          f"step_s={json.dumps([round(m['dt'], 4) for m in ms])}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), "train: a loss or gnorm "
+          "is not finite")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    check(last < first, f"train: the loss did not fall ({first:.4f} -> {last:.4f})")
+    prof = profiled(torch, cfg.name, "bf16", "train_step",
+                    lambda: trainer.train_step(trainer.pipeline.global_batch_at(trainer.step)),
+                    1)
+    after = train_flat(trainer.params)
+    still = [k for k, v in before.items() if torch.equal(v.to(DEVICE), after[k].detach())]
+    check(not still, f"train: leaves that did not move: {still}")
+    step_s = float(np.mean([m["dt"] for m in ms[1:]]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mfu = 6 * n_params * tokens / (step_s * PEAK_FLOPS["torch.bfloat16"])
+    print(f"train step_wall_s={step_s:.4f} (mean of steps 2..{TRAIN_STEPS}) "
+          f"busy_s={prof['busy_ms'] / 1e3:.4f} idle_share={1 - prof['busy_ms'] / prof['wall_ms']:.3f} "
+          f"kernels_per_step={prof['kernels_per_step']:.0f} tokens_per_s={tokens / step_s:.1f} "
+          f"peak_memory_gib={peak:.2f} six_n_tokens_over_peak={mfu:.4f} "
+          f"loss_first3={first:.4f} loss_last3={last:.4f} leaves_moved={len(before)}/"
+          f"{len(before)} card={CARD}")
+    del before, after
+    train_breakdown(torch, trainer, prof)
+    del trainer
+    collect(torch)
+
+
+def train_breakdown(torch, trainer, prof):
+    """Where the profiled step's busy time goes: the optimizer (global
+    norm and the in-place AdamW) timed alone on the trainer's full state
+    with random gradients; ``attention_ref`` timed alone at the step's
+    shapes, forward and backward for one layer, scaled to the step (each
+    layer's forward runs twice under remat); the kernels whose names are
+    the library's GEMMs (the projections', and attention's own); the
+    rest.  The two are timed with CUDA events over a few calls: each call
+    runs for milliseconds, so the host stays ahead of the card (and no
+    further profiler window is opened).  Run after the checks: it writes
+    the trainer's state."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.training.optimizer import adamw_apply_, adamw_prepare
+    from repro_torch.tree import tree_map
+    cfg, opt = trainer.cfg, trainer.opt_cfg
+
+    def event_ms(fn, iters):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    grads = tree_map(lambda p: torch.randn(p.shape, device=p.device), trainer.params)
+    opt_ms = event_ms(lambda: adamw_apply_(grads, trainer.opt_state, trainer.params, opt,
+                                           adamw_prepare(grads, trainer.opt_state, opt)), 3)
+    del grads
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    B, S, hd = TRAIN_BATCH, TRAIN_SEQ, cfg.head_dim
+    q, k, v = (torch.randn((B, S, h, hd), generator=g, device=DEVICE, dtype=torch.bfloat16,
+                           requires_grad=True) for h in (cfg.n_heads, cfg.n_kv_heads,
+                                                         cfg.n_kv_heads))
+    out = attention(q, k, v, causal=True, impl="ref")
+    dy = torch.randn_like(out)
+    fwd_ms = event_ms(lambda: attention(q, k, v, causal=True, impl="ref"), 5)
+    bwd_ms = event_ms(lambda: torch.autograd.grad(out, (q, k, v), dy, retain_graph=True), 5)
+    del q, k, v, out, dy
+    attn_ms = cfg.n_layers * (2 * fwd_ms + bwd_ms)
+    gemm_ms = sum(ms for name, ms in prof["by_kernel_ms"].items()
+                  if any(w in name.lower() for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                                      "cublas")))
+    busy = prof["busy_ms"]
+    print(f"train breakdown busy_s={busy / 1e3:.4f} optimizer_s={opt_ms / 1e3:.4f} "
+          f"attention_ref_s={attn_ms / 1e3:.4f} (a layer: forward {fwd_ms:.3f} ms, "
+          f"backward {bwd_ms:.3f} ms, x{cfg.n_layers} layers, forward twice) "
+          f"gemm_kernels_s={gemm_ms / 1e3:.4f} rest_s={(busy - opt_ms - attn_ms) / 1e3:.4f} "
+          f"card={CARD}")
+
+
+def train_grads(torch, cfg, params, tokens):
+    """(loss, gradient tree) of ``loss_fn`` in f32 on ``params``' device."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    dev = tree_leaves(params)[0].device
+    loss, _ = T.loss_fn(params, cfg, {"tokens": torch.from_numpy(tokens).to(dev)},
+                        compute_dtype=torch.float32)
+    return loss.detach(), tree_unflatten(params, list(torch.autograd.grad(
+        loss, tree_leaves(params))))
+
+
+def train_card_against_cpu(torch):
+    """The model cut to ``TRAIN_CHECK_LAYERS`` layers at full width, f32
+    compute: one batch's loss, gnorm and gradients on the card against the
+    same step on the CPU, then AdamW from the card's gradients on both.
+    Returns the card's gradients (for the compression check)."""
+    from repro_torch.config import get_config
+    from repro_torch.data.pipeline import DataConfig, LMDataPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import OptConfig, adamw_init, adamw_update, global_norm
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CHECK_LAYERS)
+    card = T.trainable(T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(1),
+                                     device=DEVICE, dtype=torch.float32))
+    host = tree_map(lambda t: t.detach().cpu().requires_grad_(True), card)
+    tokens = LMDataPipeline(DataConfig(cfg.vocab_size, TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH,
+                                       seed=1)).global_batch_at(0)["tokens"]
+    t0 = time.perf_counter()
+    loss_c, grads_c = train_grads(torch, cfg, card, tokens)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_h, grads_h = train_grads(torch, cfg, host, tokens)
+    cpu_s = time.perf_counter() - t0
+    gn_c, gn_h = float(global_norm(grads_c)), float(global_norm(grads_h))
+    loss_err = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    gnorm_err = abs(gn_c - gn_h) / gn_h
+    check(loss_err <= TRAIN_LOSS_TOL, f"train card vs cpu: loss {float(loss_c)} vs "
+          f"{float(loss_h)}")
+    check(gnorm_err <= TRAIN_GNORM_TOL, f"train card vs cpu: gnorm {gn_c} vs {gn_h}")
+    grad_err = train_close(torch, "card vs cpu gradients", train_flat(grads_c),
+                           train_flat(grads_h), TRAIN_GRAD_TOL)
+    opt = OptConfig(**TRAIN_OPT)
+    same = tree_map(lambda g: g.cpu(), grads_c)
+    new_c, opt_c, _ = adamw_update(grads_c, adamw_init(card), card, opt)
+    new_h, opt_h, _ = adamw_update(same, adamw_init(host), host, opt)
+    upd_err = max(train_close(torch, f"card vs cpu AdamW {name}", train_flat(a),
+                              train_flat(b), TRAIN_UPDATE_TOL)
+                  for name, a, b in (("params", new_c, new_h), ("m", opt_c["m"], opt_h["m"]),
+                                     ("v", opt_c["v"], opt_h["v"])))
+    print(f"train card_vs_cpu arch={cfg.name} layers={cfg.n_layers} batch={TRAIN_CHECK_BATCH}x"
+          f"{TRAIN_CHECK_SEQ} f32 loss={float(loss_c):.6f}/{float(loss_h):.6f} "
+          f"loss_rel_err={loss_err:.3e} (tol {TRAIN_LOSS_TOL}) gnorm={gn_c:.6f}/{gn_h:.6f} "
+          f"gnorm_rel_err={gnorm_err:.3e} (tol {TRAIN_GNORM_TOL}) "
+          f"worst_grad_err_over_scale={grad_err:.3e} (tol {TRAIN_GRAD_TOL}) "
+          f"worst_adamw_err_over_scale={upd_err:.3e} (tol {TRAIN_UPDATE_TOL}) "
+          f"card_s={card_s:.2f} cpu_s={cpu_s:.2f}")
+    return grads_c
+
+
+def train_moe_layer(torch):
+    """One MoE layer at ``TRAIN_MOE_ARCH``'s full width through the
+    capacity path (``apply_moe(mode="train")`` plus the router aux loss),
+    f32, forward and backward on the card against the CPU at
+    ``TRAIN_MOE_TOKENS`` tokens: the routing equal, the loss within
+    ``TRAIN_LOSS_TOL``, the output and every gradient (router, the three
+    expert banks, x) within ``TRAIN_GRAD_TOL`` of its scale."""
+    from repro_torch.config import get_config
+    from repro_torch.models import moe as MoE
+    cfg = get_config(TRAIN_MOE_ARCH)
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    bank = MoE.init_moe(g, cfg, repeats=1, dtype=torch.float32, device=DEVICE)
+    card = {"router": bank["router"][0].clone(),
+            "experts": {k: v[0].clone() for k, v in bank["experts"].items()}}
+    del bank
+    x_c = torch.randn((1, TRAIN_MOE_TOKENS, cfg.d_model), generator=g, device=DEVICE)
+    w_c = torch.randn((1, TRAIN_MOE_TOKENS, cfg.d_model), generator=g, device=DEVICE)
+
+    def run(p, x, w):
+        leaves = [p["router"], *p["experts"].values(), x]
+        for t in leaves:
+            t.requires_grad_(True)
+        y = MoE.apply_moe(p, x, cfg, mode="train")
+        loss = (y * w).sum() + MoE.router_aux_loss(p, x, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        names = ["router", *(f"experts/{k}" for k in p["experts"]), "x"]
+        return loss.detach(), y.detach(), dict(zip(names, grads))
+    host = {"router": card["router"].cpu(), "experts": {k: v.cpu() for k, v in
+                                                        card["experts"].items()}}
+    x_h, w_h = x_c.cpu(), w_c.cpu()
+    with torch.no_grad():
+        gates_c, idx_c = MoE.route(card, x_c, cfg)
+        gates_h, idx_h = MoE.route(host, x_h, cfg)
+        probs = torch.softmax(x_h.float() @ host["router"], dim=-1)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+        margin = float((top[..., cfg.top_k - 1] - top[..., cfg.top_k]).min())
+    check(torch.equal(idx_c.cpu(), idx_h), f"train moe: the card routes otherwise than the "
+          f"CPU (smallest top-{cfg.top_k} margin {margin:.3e})")
+    C = MoE._capacity(TRAIN_MOE_TOKENS, cfg)
+    _, _, _, keep, _ = MoE._dispatch(x_h, gates_h, idx_h, cfg.n_experts, C)
+    t0 = time.perf_counter()
+    loss_c, y_c, g_c = run(card, x_c, w_c)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    loss_h, y_h, g_h = run(host, x_h, w_h)
+    loss_err = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    check(loss_err <= TRAIN_LOSS_TOL, f"train moe: loss {float(loss_c)} vs {float(loss_h)}")
+    y_err = train_close(torch, "moe output", {"y": y_c}, {"y": y_h}, TRAIN_GRAD_TOL)
+    grad_err = train_close(torch, "moe gradients", g_c, g_h, TRAIN_GRAD_TOL)
+    print(f"train moe arch={cfg.name} d_model={cfg.d_model} experts={cfg.n_experts} "
+          f"top_k={cfg.top_k} d_ff_expert={cfg.d_ff_expert} tokens={TRAIN_MOE_TOKENS} "
+          f"capacity={C} dropped_pairs={int((~keep).sum())}/{keep.numel()} f32 "
+          f"top_k_margin={margin:.3e} loss_rel_err={loss_err:.3e} "
+          f"output_err_over_scale={y_err:.3e} worst_grad_err_over_scale={grad_err:.3e} "
+          f"(tol {TRAIN_GRAD_TOL}) card_s={card_s:.2f}")
+    del card, g_c, y_c, x_c, w_c
+    collect(torch)
+
+
+def train_resume(torch):
+    """The model cut to ``TRAIN_CHECK_LAYERS`` layers trained 2 steps and
+    saved; a new ``Trainer`` restores it (parameters, moments, count and
+    data state bit for bit the saved ones); then both take 2 more steps,
+    whose losses and parameters must be equal bit for bit.  Deterministic
+    algorithms are on for this check only (the embedding's backward sums
+    with atomics otherwise)."""
+    from repro_torch.config import ShapeSpec, get_config
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CHECK_LAYERS)
+    shape = ShapeSpec("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    free_gb = shutil.disk_usage(path).free / 1e9
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        def trainer(seed):
+            return Trainer(cfg, shape, opt_cfg=OptConfig(**TRAIN_OPT),
+                           tcfg=TrainerConfig(ckpt_dir=path, ckpt_every=0, remat=True),
+                           seed=seed, device=DEVICE)
+        a = trainer(3)
+        a.run(2)
+        t0 = time.perf_counter()
+        a.save()
+        save_s = time.perf_counter() - t0
+        ckpt_gb = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path)
+                      for f in fs) / 1e9
+        t0 = time.perf_counter()
+        b = trainer(3)          # restores: its state (not its init) must equal a's
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(b.step == a.step == 2, f"train resume: restored at step {b.step}")
+        check(b.pipeline.state.to_dict() == a.pipeline.state.to_dict(),
+              "train resume: data state differs")
+        saved = train_flat({"params": a.params, "opt": a.opt_state})
+        restored = train_flat({"params": b.params, "opt": b.opt_state})
+        check(set(saved) == set(restored), "train resume: leaves differ")
+        bad = [k for k, v in saved.items() if not (v.dtype == restored[k].dtype
+                                                   and torch.equal(v, restored[k]))]
+        check(not bad, f"train resume: restored leaves differ from the saved: {bad[:5]}")
+        la = [m["loss"] for m in a.run(2)]
+        lb = [m["loss"] for m in b.run(2)]
+        check(la == lb, f"train resume: continued losses {lb} vs uninterrupted {la}")
+        after_a, after_b = train_flat(a.params), train_flat(b.params)
+        moved = [k for k in after_a if not torch.equal(after_a[k], after_b[k])]
+        check(not moved, f"train resume: continued parameters differ: {moved[:5]}")
+        print(f"train resume arch={cfg.name} layers={cfg.n_layers} saved_at_step=2 "
+              f"ckpt_gb={ckpt_gb:.3f} save_s={save_s:.2f} restore_s={restore_s:.2f} "
+              f"free_gb={free_gb:.1f} restored_leaves_bit_for_bit={len(saved)} "
+              f"continued_losses={json.dumps(lb)} equal_bit_for_bit=True (deterministic "
+              f"algorithms)")
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        shutil.rmtree(path, ignore_errors=True)
+    del a, b
+    collect(torch)
+
+
+def train_compression(torch, grads):
+    """The int8 codes and f32 scales that ``compress_decompress`` sends for
+    the card's gradients against those of the same call on their CPU copy,
+    bit for bit, and the round trip's residuals finite; ``compressed_bytes``
+    about 4x below f32."""
+    from repro_torch.training.compression import (_quant_leaf, compress_decompress,
+                                                  compressed_bytes)
+    from repro_torch.tree import tree_leaves
+    for key, g in train_flat(grads).items():
+        q_c, s_c = _quant_leaf(g)
+        q_h, s_h = _quant_leaf(g.cpu())
+        check(torch.equal(q_c.cpu(), q_h) and torch.equal(s_c.cpu(), s_h),
+              f"train compression: codes or scales of {key} differ")
+    _, err = compress_decompress(grads)
+    check(all(bool(torch.isfinite(e).all()) for e in tree_leaves(err)),
+          "train compression: a residual is not finite")
+    n = sum(g.numel() for g in tree_leaves(grads))
+    wire = compressed_bytes(grads)
+    ratio = 4 * n / wire
+    check(3.9 < ratio <= 4.0, f"train compression: {ratio:.3f}x below f32")
+    print(f"train compression leaves={len(tree_leaves(grads))} values={n} "
+          f"wire_bytes={wire} f32_bytes={4 * n} ratio={ratio:.4f} codes_equal=True")
+
+
+def run_train(torch, by_run):
+    """Phase train: once every earlier model is freed, the port's training
+    path on the card (it runs no kernel of the port: the reference trains
+    on its attention oracle, and the step is checked to launch none)."""
+    collect(torch)
+    t_phase = time.perf_counter()
+    before = torch.cuda.memory_allocated() / 2**30
+    print(f"train memory_allocated_before_build_gib={before:.3f} bound_gib={MOE_FREE_BEFORE_GIB}")
+    check(before < MOE_FREE_BEFORE_GIB, f"train: {before:.2f} GiB still allocated")
+    reset_launches()
+    parts = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = round(time.perf_counter() - t0, 1)
+        return out
+    part("full", train_full, torch)
+    by_run["train"] = read_launches()
+    check(not any(by_run["train"].values()),
+          f"train: the training path launched a kernel of the port: {by_run['train']}")
+    grads = part("card_vs_cpu", train_card_against_cpu, torch)
+    part("compression", train_compression, torch, grads)
+    del grads
+    collect(torch)
+    part("moe", train_moe_layer, torch)
+    part("resume", train_resume, torch)
+    print(f"phase train done in {time.perf_counter() - t_phase:.1f} s: {json.dumps(parts)}")
+
+
 def make_params(torch, cfg):
     """Random bf16 weights (seed 0) on the card, after the last model's are
     freed."""
@@ -3947,6 +4347,8 @@ def main():
     print(f"phases of {MLA_ARCH} done at {time.perf_counter() - start:.1f} s")
     run_cross(torch, by_run)
     print(f"phases of the cross-attention models done at {time.perf_counter() - start:.1f} s")
+    run_train(torch, by_run)
+    print(f"phases of training done at {time.perf_counter() - start:.1f} s")
 
     for name, rec in records.items():
         rec["launches"] = sum(n[name] for n in by_run.values())

@@ -27,6 +27,28 @@ LAYER_KINDS = ("global", "local", "recurrent", "ssm", "cross")
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned (input-shape) cell: seq_len x global_batch x step kind."""
+
+    name: str
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_serving(self) -> bool:
+        return self.kind in ("prefill", "decode")
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     # -- identity ---------------------------------------------------------
     name: str
@@ -67,7 +89,7 @@ class ModelConfig:
     n_shared_experts: int = 0
     d_ff_expert: int = 0
     first_k_dense: int = 0          # the first k layers keep the dense MLP
-    capacity_factor: float = 1.25   # read only by the capacity paths (no port)
+    capacity_factor: float = 1.25   # the capacity-sort dispatch of training (moe.py)
     # -- MLA (deepseek) ---------------------------------------------------
     kv_lora_rank: int = 0           # the latent KV cache's width; 0 -> no MLA
     q_lora_rank: int = 0            # the query's low rank (0: full rank, no port)

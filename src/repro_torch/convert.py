@@ -1,4 +1,4 @@
-"""Carry the reference's parameters over to the port.
+"""Carry the reference's parameters, and its AdamW state, over to the port.
 
 :func:`params_from_jax` takes the reference's parameter tree
 (``repro.models.transformer.init_params``, or that tree after the
@@ -10,6 +10,9 @@ Weights and the embedding are stored in ``dtype``; biases and norm scales
 stay f32 and are cast at use, as in the reference.  The reference keeps
 its MLP weights in f32 whatever its ``param_dtype`` and casts them at use;
 storing them in ``dtype`` gives the same numbers at half the memory.
+:func:`opt_state_from_jax` carries the reference's AdamW state
+(``adamw_init``/``adamw_update``'s ``{"m", "v", "count"}``) into the
+port's: the moments under the parameters' names and shapes, all f32.
 """
 from __future__ import annotations
 
@@ -18,8 +21,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
-from repro_torch.models.transformer import Transformer, init_params
+from repro_torch.models.transformer import Transformer, init_params, param_tree
 from repro_torch.quant.core import QuantTensor, quantize_params
+from repro_torch.tree import tree_map
 
 # leaves that stay f32 (cast at use): biases (attention, MLP, LayerNorm)
 # and norm vectors, the per-head q/k norms and MLA's latent norms among
@@ -87,3 +91,17 @@ def params_from_jax(tree, cfg: ModelConfig, device=None,
                          f"extra {sorted(set(got) - set(want))}, shapes "
                          f"{[(n, got[n], want[n]) for n in want if n in got and got[n] != want[n]]}")
     return params
+
+
+def opt_state_from_jax(opt_state, cfg: ModelConfig, device=None) -> dict:
+    """The port's AdamW state holding the reference's (numpy arrays, from
+    ``jax.device_get``): ``m`` and ``v`` as trees of f32 tensors named and
+    shaped as :func:`params_from_jax` checks them, every leaf f32 (the
+    reference keeps its moments f32 whatever the parameters), and the
+    int32 ``count``."""
+    def moments(tree):
+        return tree_map(lambda t: t.detach(), param_tree(
+            params_from_jax(tree, cfg, device, dtype=torch.float32)))
+    return {"m": moments(opt_state["m"]), "v": moments(opt_state["v"]),
+            "count": torch.tensor(int(np.asarray(opt_state["count"])), dtype=torch.int32,
+                                  device=resolve_device(device))}

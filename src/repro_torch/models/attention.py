@@ -25,9 +25,13 @@ Serving modes:
   pad, dropped) and attend to the pre-write cache plus the chunk;
 - ``mode="decode"`` — one token per slot, written at ``pos`` (``-1`` =
   dead slot, dropped), attending to the post-write cache;
-- ``mode="encode"`` — an encoder's cache-free forward (the reference's
-  ``train`` mode, as a forward pass only: no backward), without a causal
+- ``mode="encode"`` — an encoder's cache-free forward, without a causal
   mask.
+
+Training (``mode="train"``) is the cache-free causal forward, the
+reference's train mode; an encoder's layers train in ``encode``.  Both go
+through autograd with ``impl="ref"``, as the reference trains on its
+attention oracle: the CUDA kernels have no backward.
 
 Cross-attention (:func:`apply_cross_attention`, ``kind="cross"``) reads
 keys and values projected from a source (an encoder's output, or patch
@@ -278,10 +282,10 @@ def _commit_kv(cache, new_k, new_v, pos):
 def apply_cross_attention(p, x, *, cfg, mode: str, cache=None, cross_src=None,
                           impl: str = "flash"):
     """Attention of x (B, S, D) to a source held fixed for the request.
-    ``prefill``/``encode``: K and V projected from ``cross_src`` (B, S_src,
-    D), with the biases, and attended without a causal mask through the
-    prefill kernel (Sq != Skv); prefill returns them as the cache ``{"k",
-    "v"}``.  ``decode``/``chunk``: the cache is read and never written,
+    ``train``/``prefill``/``encode``: K and V projected from ``cross_src``
+    (B, S_src, D), with the biases, and attended without a causal mask
+    through the prefill kernel (Sq != Skv); prefill returns them as the
+    cache ``{"k", "v"}``.  ``decode``/``chunk``: the cache is read and never written,
     through the decode route with every query at position ``Skv`` over
     entries ``arange(Skv)`` -- the reference's way to say "non-causal" to a
     causal decode kernel.  Returns (out (B, S, D), cache)."""
@@ -319,16 +323,14 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
     """x (B, S, D); pos (B, S) int32 (decode: (B, 1); chunk: -1 = pad).
     Prefill: ``kv_bits`` returns a quantised cache; without ``segments``,
     ``kv_cap`` is the cache's capacity (at least S) and ``length`` the
-    prompt's true length (default S).  ``encode`` is an encoder's
-    cache-free forward (the reference's ``train`` mode as a forward pass,
-    without a causal mask; no cache returned).  Returns (out (B, S, D),
-    cache)."""
-    if mode not in ("prefill", "chunk", "decode", "encode"):
-        raise NotImplementedError(
-            f"attention mode {mode!r} has no port yet: serving runs prefill, "
-            f"chunk and decode, an encoder encode")
+    prompt's true length (default S).  ``train`` (causal) and ``encode``
+    (an encoder's, without a causal mask) are the cache-free forwards; they
+    return no cache.  Returns (out (B, S, D), cache)."""
+    if mode not in ("train", "prefill", "chunk", "decode", "encode"):
+        raise ValueError(f"unknown attention mode {mode!r}")
     if kind not in ("global", "local"):
-        raise NotImplementedError(f"layer kind {kind!r} has no port yet")
+        raise ValueError(f"apply_attention runs global and local layers, not {kind!r} "
+                         f"(cross: apply_cross_attention)")
     B, S, D = x.shape
     Hq, Hkv, hd, hdv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
     dt = x.dtype
@@ -350,8 +352,8 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
         q, k = apply_rope(q, pos, theta), apply_rope(k, pos, theta)
     v = v.reshape(B, S, Hkv, hdv)
 
-    if mode == "encode":
-        out = flash_attention(q, k, v, causal=False, window=window,
+    if mode in ("train", "encode"):
+        out = flash_attention(q, k, v, causal=mode == "train", window=window,
                               softcap=cfg.attn_softcap, impl=impl)
         new_cache = None
     elif mode == "prefill":
@@ -435,11 +437,13 @@ def _mla_kv_latent(p, x, pos, cfg):
 
 def apply_mla(p, x, *, cfg, mode: str, pos, cache=None, impl: str = "flash",
               segments=None, kv_cap: int = 0):
-    """MLA self-attention.  ``prefill``: the expanded path through the
-    prefill kernel (packed with ``segments``: the raw per-token latents,
-    ``pos`` -1 on pads; else the latents padded to ``kv_cap`` entries with
-    the stream's positions, pad rows included, as the reference's, which
-    takes no ``length``: the engine's insert invalidates them).  ``decode``
+    """MLA self-attention.  ``train``: the expanded path without a cache
+    (the reference's naive train path).  ``prefill``: the expanded path
+    through the prefill kernel (packed with ``segments``: the raw
+    per-token latents, ``pos`` -1 on pads; else the latents padded to
+    ``kv_cap`` entries with the stream's positions, pad rows included, as
+    the reference's, which takes no ``length``: the engine's insert
+    invalidates them).  ``decode``
     and ``chunk``: the latents written into the pool in place at ``pos``
     (``pos < 0`` or past the pool dropped; slot == position), then the
     absorbed path over the post-write pool: scores in f32 from
@@ -447,10 +451,8 @@ def apply_mla(p, x, *, cfg, mode: str, pos, cache=None, impl: str = "flash",
     to the finite ``NEG_INF``, softmax, a row with no valid entry exact
     zeros, the weights cast to the compute dtype for ``w . ckv``, then
     ``W_uv``.  Returns (out (B, S, D), cache)."""
-    if mode not in ("prefill", "chunk", "decode"):
-        raise NotImplementedError(
-            f"attention mode {mode!r} has no port yet: serving runs prefill, "
-            f"chunk and decode")
+    if mode not in ("train", "prefill", "chunk", "decode"):
+        raise ValueError(f"unknown MLA mode {mode!r}")
     B, S, _ = x.shape
     dt = x.dtype
     H, dn, dr, dv = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
@@ -459,7 +461,7 @@ def apply_mla(p, x, *, cfg, mode: str, pos, cache=None, impl: str = "flash",
     ckv, kr = _mla_kv_latent(p, x, pos, cfg)
     wkv_b = p["wkv_b"].to(dt)                           # (kvr, H, dn + dv)
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         kv = (ckv @ wkv_b.reshape(wkv_b.shape[0], -1)).reshape(B, S, H, dn + dv)
         k = torch.cat([kv[..., :dn], kr[:, :, None].expand(B, S, H, dr)], dim=-1)
         # the value block as rows of its own (the kernel's input, contiguous)
@@ -467,7 +469,9 @@ def apply_mla(p, x, *, cfg, mode: str, pos, cache=None, impl: str = "flash",
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = flash_attention(q, k, v, causal=True, scale=scale, impl=impl,
                               segments=segments)
-        if segments is not None:
+        if mode == "train":
+            new_cache = None
+        elif segments is not None:
             new_cache = {"ckv": ckv, "kr": kr, "pos": torch.where(segments >= 0, pos, -1)}
         else:
             cap = max(kv_cap, S)

@@ -87,11 +87,14 @@ def apply_rglru(p, x, *, cfg, mode, cache=None, length=None, impl="flash"):
 
     ``prefill`` returns a fresh cache, exact at ``length`` (an int, the
     true length of a right-padded stream): pads are identity steps (a = 1,
-    b = 0) and the conv state is taken before ``length``.  ``decode``
-    (S = 1) writes the new ``conv`` and ``h`` into ``cache`` in place, for
-    every row, as the reference advances every row, and returns it."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"the recurrent layer runs prefill and decode, not {mode!r}")
+    b = 0) and the conv state is taken before ``length``.  ``train`` is the
+    same full-sequence scan with no cache (None), the reference's train
+    mode.  ``decode`` (S = 1) writes the new ``conv`` and ``h`` into
+    ``cache`` in place, for every row, as the reference advances every row,
+    and returns it."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"the recurrent layer runs train, prefill and decode, "
+                         f"not {mode!r}")
     S, dt = x.shape[1], x.dtype
     decode = mode == "decode"
 
@@ -114,7 +117,7 @@ def apply_rglru(p, x, *, cfg, mode, cache=None, length=None, impl="flash"):
         new_cache = cache
     else:
         hs = linear_scan(a, b)                                # zero initial state
-        new_cache = {"conv": new_conv, "h": hs[:, -1]}
+        new_cache = {"conv": new_conv, "h": hs[:, -1]} if mode == "prefill" else None
 
     y = (g * hs.to(dt)) @ p["w_out"].to(dt)
     return y, new_cache

@@ -183,12 +183,13 @@ def apply_mamba(p, x, *, cfg, mode, cache=None, length=None):
     ``prefill`` returns a fresh cache, exact at ``length`` (an int, the
     true length of a right-padded stream): ``dt = 0`` on pads, so the state
     passes them through unchanged, and the conv state is taken before
-    ``length``.  ``decode`` (S = 1) writes the new ``conv`` and ``state``
-    into ``cache`` in place, for every row (a dead slot's too, as the
-    reference advances them; admission overwrites a slot whole) and
-    returns it."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"the ssm layer runs prefill and decode, not {mode!r}")
+    ``length``.  ``train`` is the same full-sequence scan from a zero state
+    with no cache (None), the reference's train mode.  ``decode`` (S = 1)
+    writes the new ``conv`` and ``state`` into ``cache`` in place, for
+    every row (a dead slot's too, as the reference advances them;
+    admission overwrites a slot whole) and returns it."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"the ssm layer runs train, prefill and decode, not {mode!r}")
     B, S, D = x.shape
     d_inner, H, P, N, G = _dims(cfg)
     dt_x = x.dtype
@@ -223,7 +224,7 @@ def apply_mamba(p, x, *, cfg, mode, cache=None, length=None):
         new_cache = cache
     else:
         y, final_state = ssd_scan(x_ssm, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
-        new_cache = {"conv": new_conv, "state": final_state}
+        new_cache = {"conv": new_conv, "state": final_state} if mode == "prefill" else None
 
     y = y + x_ssm * p["D"][None, None, :, None].to(dt_x)
     y = y.reshape(B, S, d_inner)

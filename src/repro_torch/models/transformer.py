@@ -31,6 +31,13 @@ the bare ``{"k", "v"}``).  Their source goes to :func:`prefill` by keyword
 reads the cross caches and never writes them.  These stacks run through
 ``prefill``/``decode_step`` only: the serving engine refuses them, as the
 reference's cannot serve them.
+
+Training: :func:`loss_fn` is the reference's next-token loss (an
+encoder's, the MLM proxy) plus the MoE router's aux loss, through autograd
+over the plain modules (``impl="ref"``: the CUDA kernels have no
+backward), on an f32 master tree (:func:`trainable`) computed in
+``compute_dtype``; ``remat`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
@@ -48,11 +56,12 @@ from repro_torch.models import modules as M
 from repro_torch.models.attention import (apply_attention, apply_cross_attention,
                                           apply_mla, init_attention, init_kv_cache,
                                           init_mla)
-from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.moe import apply_moe, init_moe, router_aux_loss
 from repro_torch.models.rglru import apply_rglru, init_rglru, init_rglru_cache
 from repro_torch.models.ssm import apply_mamba, init_mamba, init_ssm_cache
 from repro_torch.quant.core import QuantTensor
 from repro_torch.quant.ops import qdense
+from repro_torch.tree import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -115,8 +124,9 @@ class QuantWeight(nn.Module):
 
 def _as_module(tree):
     """Nested dict/list of tensors and QuantTensors -> ModuleList or
-    :class:`ParamTree` with the same keys (frozen parameters: the port
-    serves, it does not train)."""
+    :class:`ParamTree` with the same keys.  The parameters are frozen
+    (serving's trees take no gradient); :func:`trainable` gives training
+    its tree of them with gradients on."""
     if isinstance(tree, list):
         return nn.ModuleList([_as_module(t) for t in tree])
     return ParamTree(tree)
@@ -156,6 +166,27 @@ class Transformer(ParamTree):
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__(tree)
         self.cfg = cfg
+
+
+def param_tree(params):
+    """The tensors of a parameter module as the reference's nested tree:
+    dicts of the names, lists for the stacks (the same tensor objects, no
+    copy).  A dict or list tree is returned as it is."""
+    if isinstance(params, nn.ModuleList):
+        return [param_tree(m) for m in params]
+    if isinstance(params, ParamTree):
+        return {k: param_tree(v) for k, v in params.items()}
+    if isinstance(params, QuantWeight):
+        raise ValueError("a quantised weight has no place in a parameter tree to train")
+    return params
+
+
+def trainable(params):
+    """Training's tree: :func:`param_tree` of ``params`` with every leaf
+    taking gradients (build it in f32, the master weights:
+    ``init_params(..., dtype=torch.float32)`` or ``params_from_jax(...,
+    dtype=torch.float32)``)."""
+    return tree_map(lambda t: t.requires_grad_(True), param_tree(params))
 
 
 def _init_stack(generator, cfg, groups, *, causal: bool, dtype, device):
@@ -256,8 +287,14 @@ def _layer(tree, r: int):
 # stack runner
 # ---------------------------------------------------------------------------
 
+CACHE_FREE = ("train", "encode")
+
+
 def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
                  kv_bits, kv_cap, length, cross_src=None):
+    """One layer: (x, its cache, its router aux loss).  The aux is 0.0 but
+    in a MoE layer in ``train`` mode; the cache is None in the cache-free
+    modes (``train``, ``encode``)."""
     if kind == "cross":
         # the vision stack's gated layer: tanh of the f32 gates, cast to x's
         # dtype, on both residuals; its cache is the bare {"k", "v"}
@@ -266,17 +303,17 @@ def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
                                        impl=impl)
         x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
         ff = M.apply_mlp(p["mlp"], M.apply_norm(p["ln2"], x), cfg, impl=impl)
-        return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ff, c
+        return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ff, c, 0.0
     if kind in ("ssm", "recurrent"):
         h = M.apply_norm(p["ln1"], x)
         if kind == "ssm":
             out, c = apply_mamba(p["mamba"], h, cfg=cfg, mode=mode, cache=cache,
                                  length=length)
-            return x + out, c
+            return x + out, c, 0.0
         out, c = apply_rglru(p["rec"], h, cfg=cfg, mode=mode, cache=cache, length=length,
                              impl=impl)
         x = x + out
-        return x + M.apply_mlp(p["mlp"], M.apply_norm(p["ln2"], x), cfg, impl=impl), c
+        return x + M.apply_mlp(p["mlp"], M.apply_norm(p["ln2"], x), cfg, impl=impl), c, 0.0
     h = M.apply_norm(p["ln1"], x)
     c_self = None if cache is None else cache["attn"]
     if cfg.is_mla:
@@ -288,9 +325,11 @@ def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
         out, c = apply_attention(p["attn"], h, cfg=cfg, kind=kind, mode=mode,
                                  pos=pos, cache=c_self, impl=impl, segments=segments,
                                  kv_bits=kv_bits, kv_cap=kv_cap, length=length)
+    cache_free = mode in CACHE_FREE
     if cfg.parallel_block:
         # GPT-J: attention and the MLP both read ln1's output
-        return x + out + M.apply_mlp(p["mlp"], h, cfg, impl=impl), {"attn": c}
+        return (x + out + M.apply_mlp(p["mlp"], h, cfg, impl=impl),
+                None if cache_free else {"attn": c}, 0.0)
     if cfg.post_norm:
         out = M.apply_norm(p["ln1_post"], out)
     x = x + out
@@ -304,31 +343,83 @@ def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
             impl=impl)
         x = x + out
     h = M.apply_norm(p["ln2"], x)
+    aux = 0.0
     if use_moe:
         ff = apply_moe(p["moe"], h, cfg, mode=mode, impl=impl)
+        if mode == "train":
+            aux = router_aux_loss(p["moe"], h, cfg)
     else:
         ff = M.apply_mlp(p["mlp"], h, cfg, impl=impl)
     if cfg.post_norm:
         ff = M.apply_norm(p["ln2_post"], ff)
     x = x + ff
-    return x, (None if mode == "encode" else blk_cache)
+    return x, (None if cache_free else blk_cache), aux
+
+
+def _unstack(tree, repeats: int) -> list:
+    """A group's stacked leaves as ``repeats`` trees of per-layer views, by
+    one ``unbind`` a leaf: its backward stacks the layers' gradients once,
+    where indexing each layer would add a whole-leaf gradient per layer."""
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    if isinstance(tree, QuantWeight):
+        return [tree.tensor()[r] for r in range(repeats)]
+    per_key = {k: _unstack(t, repeats) for k, t in tree.items()}
+    return [{k: v[r] for k, v in per_key.items()} for r in range(repeats)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` remat policy: keep the outputs of matrix products
+    with no batch axis (the reference's ``dots_with_no_batch_dims_saveable``),
+    recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
               impl="flash", segments=None, kv_bits=0, kv_cap=0, length=None,
-              cross_src=None):
-    """Run every layer.  ``prefill`` returns the per-layer caches stacked
-    as ``(repeats, ...)`` per group (quantised with ``kv_bits``): raw
-    per-token with ``segments``, else exact at ``length`` with ``kv_cap``
-    entries (a ring for local layers); ``chunk``/``decode`` update the pool
-    ``caches`` in place and return them (a cross cache is read, never
-    written); ``encode`` (an encoder, without a causal mask) returns no
-    cache.
-    ``cross_src`` (B, S_src, D) is what the cross-attention of a prefill or
-    an encode attends to."""
+              cross_src=None, remat=False, remat_policy=None):
+    """Run every layer: (x, caches, aux).  ``prefill`` returns the per-layer
+    caches stacked as ``(repeats, ...)`` per group (quantised with
+    ``kv_bits``): raw per-token with ``segments``, else exact at ``length``
+    with ``kv_cap`` entries (a ring for local layers); ``chunk``/``decode``
+    update the pool ``caches`` in place and return them (a cross cache is
+    read, never written).  ``train`` (causal) and ``encode`` (an encoder,
+    without a causal mask) return no caches (None).  ``aux`` is the sum of
+    the MoE layers' router aux losses in ``train`` mode, else 0.0.
+    ``cross_src`` (B, S_src, D) is what the cross-attention attends to.
+
+    In the cache-free modes ``remat`` runs each layer under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward pass, all but the outputs of plain matrix
+    products with ``remat_policy="dots"``.  The numbers are the same."""
+    cache_free = mode in CACHE_FREE
     new_caches = []
+    aux_total = 0.0
+    kw = dict(cfg=cfg, mode=mode, pos=pos, impl=impl, segments=segments, kv_bits=kv_bits,
+              kv_cap=kv_cap, length=length, cross_src=cross_src)
     for gi, spec in enumerate(groups):
         gp = stack[gi]
+        if cache_free:
+            def block(x, p_blk, spec=spec):
+                aux = 0.0
+                for ui, (kind, use_moe) in enumerate(spec.units):
+                    x, _, a = _apply_layer(p_blk[f"u{ui}"], x, kind=kind, use_moe=use_moe,
+                                           cache=None, **kw)
+                    aux = aux + a
+                return x, aux
+            if remat:
+                if remat_policy not in (None, "dots"):
+                    raise ValueError(f"unknown remat policy {remat_policy!r}")
+                ctx = {} if remat_policy is None else dict(context_fn=functools.partial(
+                    torch_checkpoint.create_selective_checkpoint_contexts, _save_dots))
+                block = functools.partial(torch_checkpoint.checkpoint, block,
+                                          use_reentrant=False, **ctx)
+            for p_blk in _unstack(gp, spec.repeats):
+                x, aux = block(x, p_blk)
+                aux_total = aux_total + aux
+            continue
         gc = None if caches is None else caches[gi]
         outs = []
         for r in range(spec.repeats):
@@ -336,16 +427,12 @@ def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
             c_blk = None if gc is None else _layer(gc, r)
             c_out = {}
             for ui, (kind, use_moe) in enumerate(spec.units):
-                x, c_out[f"u{ui}"] = _apply_layer(
-                    p_blk[f"u{ui}"], x, cfg=cfg, kind=kind, use_moe=use_moe, mode=mode,
-                    pos=pos,
-                    cache=None if c_blk is None else c_blk[f"u{ui}"],
-                    impl=impl, segments=segments, kv_bits=kv_bits, kv_cap=kv_cap,
-                    length=length, cross_src=cross_src)
+                x, c_out[f"u{ui}"], _ = _apply_layer(
+                    p_blk[f"u{ui}"], x, kind=kind, use_moe=use_moe,
+                    cache=None if c_blk is None else c_blk[f"u{ui}"], **kw)
             outs.append(c_out)
-        if mode != "encode":
-            new_caches.append(gc if gc is not None else _stack_trees(outs))
-    return x, new_caches
+        new_caches.append(gc if gc is not None else _stack_trees(outs))
+    return x, (None if cache_free else new_caches), aux_total
 
 
 def _stack_trees(trees):
@@ -429,12 +516,13 @@ def needs_source(cfg: ModelConfig) -> bool:
 
 
 def run_encoder(params, cfg: ModelConfig, *, frames=None, encoder_tokens=None,
-                impl="flash", compute_dtype=torch.bfloat16):
+                impl="flash", compute_dtype=torch.bfloat16, remat=False, remat_policy=None):
     """The encoder's output (B, S_src, D) after ``encoder_norm``: audio
     (whisper) takes the frame embeddings ``frames`` (B, S_src, D) in the
     compute dtype plus sinusoidal positions; a text encoder (bart) embeds
     ``encoder_tokens`` (B, S_src) with the position table.  Its layers run
-    without a causal mask and return no cache."""
+    without a causal mask and return no cache (``remat`` as in
+    :func:`run_stack`)."""
     if cfg.family == "audio":
         if frames is None:
             raise ValueError(f"{cfg.name}: prefill needs frames= (B, frames, d_model)")
@@ -448,13 +536,15 @@ def run_encoder(params, cfg: ModelConfig, *, frames=None, encoder_tokens=None,
         B, S = encoder_tokens.shape
         pos = torch.arange(S, dtype=torch.int32, device=encoder_tokens.device).expand(B, S)
         h = embed_tokens(params, cfg, encoder_tokens, pos, compute_dtype)
-    h, _ = run_stack(params["encoder"], h, cfg=cfg, groups=build_groups(cfg, encoder=True),
-                     mode="encode", pos=pos, impl=impl)
+    h, _, _ = run_stack(params["encoder"], h, cfg=cfg,
+                        groups=build_groups(cfg, encoder=True), mode="encode", pos=pos,
+                        impl=impl, remat=remat, remat_policy=remat_policy)
     return M.apply_norm(params["encoder_norm"], h)
 
 
 def cross_source(params, cfg: ModelConfig, *, frames=None, encoder_tokens=None,
-                 image_embeds=None, impl="flash", compute_dtype=torch.bfloat16):
+                 image_embeds=None, impl="flash", compute_dtype=torch.bfloat16,
+                 remat=False, remat_policy=None):
     """What the cross-attention of a prefill attends to: the encoder's
     output (:func:`run_encoder`), the patch embeddings ``image_embeds`` (B,
     n_frontend_tokens, D) of a vision stack in the compute dtype, or None
@@ -462,7 +552,8 @@ def cross_source(params, cfg: ModelConfig, *, frames=None, encoder_tokens=None,
     is given none raises."""
     if cfg.n_encoder_layers:
         return run_encoder(params, cfg, frames=frames, encoder_tokens=encoder_tokens,
-                           impl=impl, compute_dtype=compute_dtype)
+                           impl=impl, compute_dtype=compute_dtype, remat=remat,
+                           remat_policy=remat_policy)
     if needs_source(cfg):
         if image_embeds is None:
             raise ValueError(f"{cfg.name}: prefill needs image_embeds= "
@@ -474,6 +565,49 @@ def cross_source(params, cfg: ModelConfig, *, frames=None, encoder_tokens=None,
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+
+def loss_fn(params, cfg: ModelConfig, batch, *, impl="ref", compute_dtype=torch.bfloat16,
+            remat=False, remat_policy=None, aux_weight=0.01):
+    """The training loss: (loss, {"nll", "aux"}).
+
+    ``batch``: ``tokens`` (B, S) and the source a stack needs (``frames``,
+    ``encoder_tokens`` or ``image_embeds``).  A decoder's loss is the mean
+    next-token NLL of the f32 logits; an encoder's (bert) the NLL of the
+    tokens themselves at the positions ``% 7 == 3`` (the reference's MLM
+    proxy), its layers without a causal mask.  Plus ``aux_weight`` times
+    the MoE layers' router aux loss.  Computed in ``compute_dtype`` through
+    the plain modules: ``impl`` must be ``"ref"``, as the reference trains
+    on its oracle (a kernel's output would leave the autograd graph)."""
+    if impl != "ref":
+        raise ValueError(f"loss_fn trains through impl='ref', not {impl!r}: the "
+                         f"port's kernels have no backward")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    causal = cfg.family != "encoder"
+    cross_src = cross_source(params, cfg, frames=batch.get("frames"),
+                             encoder_tokens=batch.get("encoder_tokens"),
+                             image_embeds=batch.get("image_embeds"), impl=impl,
+                             compute_dtype=compute_dtype, remat=remat,
+                             remat_policy=remat_policy)
+    h = embed_tokens(params, cfg, tokens, pos, compute_dtype)
+    h, _, aux = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
+                          mode="train" if causal else "encode", pos=pos, impl=impl,
+                          cross_src=cross_src, remat=remat, remat_policy=remat_policy)
+    h = M.apply_norm(params["final_norm"], h)
+    lf = unembed(params, cfg, h, impl).float()
+    targets = tokens.long()
+    if causal:
+        lf, targets = lf[:, :-1], targets[:, 1:]
+    nll = torch.logsumexp(lf, dim=-1) - torch.gather(lf, -1, targets[..., None])[..., 0]
+    if causal:
+        loss = nll.mean()
+    else:
+        keep = torch.arange(S, device=tokens.device) % 7 == 3
+        loss = torch.where(keep, nll, 0.0).sum() / (keep.sum() * B)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=tokens.device)
+    return loss + aux_weight * aux, {"nll": loss.detach(), "aux": aux.detach()}
+
 
 def prefill(params, cfg: ModelConfig, tokens, *, impl="flash",
             compute_dtype=torch.bfloat16, kv_cap: int = 0, length=None,
@@ -500,9 +634,9 @@ def prefill(params, cfg: ModelConfig, tokens, *, impl="flash",
                              compute_dtype=compute_dtype)
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     h = embed_tokens(params, cfg, tokens, pos, compute_dtype)
-    h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
-                          mode="prefill", pos=pos, impl=impl, kv_bits=kv_bits,
-                          kv_cap=kv_cap, length=length, cross_src=cross_src)
+    h, caches, _ = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
+                             mode="prefill", pos=pos, impl=impl, kv_bits=kv_bits,
+                             kv_cap=kv_cap, length=length, cross_src=cross_src)
     h = M.apply_norm(params["final_norm"], h)
     logits = unembed(params, cfg, h[:, length - 1:length], impl)[:, 0]
     return logits, {"stack": caches}
@@ -526,9 +660,9 @@ def prefill_packed(params, cfg: ModelConfig, tokens, positions, segments,
         raise ValueError(
             f"packed prefill needs attention-only stacks, got {cfg.layer_kinds}")
     h = embed_tokens(params, cfg, tokens, positions.clamp_min(0), compute_dtype)
-    h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
-                          mode="prefill", pos=positions, impl=impl,
-                          segments=segments, kv_bits=kv_bits)
+    h, caches, _ = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
+                             mode="prefill", pos=positions, impl=impl,
+                             segments=segments, kv_bits=kv_bits)
     h = M.apply_norm(params["final_norm"], h)
     last = h[0][gather_idx][:, None]                    # (n_seg, 1, D)
     logits = unembed(params, cfg, last, impl)[:, 0]
@@ -545,8 +679,8 @@ def chunk_prefill_step(params, cfg: ModelConfig, cache, tokens, pos, take_idx,
     each row's cache in place, and the chunk attends to the whole cache.
     Returns (logits (B, V) at take_idx, cache)."""
     h = embed_tokens(params, cfg, tokens, pos.clamp_min(0), compute_dtype)
-    h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
-                          mode="chunk", pos=pos, caches=cache["stack"], impl=impl)
+    h, caches, _ = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
+                             mode="chunk", pos=pos, caches=cache["stack"], impl=impl)
     h = M.apply_norm(params["final_norm"], h)
     idx = take_idx.long()[:, None, None].expand(-1, 1, h.shape[-1])
     last = torch.gather(h, 1, idx)                      # (B, 1, D)
@@ -564,8 +698,8 @@ def verify_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
     distribution of the token after ``tokens[:, i]``.  Returns (logits
     (B, C, V), cache)."""
     h = embed_tokens(params, cfg, tokens, pos.clamp_min(0), compute_dtype)
-    h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
-                          mode="chunk", pos=pos, caches=cache["stack"], impl=impl)
+    h, caches, _ = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
+                             mode="chunk", pos=pos, caches=cache["stack"], impl=impl)
     h = M.apply_norm(params["final_norm"], h)
     return unembed(params, cfg, h, impl), {"stack": caches}
 
@@ -578,8 +712,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, impl="flash",
     reference's gather does."""
     pos2 = pos[:, None]
     h = embed_tokens(params, cfg, tokens[:, None], pos2, compute_dtype)
-    h, caches = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
-                          mode="decode", pos=pos2, caches=cache["stack"], impl=impl)
+    h, caches, _ = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
+                             mode="decode", pos=pos2, caches=cache["stack"], impl=impl)
     h = M.apply_norm(params["final_norm"], h)
     logits = unembed(params, cfg, h, impl)[:, 0]
     return logits, {"stack": caches}

@@ -47,6 +47,38 @@ def test_engine_without_a_device_refuses_to_run_on_the_cpu(monkeypatch):
         init_params(cfg, torch.Generator())
 
 
+def test_trainer_and_train_launcher_without_a_device_refuse_to_run_on_the_cpu(monkeypatch):
+    from repro_torch.config import ShapeSpec, reduce_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training.trainer import Trainer
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, ShapeSpec("smoke", "train", 16, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "qwen2.5-3b", "--reduced", "--steps", "1"])
+    # sharded training has no port: more than one device is refused
+    with pytest.raises(SystemExit):
+        launch_train.main(["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu",
+                           "--devices", "2"])
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Trainer(cfg, ShapeSpec("smoke", "train", 16, 4), object(), device="cpu")
+
+
+def test_train_launcher_runs_its_steps_on_the_cpu():
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                          "qwen2.5-3b", "--reduced", "--device", "cpu", "--steps", "3"],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "arch=qwen2.5-3b" in out.stdout and "device=cpu" in out.stdout
+    assert "step     0 loss=" in out.stdout
+    assert "done: 3 steps" in out.stdout
+
+
 def _same_fields(arch):
     port, ref = get_config(arch), jax_get_config(arch)
     for f in dataclasses.fields(port):

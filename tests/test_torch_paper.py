@@ -163,7 +163,7 @@ def test_layer_matches_reference(arch):
     xj, cj, _ = TJ._apply_layer(pj, jnp.asarray(x), cfg=cfg_j, kind="global", use_moe=False,
                                 mode="prefill", pos=jnp.asarray(pos), cache=None,
                                 cross_src=None, impl="ref", causal=True, kv_cap=S)
-    xt, ct = T._apply_layer(_t(pj), torch.from_numpy(x), cfg=cfg_t, kind="global",
+    xt, ct, _ = T._apply_layer(_t(pj), torch.from_numpy(x), cfg=cfg_t, kind="global",
                             use_moe=False, mode="prefill", pos=torch.from_numpy(pos),
                             cache=None, impl="ref", segments=None, kv_bits=0, kv_cap=S,
                             length=None)
