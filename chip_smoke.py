@@ -167,6 +167,25 @@ Phases, each of which must pass or the script exits non-zero:
              every value finite: 2.5D-HI, HAIMA_chiplet and TransPIM_chiplet
              beside the engine's measured step time), and the Table-4 anchors
              (bert-base and gpt-j at 64 tokens) beside the paper's targets;
+7b. calib — the profiling plane (``repro_torch.profile``), the four
+             steps of ``benchmarks/perf_calib.py`` (its file not run, no
+             JSON written): ``kernel_samples`` on llama2-7b at full width
+             (MHA 32/32, hd 128: the decode over 8192..32768-entry pools
+             at B 4 and 8, fp, kv8 and kv4; the causal prefill at S 8192,
+             12288 and 16384, one segment a row; the dequant-matmul at M 8
+             over five registered (K, N) shapes, int8 and int4), every
+             bytes-fitted case streaming at least 100 MB, and
+             ``executor_samples`` on full-width bert-base (the captured
+             fused step replayed, B 1, 2, 4, 8), each timed call checked
+             to have launched its kind's kernel; the fits (rate,
+             intercept, r2, CI, held-out error) through a versioned table
+             and its JSON, each held out within 0.5 and its rate at most
+             1.05 x the card's peak for its term; ``measured_calib``
+             beside ``CALIB``, ``phase_error_report`` and gpt-j's
+             generation through Plane B under both; a traced drain of
+             bert-base whose ``cosim_from_engine`` carries the measured
+             step time; each kind's smallest case against its plain
+             version;
 8. moe     — full-width qwen3-moe-30b-a3b (cut to 24 of 48 layers, 128
              experts top-8, 30.6 GB of random bf16 weights) built once every
              earlier model is freed (the memory still allocated printed and
@@ -380,6 +399,41 @@ COSIM_ARCH_KEYS = {"ttft_ms", "decode_step_ms", "decode_tok_s", "tokens_per_s",
 # tests hold them: the 2.5D-HI fit of two scalars to its two anchors, each
 # baseline's fit of its two to its own
 ANCHOR_LOG_TOL = {"2.5D-HI": 0.15, "HAIMA_chiplet": 0.02, "TransPIM_chiplet": 0.02}
+# phase calib: the profiling plane (repro_torch.profile) at full width, the
+# four steps of benchmarks/perf_calib.py.  Its kernel grid runs on llama2-7b
+# (MHA 32/32 at hd 128: every kind stays on one kernel route, the prefill on
+# the tensor-core tiles), every bytes-fitted case streaming at least
+# CALIB_MIN_BYTES (twice the 50 MB L2, so min-of-k reads HBM, not the L2);
+# the prefill keeps one segment a row (seg_len >= its longest S: prefill.cu
+# skips tiles with no live same-segment pair, and the fit's term is S^2);
+# the matmul shapes are registered configs' (llama-3.2-vision-90b's MLP,
+# gpt-j's, deepseek-v2's and llama-3's heads)
+CALIB_ARCH = "llama2-7b"
+CALIB_GRID = dict(batches=(4, 8), kv_lens=(8192, 16384, 32768), kv_bits=(0, 8, 4),
+                  prefill_lens=(8192, 12288, 16384), seg_len=16384, qmm_m=8, qmm_bits=(8, 4),
+                  qmm_shapes=((8192, 28672), (28672, 8192), (4096, 50400), (5120, 102400),
+                              (8192, 128256)))
+CALIB_MIN_BYTES = 100e6
+# the engine's captured decode step: full-width bert-base
+CALIB_EXECUTOR = dict(archs=("bert-base",), impl="flash", batches=(1, 2, 4, 8), kv_len=512)
+# benchmarks/perf_calib.py's pin on every fit for compiled backends
+# (TOLERANCE_COMPILED), and no fitted rate above this share of the card's
+# peak for its term
+CALIB_TOLERANCE = 0.5
+CALIB_PEAK_SHARE = 1.05
+# steady-state calls a case (min-of-k), after one warm-up call, as
+# perf_calib.py's full run takes them
+CALIB_REPEAT = 5
+# the replay: gpt-j's generation episode through Plane B (perf_calib.py's
+# cosim_delta) under CALIB and the measured Calib; the traced drain
+# (its run_engine_trace) on full-width bert-base
+CALIB_COSIM = dict(arch="gpt-j", prompt_len=512, gen_len=128, batch=8)
+CALIB_TRACE_PROMPTS = (6, 10, 14, 10, 22, 6, 18, 10)
+# each kernel kind's wrapper (by its record's name) and the code bits of
+# its quantised decode
+CALIB_WRAPPERS = {"decode_attn": ("flash_decode", 0), "decode_attn_kv8": ("flash_decode_quant", 8),
+                  "decode_attn_kv4": ("flash_decode_quant", 4),
+                  "prefill_attn": ("flash_prefill", 0), "dequant_matmul": ("quant_matmul", 0)}
 # their attention as the engine runs it: 8 slots, a 1024-entry pool, MHA
 # (rep 1) at head dims 128 (llama2-7b), 256 (gpt-j) and 64 (bert); packed
 # prefills of a 128-token stream
@@ -3121,6 +3175,218 @@ def paper_anchors():
                   f"table4 ({arch} {model}): {ms:.3f} ms against the paper's {target}")
 
 
+def print_calib_samples(samples):
+    """Each sample's terms, seconds and rate in the term its kind is
+    fitted in."""
+    from repro_torch.profile.costmodel import DEFAULT_TERMS
+    for s in samples:
+        term = DEFAULT_TERMS[s.kind]
+        print(f"calib sample kind={s.kind} arch={s.arch} {json.dumps(s.params)} "
+              f"bytes={s.bytes_term:.0f} flops={s.flops_term:.0f} seconds={s.seconds:.6e} "
+              f"first_call_s={s.compile_s:.4f} "
+              f"{term}_per_s={getattr(s, term + '_term') / s.seconds:.4e}")
+
+
+def calib_samples(torch, by_run):
+    """Steps 1 and 2 of phase calib, the main path: ``kernel_samples`` on
+    ``CALIB_ARCH`` at full width and ``executor_samples`` on full-width
+    bert-base, each launch counted.  Every timed call of a kernel case
+    must launch its kind's kernel (so no plain version was timed), the
+    prefill on tensor cores and the matmul too, and every replayed step of
+    the executor its decode kernel a layer."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels.flash_attention.decode import quant_kernel_launches
+    from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill_launches
+    from repro_torch.profile.bench import executor_samples, kernel_samples
+    from repro_torch.profile.costmodel import DEFAULT_TERMS
+    from repro_torch.quant.kernel import kernel_launches as qmm_launches
+    calls = 1 + CALIB_REPEAT                        # measure's warmup + repeat
+    reset_launches()
+    samples = kernel_samples((CALIB_ARCH,), **CALIB_GRID, warmup=1, repeat=CALIB_REPEAT,
+                             device=DEVICE, reduce=False)
+    kernels = read_launches()
+    by_kind = {}
+    for s in samples:
+        by_kind.setdefault(s.kind, []).append(s)
+    want = {}
+    for kind, (name, bits) in CALIB_WRAPPERS.items():
+        want[name] = want.get(name, 0) + len(by_kind[kind]) * calls
+        if bits:
+            got = sum(n for k, n in quant_kernel_launches.items() if k.bits == bits)
+            check(got == len(by_kind[kind]) * calls,
+                  f"calib: {got} int{bits} decode launches for {len(by_kind[kind])} cases")
+    check(kernels == {n: want.get(n, 0) for n in kernels},
+          f"calib: kernel launches {kernels}, the timed calls {want}")
+    check({k.design for k in prefill_launches} == {"tensor_core"}
+          and {k.design for k in qmm_launches} == {"tensor_core"},
+          f"calib: designs {set(prefill_launches)} {set(qmm_launches)}")
+    print_calib_samples(samples)
+    for s in samples:
+        check(DEFAULT_TERMS[s.kind] != "bytes" or s.bytes_term >= CALIB_MIN_BYTES,
+              f"calib: {s.kind} {s.params} streams {s.bytes_term:.3e} bytes, under "
+              f"{CALIB_MIN_BYTES:.0e}: min-of-k would read the L2")
+    by_run["calib kernels"] = kernels
+
+    cfg = get_config(CALIB_EXECUTOR["archs"][0])
+    spc = 8                                         # executor_samples' steps_per_call
+    reset_launches()
+    ex = executor_samples(**CALIB_EXECUTOR, warmup=1, repeat=CALIB_REPEAT,
+                          steps_per_call=spc, device=DEVICE, reduce=False)
+    by_run["calib executor"] = launches = read_launches()
+    # an engine a batch: the capture's warm-up runs each program once
+    # eagerly (serving/graphs.py), then eng.step() a packed prefill and a
+    # decode step, then the timed replays
+    batches = len(CALIB_EXECUTOR["batches"])
+    steps, prefills = batches * (2 + spc * calls), batches * 2
+    check(launches["flash_decode"] == steps * cfg.n_layers
+          and launches["flash_prefill"] == prefills * cfg.n_layers
+          and sum(launches.values()) == (steps + prefills) * cfg.n_layers,
+          f"calib executor: launches {launches}, {steps} decode steps and {prefills} "
+          f"prefills of {cfg.n_layers} layers")
+    print_calib_samples(ex)
+    collect(torch)
+    return samples, ex
+
+
+def calib_plain_checks(torch, samples):
+    """Each kernel kind's smallest grid point (by its fitted term) again,
+    its kernel against its plain version on the same inputs, within the
+    bounds of phase kernels (launches made here are not the main path's)."""
+    from repro_torch.config import get_config
+    from repro_torch.profile.bench import kernel_case
+    from repro_torch.profile.costmodel import DEFAULT_TERMS
+    cfg = get_config(CALIB_ARCH)
+    for kind in CALIB_WRAPPERS:
+        term = DEFAULT_TERMS[kind] + "_term"
+        s = min((x for x in samples if x.kind == kind), key=lambda x: getattr(x, term))
+        case = kernel_case(kind, cfg, s.params,
+                           generator=torch.Generator(device=DEVICE).manual_seed(1))
+        out, ref = case.call(), case.plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if kind == "dequant_matmul":
+            scale = max(ref.float().abs().max().item(), 1e-30)
+            tol = MATMUL_TOL[str(out.dtype)] * scale
+        else:
+            tol = TOL[str(out.dtype)]
+        print(f"calib check kind={kind} {json.dumps(s.params)} shape={tuple(out.shape)} "
+              f"max_abs_err={err:.3e} bound={tol:.3e}")
+        check(out.shape == ref.shape and np.isfinite(err) and err <= tol,
+              f"calib: {kind} {s.params} disagrees with its plain version ({err:.3e})")
+        del case, out, ref
+        collect(torch)
+
+
+def calib_fit(samples):
+    """Step 3 of phase calib: the fitted table (the card's name and power
+    limit in its meta) through a JSON round trip, each fit held to the
+    pin and under the card's peak; the measured ``Calib`` beside
+    ``CALIB``, the error report, and gpt-j's episode through Plane B
+    under both."""
+    from repro_torch.config import get_config
+    from repro_torch.core.simulator import CALIB, simulate_generation
+    from repro_torch.core.traffic import Workload
+    from repro_torch.profile.calibrate import measured_calib, phase_error_report
+    from repro_torch.profile.costmodel import CalibrationTable, build_table
+    table = build_table(samples, device=DEVICE, meta={
+        "card": CARD, "grid": sorted({s.kind for s in samples}),
+        "archs": sorted({s.arch for s in samples})})
+    again = CalibrationTable.from_json(json.loads(json.dumps(table.to_json())))
+    check(again.to_json() == table.to_json(), "calib: the table's JSON round trip changed it")
+    check(table.backend == DEVICE and table.interpret == (DEVICE == "cpu"),
+          f"calib: table of backend {table.backend}, interpret {table.interpret}")
+    peak = {"bytes": HBM_BYTES_PER_S, "flops": PEAK_FLOPS["torch.bfloat16"]}
+    for kind, f in table.fits.items():
+        print(f"calib fit kind={kind} term={f.term} rate={f.rate:.4e} "
+              f"peak_share={f.rate / peak[f.term]:.4f} intercept_us={f.intercept_s * 1e6:.2f} "
+              f"r2={f.r2:.5f} rate_ci95_rel={f.rate_ci95_rel} n_train={f.n_train} "
+              f"n_heldout={f.n_heldout} heldout_max_rel_err={f.heldout_max_rel_err:.4f} "
+              f"heldout_mean_rel_err={f.heldout_mean_rel_err:.4f} "
+              f"flops_rate={f.flops_rate:.4e} card={CARD!r}")
+        check(np.isfinite(f.rate) and f.rate > 0, f"calib: {kind} rate {f.rate}")
+        check(f.heldout_max_rel_err <= CALIB_TOLERANCE,
+              f"calib: {kind} held-out error {f.heldout_max_rel_err:.3f} over "
+              f"{CALIB_TOLERANCE}")
+        check(f.rate <= CALIB_PEAK_SHARE * peak[f.term],
+              f"calib: {kind} rate {f.rate:.3e} above {CALIB_PEAK_SHARE} x the card's "
+              f"{f.term} peak {peak[f.term]:.3e}")
+    print(f"calib error_bar_rel={table.error_bar_rel:.4f} card={CARD!r}")
+    mcal = measured_calib(table, n_chiplets=PAPER_CHIPLETS)
+    print(f"calib Calib default: {json.dumps(dataclasses.asdict(CALIB))}")
+    print(f"calib Calib measured: {json.dumps(dataclasses.asdict(mcal))}")
+    for kind, row in phase_error_report(table, n_chiplets=PAPER_CHIPLETS).items():
+        print(f"calib phase_error kind={kind} " + json.dumps(row))
+        check(row["measured_s"] > 0 and row["analytical_s"] > 0, f"calib: error row {row}")
+    c = CALIB_COSIM
+    w = Workload.from_config(get_config(c["arch"]), seq_len=c["prompt_len"])
+    rows = {}
+    for name, cal in (("default", CALIB), ("measured", mcal)):
+        g = simulate_generation(w, PAPER_CHIPLETS, c["prompt_len"], c["gen_len"],
+                                arch="2.5D-HI", batch=c["batch"], calib=cal)
+        rows[name] = {"ttft_ms": g.ttft_s * 1e3, "decode_step_ms": g.decode_step_s * 1e3,
+                      "decode_tok_s": g.decode_tok_s}
+        check(all(np.isfinite(v) and v > 0 for v in rows[name].values()),
+              f"calib: cosim {name} {rows[name]}")
+    delta = rows["measured"]["decode_step_ms"] / rows["default"]["decode_step_ms"] - 1.0
+    print(f"calib cosim {json.dumps(c)} chiplets={PAPER_CHIPLETS} default={json.dumps(rows['default'])} "
+          f"measured={json.dumps(rows['measured'])} decode_step_rel_delta={delta:+.4f}")
+    return mcal
+
+
+def calib_trace(torch, mcal):
+    """Step 4 of phase calib (main path): a traced drain of full-width
+    bert-base, its mix through ``cosim_from_engine`` on gpt-j under the
+    measured ``Calib``, which must carry the measured step time."""
+    from repro_torch.config import get_config
+    from repro_torch.core.cosim import cosim_from_engine
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = get_config(CALIB_EXECUTOR["archs"][0])
+    params = make_params(torch, cfg)
+    engine = ServingEngine(cfg, params, EngineConfig(
+        max_batch=4, kv_len=64, max_new_tokens=8, prefill_chunk=32, trace=True),
+        device=DEVICE)
+    rng = np.random.default_rng(0)
+    for plen in CALIB_TRACE_PROMPTS:
+        engine.submit(rng.integers(0, cfg.vocab_size, size=plen))
+    engine.run_until_drained()
+    st = engine.stats()
+    check(st["finished"] == len(CALIB_TRACE_PROMPTS), f"calib trace: stats {st}")
+    rec = cosim_from_engine(engine, cfg=get_config(CALIB_COSIM["arch"]),
+                            n_chiplets=PAPER_CHIPLETS, calib=mcal)
+    mix = rec["mix"]
+    print("calib trace " + json.dumps({k: st[k] for k in st if k.startswith("trace_")}))
+    print(f"calib trace mix measured_step_s={mix.get('measured_step_s')} "
+          f"measured_prefill_s={mix.get('measured_prefill_s')} "
+          f"measured_d2h_s={mix.get('measured_d2h_s')} card={CARD!r} "
+          + " ".join(f"{a}:" + json.dumps({k: float(v) for k, v in g.items()
+                                           if k in ("ttft_s", "decode_step_s", "tokens_per_s")})
+                     for a, g in rec["archs"].items()))
+    check(mix.get("measured_step_s", 0) > 0, f"calib trace: mix {mix}")
+    del engine, params
+    collect(torch)
+
+
+def run_calib(torch, by_run):
+    """Phase calib: the profiling plane on the card, the four steps of
+    ``benchmarks/perf_calib.py`` (its file is not run, and no JSON is
+    written): the kernels and the captured decode step timed at full width
+    with their launches counted, the fits held to the reference's pin and
+    the card's peaks, the measured ``Calib`` and the error report beside
+    the default, gpt-j through Plane B under both, and a traced drain's
+    ``cosim_from_engine``; then each kernel kind's smallest case against
+    its plain version."""
+    collect(torch)
+    t_phase = time.perf_counter()
+    samples, ex = calib_samples(torch, by_run)
+    mcal = calib_fit(samples + ex)
+    reset_launches()
+    calib_trace(torch, mcal)
+    by_run["calib trace"] = read_launches()
+    calib_plain_checks(torch, samples)
+    reset_launches()
+    print(f"phase calib done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def run_moe(torch, by_run):
     """Phase moe: full-width qwen3-moe-30b-a3b (its depth cut to
     ``MOE_LAYERS`` of 48, 128 experts, top-8), random bf16 weights, after
@@ -4339,6 +4605,8 @@ def main():
         print(f"phases of {arch} done at {time.perf_counter() - start:.1f} s")
     run_paper(torch, by_run)
     print(f"phases of the paper's models done at {time.perf_counter() - start:.1f} s")
+    run_calib(torch, by_run)
+    print(f"phase calib done at {time.perf_counter() - start:.1f} s")
     run_moe(torch, by_run)
     print(f"phases of {MOE_ARCH} done at {time.perf_counter() - start:.1f} s")
     run_recurrent(torch, by_run)

@@ -17,7 +17,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / name for name in ("chip_smoke.py", "chip_probe_attention.py",
                               "chip_probe_grouped.py", "chip_probe_qmatmul.py",
-                              "chip_probe_cross_source.py")]
+                              "chip_probe_cross_source.py", "chip_probe_calib.py")]
 
 
 def _imports(path):
