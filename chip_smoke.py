@@ -414,6 +414,11 @@ CALIB_GRID = dict(batches=(4, 8), kv_lens=(8192, 16384, 32768), kv_bits=(0, 8, 4
                   qmm_shapes=((8192, 28672), (28672, 8192), (4096, 50400), (5120, 102400),
                               (8192, 128256)))
 CALIB_MIN_BYTES = 100e6
+# the issue's prefill grid, at the prompt lengths the port serves: timed and
+# fitted beside the pinned grid and printed, not pinned (there the reference's
+# regressor, whose term counts the output projection, linear in S, misses
+# the kernel's quadratic work), with the pinned fit's error at these lengths
+CALIB_SERVED_PREFILL = dict(prefill_lens=(1024, 2048, 4096), seg_len=4096)
 # the engine's captured decode step: full-width bert-base
 CALIB_EXECUTOR = dict(archs=("bert-base",), impl="flash", batches=(1, 2, 4, 8), kv_len=512)
 # benchmarks/perf_calib.py's pin on every fit for compiled backends
@@ -429,11 +434,20 @@ CALIB_REPEAT = 5
 # (its run_engine_trace) on full-width bert-base
 CALIB_COSIM = dict(arch="gpt-j", prompt_len=512, gen_len=128, batch=8)
 CALIB_TRACE_PROMPTS = (6, 10, 14, 10, 22, 6, 18, 10)
+CALIB_TRACE_ENGINE = dict(max_batch=4, kv_len=64, max_new_tokens=8, prefill_chunk=32)
 # each kernel kind's wrapper (by its record's name) and the code bits of
 # its quantised decode
 CALIB_WRAPPERS = {"decode_attn": ("flash_decode", 0), "decode_attn_kv8": ("flash_decode_quant", 8),
                   "decode_attn_kv4": ("flash_decode_quant", 4),
                   "prefill_attn": ("flash_prefill", 0), "dequant_matmul": ("quant_matmul", 0)}
+# the per-kernel counter of each kind (repro_torch.kernels.launches.counters)
+# and the parameter by which its plain checks take the smallest case of each
+# value (the decodes' batch: 2 splits at B 4, one at B 8; the weights' bits)
+CALIB_COUNTERS = {"decode_attn": "decode", "decode_attn_kv8": "decode_quant",
+                  "decode_attn_kv4": "decode_quant", "prefill_attn": "prefill",
+                  "dequant_matmul": "qmatmul"}
+CALIB_CHECK_BY = {"decode_attn": "batch", "decode_attn_kv8": "batch",
+                  "decode_attn_kv4": "batch", "dequant_matmul": "bits"}
 # their attention as the engine runs it: 8 slots, a 1024-entry pool, MHA
 # (rep 1) at head dims 128 (llama2-7b), 256 (gpt-j) and 64 (bert); packed
 # prefills of a 128-token stream
@@ -3193,8 +3207,12 @@ def calib_samples(torch, by_run):
     bert-base, each launch counted.  Every timed call of a kernel case
     must launch its kind's kernel (so no plain version was timed), the
     prefill on tensor cores and the matmul too, and every replayed step of
-    the executor its decode kernel a layer."""
+    the executor its decode kernel a layer.  Then the prefill at
+    ``CALIB_SERVED_PREFILL``, beside the table.  Returns the grid's
+    samples, the executor's, the served prefill's, and the kernels that
+    each of the three launched (by counter: ``launches.snapshot``)."""
     from repro_torch.config import get_config
+    from repro_torch.kernels import launches as counts
     from repro_torch.kernels.flash_attention.decode import quant_kernel_launches
     from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill_launches
     from repro_torch.profile.bench import executor_samples, kernel_samples
@@ -3205,6 +3223,7 @@ def calib_samples(torch, by_run):
     samples = kernel_samples((CALIB_ARCH,), **CALIB_GRID, warmup=1, repeat=CALIB_REPEAT,
                              device=DEVICE, reduce=False)
     kernels = read_launches()
+    launched = {"kernel grid": counts.snapshot().kernels}
     by_kind = {}
     for s in samples:
         by_kind.setdefault(s.kind, []).append(s)
@@ -3233,6 +3252,7 @@ def calib_samples(torch, by_run):
     ex = executor_samples(**CALIB_EXECUTOR, warmup=1, repeat=CALIB_REPEAT,
                           steps_per_call=spc, device=DEVICE, reduce=False)
     by_run["calib executor"] = launches = read_launches()
+    launched["executor"] = counts.snapshot().kernels
     # an engine a batch: the capture's warm-up runs each program once
     # eagerly (serving/graphs.py), then eng.step() a packed prefill and a
     # decode step, then the timed replays
@@ -3245,50 +3265,146 @@ def calib_samples(torch, by_run):
           f"prefills of {cfg.n_layers} layers")
     print_calib_samples(ex)
     collect(torch)
-    return samples, ex
+
+    reset_launches()
+    served = kernel_samples((CALIB_ARCH,), batches=CALIB_GRID["batches"], kv_lens=(),
+                            kv_bits=(), qmm_bits=(), **CALIB_SERVED_PREFILL, warmup=1,
+                            repeat=CALIB_REPEAT, device=DEVICE, reduce=False)
+    n = read_launches()
+    check(n == {k: len(served) * calls if k == "flash_prefill" else 0 for k in n}
+          and {k.design for k in prefill_launches} == {"tensor_core"},
+          f"calib served prefill: launches {n}, designs {set(prefill_launches)}")
+    launched["served prefill"] = counts.snapshot().kernels
+    print_calib_samples(served)
+    reset_launches()
+    return samples, ex, served, launched
 
 
-def calib_plain_checks(torch, samples):
-    """Each kernel kind's smallest grid point (by its fitted term) again,
-    its kernel against its plain version on the same inputs, within the
-    bounds of phase kernels (launches made here are not the main path's)."""
+def calib_attention_check(torch, what, out, ref):
+    """An attention output against its plain version, elementwise within
+    ``TOL`` of |ref| + the RMS of ref: relative where values are large (a
+    prefill's first rows), and on the outputs' own scale where they are
+    small (at Skv 8192 an output is about 0.02, half ``TOL``)."""
+    d, r = (out.float() - ref.float()).abs(), ref.float()
+    rms = r.square().mean().sqrt().item()
+    worst = (d / (r.abs() + rms)).max().item()
+    err, tol = d.max().item(), TOL[str(out.dtype)]
+    print(f"calib check {what} shape={tuple(out.shape)} max_abs_err={err:.3e} "
+          f"ref_rms={rms:.3e} ref_max={r.abs().max().item():.3e} "
+          f"max_err_over_abs_ref_plus_rms={worst:.3e} tol={tol:g}")
+    check(out.shape == ref.shape and np.isfinite(worst) and worst <= tol,
+          f"calib: {what} disagrees with its plain version ({worst:.3e} > {tol:g})")
+
+
+def calib_plain_checks(torch, samples, launched):
+    """Cases of the kernel grid (``samples``) against their plain versions
+    on the same inputs (launches made here are not the main path's): of
+    each kind the smallest grid point by its fitted term, and the smallest
+    of each value of ``CALIB_CHECK_BY``; and of every kernel that the grid
+    launched (``launched``, by counter) but that no check had held yet,
+    the smallest case that launches it.  Attention by
+    ``calib_attention_check``, the dequant matmul within ``MATMUL_TOL`` of
+    the plain version's largest magnitude, as phase kernels holds it."""
     from repro_torch.config import get_config
+    from repro_torch.kernels import launches as counts
     from repro_torch.profile.bench import kernel_case
     from repro_torch.profile.costmodel import DEFAULT_TERMS
     cfg = get_config(CALIB_ARCH)
-    for kind in CALIB_WRAPPERS:
+    checked = {"decode": CHECKED_DECODE, "decode_quant": CHECKED_DECODE_QUANT,
+               "prefill": CHECKED_PREFILL, "qmatmul": CHECKED_KERNELS}
+    for kind, name in CALIB_COUNTERS.items():
+        counter, done = counts.counters()[name], checked[name]
         term = DEFAULT_TERMS[kind] + "_term"
-        s = min((x for x in samples if x.kind == kind), key=lambda x: getattr(x, term))
-        case = kernel_case(kind, cfg, s.params,
-                           generator=torch.Generator(device=DEVICE).manual_seed(1))
-        out, ref = case.call(), case.plain()
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        if kind == "dequant_matmul":
-            scale = max(ref.float().abs().max().item(), 1e-30)
-            tol = MATMUL_TOL[str(out.dtype)] * scale
-        else:
-            tol = TOL[str(out.dtype)]
-        print(f"calib check kind={kind} {json.dumps(s.params)} shape={tuple(out.shape)} "
-              f"max_abs_err={err:.3e} bound={tol:.3e}")
-        check(out.shape == ref.shape and np.isfinite(err) and err <= tol,
-              f"calib: {kind} {s.params} disagrees with its plain version ({err:.3e})")
-        del case, out, ref
-        collect(torch)
+        mine = sorted((x for x in samples if x.kind == kind), key=lambda x: getattr(x, term))
+        firsts = {}
+        for x in mine:
+            firsts.setdefault(x.params.get(CALIB_CHECK_BY.get(kind)), x)
+        firsts = {id(x) for x in firsts.values()}
+        bits = CALIB_WRAPPERS[kind][1]
+        missing = {k for k in launched[name] if k not in done
+                   and (not bits or k.bits == bits)}
+        for x in mine:
+            if id(x) not in firsts and not missing:
+                continue
+            case = kernel_case(kind, cfg, x.params,
+                               generator=torch.Generator(device=DEVICE).manual_seed(1))
+            out, kernel = ran_one(counter, case.call, kind)
+            if id(x) in firsts or kernel in missing:
+                ref = case.plain()
+                torch.cuda.synchronize()
+                label = (f"kind={kind} {json.dumps(x.params)} kernel="
+                         f"{kernel_name(kernel) if name == 'qmatmul' else attention_kernel_name(kernel)}")
+                if name == "qmatmul":
+                    err = (out.float() - ref.float()).abs().max().item()
+                    scale = max(ref.float().abs().max().item(), 1e-30)
+                    tol = MATMUL_TOL[str(out.dtype)]
+                    print(f"calib check {label} shape={tuple(out.shape)} max_abs_err={err:.3e} "
+                          f"ref_max={scale:.3e} rel_to_max={err / scale:.3e} tol={tol:g}")
+                    check(out.shape == ref.shape and np.isfinite(err) and err <= tol * scale,
+                          f"calib: {label} disagrees with its plain version ({err:.3e})")
+                else:
+                    calib_attention_check(torch, label, out, ref)
+                done.add(kernel)
+                missing.discard(kernel)
+                del ref
+            del case, out
+            collect(torch)
+        check(not missing, f"calib: {kind} kernels launched that no case reached: {missing}")
 
 
-def calib_fit(samples):
+def calib_engine_checks(torch):
+    """The attention of steps 2 and 4 against its plain versions on the
+    engines' shapes (full-width bert-base, MHA at hd 64): the decode over
+    each pool (max_batch slots of kv_len entries; the split plan follows
+    both) and the packed prefill of one chunk (the engine's default chunk,
+    min(128, kv_len), for the executor; 32 for the traced drain)."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels.flash_attention.decode import flash_decode_fwd, flash_decode_plain
+    from repro_torch.kernels.flash_attention.decode import kernel_launches as decode_launches
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_fwd,
+                                                            flash_attention_plain)
+    from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill_launches
+    cfg = get_config(CALIB_EXECUTOR["archs"][0])
+    heads = dict(Hq=cfg.n_heads, Hkv=cfg.n_kv_heads or cfg.n_heads, hd=cfg.head_dim)
+    rng = np.random.default_rng(27)
+    tr, kv = CALIB_TRACE_ENGINE, CALIB_EXECUTOR["kv_len"]
+    for B, Skv in ([(B, kv) for B in CALIB_EXECUTOR["batches"]]
+                   + [(tr["max_batch"], tr["kv_len"])]):
+        c = decode_case(torch, rng, B=B, Skv=Skv, **heads)
+        k, v = c["pools"][0]
+        args = dict(q_pos=c["q_pos"], kv_pos=c["kv_pos"])
+        out, kernel = ran_one(decode_launches, lambda: flash_decode_fwd(c["q"], k, v, **args),
+                              "decode")
+        CHECKED_DECODE.add(kernel)
+        calib_attention_check(torch, f"engine decode B{B} Skv{Skv} "
+                              f"kernel={attention_kernel_name(kernel)}", out,
+                              flash_decode_plain(c["q"], k, v, **args))
+    for S in (min(128, kv), tr["prefill_chunk"]):
+        c = prefill_case(torch, rng, S=S, lens=(S // 2, S // 4), **heads)
+        args = dict(segments=c["segments"], causal=True)
+        out, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
+            c["q"], c["k"], c["v"], **args), "prefill")
+        CHECKED_PREFILL.add(kernel)
+        calib_attention_check(torch, f"engine prefill S{S} kernel={attention_kernel_name(kernel)}",
+                              out, flash_attention_plain(c["q"], c["k"], c["v"], **args))
+    collect(torch)
+
+
+def calib_fit(samples, served):
     """Step 3 of phase calib: the fitted table (the card's name and power
     limit in its meta) through a JSON round trip, each fit held to the
-    pin and under the card's peak; the measured ``Calib`` beside
+    pin and under the card's peak; the S range in which the prefill fit
+    holds, beside the unpinned fit of the ``served`` prefill samples and
+    the pinned fit's error on them; the measured ``Calib`` beside
     ``CALIB``, the error report, and gpt-j's episode through Plane B
-    under both."""
+    under both, its TTFT marked where its prompt lies outside that
+    range."""
     from repro_torch.config import get_config
     from repro_torch.core.simulator import CALIB, simulate_generation
     from repro_torch.core.traffic import Workload
     from repro_torch.profile.calibrate import measured_calib, phase_error_report
-    from repro_torch.profile.costmodel import CalibrationTable, build_table
-    table = build_table(samples, device=DEVICE, meta={
+    from repro_torch.profile.costmodel import CalibrationTable, build_table, fit_phase
+    table = build_table(samples, backend=DEVICE, meta={
         "card": CARD, "grid": sorted({s.kind for s in samples}),
         "archs": sorted({s.arch for s in samples})})
     again = CalibrationTable.from_json(json.loads(json.dumps(table.to_json())))
@@ -3311,6 +3427,17 @@ def calib_fit(samples):
               f"calib: {kind} rate {f.rate:.3e} above {CALIB_PEAK_SHARE} x the card's "
               f"{f.term} peak {peak[f.term]:.3e}")
     print(f"calib error_bar_rel={table.error_bar_rel:.4f} card={CARD!r}")
+    pf = table.fits["prefill_attn"]
+    lens = sorted({s.params["seq"] for s in samples if s.kind == "prefill_attn"})
+    un = fit_phase(served)
+    miss = [abs(pf.predict(s.flops_term) / s.seconds - 1.0) for s in served]
+    print(f"calib prefill_fit_range S={lens[0]}..{lens[-1]} (the pinned prefill fit, the "
+          f"measured Calib's sm_efficiency and the error bar hold there only) "
+          f"served S={sorted({s.params['seq'] for s in served})} unpinned fit: "
+          f"rate={un.rate:.4e} intercept_us={un.intercept_s * 1e6:.2f} r2={un.r2:.5f} "
+          f"heldout_max_rel_err={un.heldout_max_rel_err:.4f} pinned=false; pinned fit's "
+          f"rel err at served S: max={max(miss):.4f} mean={sum(miss) / len(miss):.4f} "
+          f"card={CARD!r}")
     mcal = measured_calib(table, n_chiplets=PAPER_CHIPLETS)
     print(f"calib Calib default: {json.dumps(dataclasses.asdict(CALIB))}")
     print(f"calib Calib measured: {json.dumps(dataclasses.asdict(mcal))}")
@@ -3328,8 +3455,11 @@ def calib_fit(samples):
         check(all(np.isfinite(v) and v > 0 for v in rows[name].values()),
               f"calib: cosim {name} {rows[name]}")
     delta = rows["measured"]["decode_step_ms"] / rows["default"]["decode_step_ms"] - 1.0
+    within = lens[0] <= c["prompt_len"] <= lens[-1]
     print(f"calib cosim {json.dumps(c)} chiplets={PAPER_CHIPLETS} default={json.dumps(rows['default'])} "
-          f"measured={json.dumps(rows['measured'])} decode_step_rel_delta={delta:+.4f}")
+          f"measured={json.dumps(rows['measured'])} decode_step_rel_delta={delta:+.4f} "
+          f"measured_ttft_within_error_bar={within} (prompt {c['prompt_len']}, prefill fit "
+          f"S {lens[0]}..{lens[-1]})")
     return mcal
 
 
@@ -3343,7 +3473,7 @@ def calib_trace(torch, mcal):
     cfg = get_config(CALIB_EXECUTOR["archs"][0])
     params = make_params(torch, cfg)
     engine = ServingEngine(cfg, params, EngineConfig(
-        max_batch=4, kv_len=64, max_new_tokens=8, prefill_chunk=32, trace=True),
+        **CALIB_TRACE_ENGINE, trace=True),
         device=DEVICE)
     rng = np.random.default_rng(0)
     for plen in CALIB_TRACE_PROMPTS:
@@ -3373,16 +3503,26 @@ def run_calib(torch, by_run):
     with their launches counted, the fits held to the reference's pin and
     the card's peaks, the measured ``Calib`` and the error report beside
     the default, gpt-j through Plane B under both, and a traced drain's
-    ``cosim_from_engine``; then each kernel kind's smallest case against
-    its plain version."""
+    ``cosim_from_engine``.  Then the cases against their plain versions,
+    and every kernel that the phase launched held by some check."""
+    from repro_torch.kernels import launches as counts
     collect(torch)
     t_phase = time.perf_counter()
-    samples, ex = calib_samples(torch, by_run)
-    mcal = calib_fit(samples + ex)
+    samples, ex, served, launched = calib_samples(torch, by_run)
+    mcal = calib_fit(samples + ex, served)
     reset_launches()
     calib_trace(torch, mcal)
     by_run["calib trace"] = read_launches()
-    calib_plain_checks(torch, samples)
+    launched["trace"] = counts.snapshot().kernels
+    calib_plain_checks(torch, samples, launched["kernel grid"])
+    calib_plain_checks(torch, served, launched["served prefill"])
+    calib_engine_checks(torch)
+    for what, kernels in launched.items():
+        check_attention_checked(f"calib {what} decode", kernels["decode"], CHECKED_DECODE)
+        check_attention_checked(f"calib {what} quantised decode", kernels["decode_quant"],
+                                CHECKED_DECODE_QUANT)
+        check_attention_checked(f"calib {what} prefill", kernels["prefill"], CHECKED_PREFILL)
+        check_kernels_checked(f"calib {what}", kernels["qmatmul"])
     reset_launches()
     print(f"phase calib done in {time.perf_counter() - t_phase:.1f} s")
 

@@ -249,17 +249,16 @@ class CalibrationTable:
             return cls.from_json(json.load(fh))
 
 
-def build_table(samples: Sequence[Sample], *, device=None,
-                backend: Optional[str] = None,
+def build_table(samples: Sequence[Sample], *, backend: Optional[str] = None,
                 interpret: Optional[bool] = None, meta: Optional[dict] = None,
                 holdout_every: int = 3) -> CalibrationTable:
     """Fit every phase class in ``samples`` into a fresh table.
 
-    ``backend`` defaults to the type of ``device``, the device the samples
-    ran on: ``"cuda"`` on the card (``device=None``: without a card this
-    raises), ``"cpu"`` where the plain versions ran; ``interpret`` to
-    whether that is the CPU."""
-    backend = backend if backend is not None else resolve_device(device).type
+    ``backend`` is the type of the device the samples ran on: ``"cuda"``
+    for the card (the default: without a card this raises), ``"cpu"``
+    where the plain versions ran; ``interpret`` defaults to whether that
+    is the CPU."""
+    backend = backend if backend is not None else resolve_device(None).type
     return CalibrationTable(
         backend=backend,
         interpret=backend == "cpu" if interpret is None else interpret,

@@ -7,8 +7,8 @@ case runs both packages on the same inputs and compares with ``==``.
 The samplers run the port's plain versions (``device="cpu"``) and the
 reference's Pallas kernels in interpret mode, each under the same fake
 clock: every ``Sample`` is then equal field by field, the measured
-seconds included, and the port's case outputs are finite and shaped as
-the reference's.  Without a card and without ``device="cpu"`` the port's
+seconds included; on inputs drawn alike, each case's output is the
+reference kernel's within the bf16 bound.  Without a card and without ``device="cpu"`` the port's
 samplers raise.
 """
 import dataclasses
@@ -153,7 +153,7 @@ def test_fit_samples_and_build_table_are_the_reference(seed):
     assert {k: f.to_json() for k, f in got.items()} == \
         {k: f.to_json() for k, f in want.items()}
     meta = {"note": "synthetic", "seed": seed}
-    t = TCo.build_table(ts, device="cpu", meta=meta)
+    t = TCo.build_table(ts, backend="cpu", meta=meta)
     r = RCo.build_table(rs, meta=meta)          # jax on the CPU: "cpu", interpret
     assert t.to_json() == r.to_json()
     assert t.error_bar_rel == r.error_bar_rel == TCa.error_bar_rel(t)
@@ -206,7 +206,7 @@ def test_measured_calib_and_error_report_are_the_reference(n_chiplets, seed):
 
 def test_measured_calib_of_a_partial_table_is_the_reference():
     xs, ys = _grid("exact_affine")
-    t = TCo.build_table(_samples(TB, "decode_attn", xs, ys), device="cpu")
+    t = TCo.build_table(_samples(TB, "decode_attn", xs, ys), backend="cpu")
     r = RCo.build_table(_samples(RB, "decode_attn", xs, ys))
     assert _fields(TCa.measured_calib(t)) == _fields(RCa.measured_calib(r))
 
@@ -236,6 +236,22 @@ def test_kernel_samples_are_the_reference():
     _same_samples(got, want)
 
 
+class SharedDraws:
+    """The inputs a case draws, from numpy: its i-th draw is standard
+    normal of the shape asked for, seeded with i, in f32 and rounded to
+    the dtype asked for.  One instance for each package gives both cases
+    the same q, k, v (or x and w); each builds its positions, segments
+    and quantised codes itself."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self, shape):
+        a = np.random.default_rng(self.n).standard_normal(shape, dtype=np.float32)
+        self.n += 1
+        return a
+
+
 def _ref_case(kind, cfg, p):
     key = jax.random.PRNGKey(0)
     if kind.startswith("decode_attn"):
@@ -252,17 +268,27 @@ def _ref_case(kind, cfg, p):
     ("decode_attn_kv8", {"batch": 1, "kv_len": 128, "kv_bits": 8}),
     ("decode_attn_kv4", {"batch": 2, "kv_len": 64, "kv_bits": 4}),
     ("prefill_attn", {"batch": 1, "seq": 128, "seg_len": 64}),
+    ("prefill_attn", {"batch": 2, "seq": 96, "seg_len": 32}),
     ("dequant_matmul", {"m": 8, "k": 128, "n": 256, "bits": 4}),
+    ("dequant_matmul", {"m": 8, "k": 256, "n": 128, "bits": 8}),
 ])
-def test_kernel_case_outputs_are_shaped_as_the_reference(kind, params):
-    """Each case's call (the plain version on the CPU) is finite, shaped as
-    the reference's kernel output, and its terms are the reference's."""
+def test_kernel_case_outputs_are_shaped_as_the_reference(kind, params, monkeypatch):
+    """On the same drawn inputs, each case's call (the plain version on the
+    CPU) gives the reference's kernel output in interpret mode within the
+    bf16 bound (1e-2), shaped alike; its terms are the reference's."""
+    port_draws, ref_draws = SharedDraws(), SharedDraws()
+    monkeypatch.setattr(TB, "_randn", lambda generator, shape, dtype=torch.bfloat16:
+                        torch.from_numpy(port_draws(shape)).to(dtype))
+    monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype:
+                        jax.numpy.asarray(ref_draws(shape), dtype))
     case = TB.kernel_case(kind, port_reduce(port_config("bert-base")), params,
                           generator=torch.Generator().manual_seed(0))
     fn, bytes_term, flops_term = _ref_case(kind, ref_reduce(ref_config("bert-base")), params)
-    out, want = case.call(), np.asarray(fn())
+    out, want = case.call(), np.asarray(fn(), np.float32)
+    assert port_draws.n == ref_draws.n > 0
     assert tuple(out.shape) == want.shape and out.dtype == torch.bfloat16
     assert torch.isfinite(out.float()).all()
+    np.testing.assert_allclose(out.float().numpy(), want, atol=1e-2, rtol=1e-2)
     assert torch.equal(out, case.plain())
     assert (case.bytes_term, case.flops_term) == (bytes_term, flops_term)
 
