@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where phase ``calib``'s fits come from, on one NVIDIA card.
 
-    python3 chip_probe_calib.py                      # the phase, then both studies
+    python3 chip_probe_calib.py                      # the phase, then every study
     python3 chip_probe_calib.py prefill executor     # the phase, then the named ones
+    python3 chip_probe_calib.py --no-phase replay    # the named ones only
 
 First phase ``calib`` of ``chip_smoke.py`` alone (``run_calib``: its grid,
 its checks and its pins).  Then each study named on the command line:
@@ -15,7 +16,24 @@ its checks and its pins).  Then each study named on the command line:
 - ``executor``: ``executor_samples`` at phase ``calib``'s settings four
   times (is the step's growth with B systematic?), then with 32 replays a
   timed call, with ``impl="ref"`` (the oracle reads the whole pool) at
-  ``kv_len`` 512 and 2048, and with B up to 16.
+  ``kv_len`` 512 and 2048, and with B up to 16;
+- ``replay``: is the replayed step bound by the host or by the card?  At
+  each of phase ``calib``'s batches, up and back down, ``REPLAY_CALLS``
+  calls of 8 replays as ``measure`` times them (the spread of their wall
+  times), the host's time to issue the 8 replays, and the card's time for
+  them (CUDA events) with the stream held busy while the host issues
+  them, so that no gap of the host's shows in it; the SM clock before and
+  after;
+- ``clocks``: B 8 engines replayed for ``CLOCK_SECONDS`` seconds while
+  ``nvidia-smi`` samples the SM clock, power and clock-event reasons every
+  20 ms: which clock, and which reasons, do the fast calls (under 0.93 of
+  the median) and the others run at?
+- ``engines``: B 8 engines over one set of weights, built one after
+  another for ``CLOCK_SECONDS`` seconds, 40 calls of 8 replays each: per
+  engine its first, median and last call, the hash of its tokens, its
+  capture stream and where its KV pool and weights lie.  Is a fast step a
+  property of one engine or of a moment, and does it compute the same
+  tokens?
 
 Each sample and each fit is printed.  Not part of the port's checks:
 ``chip_smoke.py`` is.
@@ -74,7 +92,193 @@ def study_executor():
         cs.collect(torch)
 
 
-STUDIES = {"prefill": study_prefill, "executor": study_executor}
+REPLAY_CALLS = 40
+
+
+def sm_clock():
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def study_replay():
+    import numpy as np
+    import torch
+    import repro_torch.models.transformer as T
+    from repro_torch.config import get_config
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    ex = cs.CALIB_EXECUTOR
+    cfg = get_config(ex["archs"][0])
+    prompt, spc = 16, 8
+    for batch in tuple(ex["batches"]) + tuple(reversed(ex["batches"])):
+        params = T.init_params(cfg, torch.Generator(device=cs.DEVICE).manual_seed(0),
+                               device=cs.DEVICE, dtype=torch.bfloat16)
+        eng = ServingEngine(cfg, params, EngineConfig(
+            max_batch=batch, kv_len=ex["kv_len"], max_new_tokens=ex["kv_len"] - prompt - 2,
+            impl=ex["impl"], fused=True, packed=True, seed=0), device=cs.DEVICE)
+        for i in range(batch):
+            eng.submit([(7 * i + j) % 97 + 1 for j in range(prompt)])
+        eng.step()
+        clock0 = sm_clock()
+
+        def run():
+            for _ in range(spc):
+                eng.executor.run("fused_step", eng.pool)
+        run()
+        torch.cuda.synchronize()
+        walls, issues = [], []
+        for _ in range(REPLAY_CALLS):
+            t0 = time.perf_counter()
+            run()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / spc)
+            issues.append((t1 - t0) / spc)
+        devs = []
+        for _ in range(8):
+            torch.cuda._sleep(50_000_000)           # holds the stream ~25 ms
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            run()
+            e1.record()
+            torch.cuda.synchronize()
+            devs.append(e0.elapsed_time(e1) / 1e3 / spc)
+        w, d = np.asarray(walls) * 1e3, np.asarray(devs) * 1e3
+        print(f"probe replay B{batch} wall_ms min={w.min():.4f} p50={np.median(w):.4f} "
+              f"max={w.max():.4f} first5_min={w[:5].min():.4f} "
+              f"issue_ms min={min(issues) * 1e3:.4f} p50={np.median(issues) * 1e3:.4f} "
+              f"device_ms min={d.min():.4f} p50={np.median(d):.4f} max={d.max():.4f} "
+              f"sm_clock before={clock0!r} after={sm_clock()!r}")
+        print(f"probe replay B{batch} walls_ms " + " ".join(f"{x:.4f}" for x in w))
+        del eng, params, run
+        cs.collect(torch)
+
+
+CLOCK_SECONDS = 20.0
+CLOCK_QUERY = "clocks.sm,clocks.mem,power.draw,temperature.gpu,clocks_event_reasons.active"
+
+
+def study_clocks():
+    import collections
+    import datetime
+    import tempfile
+    import numpy as np
+    import torch
+    import repro_torch.models.transformer as T
+    from repro_torch.config import get_config
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    ex = cs.CALIB_EXECUTOR
+    cfg = get_config(ex["archs"][0])
+    prompt, spc, batch = 16, 8, 8
+    calls = []                                      # (start, end) epoch s, ms a step
+    with tempfile.TemporaryFile("w+") as log:
+        mon = subprocess.Popen(["nvidia-smi", f"--query-gpu=timestamp,{CLOCK_QUERY}",
+                                "--format=csv,noheader", "-lms", "20"], stdout=log, text=True)
+        try:
+            params = T.init_params(cfg, torch.Generator(device=cs.DEVICE).manual_seed(0),
+                                   device=cs.DEVICE, dtype=torch.bfloat16)
+            t_end = time.perf_counter() + CLOCK_SECONDS
+            while time.perf_counter() < t_end:
+                eng = ServingEngine(cfg, params, EngineConfig(
+                    max_batch=batch, kv_len=ex["kv_len"],
+                    max_new_tokens=ex["kv_len"] - prompt - 2, impl=ex["impl"], fused=True,
+                    packed=True, seed=0), device=cs.DEVICE)
+                for j in range(batch):
+                    eng.submit([(7 * j + k) % 97 + 1 for k in range(prompt)])
+                eng.step()
+                for _ in range(40):                 # 320 steps, inside the budget
+                    t0, w0 = time.perf_counter(), time.time()
+                    for _ in range(spc):
+                        eng.executor.run("fused_step", eng.pool)
+                    torch.cuda.synchronize()
+                    calls.append((w0, time.time(), (time.perf_counter() - t0) / spc * 1e3))
+                del eng
+            del params
+            cs.collect(torch)
+        finally:
+            mon.terminate()
+            mon.wait()
+        log.seek(0)
+        samples = []                                # (epoch s, SM clock, event reasons)
+        for line in log.read().splitlines():
+            f = [x.strip() for x in line.split(",")]
+            t = datetime.datetime.strptime(f[0], "%Y/%m/%d %H:%M:%S.%f").timestamp()
+            samples.append((t, f[1], f[-1]))
+    ms = np.asarray([c[2] for c in calls])
+    med = np.median(ms)
+    fast = [c for c in calls if c[2] < 0.93 * med]
+    print(f"probe clocks B{batch} calls={len(ms)} median_ms={med:.4f} min={ms.min():.4f} "
+          f"p1={np.percentile(ms, 1):.4f} p99={np.percentile(ms, 99):.4f} "
+          f"fast(<0.93 median)={len(fast)} fast_ms={[round(c[2], 4) for c in fast][:20]}")
+
+    def during(sel):
+        return dict(collections.Counter(
+            (clk, why) for t, clk, why in samples if any(a <= t <= b for a, b, _ in sel)))
+    print(f"probe clocks nvidia-smi samples={len(samples)} (SM clock, event reasons): "
+          f"all {dict(collections.Counter((c, w) for _, c, w in samples))} "
+          f"during fast calls {during(fast)} "
+          f"during the others {during([c for c in calls if c[2] >= 0.93 * med])}")
+
+
+def first_tensor(tree):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree
+    items = tree.values() if isinstance(tree, dict) else tree
+    for x in items:
+        if isinstance(x, (dict, list, tuple, torch.Tensor)):
+            t = first_tensor(x)
+            if t is not None:
+                return t
+    return None
+
+
+def study_engines():
+    import hashlib
+    import numpy as np
+    import torch
+    import repro_torch.models.transformer as T
+    from repro_torch.config import get_config
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    ex = cs.CALIB_EXECUTOR
+    cfg = get_config(ex["archs"][0])
+    prompt, spc, batch = 16, 8, 8
+    params = T.init_params(cfg, torch.Generator(device=cs.DEVICE).manual_seed(0),
+                           device=cs.DEVICE, dtype=torch.bfloat16)
+    w_ptr = next(iter(params.parameters())).data_ptr()
+    t_end, n = time.perf_counter() + CLOCK_SECONDS, 0
+    hashes = {}
+    while time.perf_counter() < t_end:
+        eng = ServingEngine(cfg, params, EngineConfig(
+            max_batch=batch, kv_len=ex["kv_len"], max_new_tokens=ex["kv_len"] - prompt - 2,
+            impl=ex["impl"], fused=True, packed=True, seed=0), device=cs.DEVICE)
+        for j in range(batch):
+            eng.submit([(7 * j + k) % 97 + 1 for k in range(prompt)])
+        eng.step()
+        digest, walls = hashlib.sha1(), []
+        for _ in range(40):
+            t0 = time.perf_counter()
+            outs = [eng.executor.run("fused_step", eng.pool).clone() for _ in range(spc)]
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / spc * 1e3)
+            for o in outs:
+                digest.update(o.cpu().numpy().tobytes())
+        h = digest.hexdigest()[:16]
+        hashes[h] = hashes.get(h, 0) + 1
+        w = np.asarray(walls)
+        print(f"probe engine #{n} first_ms={w[0]:.4f} p50_ms={np.median(w):.4f} "
+              f"last_ms={w[-1]:.4f} tokens_sha1={h} "
+              f"stream={eng.executor.graphs.stream.cuda_stream:#x} "
+              f"kv_at={first_tensor(eng.pool.cache).data_ptr():#x} weights_at={w_ptr:#x}")
+        del eng, outs
+        n += 1
+    print(f"probe engines {n} token hashes {hashes}")
+    del params
+    cs.collect(torch)
+
+
+STUDIES = {"prefill": study_prefill, "executor": study_executor, "replay": study_replay,
+           "clocks": study_clocks, "engines": study_engines}
 
 
 def main():
@@ -82,7 +286,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_probe_calib: no CUDA device", file=sys.stderr)
         return 1
-    studies = sys.argv[1:] or list(STUDIES)
+    args = sys.argv[1:]
+    phase = "--no-phase" not in args
+    studies = [a for a in args if a != "--no-phase"] or list(STUDIES)
     unknown = [s for s in studies if s not in STUDIES]
     if unknown:
         print(f"chip_probe_calib: no study {unknown}; the studies: {list(STUDIES)}",
@@ -97,7 +303,8 @@ def main():
     print(f"device: {cs.CARD}")
     b = build.build()
     print(f"build: {b.seconds:.2f} s")
-    cs.run_calib(torch, {})
+    if phase:
+        cs.run_calib(torch, {})
     for name in studies:
         STUDIES[name]()
     return 0

@@ -176,7 +176,8 @@ Phases, each of which must pass or the script exits non-zero:
              over five registered (K, N) shapes, int8 and int4), every
              bytes-fitted case streaming at least 100 MB, and
              ``executor_samples`` on full-width bert-base (the captured
-             fused step replayed, B 1, 2, 4, 8), each timed call checked
+             fused step replayed, B 1, 2, 4, 8), each point the median
+             over 3 passes (5 of the executor), each timed call checked
              to have launched its kind's kernel; the fits (rate,
              intercept, r2, CI, held-out error) through a versioned table
              and its JSON, each held out within 0.5 and its rate at most
@@ -421,6 +422,15 @@ CALIB_MIN_BYTES = 100e6
 CALIB_SERVED_PREFILL = dict(prefill_lens=(1024, 2048, 4096), seg_len=4096)
 # the engine's captured decode step: full-width bert-base
 CALIB_EXECUTOR = dict(archs=("bert-base",), impl="flash", batches=(1, 2, 4, 8), kv_len=512)
+# each sampler runs CALIB_PASSES times one after another (the executor's
+# CALIB_EXECUTOR_PASSES), and each point's time is its median over the
+# passes: now and then, for 20 ms to a second or so, the card runs the
+# replayed step 10-18% faster (the same tokens, the SM clock at 1980 MHz:
+# chip_probe_calib.py), and a point whose min-of-k falls in such a spell
+# bends its fit (one B 8 point turned the executor's 6% rise from B 1 to 8
+# into a negative slope)
+CALIB_PASSES = 3
+CALIB_EXECUTOR_PASSES = 5
 # benchmarks/perf_calib.py's pin on every fit for compiled backends
 # (TOLERANCE_COMPILED), and no fitted rate above this share of the card's
 # peak for its term
@@ -3189,22 +3199,42 @@ def paper_anchors():
                   f"table4 ({arch} {model}): {ms:.3f} ms against the paper's {target}")
 
 
+def calib_passes(torch, n, sample):
+    """``n`` runs of the sampler ``sample()`` one after another, and of
+    each point the sample of the run whose time is the median (with every
+    run's time, for the print)."""
+    runs = []
+    for _ in range(n):
+        runs.append(sample())
+        collect(torch)
+    out = []
+    for group in zip(*runs):
+        check(len({(x.kind, json.dumps(x.params, sort_keys=True)) for x in group}) == 1,
+              f"calib: passes over different points {[x.params for x in group]}")
+        mid = sorted(group, key=lambda x: x.seconds)[len(group) // 2]
+        out.append((mid, [x.seconds for x in group]))
+    return out
+
+
 def print_calib_samples(samples):
-    """Each sample's terms, seconds and rate in the term its kind is
-    fitted in."""
+    """Each sample's terms, median seconds (each pass's beside it) and rate
+    in the term its kind is fitted in; returns the samples."""
     from repro_torch.profile.costmodel import DEFAULT_TERMS
-    for s in samples:
+    for s, runs in samples:
         term = DEFAULT_TERMS[s.kind]
         print(f"calib sample kind={s.kind} arch={s.arch} {json.dumps(s.params)} "
               f"bytes={s.bytes_term:.0f} flops={s.flops_term:.0f} seconds={s.seconds:.6e} "
+              f"passes_s=[{', '.join(f'{t:.6e}' for t in runs)}] "
               f"first_call_s={s.compile_s:.4f} "
               f"{term}_per_s={getattr(s, term + '_term') / s.seconds:.4e}")
+    return [s for s, _ in samples]
 
 
 def calib_samples(torch, by_run):
     """Steps 1 and 2 of phase calib, the main path: ``kernel_samples`` on
     ``CALIB_ARCH`` at full width and ``executor_samples`` on full-width
-    bert-base, each launch counted.  Every timed call of a kernel case
+    bert-base, each launch counted, each sampler run in passes and each
+    point its median (``calib_passes``).  Every timed call of a kernel case
     must launch its kind's kernel (so no plain version was timed), the
     prefill on tensor cores and the matmul too, and every replayed step of
     the executor its decode kernel a layer.  Then the prefill at
@@ -3220,8 +3250,9 @@ def calib_samples(torch, by_run):
     from repro_torch.quant.kernel import kernel_launches as qmm_launches
     calls = 1 + CALIB_REPEAT                        # measure's warmup + repeat
     reset_launches()
-    samples = kernel_samples((CALIB_ARCH,), **CALIB_GRID, warmup=1, repeat=CALIB_REPEAT,
-                             device=DEVICE, reduce=False)
+    samples = print_calib_samples(calib_passes(torch, CALIB_PASSES, lambda: kernel_samples(
+        (CALIB_ARCH,), **CALIB_GRID, warmup=1, repeat=CALIB_REPEAT, device=DEVICE,
+        reduce=False)))
     kernels = read_launches()
     launched = {"kernel grid": counts.snapshot().kernels}
     by_kind = {}
@@ -3229,17 +3260,17 @@ def calib_samples(torch, by_run):
         by_kind.setdefault(s.kind, []).append(s)
     want = {}
     for kind, (name, bits) in CALIB_WRAPPERS.items():
-        want[name] = want.get(name, 0) + len(by_kind[kind]) * calls
+        timed = len(by_kind[kind]) * calls * CALIB_PASSES
+        want[name] = want.get(name, 0) + timed
         if bits:
             got = sum(n for k, n in quant_kernel_launches.items() if k.bits == bits)
-            check(got == len(by_kind[kind]) * calls,
-                  f"calib: {got} int{bits} decode launches for {len(by_kind[kind])} cases")
+            check(got == timed, f"calib: {got} int{bits} decode launches for "
+                  f"{len(by_kind[kind])} cases in {CALIB_PASSES} passes")
     check(kernels == {n: want.get(n, 0) for n in kernels},
           f"calib: kernel launches {kernels}, the timed calls {want}")
     check({k.design for k in prefill_launches} == {"tensor_core"}
           and {k.design for k in qmm_launches} == {"tensor_core"},
           f"calib: designs {set(prefill_launches)} {set(qmm_launches)}")
-    print_calib_samples(samples)
     for s in samples:
         check(DEFAULT_TERMS[s.kind] != "bytes" or s.bytes_term >= CALIB_MIN_BYTES,
               f"calib: {s.kind} {s.params} streams {s.bytes_term:.3e} bytes, under "
@@ -3249,33 +3280,32 @@ def calib_samples(torch, by_run):
     cfg = get_config(CALIB_EXECUTOR["archs"][0])
     spc = 8                                         # executor_samples' steps_per_call
     reset_launches()
-    ex = executor_samples(**CALIB_EXECUTOR, warmup=1, repeat=CALIB_REPEAT,
-                          steps_per_call=spc, device=DEVICE, reduce=False)
+    ex = print_calib_samples(calib_passes(torch, CALIB_EXECUTOR_PASSES, lambda: executor_samples(
+        **CALIB_EXECUTOR, warmup=1, repeat=CALIB_REPEAT, steps_per_call=spc, device=DEVICE,
+        reduce=False)))
     by_run["calib executor"] = launches = read_launches()
     launched["executor"] = counts.snapshot().kernels
-    # an engine a batch: the capture's warm-up runs each program once
-    # eagerly (serving/graphs.py), then eng.step() a packed prefill and a
-    # decode step, then the timed replays
-    batches = len(CALIB_EXECUTOR["batches"])
-    steps, prefills = batches * (2 + spc * calls), batches * 2
+    # an engine a batch and pass: the capture's warm-up runs each program
+    # once eagerly (serving/graphs.py), then eng.step() a packed prefill and
+    # a decode step, then the timed replays
+    engines = len(CALIB_EXECUTOR["batches"]) * CALIB_EXECUTOR_PASSES
+    steps, prefills = engines * (2 + spc * calls), engines * 2
     check(launches["flash_decode"] == steps * cfg.n_layers
           and launches["flash_prefill"] == prefills * cfg.n_layers
           and sum(launches.values()) == (steps + prefills) * cfg.n_layers,
           f"calib executor: launches {launches}, {steps} decode steps and {prefills} "
           f"prefills of {cfg.n_layers} layers")
-    print_calib_samples(ex)
-    collect(torch)
 
     reset_launches()
-    served = kernel_samples((CALIB_ARCH,), batches=CALIB_GRID["batches"], kv_lens=(),
-                            kv_bits=(), qmm_bits=(), **CALIB_SERVED_PREFILL, warmup=1,
-                            repeat=CALIB_REPEAT, device=DEVICE, reduce=False)
+    served = print_calib_samples(calib_passes(torch, CALIB_PASSES, lambda: kernel_samples(
+        (CALIB_ARCH,), batches=CALIB_GRID["batches"], kv_lens=(), kv_bits=(), qmm_bits=(),
+        **CALIB_SERVED_PREFILL, warmup=1, repeat=CALIB_REPEAT, device=DEVICE, reduce=False)))
     n = read_launches()
-    check(n == {k: len(served) * calls if k == "flash_prefill" else 0 for k in n}
+    check(n == {k: len(served) * calls * CALIB_PASSES if k == "flash_prefill" else 0
+                for k in n}
           and {k.design for k in prefill_launches} == {"tensor_core"},
           f"calib served prefill: launches {n}, designs {set(prefill_launches)}")
     launched["served prefill"] = counts.snapshot().kernels
-    print_calib_samples(served)
     reset_launches()
     return samples, ex, served, launched
 
