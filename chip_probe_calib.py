@@ -28,6 +28,16 @@ its checks and its pins).  Then each study named on the command line:
   ``nvidia-smi`` samples the SM clock, power and clock-event reasons every
   20 ms: which clock, and which reasons, do the fast calls (under 0.93 of
   the median) and the others run at?
+- ``library``: the library's time for the four kernels at the shapes
+  of ``PERF.md``'s phase ``calib`` row (llama2-7b, MHA 32/32, hd 128):
+  the decode over a full 32768-entry pool at B 8, fp, kv8 and kv4
+  (``scaled_dot_product_attention`` with the valid-entry mask, over the
+  pool dequantised to bf16 for kv8/kv4, the dequantisation timed with
+  it), the causal prefill at B 8, S 16384 (``scaled_dot_product_attention``
+  with ``is_causal``) and the (8, 8192, 128256) dequant-matmul at int8 and
+  int4 (the weight dequantised to bf16, then ``torch.matmul``), each beside
+  the kernel on the same inputs, timed as phase ``calib`` times (host
+  clock, min of 5 synchronised calls, median of 3 passes);
 - ``engines``: B 8 engines over one set of weights, built one after
   another for ``CLOCK_SECONDS`` seconds, 40 calls of 8 replays each: per
   engine its first, median and last call, the hash of its tokens, its
@@ -277,8 +287,86 @@ def study_engines():
     cs.collect(torch)
 
 
+def host_ms(fn, calls=5, passes=3):
+    """Phase ``calib``'s timing: the min over ``calls`` synchronised calls
+    on the host clock, the median over ``passes`` passes (ms)."""
+    import statistics
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    mins = []
+    for _ in range(passes):
+        best = float("inf")
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        mins.append(best * 1e3)
+    return statistics.median(mins)
+
+
+def study_library():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.decode import (flash_decode_fwd,
+                                                            flash_decode_quant_fwd)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.quant.core import dequantize, dequantize_kv, quantize, quantize_kv
+    from repro_torch.quant.kernel import quant_matmul_fwd
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, H, hd, skv, seq = 8, 32, 128, 32768, 16384
+    M, K, N = 8, 8192, 128256
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(dtype)
+
+    def report(what, kernel_ms, library_ms):
+        print(f"probe library {what} kernel_ms={kernel_ms:.4f} library_ms={library_ms:.4f} "
+              f"library_over_kernel={library_ms / kernel_ms:.3f} card={cs.CARD}")
+    q, k, v = randn(B, 1, H, hd), randn(B, skv, H, hd), randn(B, skv, H, hd)
+    q_pos = torch.full((B, 1), skv - 1, dtype=torch.int32, device="cuda")
+    kv_pos = torch.arange(skv, dtype=torch.int32, device="cuda").expand(B, skv).contiguous()
+    mask = (kv_pos <= q_pos)[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    report("decode B=8 Skv=32768 fp",
+           host_ms(lambda: flash_decode_fwd(q, k, v, q_pos=q_pos, kv_pos=kv_pos)),
+           host_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)))
+    for bits in (8, 4):
+        k_q, k_s = quantize_kv(k, bits)
+        v_q, v_s = quantize_kv(v, bits)
+
+        def library():
+            kd = dequantize_kv(k_q, k_s, bits).to(torch.bfloat16).transpose(1, 2)
+            vd = dequantize_kv(v_q, v_s, bits).to(torch.bfloat16).transpose(1, 2)
+            return F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask)
+        report(f"decode B=8 Skv=32768 kv{bits}",
+               host_ms(lambda: flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, kv_bits=bits,
+                                                      q_pos=q_pos, kv_pos=kv_pos)),
+               host_ms(library))
+        del k_q, k_s, v_q, v_s
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    q, k, v = randn(B, H, seq, hd), randn(B, H, seq, hd), randn(B, H, seq, hd)
+    seg = torch.zeros((B, seq), dtype=torch.int32, device="cuda")
+    report("prefill B=8 S=16384 causal",
+           host_ms(lambda: flash_attention_fwd(q, k, v, segments=seg, causal=True)),
+           host_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)))
+    del q, k, v
+    torch.cuda.empty_cache()
+    x = randn(M, K)
+    for bits in (8, 4):
+        w = quantize(randn(K, N, dtype=torch.float32), bits)
+        report(f"qmatmul M=8 K=8192 N=128256 int{bits}",
+               host_ms(lambda: quant_matmul_fwd(x, w.q, w.scale, bits=bits)),
+               host_ms(lambda: torch.matmul(x, dequantize(w).to(torch.bfloat16))))
+        del w
+        torch.cuda.empty_cache()
+
+
 STUDIES = {"prefill": study_prefill, "executor": study_executor, "replay": study_replay,
-           "clocks": study_clocks, "engines": study_engines}
+           "clocks": study_clocks, "engines": study_engines, "library": study_library}
 
 
 def main():

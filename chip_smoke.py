@@ -126,7 +126,8 @@ Phases, each of which must pass or the script exits non-zero:
              engine (its own graphs captured), drained: every request once,
              the streams of the uninterrupted run (the same requests at the
              same steps) bit for bit, one restore and one replayed request.
-             qwen2.5-3b fp greedy and at temperature 0.8 at each kill kind,
+             qwen2.5-3b (cut to 12 of its 36 layers, for the script's
+             time) fp greedy and at temperature 0.8 at each kill kind,
              w8kv8 at 0.8, ``spec_k`` 4 with an 8-bit self-draft at 0.8 and
              with the draft model, ``fused=False``, and a child process
              (``--crash-child``) SIGKILLed after its snapshot, restored in
@@ -277,6 +278,32 @@ Phases, each of which must pass or the script exits non-zero:
              restored into a new ``Trainer`` (parameters, moments, count and
              data state bit for bit), both continued 2 steps bit for bit
              under deterministic algorithms.
+13. mesh   — once phase train's state is freed: the parallel plane
+             (``repro_torch.parallel``) over a one-rank NCCL process group
+             (a ``FileStore`` under ``build/mesh``, no network) and
+             ``small_mesh(1, 1)`` on the card: full-width qwen2.5-3b
+             (36 layers, ``kv_len`` 1024) served with ``mesh=`` at fp and
+             w8kv8 (the engine phase's 16 requests, replayed; parameters
+             and pool DTensors, every kernel behind ``local_map``): streams
+             bit for bit the engine phase's, launches and kernels equal, no
+             grouped matmul; the planned replayed decode step's wall and
+             busy time beside the one without a mesh; a snapshot mid-decode
+             restored with ``ServingEngine.restore(mesh=)`` to the
+             uninterrupted run's streams.  qwen3-moe-30b-a3b at full width
+             cut to 4 layers through the mesh: gshard in each padded
+             prefill, the capacity path in the replayed decode step,
+             attention through decode.cu and prefill.cu, no grouped matmul,
+             every request its budget; with the capacity raised until
+             nothing drops, the planned prefill's logits the one-device
+             gshard prefill's bit for bit, in f32 the dropless prefill's
+             within 1e-4 of their scale, and in bf16, under the dropless
+             prefill's expert choices (a choice the gshard router makes
+             otherwise a near-tie, as in phase moe), within 5e-2 of it;
+             one MoE layer in bf16 as near its f32 output as the dropless
+             kernels.  ``allgather_matmul`` and ``reduce_scatter_matmul``
+             against their oracles; 2 steps of ``Trainer(mesh=)`` on
+             full-width qwen2.5-3b, each loss within 1e-6 relative of phase
+             train's first two.
 
 Each model's weights are freed before the next is made.
 
@@ -310,6 +337,9 @@ MATMUL_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-5}
 QUANT_RUNS = {"fp": dict(), "w8kv8": dict(weight_bits=8, kv_bits=8),
               "w4kv4": dict(weight_bits=4, kv_bits=4)}
 MAX_BATCH, NEW_TOKENS, N_REQUESTS, CHUNK = 8, 32, 16, 128
+# phase crash's qwen2.5-3b depth, cut from 36 for the script's time (phase
+# mesh's snapshot case keeps the full depth)
+CRASH_QWEN_LAYERS = 12
 # speculative decoding: drafts a step, and the verify's rows (8 slots x 5)
 SPEC_K = 4
 VERIFY_M = MAX_BATCH * (SPEC_K + 1)
@@ -576,6 +606,14 @@ TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 128
 TRAIN_MOE_ARCH, TRAIN_MOE_TOKENS = "qwen3-moe-30b-a3b", 512
 TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_TOL = 1e-5, 1e-4, 1e-4, 1e-6
+# phase mesh: the runs served again through a one-rank mesh, the MoE depth,
+# and the planned trainer's losses against phase train's
+MESH_RUNS = ("fp", "w8kv8")
+MESH_MOE_LAYERS = 4
+MESH_TRAIN_TOL = 1e-6
+ENGINE_RUNS = {}                   # (arch, run) -> the engine phase's run_engine record
+PROFILES = {}                      # (arch, run) -> the graphs phase's run_profile record
+TRAIN_LOSSES = []                  # phase train's losses
 DEVICE = "cuda"
 CARD = ""                          # nvidia-smi's name and power limit of the card
 
@@ -2023,9 +2061,11 @@ def read_kernels():
 
 
 def tensor_bytes(tree):
-    """Bytes of the tensors in a nested dict/list (a slot pool)."""
+    """Bytes of the tensors in a nested dict/list (a slot pool); of a
+    DTensor, this rank's shard."""
     import torch
     if isinstance(tree, torch.Tensor):
+        tree = tree.to_local() if hasattr(tree, "to_local") else tree
         return tree.numel() * tree.element_size()
     if isinstance(tree, dict):
         return sum(tensor_bytes(t) for t in tree.values())
@@ -2126,7 +2166,7 @@ def expected_launches(cfg, st, bits, paths, draft):
 
 
 def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager=False,
-               draft=None, warm=True, after=None, **paths):
+               draft=None, warm=True, after=None, mesh=None, **paths):
     """One drain of the 16 requests (and ``long_prompts``), fp or quantised
     (``QUANT_RUNS``), traced, with every kernel's launches counted over that
     drain alone.  The default path replays its programs from CUDA graphs;
@@ -2137,7 +2177,7 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
     first (cuBLAS handles, allocator pools, kernel modules); a model's later
     runs find these warm (an engine's capture runs each program once before
     it records it).  ``after``: called with the drained engine once its
-    checks pass."""
+    checks pass.  ``mesh``: the engine sharded over it (phase mesh)."""
     from repro_torch.kernels.launches import counters as launch_counters
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
@@ -2154,7 +2194,7 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
         if warm:
             warm_engine = ServingEngine(cfg, params, EngineConfig(
                 max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK, max_new_tokens=2,
-                impl="flash", **bits, **paths), device=DEVICE, draft=draft)
+                impl="flash", **bits, **paths), device=DEVICE, draft=draft, mesh=mesh)
             for p in prompts[:2]:
                 warm_engine.submit(p)
             warm_engine.run_until_drained()
@@ -2164,7 +2204,7 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
 
         torch.cuda.reset_peak_memory_stats()
         t_build = time.perf_counter()
-        engine = ServingEngine(cfg, params, ecfg, device=DEVICE, draft=draft)
+        engine = ServingEngine(cfg, params, ecfg, device=DEVICE, draft=draft, mesh=mesh)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t_build
     graphs = engine.executor.graphs
@@ -2194,6 +2234,7 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
     params_gb = sum(tensor_bytes(t) for t in (*qp.parameters(), *qp.buffers())) / 1e9
     pool_gb = tensor_bytes(engine.pool.cache) / 1e9
     st = engine.stats()
+    label += " mesh" if mesh is not None else ""
     print(f"engine run={label} arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"weight_bits={st['weight_bits']} kv_bits={st['kv_bits']} "
           f"finished={st['finished']}/{len(prompts)} tokens={st['tokens']} "
@@ -2574,13 +2615,13 @@ def crash_outputs(engine, n):
     return out
 
 
-def uninterrupted(torch, cfg, params, ecfg, prompts, extra, until, draft=None):
+def uninterrupted(torch, cfg, params, ecfg, prompts, extra, until, draft=None, mesh=None):
     """The run a crash must reproduce: the requests submitted at once, steps
     until ``until(engine, steps)`` first holds (the kill point), the extra
     request submitted there, then a drain.  Returns (the streams, the
     number of steps to the kill point)."""
     from repro_torch.serving.engine import ServingEngine
-    engine = ServingEngine(cfg, params, ecfg, device=DEVICE, draft=draft)
+    engine = ServingEngine(cfg, params, ecfg, device=DEVICE, draft=draft, mesh=mesh)
     for p in prompts:
         engine.submit(p)
     steps = 0
@@ -2596,14 +2637,15 @@ def uninterrupted(torch, cfg, params, ecfg, prompts, extra, until, draft=None):
     return out, steps
 
 
-def crash_first_half(cfg, params, ecfg, prompts, extra, kill_at, ckpt_dir, draft=None):
+def crash_first_half(cfg, params, ecfg, prompts, extra, kill_at, ckpt_dir, draft=None,
+                     mesh=None):
     """The run that crashes: requests through an ``EngineCheckpointer``,
     ``kill_at`` steps, a snapshot, the extra request (journal only), two
     steps the crash throws away.  Returns the engine (for the caller to
     drop), the snapshot's save split and the kind of the kill point."""
     from repro_torch.serving.checkpoint import EngineCheckpointer
     from repro_torch.serving.engine import ServingEngine
-    engine = ServingEngine(cfg, params, ecfg, device=DEVICE, draft=draft)
+    engine = ServingEngine(cfg, params, ecfg, device=DEVICE, draft=draft, mesh=mesh)
     ck = EngineCheckpointer(engine, ckpt_dir)
     for p in prompts:
         ck.submit(p)
@@ -2619,13 +2661,14 @@ def crash_first_half(cfg, params, ecfg, prompts, extra, kill_at, ckpt_dir, draft
     return engine, save_s, kind
 
 
-def crash_restore(torch, cfg, params, ckpt_dir, want, draft=None):
+def crash_restore(torch, cfg, params, ckpt_dir, want, draft=None, mesh=None):
     """A fresh engine from the newest snapshot (its own graphs captured at
     build), drained: its streams must be ``want`` bit for bit, with one
     restore and one replayed request.  Returns the restore's split."""
     from repro_torch.serving.engine import ServingEngine
     t0 = time.perf_counter()
-    engine = ServingEngine.restore(cfg, params, ckpt_dir, device=DEVICE, draft=draft)
+    engine = ServingEngine.restore(cfg, params, ckpt_dir, device=DEVICE, draft=draft,
+                                   mesh=mesh)
     restore_s = dict(engine.restore_s, restore_s=time.perf_counter() - t0)
     check((engine.executor.graphs is None) == (not engine.ecfg.fused),
           "crash: the restored engine's programs were not captured")
@@ -2656,7 +2699,7 @@ def print_crash(cfg, label, kind, kill_at, ckpt_dir, free_gb, save_s, restore_s,
 
 
 def crash_case(torch, cfg, params, run, kv_len, kind, until=None, draft=None, long_prompts=(),
-               **paths):
+               mesh=None, **paths):
     """One kill and restore of ``kind`` (the first step where it holds, or
     where ``until`` does) against the uninterrupted run with the same
     requests submitted at the same steps."""
@@ -2665,19 +2708,29 @@ def crash_case(torch, cfg, params, run, kv_len, kind, until=None, draft=None, lo
     ecfg = crash_ecfg(run, kv_len, **paths)
     prompts, extra = crash_workload(cfg, long_prompts)
     until = until or (lambda e, s: crash_kind(e, s) == kind)
-    want, kill_at = uninterrupted(torch, cfg, params, ecfg, prompts, extra, until, draft)
+    want, kill_at = uninterrupted(torch, cfg, params, ecfg, prompts, extra, until, draft, mesh)
     ckpt_dir, free_gb = crash_dir(f"{cfg.name}-{kind}")
     engine, save_s, seen = crash_first_half(cfg, params, ecfg, prompts, extra, kill_at,
-                                            ckpt_dir, draft)
+                                            ckpt_dir, draft, mesh)
     check(seen == kind, f"crash ({label}): the kill at step {kill_at} is {seen}, not {kind}")
     held = local_positions(cfg, engine.pool.cache) if "local" in cfg.pattern else None
     del engine                                 # the crash
     collect(torch)
-    restore_s, same, parted = crash_restore(torch, cfg, params, ckpt_dir, want, draft)
+    restore_s, same, parted = crash_restore(torch, cfg, params, ckpt_dir, want, draft, mesh)
+    label += " mesh" if mesh is not None else ""
     print_crash(cfg, label, kind, kill_at, ckpt_dir, free_gb, save_s, restore_s, same, parted,
                 time.perf_counter() - t0)
     shutil.rmtree(ckpt_dir)
     return held
+
+
+def crash_config(cfg):
+    """The config phase crash runs: qwen2.5-3b cut to ``CRASH_QWEN_LAYERS``
+    (a restore's bit-exactness does not depend on depth; its eleven cases
+    at 36 layers took 150 s of the script), another as it is."""
+    if cfg.name == "qwen2.5-3b":
+        return dataclasses.replace(cfg, n_layers=CRASH_QWEN_LAYERS)
+    return cfg
 
 
 def crash_child(ckpt_dir, kill_at):
@@ -2689,7 +2742,7 @@ def crash_child(ckpt_dir, kill_at):
     from repro_torch.config import get_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("qwen2.5-3b")
+    cfg = crash_config(get_config("qwen2.5-3b"))
     params = make_params(torch, cfg)
     prompts, extra = crash_workload(cfg)
     engine, save_s, kind = crash_first_half(
@@ -2879,7 +2932,7 @@ def profiled(torch, arch, run, what, step, steps):
             "by_kernel_ms": {e.key: e.self_device_time_total / 1e3 / steps for e in kernels}}
 
 
-def run_profile(torch, cfg, params, run="fp", kv_len=1024, steps=4, chunk_steps=2):
+def run_profile(torch, cfg, params, run="fp", kv_len=1024, steps=4, chunk_steps=2, mesh=None):
     """Where a step's time goes, with every slot of the pool busy: ``steps``
     fused decode steps, then (where the stack packs) ``chunk_steps``
     chunked-prefill steps (the
@@ -2887,12 +2940,15 @@ def run_profile(torch, cfg, params, run="fp", kv_len=1024, steps=4, chunk_steps=
     all 8 rows with a 128-token chunk, M = 1024 rows a projection; none at
     ``chunk_steps=0``); each
     replayed from its CUDA graph, as the engine runs it, and then through
-    the eager method (the decode step with its fetch, as ``step`` does)."""
+    the eager method (the decode step with its fetch, as ``step`` does).
+    ``mesh``: the engine sharded over it."""
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     engine = ServingEngine(cfg, params, EngineConfig(
         max_batch=MAX_BATCH, kv_len=kv_len, prefill_chunk=CHUNK,
-        max_new_tokens=4 * steps + 8, impl="flash", **QUANT_RUNS[run]), device=DEVICE)
+        max_new_tokens=4 * steps + 8, impl="flash", **QUANT_RUNS[run]), device=DEVICE,
+        mesh=mesh)
+    run += " mesh" if mesh is not None else ""
     rng = np.random.default_rng(2)
     for _ in range(MAX_BATCH):        # 8 x 16 tokens: one packed stream
         engine.submit(rng.integers(0, cfg.vocab_size, size=16))
@@ -2942,25 +2998,34 @@ class ForcedRouting:
 
     @contextlib.contextmanager
     def installed(self, torch):
+        from torch.distributed.tensor import distribute_tensor
         from repro_torch.models import moe
+        from repro_torch.parallel.api import full, is_dtensor
         route = moe.route
 
         def routed(p, x, cfg):
             gates, idx = route(p, x, cfg)
             if self.mode == "record":
-                self.recorded.append(idx.clone())
+                self.recorded.append(full(idx).clone())
             elif self.mode == "force":
                 forced = self.queue[self.at]
                 self.at += 1
+                whole = full(idx)
                 if forced.shape[1] < idx.shape[1]:
                     # a padded prompt's pad rows keep their own choices
-                    forced = torch.cat([forced, idx[:, forced.shape[1]:]], dim=1)
+                    forced = torch.cat([forced, whole[:, forced.shape[1]:]], dim=1)
+                if is_dtensor(idx):
+                    # under a plan the choices are placed as the router's own
+                    forced = distribute_tensor(forced, idx.device_mesh, idx.placements,
+                                               src_data_rank=None)
                 logits = x.float() @ p["router"].float()
                 probs = torch.softmax(logits, dim=-1)
                 g = torch.gather(probs, -1, forced)
                 gates = (g / g.sum(dim=-1, keepdim=True)).to(x.dtype)
-                own = torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, idx, True)
-                want = torch.zeros_like(own).scatter_(-1, forced, True)
+                # the count of choices and gaps is taken on whole tensors
+                logits, probs, imposed = (full(t) for t in (logits, probs, forced))
+                own = torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, whole, True)
+                want = torch.zeros_like(own).scatter_(-1, imposed, True)
                 differ = (own != want).any(dim=-1)
                 inf = torch.tensor(float("inf"), device=x.device)
                 gap = torch.where(own & ~want, logits, inf).amin(-1) - \
@@ -4360,6 +4425,7 @@ def train_full(torch):
     before = {k: v.detach().to("cpu", copy=True) for k, v in train_flat(trainer.params).items()}
     ms = trainer.run(TRAIN_STEPS)
     losses, gnorms = [m["loss"] for m in ms], [m["gnorm"] for m in ms]
+    TRAIN_LOSSES[:] = losses                   # phase mesh trains again
     print(f"train losses={json.dumps(losses)} gnorms={json.dumps(gnorms)} "
           f"lrs={json.dumps([m['lr'] for m in ms])} "
           f"step_s={json.dumps([round(m['dt'], 4) for m in ms])}")
@@ -4675,6 +4741,291 @@ def run_train(torch, by_run):
     print(f"phase train done in {time.perf_counter() - t_phase:.1f} s: {json.dumps(parts)}")
 
 
+# ---------------------------------------------------------------------------
+# phase mesh
+# ---------------------------------------------------------------------------
+
+def mesh_init(torch):
+    """A one-rank NCCL process group from a ``FileStore`` under the
+    checkout's ``build/`` (no network), and ``small_mesh(1, 1)`` on the
+    card."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import small_mesh
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    kind = torch.device(DEVICE).type
+    dist.init_process_group("nccl" if kind == "cuda" else "gloo",
+                            init_method=f"file://{root}/store", rank=0, world_size=1)
+    return small_mesh(1, 1, device_type=kind)
+
+
+def mesh_serving(torch, mesh, by_run):
+    """Full-width qwen2.5-3b served through the mesh at fp and w8kv8 (the
+    engine phase's 16 requests, replayed): the engine phase's streams bit
+    for bit and its launches, a kernel at a time; the planned replayed
+    decode step's wall and busy time beside the one without a mesh; a
+    snapshot mid-drain restored onto the mesh, drained to the
+    uninterrupted run's streams."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels.launches import counters as launch_counters
+    arch = "qwen2.5-3b"
+    cfg = get_config(arch)
+    params = make_params(torch, cfg)
+    kv_len = SERVED[arch]["kv_len"]
+    for run in MESH_RUNS:
+        # the engine phase warmed this model's kernels and handles
+        r = run_engine(torch, cfg, params, run, kv_len=kv_len, mesh=mesh, warm=False)
+        by_run[f"{arch} {run} mesh"] = r["launches"]
+        want = ENGINE_RUNS[(arch, run)]
+        check(r["outputs"] == want["outputs"],
+              f"mesh {run}: streams differ from the engine phase's")
+        check(r["launches"] == want["launches"],
+              f"mesh {run}: launches {r['launches']} != {want['launches']}")
+        for name in ("qmatmul", "prefill", "decode", "decode_quant"):
+            check(r["kernels"][name] == want["kernels"][name],
+                  f"mesh {run}: {name} kernels differ from the engine phase's")
+        check(not any(launch_counters()["grouped_matmul"].values()),
+              f"mesh {run}: the grouped matmul ran")
+        # beside the replayed decode step phase graphs profiled without a mesh
+        a = PROFILES[(arch, run)]["decode_step"]
+        b = run_profile(torch, cfg, params, run, kv_len=kv_len, chunk_steps=0,
+                        mesh=mesh)["decode_step"]
+        print(f"mesh parallel arch={arch} run={run} streams_equal=True launches_equal=True "
+              f"decode_step_wall_ms={b['wall_ms']:.3f} decode_step_busy_ms={b['busy_ms']:.3f} "
+              f"plain_wall_ms={a['wall_ms']:.3f} plain_busy_ms={a['busy_ms']:.3f} "
+              f"kernels_per_step={b['kernels_per_step']:.0f} "
+              f"plain_kernels_per_step={a['kernels_per_step']:.0f} card={CARD}")
+        collect(torch)
+    reset_launches()
+    crash_case(torch, cfg, params, "fp", kv_len, "mid_decode", mesh=mesh)
+    by_run[f"{arch} crash mesh"] = read_launches()
+    del params
+    collect(torch)
+
+
+def mesh_moe(torch, mesh, by_run):
+    """qwen3-moe-30b-a3b at full width, its depth cut to ``MESH_MOE_LAYERS``,
+    served through the mesh: gshard in each padded prefill, the capacity
+    path in the replayed decode step, attention through decode.cu and
+    prefill.cu behind local_map and no grouped matmul; every request its
+    budget.  With the capacity raised until nothing drops, a planned
+    prefill's logits the one-device gshard prefill's bit for bit; in f32
+    the dropless prefill's within 1e-4 of their scale; in bf16, with the
+    dropless prefill's expert choices imposed (each choice the gshard
+    router would make otherwise a near-tie), within ``run_logits``' bound
+    of the dropless prefill's; and one layer on its own, one routing, in
+    bf16 as near the f32 layer as the dropless kernels."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels.launches import counters as launch_counters
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.api import activate_plan, full
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
+    params = make_params(torch, cfg)
+    ecfg = EngineConfig(max_batch=MAX_BATCH, kv_len=MOE_KV_LEN, prefill_chunk=CHUNK,
+                        max_new_tokens=NEW_TOKENS, impl="flash")
+    engine = ServingEngine(cfg, params, ecfg, device=DEVICE, mesh=mesh)
+    graphs = engine.executor.graphs
+    check(graphs is not None and sorted(graphs.graphs) == ["fused_step"],
+          "mesh moe: the fused step was not captured")
+    prompts, _ = crash_workload(cfg)
+    reset_launches()
+    t0 = time.perf_counter()
+    for p in prompts:
+        engine.submit(p)
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    by_run[f"{MOE_ARCH} mesh"] = launches
+    attn = {k: v.copy() for k, v in launch_counters().items()
+            if k in ("prefill", "decode")}
+    st = engine.stats()
+    outs = [r.output for r in engine.finished]
+    check(st["finished"] == len(prompts) and all(len(o) == NEW_TOKENS for o in outs),
+          f"mesh moe: {st['finished']} of {len(prompts)} finished with their budgets")
+    n_attn = attention_layers(cfg)
+    check(launches["flash_prefill"] == st["prefill_calls"] * n_attn,
+          f"mesh moe: prefill launches {launches['flash_prefill']}")
+    check(launches["flash_decode"] > 0 and launches["flash_decode"] % n_attn == 0,
+          f"mesh moe: decode launches {launches['flash_decode']}")
+    check(not any(launches[k] for k in ("grouped_matmul", "grouped_gate_up", "combine")),
+          f"mesh moe: the grouped matmul ran under the plan: {launches}")
+    check_attention_checked("mesh moe prefill", attn["prefill"], CHECKED_PREFILL)
+    check_attention_checked("mesh moe decode", attn["decode"], CHECKED_DECODE)
+    print(f"mesh moe arch={cfg.name} layers={cfg.n_layers} finished={st['finished']} "
+          f"tokens={st['tokens']} decode_steps={st['decode_steps']} "
+          f"prefill_calls={st['prefill_calls']} wall_s={wall:.3f} "
+          f"launches={json.dumps(launches)} card={CARD}")
+    plan, engine_ctx = engine.executor._plan, engine.executor.shard_ctx
+    planned = engine.executor.params
+    del engine
+    collect(torch)
+    # nothing dropped: every token fits its experts (capacity = the group)
+    wide = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)).astype(np.int32)).to(DEVICE)
+    kw = dict(kv_cap=256, length=200)
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.api import AbstractMesh, Plan
+    from repro_torch.tree import tree_map
+    # the same weights in f32 (the expert path's kernels take the banks in
+    # x's dtype), planned as the bf16 ones
+    params32 = T.Transformer(wide, tree_map(lambda t: t.float(), T.param_tree(params)))
+    planned32 = SH.distribute_params(params32, engine_ctx)
+    f32 = dict(compute_dtype=torch.float32, **kw)
+    mesh_moe_layer(torch, wide, params, params32)
+    routing = ForcedRouting()
+    with torch.no_grad():
+        with activate_plan(plan):
+            got = full(T.prefill(planned, wide, tokens, **kw)[0]).float()
+            got32 = full(T.prefill(planned32, wide, tokens, **f32)[0]).float()
+        with activate_plan(Plan(AbstractMesh((1, 1), ("data", "model")), {})):
+            alone = T.prefill(params, wide, tokens, **kw)[0].float()
+        want32 = T.prefill(params32, wide, tokens, **f32)[0].float()
+        # the dropless prefill's expert choices imposed on the planned
+        # gshard prefill, as phase moe imposes the oracle's on the kernels':
+        # a near-tie swapped by a last-bit difference moves a whole expert
+        with routing.installed(torch):
+            routing.mode = "record"
+            want = T.prefill(params, wide, tokens, **kw)[0].float()
+            routing.mode, routing.queue = "force", routing.recorded
+            with activate_plan(plan):
+                forced = full(T.prefill(planned, wide, tokens, **kw)[0]).float()
+    del params32, planned32
+    # the plan changes no value: the planned gshard prefill is the one-device
+    # gshard prefill bit for bit; with nothing dropped gshard computes the
+    # dropless layer's function: their f32 logits agree to f32 sums'
+    # reordering, and in bf16 under one routing within run_logits' bound
+    scale = float(want32.abs().max())
+    d32 = float((got32 - want32).abs().max())
+    d16 = float((forced - want).abs().max())
+    limit = 5e-2 * max(1.0, float(want.abs().max()))
+    d_gs, d_dl = (float((a - want32).abs().max()) for a in (got, want))
+    gap = max(routing.gaps, default=0.0)
+    print(f"mesh moe logits planned_equals_one_device_gshard={torch.equal(got, alone)} "
+          f"f32_gshard_vs_dropless={d32:.3e} bound={1e-4 * max(1.0, scale):.3e} "
+          f"bf16_gshard_vs_dropless_one_routing={d16:.4f} bf16_bound={limit:.4f} "
+          f"own_choice_differs={routing.swapped} of {routing.tokens} largest_gap={gap:.4f} "
+          f"near_tie={NEAR_TIE} own_routing: bf16_gshard_vs_dropless="
+          f"{float((got - want).abs().max()):.4f} bf16_gshard_vs_f32={d_gs:.4f} "
+          f"bf16_dropless_vs_f32={d_dl:.4f} scale={scale:.4f} "
+          f"finite={bool(torch.isfinite(got).all())} card={CARD}")
+    check(bool(torch.isfinite(got).all()) and torch.equal(got, alone),
+          "mesh moe: the planned gshard prefill differs from the one-device gshard prefill")
+    check(d32 <= 1e-4 * max(1.0, scale),
+          f"mesh moe: f32 gshard logits {d32:.3e} from the dropless ones")
+    check(routing.at == len(routing.queue) == sum(wide.moe_layer_mask()) and routing.tokens > 0,
+          f"mesh moe: {routing.at} forced calls of {len(routing.queue)} recorded")
+    check(gap <= NEAR_TIE, f"mesh moe: the gshard router would choose other experts "
+          f"{gap:.4f} of its logits' scale apart, not a near-tie")
+    check(d16 <= limit, f"mesh moe: bf16 gshard logits {d16:.4f} from the dropless ones "
+          f"under one routing (bound {limit:.4f})")
+    del params, planned
+    collect(torch)
+
+
+def mesh_moe_layer(torch, cfg, params, params32):
+    """The first MoE layer at full width on one bf16 x (1, 256, D) of unit
+    scale, one routing: gshard (one group) and the dropless kernels in
+    bf16, each against the dropless layer in f32.  The CPU tests find the
+    reference's two layers part from f32 alike; so must the port's here,
+    the bf16 gshard within ``TOL`` of the scale and twice the dropless
+    layer's distance."""
+    from repro_torch.models import moe as MT
+    from repro_torch.models import transformer as T
+    g = next(i for i, grp in enumerate(params["stack"]) if "moe" in grp["u0"])
+    p16, p32 = (T._layer(p["stack"][g]["u0"]["moe"], 0) for p in (params, params32))
+    x = torch.randn((1, 256, cfg.d_model), generator=torch.Generator(device=DEVICE).manual_seed(5),
+                    device=DEVICE).bfloat16()
+    with torch.no_grad():
+        gates, idx = MT.route(p16, x, cfg)
+        gates32, idx32 = MT.route(p32, x.float(), cfg)
+        check(torch.equal(idx, idx32), "mesh moe layer: bf16 and f32 routings differ")
+        want = MT._apply_dropless(p32, x.float(), gates32, idx32, cfg)
+        d = {name: float((fn(p16, x, gates, idx, cfg).float() - want).abs().max())
+             for name, fn in (("gshard", MT._apply_gshard), ("dropless", MT._apply_dropless))}
+        d["gshard_f32"] = float((MT._apply_gshard(p32, x.float(), gates32, idx32, cfg) - want)
+                                .abs().max())
+    scale = float(want.abs().max())
+    print(f"mesh moe layer d_model={cfg.d_model} experts={cfg.n_experts} top_k={cfg.top_k} "
+          f"tokens=256 scale={scale:.4f} bf16_gshard_vs_f32={d['gshard']:.4e} "
+          f"bf16_dropless_vs_f32={d['dropless']:.4e} f32_gshard_vs_f32={d['gshard_f32']:.3e} "
+          f"card={CARD}")
+    check(d["gshard"] <= TOL["torch.bfloat16"] * max(1.0, scale),
+          f"mesh moe layer: bf16 gshard {d['gshard']:.3e} from f32 (scale {scale:.4f})")
+    check(d["gshard_f32"] <= 1e-4 * max(1.0, scale),
+          f"mesh moe layer: f32 gshard {d['gshard_f32']:.3e} from f32 dropless")
+    check(d["gshard"] <= 2 * d["dropless"], f"mesh moe layer: bf16 gshard {d['gshard']:.3e} "
+          f"from f32, the dropless layer {d['dropless']:.3e}")
+
+
+def mesh_overlap(torch, mesh):
+    """The ring collective matmuls on the one-rank mesh against their
+    oracles (qwen2.5-3b's MLP shapes, bf16)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.parallel import overlap as O
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    for name, fn, ref, xp, wp, k, n in (
+            ("allgather_matmul", O.allgather_matmul, O.allgather_matmul_ref, Shard(0),
+             Replicate(), 2048, 11008),
+            ("reduce_scatter_matmul", O.reduce_scatter_matmul, O.reduce_scatter_matmul_ref,
+             Shard(1), Shard(0), 11008, 2048)):
+        x = torch.randn(512, k, generator=g, device=DEVICE, dtype=torch.bfloat16)
+        w = torch.randn(k, n, generator=g, device=DEVICE, dtype=torch.bfloat16) / k ** 0.5
+        y = fn(distribute_tensor(x, mesh, (Replicate(), xp), src_data_rank=None),
+               distribute_tensor(w, mesh, (Replicate(), wp), src_data_rank=None), mesh)
+        want = ref(x, w).float()
+        err = float((y.full_tensor().float() - want).abs().max()) / float(want.abs().max())
+        print(f"mesh overlap {name} m=512 k={k} n={n} max_err_over_scale={err:.3e}")
+        check(err < TOL["torch.bfloat16"], f"mesh overlap {name}: off by {err:.3e}")
+
+
+def mesh_train(torch, mesh):
+    """Two steps of ``Trainer(mesh=)`` on full-width qwen2.5-3b, as phase
+    train's: each loss within ``MESH_TRAIN_TOL`` relative of its first two."""
+    from repro_torch.config import ShapeSpec, get_config
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, ShapeSpec("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH), mesh,
+                      opt_cfg=OptConfig(**TRAIN_OPT), tcfg=TrainerConfig(remat=True),
+                      seed=0, device=DEVICE)
+    ms = trainer.run(2)
+    losses = [m["loss"] for m in ms]
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, TRAIN_LOSSES[:2])]
+    print(f"mesh train losses={json.dumps(losses)} phase_train={json.dumps(TRAIN_LOSSES[:2])} "
+          f"rel_err={json.dumps(errs)} step_s={json.dumps([round(m['dt'], 4) for m in ms])} "
+          f"peak_memory_gib={torch.cuda.max_memory_allocated() / 2**30:.2f} card={CARD}")
+    check(len(TRAIN_LOSSES) >= 2 and max(errs) <= MESH_TRAIN_TOL,
+          f"mesh train: losses {losses} against {TRAIN_LOSSES[:2]}")
+    del trainer
+    collect(torch)
+
+
+def run_mesh(torch, by_run):
+    """Phase mesh: the parallel plane (``repro_torch.parallel``) on a
+    one-rank NCCL mesh, once phase train's state is freed."""
+    import torch.distributed as dist
+    collect(torch)
+    t_phase = time.perf_counter()
+    before = torch.cuda.memory_allocated() / 2**30
+    check(before < MOE_FREE_BEFORE_GIB, f"mesh: {before:.2f} GiB still allocated")
+    mesh = mesh_init(torch)
+    parts = {}
+    for name, fn, args in (("serving", mesh_serving, (torch, mesh, by_run)),
+                           ("moe", mesh_moe, (torch, mesh, by_run)),
+                           ("overlap", mesh_overlap, (torch, mesh)),
+                           ("train", mesh_train, (torch, mesh))):
+        t0 = time.perf_counter()
+        fn(*args)
+        parts[name] = round(time.perf_counter() - t0, 1)
+    dist.destroy_process_group()
+    print(f"phase mesh done in {time.perf_counter() - t_phase:.1f} s: {json.dumps(parts)}")
+
+
 def make_params(torch, cfg):
     """Random bf16 weights (seed 0) on the card, after the last model's are
     freed."""
@@ -4742,6 +5093,7 @@ def main():
         for run in QUANT_RUNS:
             r = plain[run] = run_engine(torch, cfg, params, run, **drain)
             by_run[f"{arch} {run}"] = r["launches"]
+            ENGINE_RUNS[(arch, run)] = r              # phase mesh serves them again
             run_graphs(torch, cfg, params, run, r, **drain)
             if run == "fp":
                 run_baselines(torch, cfg, params, by_run, **drain)
@@ -4754,7 +5106,10 @@ def main():
             run_slo(torch, cfg, params, plain["fp"], serve["kv_len"])
             done(f"sampling and slo of {arch}")
         reset_launches()
-        run_crash(torch, cfg, params, **drain)
+        crash_cfg = crash_config(cfg)
+        crash_params = params if crash_cfg is cfg else make_params(torch, crash_cfg)
+        run_crash(torch, crash_cfg, crash_params, **drain)
+        del crash_params
         by_run[f"{arch} crash"] = read_launches()
         done(f"crash of {arch}")
         if arch == "qwen2.5-3b":
@@ -4763,7 +5118,7 @@ def main():
             run_logits(torch, cfg, params, run, long_row=serve["logits_row"])
         done(f"logits of {arch}")
         for run in ("fp", "w8kv8"):
-            run_profile(torch, cfg, params, run, kv_len=serve["kv_len"])
+            PROFILES[(arch, run)] = run_profile(torch, cfg, params, run, kv_len=serve["kv_len"])
         del params
         print(f"phases of {arch} done at {time.perf_counter() - start:.1f} s")
     for arch, layers in LOGITS_ONLY.items():
@@ -4787,6 +5142,8 @@ def main():
     print(f"phases of the cross-attention models done at {time.perf_counter() - start:.1f} s")
     run_train(torch, by_run)
     print(f"phases of training done at {time.perf_counter() - start:.1f} s")
+    run_mesh(torch, by_run)
+    print(f"phase mesh done at {time.perf_counter() - start:.1f} s")
 
     for name, rec in records.items():
         rec["launches"] = sum(n[name] for n in by_run.values())

@@ -34,6 +34,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.common import (
     DTYPE_CODES, MAX_HEAD_DIM, NEG_INF, check_cuda)
 from repro_torch.kernels.scratch import sm_count, split_tickets
+from repro_torch.parallel.api import refuse_dtensor
 from repro_torch.quant.core import dequantize_kv
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -154,6 +155,7 @@ def flash_decode_fwd(q, k, v, *, q_pos, kv_pos, window: int = 0,
                      softcap: float = 0.0, scale: float | None = None):
     """q (B, 1, Hq, hd), pool k/v (B, Skv, Hkv, hd|hdv), q_pos (B, 1) and
     kv_pos (B, Skv) int32 -> (B, 1, Hq, hdv) in q's dtype."""
+    refuse_dtensor("flash_decode_fwd", q, k, v)
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, hdv = v.shape
     if Sq != 1:
@@ -216,6 +218,7 @@ def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos
     codes a byte, packed along the head dim, for ``kv_bits=4``); scales
     k_s/v_s (B, Skv, Hkv) f32; q_pos (B, 1) and kv_pos (B, Skv) int32 ->
     (B, 1, Hq, hdv) in q's dtype."""
+    refuse_dtensor("flash_decode_quant_fwd", q, k_q, k_s, v_q, v_s)
     if kv_bits not in (4, 8):
         raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
     pack = 2 if kv_bits == 4 else 1

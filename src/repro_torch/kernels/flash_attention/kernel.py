@@ -35,6 +35,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.common import (
     DTYPE_CODES, MAX_HEAD_DIM, NEG_INF, check_cuda)
 from repro_torch.kernels.scratch import sm_count
+from repro_torch.parallel.api import refuse_dtensor
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = ((_P,) * 5 + (_I,) * 7 + (_L,) * 14 + (_I, _I, _F, _F, _I, _I, _I, _I, _P))
@@ -129,6 +130,7 @@ def flash_attention_fwd(q, k, v, *, segments=None, causal: bool = True,
                         scale: float | None = None):
     """q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd|hdv), optional segments
     (B, S) int32 -> (B, Hq, Sq, hdv) in q's dtype."""
+    refuse_dtensor("flash_attention_fwd", q, k, v)
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, hdv = v.shape
     if Hq % Hkv:

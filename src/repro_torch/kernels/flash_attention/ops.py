@@ -22,6 +22,13 @@ carry int8 codes (two int4 codes a byte along the head dim for
 decode-shaped call goes to :func:`.decode.flash_decode_quant_fwd`, which
 dequantises inside the kernel; every other route dequantises up front to
 q's dtype and proceeds as fp.
+
+Under a plan (:mod:`repro_torch.parallel`) the inputs are DTensors, and
+the call runs through ``local_map``: each rank runs the route above on
+its own batch rows and heads, at the placements the plan's ``act_heads``
+role gives the batch and head dims (a role that shards the sequence is
+gathered at the boundary: a kernel attends over whole rows).  The kernels
+never see a DTensor.
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ from repro_torch.kernels.flash_attention.decode import (flash_decode_fwd,
                                                         flash_decode_quant_fwd)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.parallel.api import (current_plan, even, local_call, placements, planned_mesh,
+                                      region_placements, sharded_over)
 from repro_torch.quant.core import dequantize_kv
 
 
@@ -56,6 +65,11 @@ def attention(
 ) -> torch.Tensor:
     if impl not in ("flash", "ref"):
         raise ValueError(f"unknown attention impl {impl!r}")
+    mesh = planned_mesh("attention", q, k, v, k_scale, v_scale)
+    if mesh is not None:
+        return _planned(mesh, q, k, v, (q_pos, kv_pos, kv_valid, segments),
+                        (k_scale, v_scale), dict(kv_bits=kv_bits, causal=causal, window=window,
+                                                 softcap=softcap, scale=scale, impl=impl))
     Sq, Hq = q.shape[1], q.shape[2]
     Skv, Hkv = k.shape[1], k.shape[2]
     decode = impl == "flash" and Hq % Hkv == 0 and causal and Sq == 1 \
@@ -86,3 +100,22 @@ def attention(
         q, k, v, q_pos=q_pos, kv_pos=kv_pos, kv_valid=kv_valid,
         q_seg=segments, kv_seg=segments,
         causal=causal, window=window, softcap=softcap, scale=scale)
+
+
+def _planned(mesh, q, k, v, rows, scales, kw):
+    """:func:`attention` on each rank's local shards: q/k/v (and the
+    scales) sharded on their batch and head dims as the plan's
+    ``act_heads`` role shards them, positions, masks and segments on their
+    batch dim; the output as q."""
+    spec = current_plan().spec("act_heads") or (None,) * 4
+    role = even(placements(spec, mesh), q.shape, mesh)
+    batch, heads = sharded_over(role, 0), sharded_over(role, 2)
+    bh = region_placements(mesh, {0: batch, 2: heads})
+    b = region_placements(mesh, {0: batch})
+    args = (q, k, v, *rows, *scales)
+    ins = [None if a is None else p for a, p in zip(args, (bh,) * 3 + (b,) * 4 + (bh,) * 2)]
+
+    def local(q, k, v, q_pos, kv_pos, kv_valid, segments, k_scale, v_scale):
+        return attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, kv_valid=kv_valid,
+                         segments=segments, k_scale=k_scale, v_scale=v_scale, **kw)
+    return local_call(local, args, ins, bh, mesh)

@@ -36,6 +36,7 @@ from repro_torch.kernels.flash_attention.common import DTYPE_CODES
 from repro_torch.kernels.grouped_matmul.ref import (combine_ref, grouped_gate_up_ref,
                                                     grouped_matmul_ref)
 from repro_torch.kernels.scratch import sm_count
+from repro_torch.parallel.api import refuse_dtensor
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _MATMUL_ARGTYPES = (_P,) * 7 + (_I,) * 3 + (_L,) + (_I,) * 5 + (_P,)
@@ -121,6 +122,7 @@ def grouped_matmul_fwd(x, w, offsets, scale=None):
     row in a group: the kernel writes no other) -> (T, N) in x's dtype.
     With ``scale`` (T,) in x's dtype, ``y[i] = round(round(y[i]) *
     scale[i])`` (the MoE layer's gate)."""
+    refuse_dtensor("grouped_matmul_fwd", x, w, offsets, scale)
     _check(x, w, offsets)
     if scale is not None and (scale.dim() != 1 or scale.shape[0] != x.shape[0]):
         raise ValueError(f"scale {tuple(scale.shape)} must be ({x.shape[0]},)")
@@ -151,6 +153,7 @@ def grouped_gate_up_fwd(x, rows, w_gate, w_up, offsets, act: str):
     rounded to x's dtype, the activation (``silu``, ``gelu`` with tanh,
     ``relu2``: ``models/modules.py::activation``) taken in f32 on the
     rounded gate and rounded, then the multiply rounded."""
+    refuse_dtensor("grouped_gate_up_fwd", x, rows, w_gate, w_up, offsets)
     _check(x, w_gate, offsets)
     if tuple(w_up.shape) != tuple(w_gate.shape):
         raise ValueError(f"w_gate {tuple(w_gate.shape)} and w_up {tuple(w_up.shape)} differ")
@@ -180,6 +183,7 @@ def combine_fwd(ys, order, k: int):
     expert, summed in ascending expert id and rounded to ys's dtype after
     each add; ``order`` (T * k,) int64 is the stable sort of the pairs
     (sorted row ``i`` holds pair ``order[i]`` = token * k + j) -> (T, D)."""
+    refuse_dtensor("combine_fwd", ys, order)
     if ys.dim() != 2 or order.dim() != 1 or order.shape[0] != ys.shape[0] or k < 1 \
             or ys.shape[0] % k:
         raise ValueError(f"ys {tuple(ys.shape)} and order {tuple(order.shape)} must be "

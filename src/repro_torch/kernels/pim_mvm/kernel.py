@@ -12,6 +12,7 @@ CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 from __future__ import annotations
 
 from repro_torch.kernels.pim_mvm.ref import XBAR, pim_mvm_ref
+from repro_torch.parallel.api import refuse_dtensor
 from repro_torch.quant.kernel import check_cuda_operands, launch_dequant_matmul
 
 # the plain version: f32 dequantise, f32 matmul, one cast — the oracle's
@@ -22,6 +23,7 @@ pim_mvm_plain = pim_mvm_ref
 def pim_mvm_fwd(x, wq, scales):
     """x (M, K) · dequant(wq (K, N) int8, scales (K/128, N/128)) -> (M, N)
     in x's dtype.  K and N must tile 128×128 crossbars."""
+    refuse_dtensor("pim_mvm_fwd", x, wq, scales)
     M, K = x.shape
     K2, N = wq.shape
     if K != K2 or K % XBAR or N % XBAR or tuple(scales.shape) != (K // XBAR, N // XBAR):

@@ -3,7 +3,10 @@
 Brings up the port's continuous-batching engine with random weights and
 drives a synthetic request workload, reporting throughput / TTFT /
 latency (counterpart of ``repro.launch.serve``).  Runs on the CUDA card
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given.  Sharded serving: one process a rank
+under ``torchrun`` with ``--data-axis`` / ``--model-axis`` (the engine's
+``mesh=``: the slot pool over ``data``, heads and weights over
+``model``); every rank serves the same requests and the first prints.
 """
 import argparse
 
@@ -32,6 +35,10 @@ def main(argv=None):
                     help="rows of K per weight scale (0 = one per channel)")
     ap.add_argument("--kv-bits", type=int, default=0, choices=[0, 4, 8],
                     help="quantised slot-pool KV cache (0 = fp pool)")
+    ap.add_argument("--data-axis", type=int, default=0,
+                    help="mesh data-axis size under torchrun (0: the ranks the model "
+                         "axis leaves; no axes and no torchrun: one device)")
+    ap.add_argument("--model-axis", type=int, default=0)
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -46,6 +53,8 @@ def main(argv=None):
         cfg = reduce_config(cfg)
     check_servable(cfg)       # before any weight is drawn
     device = resolve_device(args.device)
+    from repro_torch.launch.mesh import launch_mesh
+    mesh = launch_mesh(args.data_axis, args.model_axis, device_type=device.type)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=device, dtype=torch.bfloat16)
     engine = ServingEngine(cfg, params, EngineConfig(
@@ -54,7 +63,7 @@ def main(argv=None):
         seed=args.seed, impl=args.impl, fused=not args.host_loop,
         decode_chunk=args.decode_chunk,
         weight_bits=args.weight_bits, weight_group=args.weight_group,
-        kv_bits=args.kv_bits), device=device)
+        kv_bits=args.kv_bits), device=device, mesh=mesh)
 
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
@@ -65,6 +74,13 @@ def main(argv=None):
     stats = engine.stats()
     bits = (f"w{args.weight_bits or 'fp'}/kv{args.kv_bits or 'fp'} "
             if (args.weight_bits or args.kv_bits) else "")
+    if mesh is not None:
+        import torch.distributed as dist
+        first = mesh.get_rank() == 0
+        dist.destroy_process_group()
+        if not first:
+            return stats
+        bits += f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
     print(f"arch={cfg.name} device={device} {bits}requests={stats['finished']} "
           f"tokens={stats['tokens']} "
           f"throughput={stats['tokens_per_s']:.1f} tok/s "

@@ -1,17 +1,21 @@
-"""The steps and batch specs (counterpart of the reference's
+"""The steps and their input specs (counterpart of the reference's
 ``launch/steps.py``): the train step (loss, gradients, AdamW), the prefill
-step and the decode step.
-
-The reference's ``build_cell`` and its sharded parameter specs belong to
-the dry run and the sharded plane, which the port has yet to take up.
+step and the decode step, each under an optional plan
+(:mod:`repro_torch.parallel`), and :func:`build_cell`, which assembles one
+(arch x shape x mesh) cell: the planned step, its example arguments as
+meta-device tensors, and the plan.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.config import ModelConfig, ShapeSpec
 from repro_torch.models import transformer as T
-from repro_torch.training.optimizer import OptConfig, adamw_apply_, adamw_prepare
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.api import Plan, activate_plan, full, is_dtensor
+from repro_torch.training.optimizer import OptConfig, adamw_apply_, adamw_init, adamw_prepare
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -36,6 +40,24 @@ def batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, tuple[tuple, to
     return b
 
 
+def params_specs(cfg: ModelConfig, param_dtype=torch.float32):
+    """The parameter tree as meta-device tensors (names, shapes, dtype; no
+    memory): the reference's ``jax.eval_shape`` of ``init_params``."""
+    return T.param_tree(T.init_params(cfg, None, device="meta", dtype=param_dtype))
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec, *, kv_bits: int = 0):
+    """The decode cache of ``shape`` (``global_batch`` rows, ``seq_len``
+    entries) as meta-device tensors."""
+    return T.init_cache(cfg, shape.global_batch, shape.seq_len, dtype=torch.bfloat16,
+                        device="meta", kv_bits=kv_bits)
+
+
+def _meta_batch(cfg, shape):
+    return {k: torch.empty(s, dtype=d, device="meta")
+            for k, (s, d) in batch_specs(cfg, shape).items()}
+
+
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
@@ -45,11 +67,15 @@ class CommitError(RuntimeError):
     parameters and moments may hold the new step and others the old."""
 
 
-def make_train_step(cfg: ModelConfig, *, opt_cfg: OptConfig = OptConfig(), accum: int = 1,
-                    remat: bool = True):
+def make_train_step(cfg: ModelConfig, plan: Optional[Plan] = None, *,
+                    opt_cfg: OptConfig = OptConfig(), accum: int = 1, remat: bool = True):
     """``train_step(params, opt_state, batch) -> (params, opt_state',
     {"loss", "gnorm", "lr"})`` on trees of tensors (:func:`T.trainable`),
     trained through ``loss_fn``'s plain modules; the metrics are floats.
+    Under ``plan`` the loss runs with the plan active, on parameters,
+    moments and a batch distributed at the plan's specs, and each gradient
+    is redistributed to its parameter's placement (partial sums reduced
+    and scattered), so the update runs shard by shard.
 
     With ``accum`` > 1 the batch is cut into ``accum`` micro-batches along
     its first axis, one after the other (the reference's ``lax.scan``):
@@ -61,9 +87,12 @@ def make_train_step(cfg: ModelConfig, *, opt_cfg: OptConfig = OptConfig(), accum
     :class:`CommitError`."""
     def grads_of(params, batch):
         leaves = tree_leaves(params)
-        loss, _ = T.loss_fn(params, cfg, batch, remat=remat)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), tree_unflatten(params, list(grads))
+        with activate_plan(plan):
+            loss, _ = T.loss_fn(params, cfg, batch, remat=remat)
+            grads = torch.autograd.grad(loss, leaves)
+        grads = [g.redistribute(p.device_mesh, p.placements) if is_dtensor(g) else g
+                 for g, p in zip(grads, leaves)]
+        return full(loss.detach()), tree_unflatten(params, list(grads))
 
     def train_step(params, opt_state, batch):
         if accum == 1:
@@ -71,8 +100,7 @@ def make_train_step(cfg: ModelConfig, *, opt_cfg: OptConfig = OptConfig(), accum
         else:
             micro = {k: v.reshape((accum, v.shape[0] // accum) + tuple(v.shape[1:]))
                      for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = adamw_init(params)["m"]                  # f32 zeros, placed alike
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             for i in range(accum):
                 l, g = grads_of(params, {k: v[i] for k, v in micro.items()})
@@ -83,7 +111,8 @@ def make_train_step(cfg: ModelConfig, *, opt_cfg: OptConfig = OptConfig(), accum
         prep = adamw_prepare(grads, opt_state, opt_cfg)
         # reading the metrics waits for the gradients: a fault of the
         # backward surfaces here, before anything is written
-        metrics = {"loss": float(loss), "gnorm": float(prep["gnorm"]), "lr": float(prep["lr"])}
+        metrics = {"loss": float(loss), "gnorm": float(full(prep["gnorm"])),
+                   "lr": float(full(prep["lr"]))}
         try:
             opt_state = adamw_apply_(grads, opt_state, params, opt_cfg, prep)
             if loss.is_cuda:
@@ -95,17 +124,80 @@ def make_train_step(cfg: ModelConfig, *, opt_cfg: OptConfig = OptConfig(), accum
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, *, impl: str = "flash", kv_cap: int = 0):
-    """``prefill_step(params, batch) -> (last-token logits, cache)``: the
-    source keys of ``batch`` go to :func:`T.prefill` by name."""
+def make_prefill_step(cfg: ModelConfig, plan: Optional[Plan] = None, *,
+                      impl: str = "flash", kv_cap: int = 0):
+    """``prefill_step(params, batch) -> (last-token logits, cache)`` under
+    ``plan``: the source keys of ``batch`` go to :func:`T.prefill` by
+    name."""
     def prefill_step(params, batch):
         src = {k: v for k, v in batch.items() if k != "tokens"}
-        return T.prefill(params, cfg, batch["tokens"], impl=impl, kv_cap=kv_cap, **src)
+        with activate_plan(plan):
+            return T.prefill(params, cfg, batch["tokens"], impl=impl, kv_cap=kv_cap, **src)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, impl: str = "flash"):
-    """``decode(params, cache, tokens, pos) -> (logits, cache)``."""
+def make_decode_step(cfg: ModelConfig, plan: Optional[Plan] = None, *, impl: str = "flash"):
+    """``decode(params, cache, tokens, pos) -> (logits, cache)`` under
+    ``plan``."""
     def decode(params, cache, tokens, pos):
-        return T.decode_step(params, cfg, cache, tokens, pos, impl=impl)
+        with activate_plan(plan):
+            return T.decode_step(params, cfg, cache, tokens, pos, impl=impl)
     return decode
+
+
+# ---------------------------------------------------------------------------
+# one (arch x shape x mesh) cell
+# ---------------------------------------------------------------------------
+
+def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *, accum: int = 1,
+               impl: Optional[str] = None, opt_cfg: OptConfig = OptConfig(),
+               remat: bool = True):
+    """(step, example arguments, plan) of one cell, the reference's
+    ``build_cell``: the plan of ``shape.kind`` on ``mesh``, and the step
+    under it (:func:`make_train_step`, :func:`make_prefill_step` at
+    ``kv_cap = seq_len``, or :func:`make_decode_step`).  The arguments are
+    meta-device tensors of the unsharded shapes (params f32 for training,
+    bf16 for serving; AdamW's moments; the batch; the decode cache): put
+    real ones on the mesh with :func:`place_args` before calling the step.
+    ``impl`` defaults to ``"ref"`` for training (the kernels have no
+    backward) and ``"flash"`` for serving."""
+    mode = shape.kind
+    plan, ctx = SH.build_plan(cfg, shape, mesh, mode=mode)
+    batch = _meta_batch(cfg, shape)
+    if mode == "train":
+        pspecs = params_specs(cfg, torch.float32)
+        fn = make_train_step(cfg, plan, opt_cfg=opt_cfg, accum=accum, remat=remat)
+        return fn, (pspecs, adamw_init(pspecs), batch), plan
+    pspecs = params_specs(cfg, torch.bfloat16)
+    impl = impl or "flash"
+    if mode == "prefill":
+        return make_prefill_step(cfg, plan, impl=impl, kv_cap=shape.seq_len), \
+            (pspecs, batch), plan
+    return make_decode_step(cfg, plan, impl=impl), \
+        (pspecs, cache_specs(cfg, shape), batch["tokens"], batch["pos"]), plan
+
+
+def place_args(cfg: ModelConfig, shape: ShapeSpec, mesh, *args):
+    """A cell's real arguments (whole tensors, the same on every rank) on
+    ``mesh`` at its plan's specs: a parameter tree at ``params_shardings``,
+    AdamW's state with its moments placed as the parameters (ZeRO), a
+    decode cache at ``cache_shardings``, a batch at ``batch_shardings``;
+    anything else as it is."""
+    _, ctx = SH.build_plan(cfg, shape, mesh, mode=shape.kind)
+    specs = None
+    placed = []
+    for arg in args:
+        if isinstance(arg, dict) and "embed" in arg:
+            specs = SH.params_shardings(arg, ctx)
+            placed.append(SH.distribute_tree(arg, specs, mesh))
+        elif isinstance(arg, dict) and "count" in arg:
+            placed.append({"m": SH.distribute_tree(arg["m"], specs, mesh),
+                           "v": SH.distribute_tree(arg["v"], specs, mesh),
+                           "count": arg["count"]})
+        elif isinstance(arg, dict) and "stack" in arg:
+            placed.append(SH.distribute_tree(arg, SH.cache_shardings(arg, ctx), mesh))
+        elif isinstance(arg, dict):
+            placed.append(SH.distribute_tree(arg, SH.batch_shardings(arg, ctx), mesh))
+        else:
+            placed.append(arg)
+    return placed

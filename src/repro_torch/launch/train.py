@@ -5,11 +5,18 @@ Trains a model with random initial weights on the synthetic token stream
 of ``data/pipeline.py`` through :class:`~repro_torch.training.trainer.Trainer`,
 printing the loss every 10 steps.  Runs on the CUDA card unless ``--device
 cpu`` is given.  The fault-tolerance knobs (checkpoint dir and interval)
-map onto ``TrainerConfig``.  The trainer runs on one device: ``--devices``,
-``--data-axis`` and ``--model-axis`` are taken only where they describe
-one.  ``--reduced`` shrinks the config for a smoke run, and the shape with
-it (at most 32 tokens a row, the reduced position table's reach, and 8
-rows) unless ``--seq-len`` / ``--global-batch`` say otherwise.
+map onto ``TrainerConfig``.  ``--reduced`` shrinks the config for a smoke
+run, and the shape with it (at most 32 tokens a row, the reduced position
+table's reach, and 8 rows) unless ``--seq-len`` / ``--global-batch`` say
+otherwise.
+
+Sharded: one process a rank under ``torchrun``, with ``--data-axis`` and
+``--model-axis`` the mesh's axes (``launch/mesh.py``'s ``launch_mesh``;
+the ranks ``--model-axis`` leaves go to ``data``), e.g. ``torchrun
+--nproc-per-node 4 -m repro_torch.launch.train --arch qwen2.5-3b --reduced
+--device cpu --data-axis 2 --model-axis 2``.  Without ``torchrun`` the
+trainer runs on one device; ``--devices`` more than the ranks started is
+refused.
 """
 import argparse
 
@@ -24,9 +31,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to run there)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="devices to train on: 0 or 1 (one device)")
+                    help="ranks to train on (0: those torchrun started, else one)")
     ap.add_argument("--data-axis", type=int, default=0,
-                    help="data-axis size: 0 or 1 (one device)")
+                    help="data-axis size (0: the ranks the model axis leaves)")
     ap.add_argument("--model-axis", type=int, default=0)
     ap.add_argument("--global-batch", type=int, default=0)
     ap.add_argument("--seq-len", type=int, default=0)
@@ -37,10 +44,13 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    for flag in ("devices", "data_axis", "model_axis"):
-        if getattr(args, flag) > 1:
-            ap.error(f"--{flag.replace('_', '-')} {getattr(args, flag)}: sharded training "
-                     f"has no port yet, the trainer runs on one device")
+    import os
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    for flag, n in (("devices", args.devices),
+                    ("data-axis x model-axis", max(args.data_axis, 1) * max(args.model_axis, 1))):
+        if n > world:
+            ap.error(f"--{flag} asks for {n} ranks, {world} started: launch one process "
+                     f"a rank with torchrun")
 
     import torch
     from repro_torch import resolve_device
@@ -59,25 +69,33 @@ def main(argv=None):
         shape = ShapeSpec(shape.name, shape.kind, args.seq_len or shape.seq_len,
                           args.global_batch or shape.global_batch)
     device = resolve_device(args.device)
+    from repro_torch.launch.mesh import launch_mesh
+    mesh = launch_mesh(args.data_axis, args.model_axis, device_type=device.type)
     n_params = sum(p.numel() for p in
                    T.init_params(cfg, None, device="meta", dtype=torch.float32).parameters())
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device} "
-          f"batch={shape.global_batch} seq={shape.seq_len}")
+    lead = mesh is None or mesh.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    say(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device} "
+        f"mesh={None if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+        f"batch={shape.global_batch} seq={shape.seq_len}")
 
     trainer = Trainer(
-        cfg, shape, opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps),
+        cfg, shape, mesh, opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps),
         tcfg=TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                            accum=args.accum, remat=args.remat),
         seed=args.seed, device=device)
     start = trainer.step
     for m in trainer.run(args.steps - start):
         if m["step"] % 10 == 0 or m["step"] == start:
-            print(f"step {m['step']:5d} loss={m['loss']:.4f} "
-                  f"gnorm={m['gnorm']:.3f} lr={m['lr']:.2e} "
-                  f"dt={m['dt'] * 1e3:.0f}ms", flush=True)
+            say(f"step {m['step']:5d} loss={m['loss']:.4f} "
+                f"gnorm={m['gnorm']:.3f} lr={m['lr']:.2e} "
+                f"dt={m['dt'] * 1e3:.0f}ms", flush=True)
     if args.ckpt_dir:
         trainer.save()
-    print(f"done: {trainer.step} steps, {trainer.slow_steps} slow steps")
+    say(f"done: {trainer.step} steps, {trainer.slow_steps} slow steps")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

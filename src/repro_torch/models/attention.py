@@ -50,6 +50,12 @@ The reference's functional cache update becomes an **in-place** update
 of the pool tensors here: ``chunk``/``decode`` write into ``cache`` and
 return it, with fixed shapes and no read of device data by the host, so
 that the serving engine can capture them in a CUDA graph.
+
+Under a plan (:mod:`repro_torch.parallel`) q, k and v are constrained to
+the reference's roles (``act_heads``, ``kv_heads``), the projections of
+prefill gather their weights (``weight_full``), and a write into a
+sharded pool runs on each rank's own slots and heads (:func:`_planned`):
+DTensor has no sharding rule for an indexed write.
 """
 from __future__ import annotations
 
@@ -58,6 +64,8 @@ import torch
 from repro_torch.kernels.flash_attention.common import NEG_INF
 from repro_torch.kernels.flash_attention.ops import attention as flash_attention
 from repro_torch.models.modules import apply_rope, dense_init, rmsnorm
+from repro_torch.parallel.api import (constrain, local_views, planned_mesh,
+                                      region_placements, sharded_over, to_placements)
 from repro_torch.quant.core import (dequantize_kv, kv_cache_bits, quantize_kv,
                                     quantize_kv_cache)
 from repro_torch.quant.ops import qdense
@@ -96,25 +104,27 @@ def init_mla(generator, cfg, *, repeats, dtype, device):
     """The MLA projections, drawn as the reference draws them: the KV
     down-projection ``wkv_a`` (latent and RoPE key), its norm, the
     up-projection ``wkv_b`` (kvr, H, dn + dv) to per-head no-RoPE keys and
-    values, ``wo``, and the query's low-rank pair ``wq_a``/``q_norm``/
-    ``wq_b`` (qr, H, dn + dr).  Norm vectors are f32 (scale - 1).  The
-    reference's full-rank query (no ``q_lora_rank``) serves no registered
-    config and has no port."""
+    values, ``wo``, and the query: with ``q_lora_rank`` its low-rank pair
+    ``wq_a``/``q_norm``/``wq_b`` (qr, H, dn + dr), else the full-rank
+    ``wq`` (D, H, dn + dr), drawn as the reference draws it (fan-in H).
+    Norm vectors are f32 (scale - 1)."""
     D, H, R = cfg.d_model, cfg.n_heads, repeats
     dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
-    if not qr:
-        raise NotImplementedError(f"{cfg.name}: MLA without q_lora_rank has no port")
     f32 = dict(dtype=torch.float32, device=device)
-    return {
+    p = {
         "wkv_a": dense_init(generator, (R, D, kvr + dr), dtype, device),
         "kv_norm": torch.zeros((R, kvr), **f32),
         "wkv_b": dense_init(generator, (R, kvr, H, dn + dv), dtype, device, fan_in=kvr),
         "wo": dense_init(generator, (R, H * dv, D), dtype, device, fan_in=H * dv),
-        "wq_a": dense_init(generator, (R, D, qr), dtype, device),
-        "q_norm": torch.zeros((R, qr), **f32),
-        "wq_b": dense_init(generator, (R, qr, H, dn + dr), dtype, device, fan_in=qr),
     }
+    if not qr:
+        p["wq"] = dense_init(generator, (R, D, H, dn + dr), dtype, device)
+        return p
+    p["wq_a"] = dense_init(generator, (R, D, qr), dtype, device)
+    p["q_norm"] = torch.zeros((R, qr), **f32)
+    p["wq_b"] = dense_init(generator, (R, qr, H, dn + dr), dtype, device, fan_in=qr)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +248,8 @@ def _ring_write(cache, new_leaves: dict, pos):
     dead pool slots and chunk pads never touch the cache.  Within one call
     only the last ``cap`` positions of a row survive the ring, so those are
     the only ones written (each row's targets stay unique)."""
+    if _planned(_ring_write, cache, new_leaves, pos) is not None:
+        return cache
     cap = cache["pos"].shape[1]
     B, S = pos.shape
     row_max = torch.where(pos >= 0, pos, -1).amax(dim=1, keepdim=True)
@@ -263,10 +275,40 @@ def _ring_write(cache, new_leaves: dict, pos):
     return cache
 
 
+# pool leaves whose axis 2 is the KV head
+HEAD_LEAVES = ("k", "v", "k_q", "v_q", "k_s", "v_s")
+
+
+def _planned(write, cache, values: dict, pos):
+    """``write(cache, values, pos)`` on each rank's local shards of a
+    sharded pool: its slots (axis 0 of a layer's leaves), and its KV heads
+    (axis 2 of K/V leaves) where the pool shards them, with the values and
+    positions cut to the same rows.  A pool sharded along its entries is
+    written through a gathered copy (:func:`local_views`).  None when the
+    pool is not a DTensor."""
+    mesh = planned_mesh("cache write", *cache.values())
+    if mesh is None:
+        return None
+    batch = sharded_over(cache["pos"].placements, 0)
+    heads = next((sharded_over(cache[n].placements, 2) for n in HEAD_LEAVES if n in cache), [])
+
+    def target(name):
+        return region_placements(mesh, {0: batch, 2: heads} if name in HEAD_LEAVES
+                                 else {0: batch})
+    with local_views(mesh, dict(cache), {n: target(n) for n in cache}) as local:
+        write(local, {n: to_placements(v, mesh, target(n)).to_local()
+                      for n, v in values.items()},
+              to_placements(pos, mesh, target("pos")).to_local())
+    return cache
+
+
 def _commit_kv(cache, new_k, new_v, pos):
     """Commit fresh K/V rows into the slot pool (in place): a quantised pool
     quantises them on commit (one scale per (token, head) row), so an fp
     copy of the pool never exists between steps."""
+    if _planned(lambda c, kv, p: _commit_kv(c, kv["k"], kv["v"], p), cache,
+                {"k": new_k, "v": new_v}, pos) is not None:
+        return cache
     if "k_q" in cache:
         bits = kv_cache_bits(cache, new_k.shape[-1])
         k_q, k_s = quantize_kv(new_k, bits)
@@ -292,10 +334,10 @@ def apply_cross_attention(p, x, *, cfg, mode: str, cache=None, cross_src=None,
     B, S, _ = x.shape
     Hq, Hkv, hd, hdv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.v_head_dim
     dt = x.dtype
-    q = qdense(x, p["wq"], dt, impl=impl)
+    q = qdense(x, p["wq"], dt, "weight_full", impl=impl)
     if "bq" in p:
         q = q + p["bq"].to(dt)
-    q = q.reshape(B, S, Hq, hd)
+    q = constrain(q.reshape(B, S, Hq, hd), "act_heads")
     if mode in ("decode", "chunk"):
         k, v = cache["k"], cache["v"]
         Skv = k.shape[1]
@@ -338,9 +380,9 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
     theta = cfg.rope_theta_local if (kind == "local" and cfg.rope_theta_local) \
         else cfg.rope_theta
 
-    q = qdense(x, p["wq"], dt, impl=impl)
-    k = qdense(x, p["wk"], dt, impl=impl)
-    v = qdense(x, p["wv"], dt, impl=impl)
+    q = qdense(x, p["wq"], dt, "weight_full", impl=impl)
+    k = qdense(x, p["wk"], dt, "weight_full", impl=impl)
+    v = qdense(x, p["wv"], dt, "weight_full", impl=impl)
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -351,6 +393,7 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
     if cfg.use_rope:
         q, k = apply_rope(q, pos, theta), apply_rope(k, pos, theta)
     v = v.reshape(B, S, Hkv, hdv)
+    q, k, v = constrain(q, "act_heads"), constrain(k, "kv_heads"), constrain(v, "kv_heads")
 
     if mode in ("train", "encode"):
         out = flash_attention(q, k, v, causal=mode == "train", window=window,
@@ -405,7 +448,7 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
             q, kc, vc, q_pos=pos, kv_pos=kv_pos, kv_valid=kv_pos >= 0,
             causal=True, window=window, softcap=cfg.attn_softcap, impl=impl, **qkw)
 
-    out = qdense(out.reshape(B, S, Hq * hdv), p["wo"], dt, impl=impl)
+    out = qdense(out.reshape(B, S, Hq * hdv), p["wo"], dt, "weight_full", impl=impl)
     return out, new_cache
 
 
@@ -415,13 +458,17 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
 
 def _mla_q(p, x, pos, cfg):
     """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)): the low-rank query
-    (normed latent, then per-head up-projection), RoPE on its last dims."""
+    (normed latent, then per-head up-projection), or the full-rank one
+    (``wq`` (D, H, dn + dr)), RoPE on its last dims."""
     B, S, _ = x.shape
     dt = x.dtype
     H, dn, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
-    cq = rmsnorm(x @ p["wq_a"].to(dt), p["q_norm"])
-    w = p["wq_b"].to(dt)
-    q = (cq @ w.reshape(w.shape[0], -1)).reshape(B, S, H, dn + dr)
+    if "wq_a" in p:
+        x = rmsnorm(qdense(x, p["wq_a"], dt), p["q_norm"])
+        w = p["wq_b"].to(dt)
+    else:
+        w = p["wq"].to(dt)
+    q = qdense(x, w.reshape(w.shape[0], -1)).reshape(B, S, H, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], pos, cfg.rope_theta)
 
 
@@ -429,7 +476,7 @@ def _mla_kv_latent(p, x, pos, cfg):
     """(ckv (B, S, kvr) normed, kr (B, S, dr) with RoPE): what the cache
     holds of a token."""
     kvr = cfg.kv_lora_rank
-    ckv_full = x @ p["wkv_a"].to(x.dtype)
+    ckv_full = qdense(x, p["wkv_a"], x.dtype)
     ckv = rmsnorm(ckv_full[..., :kvr], p["kv_norm"])
     kr = apply_rope(ckv_full[..., None, kvr:], pos, cfg.rope_theta)[:, :, 0]
     return ckv, kr
@@ -462,11 +509,12 @@ def apply_mla(p, x, *, cfg, mode: str, pos, cache=None, impl: str = "flash",
     wkv_b = p["wkv_b"].to(dt)                           # (kvr, H, dn + dv)
 
     if mode in ("train", "prefill"):
-        kv = (ckv @ wkv_b.reshape(wkv_b.shape[0], -1)).reshape(B, S, H, dn + dv)
+        kv = qdense(ckv, wkv_b.reshape(wkv_b.shape[0], -1)).reshape(B, S, H, dn + dv)
+        kv = constrain(kv, "kv_heads")
         k = torch.cat([kv[..., :dn], kr[:, :, None].expand(B, S, H, dr)], dim=-1)
         # the value block as rows of its own (the kernel's input, contiguous)
-        v = kv[..., dn:].contiguous()
-        q = torch.cat([q_nope, q_rope], dim=-1)
+        k, v = constrain(k, "kv_heads"), constrain(kv[..., dn:].contiguous(), "kv_heads")
+        q = constrain(torch.cat([q_nope, q_rope], dim=-1), "act_heads")
         out = flash_attention(q, k, v, causal=True, scale=scale, impl=impl,
                               segments=segments)
         if mode == "train":

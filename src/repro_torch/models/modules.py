@@ -8,6 +8,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.api import constrain
 from repro_torch.quant.ops import qdense
 
 # ---------------------------------------------------------------------------
@@ -173,6 +174,7 @@ def apply_mlp(p, x, cfg, impl: str = "flash"):
         if "b_up" in p:
             h = h + p["b_up"].to(dt)
         h = act(h)
+    h = constrain(h, "act_ff")
     y = qdense(h, p["w_down"], dt, impl=impl)
     if "b_down" in p:
         y = y + p["b_down"].to(dt)

@@ -16,8 +16,16 @@ Training takes the reference's static-shape capacity path through
 autograd: each batch row's pairs sorted by expert, at most ``C`` tokens an
 expert (:func:`_capacity`; the rest dropped, GShard's rule), three expert
 einsums over the ``(B, E, C, D)`` buffer and a combine by ``index_add``.
-Not ported: ``_apply_gshard``, the one-hot dispatch of sharded execution
-(it waits for the sharded plane).
+
+Under a plan (:mod:`repro_torch.parallel`) the layer chooses as the
+reference's does: more than one token a row goes through
+:func:`_apply_gshard` (one-hot dispatch and combine einsums, in groups
+aligned to the ``model`` axis, a capacity a group), one token a row (a
+decode step) through the capacity path, whose sort and scatter run on
+each rank's own batch rows (DTensor has no sharding rule for them).  The
+expert buffer and its hidden activations take the plan's ``expert_buf``
+and ``expert_hidden`` roles: the experts are sharded over ``model``.  No
+planned call reaches the grouped matmul.
 """
 from __future__ import annotations
 
@@ -28,6 +36,9 @@ import torch
 
 from repro_torch.kernels.grouped_matmul.ops import combine, grouped_gate_up, grouped_matmul
 from repro_torch.models import modules as M
+from repro_torch.quant.ops import qdense
+from repro_torch.parallel.api import (constrain, current_plan, even, local_call, mesh_shape,
+                                      planned_mesh, region_placements, sharded_over)
 
 MODES = ("train", "prefill", "decode")
 
@@ -62,7 +73,7 @@ def route(p, x, cfg):
     """Router logits ``x @ router`` in f32 (the reference promotes its bf16
     x against the f32 router), softmax, top-k, gates renormalised in f32
     and cast to x's dtype.  Returns (gates (B, S, k), expert ids (B, S, k))."""
-    logits = x.float() @ p["router"].float()
+    logits = qdense(x.float(), p["router"], torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
     gates = gates / gates.sum(dim=-1, keepdim=True)
@@ -70,16 +81,21 @@ def route(p, x, cfg):
 
 
 def apply_moe(p, x, cfg, *, mode: str, impl: str = "flash"):
-    """x (B, S, D) -> (B, S, D), plus the shared experts: the dropless
-    layer in ``prefill`` and ``decode``, the capacity path in ``train``.
-    The chunked continuation does not run MoE stacks."""
+    """x (B, S, D) -> (B, S, D), plus the shared experts.  Without a plan:
+    the dropless layer in ``prefill`` and ``decode``, the capacity path in
+    ``train``; under a plan: :func:`_apply_gshard` for more than one token
+    a row, else the capacity path.  The chunked continuation does not run
+    MoE stacks."""
     if mode not in MODES:
         raise ValueError(f"MoE mode {mode!r}: the layer runs {MODES}")
     gates, idx = route(p, x, cfg)
-    if mode == "train":
-        y = _apply_capacity(p, x, gates, idx, cfg)
-    else:
+    plan = current_plan()
+    if mode != "train" and plan is None:
         y = _apply_dropless(p, x, gates, idx, cfg)
+    elif plan is not None and x.shape[1] > 1:
+        y = _apply_gshard(p, x, gates, idx, cfg)
+    else:
+        y = _apply_capacity(p, x, gates, idx, cfg)
     if "shared" in p:
         y = y + M.apply_mlp(p["shared"], x, shared_config(cfg), impl=impl)
     return y
@@ -125,24 +141,125 @@ def _apply_capacity(p, x, gates, idx, cfg):
     C = _capacity(S, cfg)
     dt = x.dtype
     act = M.activation(cfg.act)
-    buf, slot, tok, keep, gate_sorted = _dispatch(x, gates, idx, E, C)
-    xe = buf.reshape(B, E, C, D)
+    mesh = planned_mesh("moe dispatch", x)
+    rows = None if mesh is None else region_placements(
+        mesh, {0: sharded_over(even(x.placements, x.shape, mesh), 0)})
+    dispatched = _rows(mesh, rows, lambda x, g, i: _dispatch(x, g, i, E, C), (x, gates, idx), 5)
+    buf, slot, tok, keep, gate_sorted = dispatched
+    ye = _expert_ffn(p, buf.reshape(B, E, C, D), dt, act)
+    return _rows(mesh, rows, lambda ye, *d: _combine(ye.reshape(ye.shape[0], E * C, D), *d, S),
+                 (ye, slot, tok, keep, gate_sorted), 1)
+
+
+def _expert_ffn(p, xe, dt, act):
+    """``act(xe w_gate) * (xe w_up)``, then ``w_down``, as einsums over the
+    expert buffer xe (B, E, C, D), placed by the ``expert_buf`` and
+    ``expert_hidden`` roles.  Under a plan each rank multiplies its own
+    batch rows and experts (``local_map``; DTensor's einsum would flatten
+    a sharded expert dim), the banks gathered over any other axis and
+    their gradients partial sums over the batch's."""
+    from torch.distributed.tensor import Partial
     we = p["experts"]
-    h = act(torch.einsum("becd,edf->becf", xe, we["w_gate"].to(dt))) * \
-        torch.einsum("becd,edf->becf", xe, we["w_up"].to(dt))
-    ye = torch.einsum("becf,efd->becd", h, we["w_down"].to(dt)).reshape(B, E * C, D)
-    rows = torch.arange(B, device=x.device)[:, None]
-    gathered = ye[rows, slot.clamp_max(E * C - 1)] * keep[..., None].to(dt)
-    y = x.new_zeros((B * S, D)).index_add(
+    banks = (we["w_gate"], we["w_up"], we["w_down"])
+
+    def ffn(xe, wg, wu, wd):
+        h = act(torch.einsum("becd,edf->becf", xe, wg.to(dt))) * \
+            torch.einsum("becd,edf->becf", xe, wu.to(dt))
+        h = constrain(h, "expert_hidden")
+        return torch.einsum("becf,efd->becd", h, wd.to(dt))
+    xe = constrain(xe, "expert_buf")
+    mesh = planned_mesh("moe experts", xe, *banks)
+    if mesh is None:
+        return constrain(ffn(xe, *banks), "expert_buf")
+    pl = even(xe.placements, xe.shape, mesh)
+    batch, experts = sharded_over(pl, 0), sharded_over(pl, 1)
+    bx = region_placements(mesh, {0: batch, 1: experts})
+    bw = region_placements(mesh, {0: experts})
+    gw = tuple(Partial() if i in batch else w for i, w in enumerate(bw))
+    return local_call(ffn, (xe, *banks), (bx, bw, bw, bw), bx, mesh,
+                      grad_placements=(bx, gw, gw, gw))
+
+
+def _rows(mesh, rows, fn, args, n_out: int):
+    """``fn(*args)``, or under a plan on each rank's own batch rows
+    (placements ``rows`` for every input and output)."""
+    if mesh is None:
+        return fn(*args)
+    out = rows if n_out == 1 else (rows,) * n_out
+    return local_call(fn, args, (rows,) * len(args), out, mesh)
+
+
+def _combine(ye, slot, tok, keep, gate_sorted, S: int):
+    """Each kept pair's expert output (``ye`` (B, E*C, D)) times its gate,
+    added into its token's row (``index_add``; a dropped pair adds
+    zeros) -> (B, S, D)."""
+    B, EC, D = ye.shape
+    rows = torch.arange(B, device=ye.device)[:, None]
+    gathered = ye[rows, slot.clamp_max(EC - 1)] * keep[..., None].to(ye.dtype)
+    y = ye.new_zeros((B * S, D)).index_add(
         0, (rows * S + tok).reshape(-1), (gathered * gate_sorted[..., None]).reshape(-1, D))
     return y.reshape(B, S, D)
+
+
+def _one_hot(x, n: int):
+    """``jax.nn.one_hot``: f32 rows of ``x == arange(n)`` (an index outside
+    ``[0, n)`` gives a row of zeros)."""
+    return (x[..., None] == torch.arange(n, device=x.device)).float()
+
+
+def _apply_gshard(p, x, gates, idx, cfg):
+    """GShard-style dispatch: per-sequence-group one-hot dispatch/combine
+    einsums with a local capacity.  Groups are aligned to the sequence
+    sharding (G = the plan's model-axis size when it divides S), so the
+    rank cumsum is group-local and every op partitions.
+
+    x (B, S, D), gates/idx (B, S, k) -> (B, S, D)."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    dt = x.dtype
+    act = M.activation(cfg.act)
+    plan = current_plan()
+    G = 1
+    if plan is not None:
+        g = mesh_shape(plan.mesh).get("model", 1)
+        if S % g == 0:
+            G = g
+    Sg = S // G
+    Cg = _capacity(Sg, cfg)
+    xg = x.reshape(B, G, Sg, D)
+    wg = gates.reshape(B, G, Sg, k)
+    # position-in-expert ranks, the k slots taken in priority order
+    onehot = _one_hot(idx.reshape(B, G, Sg, k), E)               # (B,G,Sg,k,E)
+    # tokens before s (all k slots) + earlier slots at s
+    per_tok = onehot.sum(3)
+    cum_tok = torch.cumsum(per_tok, dim=2) - per_tok             # (B,G,Sg,E)
+    cum_slot = torch.cumsum(onehot, dim=3) - onehot              # (B,G,Sg,k,E)
+    rank = cum_tok[:, :, :, None, :] + cum_slot                  # (B,G,Sg,k,E)
+    keep = (rank < Cg) & (onehot > 0)
+    rank = torch.sum(rank * onehot, dim=-1)                      # (B,G,Sg,k)
+    keepk = keep.any(dim=-1)                                     # (B,G,Sg,k)
+    oh_c = _one_hot(rank.to(torch.int32), Cg)
+    # dispatch (B,G,Sg,k,E,Cg), contracted at once
+    disp = onehot[..., None] * oh_c[..., None, :] * keepk[..., None, None].float()
+    disp_sum = disp.sum(3).to(dt)                                # (B,G,Sg,E,Cg)
+    comb = (disp * wg[..., None, None].float()).sum(3).to(dt)    # (B,G,Sg,E,Cg)
+
+    mesh = planned_mesh("moe gshard", x)
+    rows = None if mesh is None else region_placements(
+        mesh, {0: sharded_over(even(x.placements, x.shape, mesh), 0)})
+    xe = _rows(mesh, rows, lambda d, xg: torch.einsum("bgsec,bgsd->begcd", d, xg).reshape(
+        d.shape[0], E, G * Cg, D), (disp_sum, xg), 1)
+    ye = _expert_ffn(p, xe, dt, act)
+    return _rows(mesh, rows, lambda c, ye: torch.einsum(
+        "bgsec,begcd->bgsd", c, ye.reshape(c.shape[0], E, G, Cg, D)).reshape(c.shape[0], S, D),
+        (comb, ye), 1)
 
 
 def router_aux_loss(p, x, cfg):
     """Switch-style load-balance loss of the router on x (B, S, D), f32:
     ``n_experts * sum_e(share of tokens whose top expert is e * mean
     probability of e)``."""
-    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    probs = torch.softmax(qdense(x.float(), p["router"], torch.float32), dim=-1)
     top1 = torch.argmax(probs, dim=-1)
     frac_tokens = torch.nn.functional.one_hot(top1, cfg.n_experts).float().mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.modules import dense_init
 from repro_torch.models.ssm import causal_conv
+from repro_torch.parallel.api import constrain
 from repro_torch.quant.ops import qdense
 
 _C = 8.0  # RG-LRU temperature (Griffin paper)
@@ -60,8 +61,8 @@ def init_rglru_cache(cfg, batch, dtype, device):
 def _rglru_core(u, p):
     """u (B, S, W) -> (a, b), both (B, S, W) f32: h_t = a_t h_{t-1} + b_t."""
     uf = u.float()
-    r = torch.sigmoid(uf @ p["wa"] + p["ba"])
-    i = torch.sigmoid(uf @ p["wi"] + p["bi"])
+    r = torch.sigmoid(qdense(uf, p["wa"]) + p["ba"])
+    i = torch.sigmoid(qdense(uf, p["wi"]) + p["bi"])
     log_a = -_C * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -99,10 +100,11 @@ def apply_rglru(p, x, *, cfg, mode, cache=None, length=None, impl="flash"):
     decode = mode == "decode"
 
     g = F.gelu(qdense(x, p["w_gate"], dt, impl=impl), approximate="tanh")
-    u = x @ p["w_branch"].to(dt)
+    u = qdense(x, p["w_branch"], dt)
     u, new_conv = causal_conv(u, p["conv_w"], p["conv_b"],
                               cache["conv"] if decode else None,
                               length=None if decode else length)
+    u = constrain(u, "act_ff")
     a, b = _rglru_core(u, p)
     if length is not None and not decode:
         real = (torch.arange(S, device=x.device) < length)[None, :, None]
@@ -119,5 +121,5 @@ def apply_rglru(p, x, *, cfg, mode, cache=None, length=None, impl="flash"):
         hs = linear_scan(a, b)                                # zero initial state
         new_cache = {"conv": new_conv, "h": hs[:, -1]} if mode == "prefill" else None
 
-    y = (g * hs.to(dt)) @ p["w_out"].to(dt)
+    y = qdense(g * hs.to(dt), p["w_out"], dt)
     return y, new_cache

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.modules import dense_init, rmsnorm
+from repro_torch.parallel.api import constrain
+from repro_torch.quant.ops import qdense
 
 NEG_INF = -1e30
 
@@ -194,7 +196,7 @@ def apply_mamba(p, x, *, cfg, mode, cache=None, length=None):
     d_inner, H, P, N, G = _dims(cfg)
     dt_x = x.dtype
 
-    zxbcdt = x @ p["in_proj"].to(dt_x)
+    zxbcdt = qdense(x, p["in_proj"], dt_x)
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner:2 * d_inner + 2 * G * N]
     dt_raw = zxbcdt[..., -H:]
@@ -228,5 +230,5 @@ def apply_mamba(p, x, *, cfg, mode, cache=None, length=None):
 
     y = y + x_ssm * p["D"][None, None, :, None].to(dt_x)
     y = y.reshape(B, S, d_inner)
-    y = rmsnorm(y * F.silu(z), p["norm"])
-    return y @ p["out_proj"].to(dt_x), new_cache
+    y = constrain(rmsnorm(y * F.silu(z), p["norm"]), "act_ff")
+    return qdense(y, p["out_proj"], dt_x), new_cache

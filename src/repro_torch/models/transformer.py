@@ -59,6 +59,8 @@ from repro_torch.models.attention import (apply_attention, apply_cross_attention
 from repro_torch.models.moe import apply_moe, init_moe, router_aux_loss
 from repro_torch.models.rglru import apply_rglru, init_rglru, init_rglru_cache
 from repro_torch.models.ssm import apply_mamba, init_mamba, init_ssm_cache
+from repro_torch.parallel.api import (constrain, even, gather_dim, local_call, planned_mesh,
+                                      region_placements, sharded_over)
 from repro_torch.quant.core import QuantTensor
 from repro_torch.quant.ops import qdense
 from repro_torch.tree import tree_map
@@ -301,19 +303,20 @@ def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
         out, c = apply_cross_attention(p["attn"], M.apply_norm(p["ln1"], x), cfg=cfg,
                                        mode=mode, cache=cache, cross_src=cross_src,
                                        impl=impl)
-        x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
+        x = constrain(x + torch.tanh(p["gate_attn"]).to(x.dtype) * out, "residual")
         ff = M.apply_mlp(p["mlp"], M.apply_norm(p["ln2"], x), cfg, impl=impl)
-        return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ff, c, 0.0
+        return constrain(x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ff, "residual"), c, 0.0
     if kind in ("ssm", "recurrent"):
         h = M.apply_norm(p["ln1"], x)
         if kind == "ssm":
             out, c = apply_mamba(p["mamba"], h, cfg=cfg, mode=mode, cache=cache,
                                  length=length)
-            return x + out, c, 0.0
+            return constrain(x + out, "residual"), c, 0.0
         out, c = apply_rglru(p["rec"], h, cfg=cfg, mode=mode, cache=cache, length=length,
                              impl=impl)
-        x = x + out
-        return x + M.apply_mlp(p["mlp"], M.apply_norm(p["ln2"], x), cfg, impl=impl), c, 0.0
+        x = constrain(x + out, "residual")
+        ff = M.apply_mlp(p["mlp"], M.apply_norm(p["ln2"], x), cfg, impl=impl)
+        return constrain(x + ff, "residual"), c, 0.0
     h = M.apply_norm(p["ln1"], x)
     c_self = None if cache is None else cache["attn"]
     if cfg.is_mla:
@@ -328,11 +331,11 @@ def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
     cache_free = mode in CACHE_FREE
     if cfg.parallel_block:
         # GPT-J: attention and the MLP both read ln1's output
-        return (x + out + M.apply_mlp(p["mlp"], h, cfg, impl=impl),
+        return (constrain(x + out + M.apply_mlp(p["mlp"], h, cfg, impl=impl), "residual"),
                 None if cache_free else {"attn": c}, 0.0)
     if cfg.post_norm:
         out = M.apply_norm(p["ln1_post"], out)
-    x = x + out
+    x = constrain(x + out, "residual")
     blk_cache = {"attn": c}
     if "cross" in p:
         # an encoder/decoder stack's decoder layer: cross-attention to the
@@ -341,7 +344,7 @@ def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
             p["cross"], M.apply_norm(p["ln_cross"], x), cfg=cfg, mode=mode,
             cache=None if cache is None else cache["cross"], cross_src=cross_src,
             impl=impl)
-        x = x + out
+        x = constrain(x + out, "residual")
     h = M.apply_norm(p["ln2"], x)
     aux = 0.0
     if use_moe:
@@ -352,7 +355,7 @@ def _apply_layer(p, x, *, cfg, kind, use_moe, mode, pos, cache, impl, segments,
         ff = M.apply_mlp(p["mlp"], h, cfg, impl=impl)
     if cfg.post_norm:
         ff = M.apply_norm(p["ln2_post"], ff)
-    x = x + ff
+    x = constrain(x + ff, "residual")
     return x, (None if cache_free else blk_cache), aux
 
 
@@ -466,7 +469,21 @@ def take_rows(table, idx):
     idx = idx.long()
     idx = torch.where(idx < 0, idx + n, idx)
     inside = (idx >= 0) & (idx < n)
-    return torch.where(inside[..., None], table[idx.clamp(0, n - 1)], float("nan"))
+    return torch.where(inside[..., None], rows_of(table, idx.clamp(0, n - 1)), float("nan"))
+
+
+def rows_of(table, idx):
+    """``table[idx]``.  Under a plan (a DTensor table) each rank gathers
+    every row of its own columns (``local_map``: the vocab whole, the
+    indices whole), so that no indexed op or its scatter-add backward goes
+    through DTensor's sharding rules."""
+    mesh = planned_mesh("embedding", table)
+    if mesh is None:
+        return table[idx]
+    cols = sharded_over(table.placements, 1)
+    return local_call(lambda t, i: t[i], (table, idx),
+                      (region_placements(mesh, {1: cols}), region_placements(mesh, {})),
+                      region_placements(mesh, {idx.dim(): cols}), mesh)
 
 
 def embed_tokens(params, cfg, tokens, pos, dtype):
@@ -477,7 +494,7 @@ def embed_tokens(params, cfg, tokens, pos, dtype):
     the table gives NaN, and its request fails as the reference's does), or
     where there is no table (mamba2), the reference's sinusoidal
     embedding of ``pos``."""
-    h = params["embed"]["tok"][tokens].to(dtype)
+    h = rows_of(params["embed"]["tok"], tokens).to(dtype)
     if cfg.embed_scale:
         h = h * round_to(math.sqrt(cfg.d_model), dtype)
     if not cfg.use_rope:
@@ -485,7 +502,7 @@ def embed_tokens(params, cfg, tokens, pos, dtype):
             h = h + take_rows(params["embed"]["pos"], pos).to(dtype)
         else:
             h = h + M.sinusoidal_positions(pos, cfg.d_model).to(dtype)
-    return h
+    return constrain(h, "residual")
 
 
 def unembed(params, cfg, h, impl="flash"):
@@ -493,8 +510,9 @@ def unembed(params, cfg, h, impl="flash"):
     projection like any other: ``weight_bits`` quantises it), then the
     final softcap: tanh in f32, rounded to the logits' dtype, then
     scaled."""
+    h = constrain(h, "pre_logits")
     if cfg.tie_embeddings:
-        logits = h @ params["embed"]["tok"].to(h.dtype).T
+        logits = qdense(h, params["embed"]["tok"].T, h.dtype)
     else:
         w = params["lm_head"]
         logits = qdense(h, w.tensor() if isinstance(w, QuantWeight) else w, h.dtype,
@@ -502,7 +520,7 @@ def unembed(params, cfg, h, impl="flash"):
     if cfg.final_softcap:
         cap = cfg.final_softcap
         logits = cap * torch.tanh(logits.float() / cap).to(logits.dtype)
-    return logits
+    return constrain(logits, "logits")
 
 
 # ---------------------------------------------------------------------------
@@ -529,7 +547,8 @@ def run_encoder(params, cfg: ModelConfig, *, frames=None, encoder_tokens=None,
         h = frames.to(compute_dtype)
         B, S = h.shape[:2]
         pos = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
-        h = h + M.sinusoidal_positions(pos, cfg.d_model).to(compute_dtype)
+        h = constrain(h + M.sinusoidal_positions(pos, cfg.d_model).to(compute_dtype),
+                      "residual")
     else:
         if encoder_tokens is None:
             raise ValueError(f"{cfg.name}: prefill needs encoder_tokens= (B, S_src)")
@@ -595,18 +614,39 @@ def loss_fn(params, cfg: ModelConfig, batch, *, impl="ref", compute_dtype=torch.
                           mode="train" if causal else "encode", pos=pos, impl=impl,
                           cross_src=cross_src, remat=remat, remat_policy=remat_policy)
     h = M.apply_norm(params["final_norm"], h)
-    lf = unembed(params, cfg, h, impl).float()
+    # the vocab whole on each rank under a plan (the target's logit is read
+    # by index); batch and sequence stay as the plan put them
+    lf = gather_dim(unembed(params, cfg, h, impl).float(), -1)
     targets = tokens.long()
     if causal:
         lf, targets = lf[:, :-1], targets[:, 1:]
-    nll = torch.logsumexp(lf, dim=-1) - torch.gather(lf, -1, targets[..., None])[..., 0]
+    nll = _rows_nll(lf, targets)
     if causal:
         loss = nll.mean()
     else:
         keep = torch.arange(S, device=tokens.device) % 7 == 3
         loss = torch.where(keep, nll, 0.0).sum() / (keep.sum() * B)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=tokens.device)
+    if isinstance(aux, torch.Tensor):
+        # a plan's aux loss, a sum over the layers' DTensors: whole on every rank
+        aux = gather_dim(aux.reshape(1), 0).reshape(())
+    else:
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=tokens.device)
     return loss + aux_weight * aux, {"nll": loss.detach(), "aux": aux.detach()}
+
+
+def _nll(lf, targets):
+    return torch.logsumexp(lf, dim=-1) - torch.gather(lf, -1, targets[..., None])[..., 0]
+
+
+def _rows_nll(lf, targets):
+    """Each position's NLL of its target under the f32 logits ``lf``.
+    Under a plan each rank scores its own batch rows (``local_map``), the
+    target's logit read by index off DTensor's sharding rules."""
+    mesh = planned_mesh("loss", lf)
+    if mesh is None:
+        return _nll(lf, targets)
+    rows = region_placements(mesh, {0: sharded_over(even(lf.placements, lf.shape, mesh), 0)})
+    return local_call(_nll, (lf, targets), (rows, rows), rows, mesh)
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, impl="flash",

@@ -23,6 +23,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.parallel.api import is_dtensor
+
 XBAR = 128          # crossbar dimension (pim_mvm contract)
 QMAX = {8: 127, 4: 7}
 WEIGHT_BITS = (0, 4, 8)   # 0 = native fp
@@ -41,7 +43,10 @@ QUANT_PARAM_KEYS = frozenset(
 def pack_int4(codes: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """Pack int4 codes (int8 values in [-8, 7]) two per byte along ``axis``
     as adjacent pairs: byte ``i`` holds code ``2i`` (low nibble) and code
-    ``2i+1`` (high nibble).  The axis length must be even."""
+    ``2i+1`` (high nibble).  The axis length must be even.  A DTensor is
+    packed shard by shard (DTensor's int8 shifts round differently)."""
+    if is_dtensor(codes):
+        return _per_shard(pack_int4, codes, axis)
     c = codes.movedim(axis, -1)
     if c.shape[-1] % 2:
         raise ValueError(f"pack axis length {c.shape[-1]} must be even")
@@ -52,11 +57,23 @@ def pack_int4(codes: torch.Tensor, axis: int = -1) -> torch.Tensor:
 
 def unpack_int4(packed: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """Inverse of :func:`pack_int4`: sign-extending nibble unpack."""
+    if is_dtensor(packed):
+        return _per_shard(unpack_int4, packed, axis)
     p = packed.movedim(axis, -1)
     lo = (p << 4) >> 4                                  # arithmetic: sign-ext
     hi = p >> 4
     c = torch.stack([lo, hi], dim=-1).reshape(p.shape[:-1] + (p.shape[-1] * 2,))
     return c.to(torch.int8).movedim(-1, axis)
+
+
+def _per_shard(fn, x, axis: int):
+    """``fn(x, axis)`` on each rank's shard of the DTensor ``x``, whose
+    ``axis`` no mesh dim shards."""
+    from torch.distributed.tensor import DTensor
+    if any(p.is_shard(axis % x.dim()) for p in x.placements):
+        raise ValueError("int4 packing along a sharded axis")
+    return DTensor.from_local(fn(x.to_local(), axis), x.device_mesh, x.placements,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------

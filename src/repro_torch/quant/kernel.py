@@ -29,6 +29,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.common import DTYPE_CODES
 from repro_torch.kernels.scratch import sm_count, split_tickets
+from repro_torch.parallel.api import refuse_dtensor
 from repro_torch.quant.core import QuantTensor, dequantize
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -113,6 +114,7 @@ def quant_matmul_fwd(x, q, scale, *, bits: int, group: int = 0):
 
     ``q`` is (K, N) int8 or (K/2, N) packed int4; ``scale`` (1, N) f32 per
     channel or (K/group, N) per group."""
+    refuse_dtensor("quant_matmul_fwd", x, q, scale)
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     pack = 2 if bits == 4 else 1

@@ -77,6 +77,7 @@ import torch
 
 from repro_torch.ckpt import (atomic_save_dir, digest_arrays, flatten_tree, list_snapshots,
                               load_arrays, read_latest, retry, save_arrays, unflatten_tree)
+from repro_torch.parallel import sharding as SH
 from repro_torch.serving.engine import REJECTED, EngineConfig, Request, ServingEngine
 
 FORMAT_VERSION = 1
@@ -138,9 +139,17 @@ def _engine_arrays(engine: ServingEngine) -> dict[str, torch.Tensor]:
     sampling generator's state.  Leaves are copied with ``.to("cpu")``,
     not through the executor's ``fetch``, so a snapshot never perturbs the
     host-transfer counters the benchmarks read."""
-    tree = dict(engine.pool.array_tree())
+    tree = SH.gather_tree(dict(engine.pool.array_tree()))    # a sharded pool whole
     tree["generator"] = engine.executor.generator.get_state()
     return flatten_tree(tree)
+
+
+def _writes(engine: ServingEngine) -> bool:
+    """Whether this process writes the engine's files: always without a
+    mesh; on a mesh (every rank running the engine) only its first rank,
+    the others taking part in the gathers alone."""
+    mesh = engine.mesh
+    return mesh is None or mesh.get_rank() == int(mesh.mesh.flatten()[0])
 
 
 def _engine_meta(engine: ServingEngine) -> dict:
@@ -220,6 +229,10 @@ def save_engine(engine: ServingEngine, ckpt_dir: str, *, keep: int = 3,
     meta = _engine_meta(engine)
     meta["digest"] = _meta_digest(arrays, meta)
     times = {"d2h_s": t1 - t0, "digest_s": time.perf_counter() - t1}
+
+    if not _writes(engine):
+        engine.save_s = times
+        return os.path.join(ckpt_dir, name)
 
     def write(tmp: str) -> None:
         t = time.perf_counter()
@@ -444,8 +457,8 @@ class EngineCheckpointer:
     def submit(self, prompt, max_new_tokens: Optional[int] = None, *,
                priority: int = 0) -> Request:
         req = self.engine.submit(prompt, max_new_tokens, priority=priority)
-        if req.status != REJECTED:       # shed requests are the caller's to
-            #                              retry: never replayed
+        if req.status != REJECTED and _writes(self.engine):
+            # shed requests are the caller's to retry: never replayed
             with open(os.path.join(self.ckpt_dir, JOURNAL), "a") as f:
                 f.write(json.dumps({"uid": req.uid, "prompt": [int(t) for t in req.prompt],
                                     "max_new_tokens": req.max_new_tokens,

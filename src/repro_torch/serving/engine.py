@@ -54,11 +54,18 @@ wall-clock split (``self.trace``, the ``trace_*`` keys of ``stats()``).
 The engine serves fp or quantised (``weight_bits``/``weight_group``/
 ``kv_bits``).  :meth:`ServingEngine.restore` revives one from a snapshot
 (``serving/checkpoint.py``: snapshots, the admission journal, replay).
-A mesh (sharded serving) has no port yet: ``mesh=`` raises
-``NotImplementedError``, as does a cross-attention stack (whisper, bart,
-the vision stack: :func:`check_servable`), which the reference's engine
-cannot serve either.  The engine runs on ``"cuda"`` unless
+A cross-attention stack (whisper, bart, the vision stack:
+:func:`check_servable`) raises ``NotImplementedError``: the reference's
+engine cannot serve one either.  The engine runs on ``"cuda"`` unless
 ``device="cpu"`` is passed.
+
+The engine is mesh-aware: ``mesh=`` (a ``torch.distributed``
+``DeviceMesh`` with axes ``("data", "model")``, every rank of it running
+the same engine, same calls in the same order) shards the slot pool and
+the parameters and runs every program under the reference's decode and
+prefill plans (``executor.py``); the engine's device is then the mesh's
+device type.  Speculative decoding (``spec_k``) under a mesh has no
+port.
 """
 from __future__ import annotations
 
@@ -258,7 +265,18 @@ class ServingEngine:
         if ecfg.spec_k:
             _check_spec(cfg, ecfg, draft)
         if mesh is not None:
-            raise NotImplementedError("a mesh (sharded serving) has no port yet")
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got "
+                                f"{type(mesh).__name__}")
+            if ecfg.spec_k:
+                raise NotImplementedError("speculative decoding under a mesh has no port")
+            if device is None:
+                device = "cpu" if mesh.device_type == "cpu" else torch.device(
+                    "cuda", torch.cuda.current_device())
+            if torch.device(device).type != mesh.device_type:
+                raise ValueError(f"engine on {device}, mesh on {mesh.device_type}")
+        self.mesh = mesh
         self.device = resolve_device(device)
         pdev = next(params.parameters()).device
         if pdev.type != self.device.type:
@@ -266,8 +284,8 @@ class ServingEngine:
 
         self.scheduler: Scheduler = scheduler if scheduler is not None \
             else FifoScheduler()
-        self.executor = Executor(cfg, params, ecfg, device=self.device)
-        self.pool = SlotPool(cfg, ecfg, device=self.device)
+        self.executor = Executor(cfg, params, ecfg, device=self.device, mesh=mesh)
+        self.pool = SlotPool(cfg, ecfg, device=self.device, shard_ctx=self.executor.shard_ctx)
         if ecfg.spec_k and ecfg.spec_draft == "model":
             self.executor.set_draft(*draft)
             self.pool.init_draft(draft[0])

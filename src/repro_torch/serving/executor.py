@@ -18,15 +18,34 @@ have fixed shapes and read no device data on the host, so on a card
 :meth:`capture` records each of them once in a CUDA graph (:mod:`.graphs`)
 and :meth:`run` replays it; the only synchronising read is :meth:`fetch`.
 On the CPU :meth:`run` calls the program's method.
+
+With a mesh (``torch.distributed`` ``DeviceMesh``) the executor builds the
+reference's two serving plans (``parallel.sharding``): the decode plan,
+under which the fused step, the chunk step, sequential admission and the
+host-looped baseline run, and the packed-prefill plan, under which the
+packed forward pass runs (its sample and insert under the decode plan, as
+the reference's).  The parameters are distributed at the decode plan's
+specs (weights over ``model``, and over ``data`` as well above 6 GiB a
+model rank: ``sharding._serving_fsdp``), the pool by
+``cache_shardings``, and the per-slot state stays a plain tensor, the
+same on every rank.  Logits are gathered whole before
+sampling, so the packed ``(K, 3, B)`` read stays the only host read.  A
+write into the pool by slot index runs on each rank's own slots
+(:func:`_pool_views`).  Speculative decoding under a mesh has no port.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as T
-from repro_torch.models.attention import put_unique, ring_positions, unique_targets
+from repro_torch.models.attention import (HEAD_LEAVES, put_unique, ring_positions,
+                                          unique_targets)
+from repro_torch.parallel.api import (activate_plan, full, local_views, planned_mesh,
+                                      region_placements, sharded_over, to_placements)
 from repro_torch.quant.core import quantize_params
 from repro_torch.serving.pool import cache_leaves
 
@@ -44,7 +63,7 @@ def _assign(state: dict, **new) -> None:
 
 
 class Executor:
-    def __init__(self, cfg: ModelConfig, params, ecfg, *, device):
+    def __init__(self, cfg: ModelConfig, params, ecfg, *, device, mesh=None):
         self.cfg, self.ecfg = cfg, ecfg
         self.device = torch.device(device)
         self.params = params
@@ -52,6 +71,17 @@ class Executor:
             # weight-only quantisation, once, of the engine's own copy
             self.params = T.Transformer(cfg, quantize_params(
                 params, ecfg.weight_bits, group=ecfg.weight_group))
+        # the decode and packed-prefill plans of a mesh; shard_ctx places
+        # the pool (SlotPool)
+        self._plan = self._prefill_plan = self.shard_ctx = None
+        if mesh is not None:
+            from repro_torch.parallel import sharding as SH
+            self._plan, self.shard_ctx = SH.serving_decode_plan(
+                cfg, mesh, max_batch=ecfg.max_batch, kv_len=ecfg.kv_len)
+            self._prefill_plan, _ = SH.serving_prefill_plan(
+                cfg, mesh, prefill_chunk=min(ecfg.prefill_chunk or min(128, ecfg.kv_len),
+                                             ecfg.kv_len))
+            self.params = SH.distribute_params(self.params, self.shard_ctx)
         self.generator = torch.Generator(device=self.device).manual_seed(ecfg.seed)
         self.graphs = None            # the captured programs (.graphs.ProgramGraphs)
         # speculative decoding: self-speculation drafts with a quantised copy
@@ -76,6 +106,7 @@ class Executor:
         return arr
 
     def _sample(self, logits):
+        logits = full(logits)           # a sharded vocab, gathered whole first
         if self.ecfg.temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         # one categorical draw as torch.multinomial makes it, argmax of
@@ -120,8 +151,10 @@ class Executor:
             live = state["live"]
             # dead / mid-prefill slots write at pos -1 → dropped
             pos_w = torch.where(live, state["pos"], -1)
-            logits, cache = T.decode_step(self.params, self.cfg, cache,
-                                          state["tokens"], pos_w, impl=ecfg.impl)
+            with activate_plan(self._plan):
+                logits, cache = T.decode_step(self.params, self.cfg, cache,
+                                              state["tokens"], pos_w, impl=ecfg.impl)
+            logits = full(logits)
             nxt = self._sample(logits)
             bad = ~torch.isfinite(logits).all(dim=-1)
             ok = live & ~bad
@@ -147,9 +180,10 @@ class Executor:
         index; ``active`` masks unused slots, ``final`` the segments whose
         prompt completed in this stream (non-final = first chunk of a long
         prompt, which only inserts KV)."""
-        logits, pcache = T.prefill_packed(self.params, self.cfg, tokens, positions,
-                                          seg, gather_idx, impl=self.ecfg.impl,
-                                          kv_bits=self.ecfg.kv_bits)
+        with activate_plan(self._prefill_plan):
+            logits, pcache = T.prefill_packed(self.params, self.cfg, tokens, positions,
+                                              seg, gather_idx, impl=self.ecfg.impl,
+                                              kv_bits=self.ecfg.kv_bits)
         nxt = self._sample(logits)
         self.packed_insert(cache, pcache["stack"], seg, positions, seg_len, active)
         fin = active & final
@@ -168,22 +202,30 @@ class Executor:
         straight to their (slot, ring index) targets: only the last ``c``
         tokens of a segment, so the targets are unique, and pads dropped
         on the device (:func:`unique_targets`)."""
+        with activate_plan(self._plan):
+            self._packed_insert(cache, pstack, seg, positions, seg_len, active)
+
+    @staticmethod
+    def _packed_insert(cache, pstack, seg, positions, seg_len, active):
         seg1, pos1 = seg[0], positions[0]                 # (C,) slot id / pos
         for pool_g, packed_g in zip(cache["stack"], pstack):
             for unit, pc in packed_g.items():
-                pool, packed = pool_g[unit]["attn"], pc["attn"]
-                cap = pool["pos"].shape[2]
-                p = ring_positions(seg_len[:, None], cap)           # (B, cap)
-                rows = torch.where((p >= 0) & active[:, None], p, -1)
-                pool["pos"].copy_(torch.where(active[None, :, None], rows[None],
-                                              pool["pos"]))
-                keep = (seg1 >= 0) & \
-                    (pos1 >= seg_len[seg1.clamp(min=0).long()] - cap)
-                loc = seg1.clamp(min=0) * cap + torch.remainder(pos1, cap)
-                sel, tgt, keep = unique_targets(loc, keep, pool["pos"].shape[1] * cap)
-                for name in pool:
-                    if name != "pos":
-                        put_unique(pool[name], sel, tgt, keep, packed[name][:, 0], lead=1)
+                with _pool_views(pool_g[unit]["attn"], pc["attn"]) as (pool, packed, off):
+                    B, cap = pool["pos"].shape[1:3]
+                    sl, act = seg_len[off:off + B], active[off:off + B]
+                    p = ring_positions(sl[:, None], cap)            # (B, cap)
+                    rows = torch.where((p >= 0) & act[:, None], p, -1)
+                    pool["pos"].copy_(torch.where(act[None, :, None], rows[None],
+                                                  pool["pos"]))
+                    # this rank's slots are off .. off + B - 1
+                    keep = (seg1 >= off) & (seg1 < off + B) & \
+                        (pos1 >= seg_len[seg1.clamp(min=0).long()] - cap)
+                    loc = (seg1 - off).clamp(0, B - 1) * cap + torch.remainder(pos1, cap)
+                    sel, tgt, keep = unique_targets(loc, keep, B * cap)
+                    for name in pool:
+                        if name != "pos":
+                            put_unique(pool[name], sel, tgt, keep, packed[name][:, 0],
+                                       lead=1)
 
     @torch.no_grad()
     def chunk_step(self, cache, state, tokens, pos, take_idx, final, budget):
@@ -191,8 +233,9 @@ class Executor:
         prefilling row's next chunk into its cache at explicit positions,
         attend to the whole cache, and activate rows whose prompt completed
         (sample their first token)."""
-        logits, cache = T.chunk_prefill_step(self.params, self.cfg, cache, tokens,
-                                             pos, take_idx, impl=self.ecfg.impl)
+        with activate_plan(self._plan):
+            logits, cache = T.chunk_prefill_step(self.params, self.cfg, cache, tokens,
+                                                 pos, take_idx, impl=self.ecfg.impl)
         nxt = self._sample(logits)
         pos_end = torch.where(pos >= 0, pos + 1, 0).amax(dim=1).to(torch.int32)
         _assign(state, tokens=torch.where(final, nxt, state["tokens"]),
@@ -384,9 +427,10 @@ class Executor:
     def prefill(self, tokens, length: int):
         """A batch-1 prefill padded to a bucketed length: (logits, cache)
         exact at ``length``, with the pool's depth and precision."""
-        return T.prefill(self.params, self.cfg, tokens, impl=self.ecfg.impl,
-                         kv_cap=self.ecfg.kv_len, length=length,
-                         kv_bits=self.ecfg.kv_bits)
+        with activate_plan(self._plan):
+            return T.prefill(self.params, self.cfg, tokens, impl=self.ecfg.impl,
+                             kv_cap=self.ecfg.kv_len, length=length,
+                             kv_bits=self.ecfg.kv_bits)
 
     def insert(self, cache, pcache, slot: int, length: int):
         """Copy a batch-1 prefill cache into slot ``slot`` of the pool, in
@@ -395,27 +439,63 @@ class Executor:
         dtype.  ``pos`` entries at cache indices >= ``length`` are
         invalidated, so right-padding never leaves attendable entries (ring
         caches hold only positions < length)."""
+        with activate_plan(self._plan):
+            return self._insert(cache, pcache, slot, length)
+
+    @staticmethod
+    def _insert(cache, pcache, slot: int, length: int):
         for pool_g, one_g in zip(cache["stack"], pcache["stack"]):
             for unit, one in one_g.items():
-                for (name, dst), (_, leaf) in zip(_unit_leaves(pool_g[unit]),
-                                                  _unit_leaves(one)):
-                    if name == "pos":
-                        idx = torch.arange(leaf.shape[-1], device=leaf.device)
-                        leaf = torch.where(idx < length, leaf, -1)
-                    dst[:, slot].copy_(leaf[:, 0])
+                with _pool_views(dict(_unit_leaves(pool_g[unit])),
+                                 dict(_unit_leaves(one))) as (pool, ones, off):
+                    local = slot - off
+                    if not 0 <= local < next(iter(pool.values())).shape[1]:
+                        continue                    # another rank's slot
+                    for name, dst in pool.items():
+                        leaf = ones[name]
+                        if name == "pos":
+                            idx = torch.arange(leaf.shape[-1], device=leaf.device)
+                            leaf = torch.where(idx < length, leaf, -1)
+                        dst[:, local].copy_(leaf[:, 0])
         return cache
 
     @torch.no_grad()
     def decode(self, cache, tokens, pos):
         """One decode step of the host-looped baseline (``fused=False``):
         (logits, cache)."""
-        return T.decode_step(self.params, self.cfg, cache, tokens, pos,
-                             impl=self.ecfg.impl)
+        with activate_plan(self._plan):
+            return T.decode_step(self.params, self.cfg, cache, tokens, pos,
+                                 impl=self.ecfg.impl)
 
     def sample_host(self, logits) -> np.ndarray:
         """Host-path sampling (``fused=False``): the sampled tokens, fetched.
         Draws come from the executor's generator, as on the fused path."""
         return self.fetch(self._sample(logits))
+
+
+@contextlib.contextmanager
+def _pool_views(pool: dict, values: dict):
+    """(pool leaves, value leaves, first slot) on this rank: a unit's pool
+    leaves ``(R, B, ...)`` and the values bound for them (``(R, 1, ...)``:
+    a prefill's cache, or a packed stream's) as local tensors.  A sharded
+    pool gives its own slots (axis 1) and KV heads (axis 3 of K/V leaves),
+    written in place, and the values the same heads; unsharded, everything
+    as it is and slot 0 first."""
+    mesh = planned_mesh("pool write", *pool.values())
+    if mesh is None:
+        yield pool, values, 0
+        return
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    def heads(name):
+        return sharded_over(pool[name].placements, 3) if name in HEAD_LEAVES else []
+    targets = {n: region_placements(mesh, {1: sharded_over(t.placements, 1), 3: heads(n)})
+               for n, t in pool.items()}
+    name, leaf = next(iter(pool.items()))
+    off = compute_local_shape_and_global_offset(leaf.shape, mesh, targets[name])[1][1]
+    with local_views(mesh, pool, targets) as local:
+        yield local, {n: to_placements(v, mesh, region_placements(mesh, {3: heads(n)}))
+                      .to_local() for n, v in values.items()}, off
 
 
 def _unit_leaves(unit: dict):

@@ -36,14 +36,20 @@ import torch
 from repro_torch.ckpt import tree_items
 from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.api import full, is_dtensor
 
 
 class SlotPool:
-    def __init__(self, cfg: ModelConfig, ecfg, *, device):
+    def __init__(self, cfg: ModelConfig, ecfg, *, device, shard_ctx=None):
         B, S = ecfg.max_batch, ecfg.kv_len
         self.ecfg = ecfg
         self.cache = T.init_cache(cfg, B, S, dtype=torch.bfloat16, device=device,
                                   kv_bits=ecfg.kv_bits)
+        if shard_ctx is not None:
+            # the decode plan's placement (parallel.sharding.cache_shardings)
+            self.cache = SH.distribute_tree(
+                self.cache, SH.cache_shardings(self.cache, shard_ctx), shard_ctx.mesh)
         i32 = dict(dtype=torch.int32, device=device)
         self.state = {
             "tokens": torch.zeros((B,), **i32),
@@ -100,14 +106,17 @@ class SlotPool:
         for cache in (self.cache, self.draft_cache):
             for name, leaf in cache_leaves(cache):
                 if name == "pos":
-                    row = leaf[:, slot]
+                    whole = full(leaf)
+                    row = whole[:, slot]
                     row.copy_(torch.where(row >= keep_len, -1, row))
+                    if is_dtensor(leaf):
+                        leaf.to_local().copy_(SH.distribute_like(whole, leaf).to_local())
 
     def valid_len(self, slot: int) -> int:
         """1 + the highest valid cache position of ``slot`` (0 = empty, and
         0 for a stack with no attention layer, which holds no ``pos``): the
         committed prefix a rollback left."""
-        return max((int(leaf[:, slot].max()) + 1
+        return max((int(full(leaf)[:, slot].max()) + 1
                     for name, leaf in cache_leaves(self.cache) if name == "pos"), default=0)
 
     def kill(self, slot: int) -> None:
@@ -165,7 +174,12 @@ class SlotPool:
                 raise ValueError(f"restored leaf {path} is {got.dtype} {tuple(got.shape)}, "
                                  f"the pool's {leaf.dtype} {tuple(leaf.shape)}")
         for path, leaf in dst.items():
-            leaf.copy_(torch.as_tensor(src[path]))
+            got = torch.as_tensor(src[path])
+            if is_dtensor(leaf):
+                # each rank keeps its own slice of the whole restored leaf
+                leaf.to_local().copy_(SH.distribute_like(got, leaf).to_local())
+            else:
+                leaf.copy_(got)
         if "host" in tree:
             self.host = {k: np.array(v) for k, v in tree["host"].items()}
 

@@ -63,6 +63,11 @@ def save_checkpoint(ckpt_dir: str, step: int, *, params, opt_state=None,
     return atomic_save_dir(ckpt_dir, f"step_{step:08d}", write, prefix="step_", keep=keep)
 
 
+def checkpoint_path(ckpt_dir: str, step: int) -> str:
+    """Where the checkpoint of ``step`` lives."""
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+
 def latest_step(ckpt_dir: str) -> Optional[int]:
     name = read_latest(ckpt_dir)
     return None if name is None else int(name.split("_")[-1])

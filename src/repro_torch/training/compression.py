@@ -8,7 +8,8 @@ int8 codes ``round(x / scale)``.  ``torch.round`` rounds half to even, as
 ``jnp.round`` does, so the codes and scales equal the reference's bit for
 bit.  The round trip returns the dequantised values, what the receiving
 side of the all-reduce would see, so a train step can be held end to end
-on one device.
+on one device.  A sharded gradient (a DTensor) is coded shard by shard:
+what each rank would send.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.api import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 BLOCK = 256  # quantisation block (per-block scale -> 1/256 relative error)
@@ -49,6 +51,11 @@ def compress_decompress(grads: Any, err: Optional[Any] = None):
     ``grads'`` are the dequantised values in each leaf's dtype, ``err'``
     the f32 residuals ``grads + err - grads'``."""
     def one(g, e):
+        if is_dtensor(g):
+            from torch.distributed.tensor import DTensor
+            outs = one(g.to_local(), None if e is None else e.to_local())
+            return tuple(DTensor.from_local(o, g.device_mesh, g.placements, run_check=False,
+                                            shape=g.shape, stride=g.stride()) for o in outs)
         g32 = g.float()
         if e is not None:
             g32 = g32 + e

@@ -18,6 +18,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.parallel.api import full, is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 # the update works a leaf in pieces of at most this many elements along its
@@ -53,6 +54,8 @@ def adamw_init(params) -> dict[str, Any]:
     """f32 zero moments shaped like ``params`` and an int32 zero count, on
     the parameters' device."""
     def zeros(p):
+        if is_dtensor(p):                    # sharded like its parameter (ZeRO)
+            return torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
@@ -97,11 +100,17 @@ def adamw_apply_(grads, opt_state, params, cfg: OptConfig, prep) -> dict[str, An
     """Writes the step that :func:`adamw_prepare` read into ``params`` and
     the moments of ``opt_state`` (the trainer's way: one copy of the state
     on the card), leaf by leaf; returns the new optimizer state, whose
-    count is ``prep``'s.  A fault partway leaves some leaves written."""
+    count is ``prep``'s.  A fault partway leaves some leaves written.
+    Sharded leaves (DTensors: a parameter, its gradient and its moments
+    placed alike) are updated shard by shard, the step being elementwise."""
     with torch.no_grad():
+        local = {k: full(v) for k, v in prep.items()}
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"])):
-            _update_leaf(p, g, m, v, prep, cfg)
+            if is_dtensor(p):
+                _update_leaf(*(t.to_local() for t in (p, g, m, v)), local, cfg)
+            else:
+                _update_leaf(p, g, m, v, prep, cfg)
     return {"m": opt_state["m"], "v": opt_state["v"], "count": prep["count"]}
 
 

@@ -14,10 +14,16 @@
 - **Straggler watchdog**: an EMA of the step's wall time; steps slower than
   ``slow_step_factor`` times the EMA are counted and reported.
 
-The state lives on one device: f32 master parameters (a tree of tensors
-that take gradients), f32 moments and an int32 count, updated in place so
-that one copy of it fits the card.  Sharding waits for the port's sharded
-plane: ``mesh`` must be None and :meth:`Trainer.remesh` raises.
+The state is f32 master parameters (a tree of tensors that take
+gradients), f32 moments and an int32 count, updated in place so that one
+copy of it fits the card.  With a mesh (a ``torch.distributed``
+``DeviceMesh``, axes ``("data", "model")``, every rank running the same
+trainer) the step runs under the reference's train plan, the parameters
+and both moments are sharded alike at its specs (ZeRO) and the batch over
+``data``; a checkpoint holds whole tensors (written by the mesh's first
+rank), so it restores on any mesh, and :meth:`Trainer.remesh` moves the
+live state onto another mesh (**elastic re-mesh**: a sub-mesh after
+losing ranks, whose left-out ranks then hold nothing and step no more).
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ from repro_torch.config import ModelConfig, ShapeSpec
 from repro_torch.data.pipeline import DataConfig, DataState, LMDataPipeline
 from repro_torch.launch.steps import CommitError, make_train_step
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.api import full, is_dtensor
 from repro_torch.training import checkpoint as CKPT
 from repro_torch.training.optimizer import OptConfig, adamw_init
 
@@ -57,8 +65,13 @@ class Trainer:
                  data_cfg: Optional[DataConfig] = None,
                  seed: int = 0, device=None):
         if mesh is not None:
-            raise NotImplementedError("sharded training (mesh=) has no port yet: "
-                                      "the trainer runs on one device")
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got "
+                                f"{type(mesh).__name__}")
+            if device is None:
+                device = "cpu" if mesh.device_type == "cpu" else torch.device(
+                    "cuda", torch.cuda.current_device())
         self.device = resolve_device(device)
         self.cfg, self.shape, self.tcfg, self.opt_cfg = cfg, shape, tcfg, opt_cfg
         self.data_cfg = data_cfg or DataConfig(
@@ -70,16 +83,38 @@ class Trainer:
         self.slow_steps = 0
         self._ema_dt: Optional[float] = None
         self.preemption = CKPT.PreemptionHandler()
-        self._build()
+        self._build(mesh)
         self._init_or_restore(seed)
 
     # -- construction -------------------------------------------------------
-    def _build(self):
+    def _build(self, mesh):
+        """The step for ``mesh`` (None: one device): the train plan and the
+        specs of the parameters, the moments (alike) and the batch."""
+        self.mesh = mesh
         self._pspecs = T.param_tree(T.init_params(self.cfg, None, device="meta",
                                                   dtype=torch.float32))
         self._ospecs = adamw_init(self._pspecs)
-        self.jstep = make_train_step(self.cfg, opt_cfg=self.opt_cfg, accum=self.tcfg.accum,
-                                     remat=self.tcfg.remat)
+        plan = None
+        if mesh is not None:
+            plan, self.ctx = SH.build_plan(self.cfg, self.shape, mesh, mode="train")
+            self.pshard = SH.params_shardings(self._pspecs, self.ctx)
+        self.jstep = make_train_step(self.cfg, plan, opt_cfg=self.opt_cfg,
+                                     accum=self.tcfg.accum, remat=self.tcfg.remat)
+
+    def _place(self, params, opt_state):
+        """Whole state (the same on every rank; a checkpoint's, or gathered
+        for a re-mesh) onto the mesh: parameters and moments at the
+        parameters' specs; as it is without a mesh."""
+        if self.mesh is None:
+            return params, opt_state
+        put = lambda tree: SH.distribute_tree(tree, self.pshard, self.mesh)   # noqa: E731
+        return put(params), {"m": put(opt_state["m"]), "v": put(opt_state["v"]),
+                             "count": opt_state["count"]}
+
+    def in_mesh(self) -> bool:
+        """Whether this rank holds part of the state (always without a
+        mesh; a rank left out of a sub-mesh holds nothing)."""
+        return self.mesh is None or self.mesh.get_coordinate() is not None
 
     def _restore(self) -> bool:
         """The state of the checkpoint ``LATEST`` names, if there is one."""
@@ -89,8 +124,7 @@ class Trainer:
         params, opt, meta = CKPT.restore_checkpoint(
             t.ckpt_dir, params_template=self._pspecs, opt_template=self._ospecs,
             device=self.device)
-        self.params = T.trainable(params)
-        self.opt_state = opt
+        self.params, self.opt_state = self._place(T.trainable(params), opt)
         self.step = int(meta["step"])
         ds = meta.get("data_state") or {}
         if ds:
@@ -102,9 +136,12 @@ class Trainer:
         if self._restore():
             return
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = T.trainable(T.init_params(self.cfg, gen, device=self.device,
-                                                dtype=torch.float32))
-        self.opt_state = adamw_init(self.params)
+        params = T.trainable(T.init_params(self.cfg, gen, device=self.device,
+                                           dtype=torch.float32))
+        if self.mesh is not None:
+            params = SH.distribute_tree(params, self.pshard, self.mesh)
+        self.params = params
+        self.opt_state = adamw_init(params)     # zeros placed as the parameters
 
     # -- one step with retry + watchdog --------------------------------------
     def train_step(self, batch: dict[str, np.ndarray],
@@ -113,6 +150,8 @@ class Trainer:
             raise RuntimeError("the trainer's state was lost in a failed update and no "
                                "checkpoint holds it")
         batch = {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
+        if self.mesh is not None:
+            batch = SH.distribute_tree(batch, SH.batch_shardings(batch, self.ctx), self.mesh)
         last_err: Optional[Exception] = None
         for attempt in range(self.tcfg.max_retries + 1):
             try:
@@ -171,14 +210,25 @@ class Trainer:
         return out
 
     def save(self) -> Optional[str]:
+        """A checkpoint of whole tensors (gathered on a mesh, where the
+        mesh's first rank writes and every rank returns its path)."""
         if not self.tcfg.ckpt_dir:
             return None
+        params, opt = SH.gather_tree(self.params), SH.gather_tree(self.opt_state)
+        if self.mesh is not None and self.mesh.get_rank() != int(self.mesh.mesh.flatten()[0]):
+            return CKPT.checkpoint_path(self.tcfg.ckpt_dir, self.step)
         return CKPT.save_checkpoint(
-            self.tcfg.ckpt_dir, self.step, params=self.params, opt_state=self.opt_state,
+            self.tcfg.ckpt_dir, self.step, params=params, opt_state=opt,
             data_state=self.pipeline.state.to_dict(), keep=self.tcfg.keep)
 
     # -- elastic -------------------------------------------------------------
     def remesh(self, new_mesh):
-        """Re-shard live state onto another device topology: waits for the
-        port's sharded plane."""
-        raise NotImplementedError("remesh has no port yet: the trainer runs on one device")
+        """Re-shard live state onto a new mesh (elastic scale up or down
+        after losing or gaining ranks): the state gathered whole on the old
+        mesh (every rank of it takes part), the step rebuilt for the new
+        one, and each rank of the new mesh keeps its slices."""
+        params, opt = SH.gather_tree(self.params), SH.gather_tree(self.opt_state)
+        if is_dtensor(opt["count"]):
+            opt["count"] = full(opt["count"])
+        self._build(new_mesh)
+        self.params, self.opt_state = self._place(params, opt)

@@ -271,8 +271,9 @@ def test_config_mismatch_rejected_policy_tolerated(model, tmp_path):
     other = dataclasses.replace(cfg, name="other-model")
     with pytest.raises(ValueError, match="snapshot is of model"):
         sc.restore_engine(other, params, str(tmp_path), device="cpu")
-    # sharded serving has no port: a restore onto a mesh is refused too
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a restore onto a mesh takes a DeviceMesh (test_torch_multidevice.py
+    # restores across meshes); anything else is refused
+    with pytest.raises(TypeError, match="mesh"):
         ServingEngine.restore(cfg, params, str(tmp_path), device="cpu", mesh=object())
 
 

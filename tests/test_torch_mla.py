@@ -336,3 +336,69 @@ def test_pool_holds_fp_latents_at_every_kv_bits():
                            "pos": ((1, 2, 16), torch.int32)}
             assert {k: v.shape for k, v in gj["u0"]["attn"].items()} == \
                 {k: v[0] for k, v in got.items()}
+
+
+# ---------------------------------------------------------------------------
+# the full-rank query (no q_lora_rank)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def full_rank():
+    """Reduced deepseek-v2-236b with ``q_lora_rank=0``: every MLA layer's
+    query is the reference's full-rank ``wq`` (D, H, dn + dr)."""
+    cfg_j, cfg_t = _configs(q_lora_rank=0)
+    tree = _tree(cfg_j, seed=5)
+    host = jax.device_get(tree)
+    return {"cfg": (cfg_j, cfg_t), "ref": tree, "host": host,
+            "f32": params_from_jax(host, cfg_t, device="cpu", dtype=torch.float32)}
+
+
+def test_full_rank_query_draws_and_converts_the_reference_leaves(full_rank):
+    """``init_mla`` without ``q_lora_rank`` draws ``wq`` (R, D, H, dn + dr)
+    at the reference's spread and no low-rank pair; the converted tree
+    holds the reference's leaves."""
+    cfg_j, cfg_t = full_rank["cfg"]
+    own = T.init_params(cfg_t, torch.Generator().manual_seed(0), device="cpu",
+                        dtype=torch.float32)
+    attn = own["stack"][1]["u0"]["attn"]
+    ref = full_rank["host"]["stack"][1]["u0"]["attn"]
+    assert {k for k, _ in attn.items()} == set(ref) == \
+        {"wq", "wkv_a", "kv_norm", "wkv_b", "wo"}
+    assert tuple(attn["wq"].shape) == ref["wq"].shape == (1, 64, 4, 24)
+    np.testing.assert_allclose(attn["wq"].std().item(), np.std(ref["wq"]), rtol=0.15)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(full_rank["f32"]["stack"][1]["u0"]["attn"][k].numpy(), v)
+
+
+@pytest.mark.parametrize("mode", ["q", "prefill", "decode", "chunk"])
+def test_full_rank_query_matches_reference_f32(full_rank, mode):
+    """The query alone, the expanded prefill and the absorbed decode and
+    chunk steps of a full-rank layer against the live reference, f32."""
+    cfg_j, cfg_t = full_rank["cfg"]
+    p_j, p_t = _attn(full_rank)
+    if mode == "q":
+        x = _x((2, 9, 64), 6)
+        pos = np.stack([np.arange(9), np.arange(3, 12)]).astype(np.int32)
+        for w, g in zip(AJ._mla_q(p_j, jnp.asarray(x), jnp.asarray(pos), cfg_j),
+                        AT._mla_q(p_t, T_(x), T_(pos), cfg_t)):
+            _close(g, w, F32_TOL, "q")
+        return
+    if mode == "prefill":
+        x = _x((2, 11, 64), 7)
+        pos = np.broadcast_to(np.arange(11, dtype=np.int32), (2, 11)).copy()
+        want, _ = AJ.apply_mla(p_j, jnp.asarray(x), cfg=cfg_j, mode="prefill",
+                               pos=jnp.asarray(pos), impl="ref", kv_cap=16)
+        got, _ = AT.apply_mla(p_t, T_(x), cfg=cfg_t, mode="prefill", pos=T_(pos), kv_cap=16)
+        _close(got, want, KERNEL_TOL, "prefill")
+        return
+    pool = _pool(cfg_t)
+    pos = np.array([[10], [-1], [17]], np.int32) if mode == "decode" else \
+        np.array([[10, 11, -1], [-1, -1, -1], [17, 18, 19]], np.int32)
+    x = _x((3, pos.shape[1], 64), 8)
+    want, cj = AJ.apply_mla(p_j, jnp.asarray(x), cfg=cfg_j, mode=mode, pos=jnp.asarray(pos),
+                            cache={k: jnp.asarray(v) for k, v in pool.items()}, impl="ref")
+    got, ct = AT.apply_mla(p_t, T_(x), cfg=cfg_t, mode=mode, pos=T_(pos),
+                           cache={k: T_(v) for k, v in pool.items()})
+    _close(got, want, KERNEL_TOL, mode)
+    for name in ("ckv", "kr"):
+        _close(ct[name], cj[name], KERNEL_TOL, name)

@@ -57,11 +57,12 @@ def test_trainer_and_train_launcher_without_a_device_refuse_to_run_on_the_cpu(mo
         Trainer(cfg, ShapeSpec("smoke", "train", 16, 4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--arch", "qwen2.5-3b", "--reduced", "--steps", "1"])
-    # sharded training has no port: more than one device is refused
+    # more ranks than torchrun started are refused, and a mesh that is not
+    # a DeviceMesh
     with pytest.raises(SystemExit):
         launch_train.main(["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu",
                            "--devices", "2"])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         Trainer(cfg, ShapeSpec("smoke", "train", 16, 4), object(), device="cpu")
 
 

@@ -302,11 +302,12 @@ def test_engine_invalid_bits_raise(field, value):
 
 
 def test_mesh_raises():
-    """Sharded serving has no port yet: ``mesh=`` is refused."""
+    """``mesh=`` takes a ``torch.distributed`` DeviceMesh (sharded serving:
+    ``tests/test_torch_multidevice.py``); anything else is refused."""
     cfg = reduce_config(get_config("qwen2.5-3b"))
     from repro_torch.models.transformer import init_params
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ServingEngine(cfg, params, EngineConfig(), device="cpu", mesh=object())
 
 
