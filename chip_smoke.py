@@ -126,7 +126,7 @@ Phases, each of which must pass or the script exits non-zero:
              engine (its own graphs captured), drained: every request once,
              the streams of the uninterrupted run (the same requests at the
              same steps) bit for bit, one restore and one replayed request.
-             qwen2.5-3b (cut to 12 of its 36 layers, for the script's
+             qwen2.5-3b (cut to 6 of its 36 layers, for the script's
              time) fp greedy and at temperature 0.8 at each kill kind,
              w8kv8 at 0.8, ``spec_k`` 4 with an 8-bit self-draft at 0.8 and
              with the draft model, ``fused=False``, and a child process
@@ -303,7 +303,25 @@ Phases, each of which must pass or the script exits non-zero:
              kernels.  ``allgather_matmul`` and ``reduce_scatter_matmul``
              against their oracles; 2 steps of ``Trainer(mesh=)`` on
              full-width qwen2.5-3b, each loss within 1e-6 relative of phase
-             train's first two.
+             train's first two.  qwen2.5-3b's speculative drain (spec_k 4,
+             the 8-bit self-draft) through the mesh, replayed: streams,
+             launches and kernels those of phase spec's drain; and eager,
+             the model cut to 4 layers, against the mesh-less replayed
+             drain of the same cut.
+14. roofline — once phase mesh's state is freed: full-width qwen2.5-3b,
+             ``impl="ref"``: a decode step (8 rows over a 1024-entry
+             cache), a prefill step (8 x 1024 tokens) and phase train's
+             step (4 x 1024, f32 master weights, remat), each counted by
+             ``repro_torch.roofline.analyze_step`` on the card's tensors
+             (FLOPs, bytes), timed by the profiler's busy time, which must
+             reach 0.95 of the bound ``max(FLOPs / 989e12, bytes /
+             3.35e12)`` (a reading under it means the count is wrong),
+             and its peak memory from the arguments up against the
+             tracker's on fake tensors of the same step, within 5% + 64
+             MiB.  The dry run (``python -m repro_torch.launch.dryrun
+             --arch mamba2-130m --shape train_4k --mesh single``, a fake
+             group of 256 ranks), started in a process of its own after
+             the build, must exit 0.
 
 Each model's weights are freed before the next is made.
 
@@ -337,9 +355,9 @@ MATMUL_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-5}
 QUANT_RUNS = {"fp": dict(), "w8kv8": dict(weight_bits=8, kv_bits=8),
               "w4kv4": dict(weight_bits=4, kv_bits=4)}
 MAX_BATCH, NEW_TOKENS, N_REQUESTS, CHUNK = 8, 32, 16, 128
-# phase crash's qwen2.5-3b depth, cut from 36 for the script's time (phase
-# mesh's snapshot case keeps the full depth)
-CRASH_QWEN_LAYERS = 12
+# phase crash's qwen2.5-3b depth, cut from 36 for the script's time (at 12
+# a slow host read 1177.5 s; phase mesh's snapshot case keeps the full depth)
+CRASH_QWEN_LAYERS = 6
 # speculative decoding: drafts a step, and the verify's rows (8 slots x 5)
 SPEC_K = 4
 VERIFY_M = MAX_BATCH * (SPEC_K + 1)
@@ -609,9 +627,19 @@ TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_TOL = 1e-5, 1e-4, 
 # phase mesh: the runs served again through a one-rank mesh, the MoE depth,
 # and the planned trainer's losses against phase train's
 MESH_RUNS = ("fp", "w8kv8")
+MESH_SPEC = ("fp", "bits8")        # phase spec's drain served again through the mesh
+MESH_SPEC_EAGER_LAYERS = 4         # its eager drain's depth (36 took 78 s: DTensor dispatch)
+# phase roofline: the model, the serving steps' batch and depth, the peak
+# memory bound (relative, and absolute for the allocator's rounding and
+# the libraries' workspaces), the dry run's cell and how long to wait for it
+ROOFLINE_ARCH, ROOFLINE_BATCH, ROOFLINE_KV = "qwen2.5-3b", 8, 1024
+ROOFLINE_PEAK_REL, ROOFLINE_PEAK_ABS = 0.05, 64 << 20
+ROOFLINE_DRYRUN = ("mamba2-130m", "train_4k", "single")
+ROOFLINE_DRYRUN_WAIT_S = 400
 MESH_MOE_LAYERS = 4
 MESH_TRAIN_TOL = 1e-6
 ENGINE_RUNS = {}                   # (arch, run) -> the engine phase's run_engine record
+SPEC_RECORDS = {}                  # (arch, run, draft) -> the spec phase's run_engine record
 PROFILES = {}                      # (arch, run) -> the graphs phase's run_profile record
 TRAIN_LOSSES = []                  # phase train's losses
 DEVICE = "cuda"
@@ -2470,6 +2498,7 @@ def run_spec(torch, cfg, params, plain, by_run, kv_len, long_prompts):
                        draft=dm, warm=False, **paths)
         label = f"{cfg.name} {run} spec {name.split()[0]}"
         by_run[label] = r["launches"]
+        SPEC_RECORDS[(cfg.name, run, name.split()[0])] = r     # phase mesh drains it again
         st, ps = r["stats"], plain[run]["stats"]
         divs = divergences(torch, cfg, params, run, r["prompts"], plain[run]["outputs"],
                            r["outputs"])
@@ -4797,10 +4826,52 @@ def mesh_serving(torch, mesh, by_run):
               f"kernels_per_step={b['kernels_per_step']:.0f} "
               f"plain_kernels_per_step={a['kernels_per_step']:.0f} card={CARD}")
         collect(torch)
+    mesh_spec(torch, cfg, params, mesh, by_run)
     reset_launches()
     crash_case(torch, cfg, params, "fp", kv_len, "mid_decode", mesh=mesh)
     by_run[f"{arch} crash mesh"] = read_launches()
     del params
+    collect(torch)
+
+
+def mesh_spec(torch, cfg, params, mesh, by_run):
+    """Phase spec's drain with the 8-bit self-draft (``MESH_SPEC``) through
+    the mesh, replayed (the spec step the fourth captured graph): its
+    streams, launches and kernels those of phase spec's mesh-less replayed
+    drain.  Through the eager methods the planned spec step spends ~2.8 s
+    of host dispatch a step at 36 layers (78.3 s a drain), so the eager drain
+    runs the model cut to ``MESH_SPEC_EAGER_LAYERS`` layers, against the
+    mesh-less replayed drain of the same cut."""
+    run, draft = MESH_SPEC
+    kv_len = SERVED[cfg.name]["kv_len"]
+    paths = dict(spec_k=SPEC_K, spec_draft_bits=8)
+    cut = dataclasses.replace(cfg, n_layers=MESH_SPEC_EAGER_LAYERS)
+    cut_params = make_params(torch, cut)
+    for eager in (False, True):
+        model, weights = (cut, cut_params) if eager else (cfg, params)
+        want = SPEC_RECORDS[(cfg.name, run, draft)] if not eager else run_engine(
+            torch, cut, cut_params, run, kv_len=kv_len, **paths)
+        r = run_engine(torch, model, weights, run, kv_len=kv_len, mesh=mesh, warm=False,
+                       eager=eager, **paths)
+        label = f"{cfg.name} {run} spec {draft}{' eager' if eager else ''} mesh"
+        if eager:
+            by_run[f"{cfg.name} {run} spec {draft} {model.n_layers} layers"] = want["launches"]
+        by_run[label] = r["launches"]
+        check(r["outputs"] == want["outputs"], f"{label}: streams differ from the mesh-less run's")
+        check(r["launches"] == want["launches"],
+              f"{label}: launches {r['launches']} != {want['launches']}")
+        for name in ("qmatmul", "prefill", "decode", "decode_quant"):
+            check(r["kernels"][name] == want["kernels"][name],
+                  f"{label}: {name} kernels differ from the mesh-less run's")
+        st = r["stats"]
+        print(f"mesh spec arch={cfg.name} layers={model.n_layers} run={run} draft={draft} "
+              f"eager={eager} streams_equal=True launches_equal=True "
+              f"spec_steps={st['spec_steps']} acceptance={st['spec_acceptance']:.4f} "
+              f"tokens_per_s={st['tokens_per_s']:.2f} "
+              f"plain_tokens_per_s={want['stats']['tokens_per_s']:.2f} "
+              f"wall_s={r['wall_s']:.3f} plain_wall_s={want['wall_s']:.3f} card={CARD}")
+        collect(torch)
+    del cut_params
     collect(torch)
 
 
@@ -5026,6 +5097,165 @@ def run_mesh(torch, by_run):
     print(f"phase mesh done in {time.perf_counter() - t_phase:.1f} s: {json.dumps(parts)}")
 
 
+# ---------------------------------------------------------------------------
+# phase roofline
+# ---------------------------------------------------------------------------
+
+def start_dryrun():
+    """The dry run of one cell (``ROOFLINE_DRYRUN``) in a process of its own,
+    into a fresh directory under ``build/``: it needs the CPU alone, so it
+    runs beside the card's phases.  Returns (process, its log path)."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "dryrun")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    log = os.path.join(root, "log.txt")
+    arch, shape, mesh = ROOFLINE_DRYRUN
+    env = dict(os.environ, REPRO_TORCH_DRYRUN_DIR=root, PYTHONPATH=SRC)
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--mesh", mesh, "--force"], stdout=out, stderr=subprocess.STDOUT,
+            env=env, cwd=root)
+    return proc, log
+
+
+def roofline_steps(torch, cfg):
+    """The three steps of the phase on full-width ``cfg`` (``impl="ref"``):
+    name -> (step, shape, a function making its arguments on ``device``).
+    The decode step reads 8 rows over a cache of ``ROOFLINE_KV`` entries
+    at position ``ROOFLINE_KV - 24``; the train step is phase train's
+    (f32 master weights, remat), without the trainer's pipeline."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import OptConfig, adamw_init
+    from repro_torch.tree import tree_map
+    B, S = ROOFLINE_BATCH, ROOFLINE_KV
+    i32 = torch.int32
+
+    def weights(dtype, device):
+        # N(0, 0.02) in every leaf: the counts read shapes, the timing data
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=device)
+                        .normal_(0.0, 0.02), ST.params_specs(cfg, dtype))
+
+    def decode_args(device):
+        return (weights(torch.bfloat16, device),
+                T.init_cache(cfg, B, S, dtype=torch.bfloat16, device=device),
+                torch.zeros(B, dtype=i32, device=device),
+                torch.full((B,), S - 24, dtype=i32, device=device))
+
+    def prefill_args(device):
+        return (weights(torch.bfloat16, device),
+                {"tokens": torch.zeros((B, S), dtype=i32, device=device)})
+
+    def train_args(device):
+        params = tree_map(lambda t: t.requires_grad_(True), weights(torch.float32, device))
+        return (params, adamw_init(params),
+                {"tokens": torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=i32, device=device)})
+    return {
+        "decode": (ST.make_decode_step(cfg, impl="ref"), ShapeSpec("decode", "decode", S, B),
+                   decode_args),
+        "prefill": (ST.make_prefill_step(cfg, impl="ref", kv_cap=S),
+                    ShapeSpec("prefill", "prefill", S, B), prefill_args),
+        "train": (ST.make_train_step(cfg, opt_cfg=OptConfig(**TRAIN_OPT)),
+                  ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH), train_args),
+    }
+
+
+def roofline_step(torch, cfg, name, step, shape, make_args):
+    """One step of the phase: counted, timed, its memory measured and
+    predicted; the checks."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.dryrun import model_flops_for
+    from repro_torch.roofline import analyze_step, roofline_terms
+    args = make_args(DEVICE)
+    cost = analyze_step(step, *args)          # on the card's tensors; warms the step
+    torch.cuda.synchronize()
+    # the peak from the arguments up: what else is allocated (the libraries'
+    # workspaces, made by the warm-up) taken out
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(*args)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - before + cost.argument_bytes
+    prof = profiled(torch, cfg.name, "ref", f"roofline {name}", lambda: step(*args),
+                    1 if name == "train" else 3)
+    del args
+    collect(torch)
+    with FakeTensorMode():
+        predicted = analyze_step(step, *make_args(DEVICE))
+    rep = roofline_terms(cost, arch=cfg.name, shape=name, mesh_name="one card", n_devices=1,
+                         model_flops=model_flops_for(cfg, shape))
+    bound_ms = max(cost.flops / PEAK_FLOPS["torch.bfloat16"],
+                   cost.bytes_hbm / HBM_BYTES_PER_S) * 1e3
+    share = bound_ms / prof["busy_ms"]
+    gap = abs(predicted.peak_bytes - card_peak)
+    print(f"roofline arch={cfg.name} step={name} flops={cost.flops:.6e} "
+          f"bytes={cost.bytes_hbm:.6e} n_ops={cost.n_ops} bound_ms={bound_ms:.4f} "
+          f"bound_by={rep.bottleneck} busy_ms={prof['busy_ms']:.4f} "
+          f"roofline_share={share:.4f} roofline_frac={rep.roofline_frac:.4f} "
+          f"compute_ms={rep.compute_s * 1e3:.4f} memory_ms={rep.memory_s * 1e3:.4f} "
+          f"useful_ratio={rep.useful_ratio:.4f} argument_gib={cost.argument_bytes / 2**30:.3f} "
+          f"peak_gib={card_peak / 2**30:.3f} predicted_peak_gib={predicted.peak_bytes / 2**30:.3f} "
+          f"peak_gap_mib={gap / 2**20:.1f} card={CARD}")
+    check(prof["busy_ms"] >= 0.95 * bound_ms,
+          f"roofline {name}: busy {prof['busy_ms']:.4f} ms under 0.95 of the bound "
+          f"{bound_ms:.4f} ms: the count is wrong")
+    check(predicted.flops == cost.flops and predicted.argument_bytes == cost.argument_bytes,
+          f"roofline {name}: fake tensors count {predicted.flops} FLOPs, "
+          f"{predicted.argument_bytes} argument bytes; the card's {cost.flops}, "
+          f"{cost.argument_bytes}")
+    check(gap <= ROOFLINE_PEAK_REL * card_peak + ROOFLINE_PEAK_ABS,
+          f"roofline {name}: predicted peak {predicted.peak_bytes} B, the card's {card_peak} B")
+
+
+def run_roofline(torch, by_run, dryrun):
+    """Phase roofline: the three steps of full-width qwen2.5-3b counted,
+    timed and their memory predicted (``roofline_step``), launching no
+    kernel of the port (``impl="ref"``); then the dry run started after
+    the build must have exited 0 with an ``ok`` record."""
+    from repro_torch.config import get_config
+    collect(torch)
+    t_phase = time.perf_counter()
+    before = torch.cuda.memory_allocated() / 2**30
+    check(before < MOE_FREE_BEFORE_GIB, f"roofline: {before:.2f} GiB still allocated")
+    from repro_torch.roofline import H100
+    print(f"roofline card total_memory={torch.cuda.get_device_properties(0).total_memory} "
+          f"H100.hbm_bytes={H100.hbm_bytes:.0f} card={CARD}")
+    cfg = get_config(ROOFLINE_ARCH)
+    reset_launches()
+    parts = {}
+    for name, (step, shape, make_args) in roofline_steps(torch, cfg).items():
+        t0 = time.perf_counter()
+        roofline_step(torch, cfg, name, step, shape, make_args)
+        parts[name] = round(time.perf_counter() - t0, 1)
+    by_run["roofline"] = read_launches()
+    check(not any(by_run["roofline"].values()),
+          f"roofline: the ref steps launched a kernel of the port: {by_run['roofline']}")
+    proc, log = dryrun
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=ROOFLINE_DRYRUN_WAIT_S)
+    with open(log) as f:
+        out = f.read()
+    print(f"roofline dryrun rc={rc} waited_s={time.perf_counter() - t0:.1f} "
+          + " ".join(ln for ln in out.splitlines() if " OK " in ln or "ERROR" in ln))
+    check(rc == 0, f"roofline: the dry run exited {rc}: {out[-2000:]}")
+    arch, shape, mesh = ROOFLINE_DRYRUN
+    with open(os.path.join(os.path.dirname(log), f"{arch}__{shape}__{mesh}.json")) as f:
+        rec = json.load(f)
+    check(rec["status"] == "ok" and rec["n_devices"] == 256,
+          f"roofline: dry run record {rec['status']} on {rec.get('n_devices')} devices")
+    r = rec["roofline"]
+    print(f"roofline dryrun arch={arch} shape={shape} mesh={mesh} n_devices={rec['n_devices']} "
+          f"t_trace_s={rec['t_trace_s']} n_ops={rec['n_ops']} "
+          f"compute_s={r['compute_s']:.6e} memory_s={r['memory_s']:.6e} "
+          f"collective_s={r['collective_s']:.6e} bottleneck={r['bottleneck']} "
+          f"live_gib={rec['memory']['live_bytes'] / 2**30:.3f} "
+          f"fits_h100={rec['memory']['fits_h100']}")
+    print(f"phase roofline done in {time.perf_counter() - t_phase:.1f} s: {json.dumps(parts)}")
+
+
 def make_params(torch, cfg):
     """Random bf16 weights (seed 0) on the card, after the last model's are
     freed."""
@@ -5070,7 +5300,18 @@ def main():
     print(f"build: {b.seconds:.2f} s, libraries {sorted(b.libs)}")
     for ln in ptxas:
         print(f"build ptxas: {ln}")
+    dryrun = start_dryrun()
+    try:
+        return smoke(torch, get_config, dryrun)
+    finally:
+        if dryrun[0].poll() is None:
+            dryrun[0].kill()
+            dryrun[0].wait()
 
+
+def smoke(torch, get_config, dryrun):
+    """The phases after the build (``dryrun``: phase roofline's process,
+    started after the build)."""
     t_kernels = time.perf_counter()
     records = run_kernel_checks(torch)
     records.update(run_quant_decode_checks(torch))
@@ -5144,6 +5385,8 @@ def main():
     print(f"phases of training done at {time.perf_counter() - start:.1f} s")
     run_mesh(torch, by_run)
     print(f"phase mesh done at {time.perf_counter() - start:.1f} s")
+    run_roofline(torch, by_run, dryrun)
+    print(f"phase roofline done at {time.perf_counter() - start:.1f} s")
 
     for name, rec in records.items():
         rec["launches"] = sum(n[name] for n in by_run.values())

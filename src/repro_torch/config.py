@@ -142,11 +142,56 @@ class ModelConfig:
         p = self.encoder_pattern
         return tuple(p[i % len(p)] for i in range(self.n_encoder_layers))
 
+    @property
+    def attn_free(self) -> bool:
+        """No attention layer of any kind (global, local or cross)."""
+        kinds = set(self.layer_kinds)
+        return not (kinds & {"global", "local", "cross"})
+
+    @property
+    def subquadratic(self) -> bool:
+        """True iff every layer's per-token cost is bounded in context length
+        (SSM / recurrent / windowed-local states).  Archs with *any* global
+        full-attention layer are still run for long_500k when the rest of the
+        stack bounds memory (gemma2/3 hybrid-window) — see ``supports``."""
+        return not any(k == "global" for k in self.layer_kinds)
+
+    @property
+    def has_bounded_state_layers(self) -> bool:
+        kinds = set(self.layer_kinds)
+        return bool(kinds & {"local", "recurrent", "ssm"})
+
     def moe_layer_mask(self) -> tuple[bool, ...]:
         """Which layers run the MoE FFN in place of the dense MLP."""
         if not self.is_moe:
             return tuple(False for _ in range(self.n_layers))
         return tuple(i >= self.first_k_dense for i in range(self.n_layers))
+
+    # -- parameter counting (the dry run's MODEL_FLOPS, the serving plans) -----
+    def param_count(self) -> int:
+        """Every element of the parameter tree ``init_params`` builds."""
+        from repro_torch.models.transformer import count_params  # lazy: no torch.nn here
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.transformer import count_params
+        return count_params(self, active_only=True)
+
+    # -- shape applicability ------------------------------------------------
+    def supports(self, shape: ShapeSpec) -> tuple[bool, str]:
+        """(runnable, reason-if-not) for an assigned shape cell."""
+        if shape.kind == "decode" and self.family == "encoder":
+            return False, "encoder-only architecture has no decode step"
+        if shape.name == "long_500k":
+            if self.family == "audio":
+                return False, ("whisper decoder max context is 448 tokens; "
+                               "524k decode is architecturally undefined")
+            if not (self.subquadratic or self.has_bounded_state_layers):
+                return False, ("pure full-attention stack: long_500k requires "
+                               "sub-quadratic attention (per assignment)")
+        if shape.kind == "train" and shape.global_batch % 8:
+            return False, "global batch must divide the data axes"
+        return True, ""
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +213,32 @@ def get_config(name: str) -> ModelConfig:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_REGISTRY)}") from None
+
+
+def list_archs(assigned_only: bool = False) -> list[str]:
+    import repro_torch.configs  # noqa: F401
+    names = sorted(_REGISTRY)
+    if assigned_only:
+        names = [n for n in names if n in ASSIGNED_ARCHS]
+    return names
+
+
+ASSIGNED_ARCHS = (
+    "qwen3-moe-30b-a3b",
+    "deepseek-v2-236b",
+    "recurrentgemma-9b",
+    "whisper-large-v3",
+    "qwen2.5-3b",
+    "gemma3-27b",
+    "gemma2-9b",
+    "minitron-8b",
+    "mamba2-130m",
+    "llama-3.2-vision-90b",
+)
+
+PAPER_ARCHS = (
+    "bert-base", "bert-large", "bart-base", "bart-large", "gpt-j", "llama2-7b",
+)
 
 
 def reduce_config(cfg: ModelConfig, *, seq_len: int = 32) -> ModelConfig:
@@ -213,3 +284,8 @@ def reduce_config(cfg: ModelConfig, *, seq_len: int = 32) -> ModelConfig:
         n_frontend_tokens=16,
         first_k_dense=min(cfg.first_k_dense, 1),
     )
+
+
+def flops_per_token(cfg: ModelConfig) -> float:
+    """~6*N_active for training, per token (used for MODEL_FLOPS)."""
+    return 6.0 * cfg.active_param_count()

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.modules import dense_init, rmsnorm
-from repro_torch.parallel.api import constrain
+from repro_torch.parallel.api import (constrain, even, local_call, planned_mesh,
+                                      region_placements, sharded_over)
 from repro_torch.quant.ops import qdense
 
 NEG_INF = -1e30
@@ -179,6 +180,26 @@ def init_ssm_cache(cfg, batch, dtype, device):
     }
 
 
+def _planned_scan(x, dt, A, Bm, Cm, *, chunk: int):
+    """:func:`ssd_scan`, under a plan on each rank's own batch rows
+    (``local_map``), the sequence and heads whole: the scan runs along the
+    whole sequence, and its einsums' batched products would flatten a
+    batch dim sharded over ``data`` with a chunk or head dim sharded over
+    ``model``, which DTensor refuses (torch 2.11) or meets by replicating
+    every operand.  ``A`` is replicated into the region; its gradient is
+    each rank's part of a sum over the batch rows."""
+    mesh = planned_mesh("ssd scan", x, dt, Bm, Cm)
+    if mesh is None:
+        return ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    from torch.distributed.tensor import Partial
+    batch = sharded_over(even(x.placements, x.shape, mesh), 0)
+    rows, whole = region_placements(mesh, {0: batch}), region_placements(mesh, {})
+    a_grad = tuple(Partial() if i in batch else p for i, p in enumerate(whole))
+    return local_call(lambda *t: ssd_scan(*t, chunk=chunk), (x, dt, A, Bm, Cm),
+                      (rows, rows, whole, rows, rows), (rows, rows), mesh,
+                      grad_placements=(rows, rows, a_grad, rows, rows))
+
+
 def apply_mamba(p, x, *, cfg, mode, cache=None, length=None):
     """x (B, S, D) -> (y, cache).
 
@@ -225,7 +246,7 @@ def apply_mamba(p, x, *, cfg, mode, cache=None, length=None):
         cache["state"].copy_(new_state)
         new_cache = cache
     else:
-        y, final_state = ssd_scan(x_ssm, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+        y, final_state = _planned_scan(x_ssm, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
         new_cache = {"conv": new_conv, "state": final_state} if mode == "prefill" else None
 
     y = y + x_ssm * p["D"][None, None, :, None].to(dt_x)

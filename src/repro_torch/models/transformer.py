@@ -619,13 +619,14 @@ def loss_fn(params, cfg: ModelConfig, batch, *, impl="ref", compute_dtype=torch.
     lf = gather_dim(unembed(params, cfg, h, impl).float(), -1)
     targets = tokens.long()
     if causal:
-        lf, targets = lf[:, :-1], targets[:, 1:]
-    nll = _rows_nll(lf, targets)
-    if causal:
-        loss = nll.mean()
+        # each position scores the next token, the last position masked:
+        # slicing the logits would gather a sequence-sharded tensor whole
+        targets = torch.cat([targets[:, 1:], targets[:, :1]], dim=1)
+        keep = torch.arange(S, device=tokens.device) < S - 1
     else:
         keep = torch.arange(S, device=tokens.device) % 7 == 3
-        loss = torch.where(keep, nll, 0.0).sum() / (keep.sum() * B)
+    nll = _rows_nll(lf, targets)
+    loss = torch.where(keep, nll, 0.0).sum() / (keep.sum() * B)
     if isinstance(aux, torch.Tensor):
         # a plan's aux loss, a sum over the layers' DTensors: whole on every rank
         aux = gather_dim(aux.reshape(1), 0).reshape(())
@@ -640,12 +641,14 @@ def _nll(lf, targets):
 
 def _rows_nll(lf, targets):
     """Each position's NLL of its target under the f32 logits ``lf``.
-    Under a plan each rank scores its own batch rows (``local_map``), the
-    target's logit read by index off DTensor's sharding rules."""
+    Under a plan each rank scores its own batch rows and positions
+    (``local_map``), the target's logit read by index off DTensor's
+    sharding rules."""
     mesh = planned_mesh("loss", lf)
     if mesh is None:
         return _nll(lf, targets)
-    rows = region_placements(mesh, {0: sharded_over(even(lf.placements, lf.shape, mesh), 0)})
+    placed = even(lf.placements, lf.shape, mesh)
+    rows = region_placements(mesh, {0: sharded_over(placed, 0), 1: sharded_over(placed, 1)})
     return local_call(_nll, (lf, targets), (rows, rows), rows, mesh)
 
 
@@ -805,3 +808,33 @@ def _repeat_tree(tree, repeats: int):
     if isinstance(tree, torch.Tensor):
         return tree[None].repeat((repeats,) + (1,) * tree.dim())
     return {k: _repeat_tree(t, repeats) for k, t in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# parameter counting
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _param_shapes(cfg: ModelConfig) -> tuple:
+    """(dotted name, element count) of every parameter ``init_params``
+    builds, on the meta device (no memory)."""
+    return tuple((name, p.numel()) for name, p in
+                 init_params(cfg, None, device="meta", dtype=torch.float32).named_parameters())
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Every element of the parameter tree; ``active_only``: those a token
+    multiplies by (the reference's rules): an untied embedding or position
+    table is skipped (a gather, no matmul), and the routed experts count
+    ``top_k / n_experts`` of their elements."""
+    total = 0.0
+    for name, n in _param_shapes(cfg):
+        keys = name.split(".")
+        if active_only:
+            if any(k in ("tok", "pos") for k in keys) and not (
+                    cfg.tie_embeddings and "tok" in keys):
+                continue
+            if "experts" in keys:
+                n = n * cfg.top_k / cfg.n_experts
+        total += n
+    return int(total)

@@ -76,6 +76,10 @@ class Plan:
 # the port's must reach the autograd engine's device threads, which run a
 # remat'd layer's forward again in the backward pass
 _active: list = [None]
+# how many activations of a plan on a DeviceMesh are open: DTensor's
+# implicit_replication switches itself off on exit whatever it found, so
+# only the outermost one enters it (a draft model's plan inside the target's)
+_replicating: list = [0]
 
 
 def current_plan() -> Optional[Plan]:
@@ -89,8 +93,13 @@ def activate_plan(plan: Optional[Plan]):
     try:
         if plan is not None and not isinstance(plan.mesh, AbstractMesh):
             from torch.distributed.tensor.experimental import implicit_replication
-            with implicit_replication():
-                yield plan
+            _replicating[0] += 1
+            try:
+                with implicit_replication() if _replicating[0] == 1 else \
+                        contextlib.nullcontext():
+                    yield plan
+            finally:
+                _replicating[0] -= 1
         else:
             yield plan
     finally:

@@ -89,16 +89,8 @@ def _plan_context(cfg, shape, mesh, *, mode) -> PlanContext:
     return PlanContext(cfg, shape, mesh, fsdp, dp, seq_axis)
 
 
-def param_count(cfg: ModelConfig) -> int:
-    """Every element of the parameter tree ``init_params`` builds (the
-    reference's ``cfg.param_count()``), counted on the meta device."""
-    from repro_torch.models import transformer as T
-    return sum(p.numel() for p in
-               T.init_params(cfg, None, device="meta", dtype=torch.float32).parameters())
-
-
 def _serving_fsdp(cfg, mesh) -> Optional[str]:
-    per_dev = 2 * param_count(cfg) / mesh_shape(mesh)["model"]
+    per_dev = 2 * cfg.param_count() / mesh_shape(mesh)["model"]
     return "data" if per_dev > _TP_ONLY_BYTES else None
 
 

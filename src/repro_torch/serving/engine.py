@@ -63,9 +63,8 @@ The engine is mesh-aware: ``mesh=`` (a ``torch.distributed``
 ``DeviceMesh`` with axes ``("data", "model")``, every rank of it running
 the same engine, same calls in the same order) shards the slot pool and
 the parameters and runs every program under the reference's decode and
-prefill plans (``executor.py``); the engine's device is then the mesh's
-device type.  Speculative decoding (``spec_k``) under a mesh has no
-port.
+prefill plans (``executor.py``), the speculative step too; the engine's
+device is then the mesh's device type.
 """
 from __future__ import annotations
 
@@ -269,8 +268,6 @@ class ServingEngine:
             if not isinstance(mesh, DeviceMesh):
                 raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got "
                                 f"{type(mesh).__name__}")
-            if ecfg.spec_k:
-                raise NotImplementedError("speculative decoding under a mesh has no port")
             if device is None:
                 device = "cpu" if mesh.device_type == "cpu" else torch.device(
                     "cuda", torch.cuda.current_device())

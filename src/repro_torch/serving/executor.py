@@ -31,7 +31,11 @@ model rank: ``sharding._serving_fsdp``), the pool by
 same on every rank.  Logits are gathered whole before
 sampling, so the packed ``(K, 3, B)`` read stays the only host read.  A
 write into the pool by slot index runs on each rank's own slots
-(:func:`_pool_views`).  Speculative decoding under a mesh has no port.
+(:func:`_pool_views`).  The speculative step runs under the decode plan
+too: the draft's decode steps under the draft's own (a quantised
+self-draft's weights placed as the serving weights, a draft model's at
+its own decode plan's specs), and its column save, restore and rollback on
+each rank's own slots (:meth:`Executor._spec_cols`).
 """
 from __future__ import annotations
 
@@ -46,8 +50,9 @@ from repro_torch.models.attention import (HEAD_LEAVES, put_unique, ring_position
                                           unique_targets)
 from repro_torch.parallel.api import (activate_plan, full, local_views, planned_mesh,
                                       region_placements, sharded_over, to_placements)
+from repro_torch.parallel import sharding as SH
 from repro_torch.quant.core import quantize_params
-from repro_torch.serving.pool import cache_leaves
+from repro_torch.serving.pool import attn_units
 
 # the three programs of the engine's default path, each one device call;
 # under spec_k the speculative step takes the fused step's place
@@ -74,8 +79,8 @@ class Executor:
         # the decode and packed-prefill plans of a mesh; shard_ctx places
         # the pool (SlotPool)
         self._plan = self._prefill_plan = self.shard_ctx = None
+        self.mesh = mesh
         if mesh is not None:
-            from repro_torch.parallel import sharding as SH
             self._plan, self.shard_ctx = SH.serving_decode_plan(
                 cfg, mesh, max_batch=ecfg.max_batch, kv_len=ecfg.kv_len)
             self._prefill_plan, _ = SH.serving_prefill_plan(
@@ -87,12 +92,15 @@ class Executor:
         # speculative decoding: self-speculation drafts with a quantised copy
         # of the unquantised serving params (spec_draft_bits; 0 = the serving
         # params themselves); a draft model comes through set_draft()
-        self.draft_cfg, self.draft_params = cfg, None
+        self.draft_cfg, self.draft_params, self._draft_plan = cfg, None, self._plan
         if ecfg.spec_k > 0 and ecfg.spec_draft == "self":
             self.draft_params = self.params
             if ecfg.spec_draft_bits:
                 self.draft_params = T.Transformer(cfg, quantize_params(
                     params, ecfg.spec_draft_bits, group=ecfg.weight_group))
+                if mesh is not None:
+                    self.draft_params = SH.distribute_params(self.draft_params,
+                                                             self.shard_ctx)
         # host-transfer accounting
         self.host_transfers = 0
         self.host_bytes = 0
@@ -246,7 +254,13 @@ class Executor:
 
     # -- speculative decoding ---------------------------------------------------
     def set_draft(self, draft_cfg: ModelConfig, draft_params) -> None:
-        """Attach a separate draft model (``spec_draft="model"``)."""
+        """Attach a separate draft model (``spec_draft="model"``); under a
+        mesh its weights go to its own decode plan's specs, under which its
+        steps run."""
+        if self.mesh is not None:
+            self._draft_plan, ctx = SH.serving_decode_plan(
+                draft_cfg, self.mesh, max_batch=self.ecfg.max_batch, kv_len=self.ecfg.kv_len)
+            draft_params = SH.distribute_params(draft_params, ctx)
         self.draft_cfg, self.draft_params = draft_cfg, draft_params
 
     @torch.no_grad()
@@ -254,15 +268,18 @@ class Executor:
         """Mirror a completed prompt into the draft model's pool: one
         right-padded batch-1 draft prefill, inserted into ``slot`` in place
         (eager, one launch a kernel, as the sequential baseline's)."""
-        _, pcache = T.prefill(self.draft_params, self.draft_cfg, tokens,
-                              impl=self.ecfg.impl, kv_cap=self.ecfg.kv_len, length=length)
+        with activate_plan(self._draft_plan):
+            _, pcache = T.prefill(self.draft_params, self.draft_cfg, tokens,
+                                  impl=self.ecfg.impl, kv_cap=self.ecfg.kv_len,
+                                  length=length)
         return self.insert(dcache, pcache, slot, length)
 
     def _spec_ring(self, leaf, p):
         """(slot index (B, 1), ring index (B, spec_k+1)) of the columns at
-        positions ``p .. p+spec_k`` of a pool leaf: the columns a
-        speculative step can write.  ``spec_k + 1`` fits the smallest ring
-        (validated by the engine), so a row's ring indices are distinct."""
+        positions ``p .. p+spec_k`` of a pool leaf (``p`` the positions of
+        its ``B`` slots): the columns a speculative step can write.
+        ``spec_k + 1`` fits the smallest ring (validated by the engine), so
+        a row's ring indices are distinct."""
         jj = torch.arange(self.ecfg.spec_k + 1, dtype=torch.int32, device=p.device)
         bidx = torch.arange(leaf.shape[1], device=p.device)[:, None]
         return bidx, torch.remainder(p[:, None] + jj[None], leaf.shape[2]).long()
@@ -270,17 +287,29 @@ class Executor:
     def _spec_cols(self, cache, p) -> list:
         """Copies of the ``spec_k + 1`` columns at ring indices ``(p + j) %
         cap`` of every leaf, (repeats, B, spec_k+1, ...) each: the pre-step
-        bytes a rollback writes back (advanced indexing copies)."""
-        return [leaf[(slice(None),) + self._spec_ring(leaf, p)]
-                for _, leaf in cache_leaves(cache)]
+        bytes a rollback writes back (advanced indexing copies).  Under a
+        mesh each rank copies its own slots' columns (:func:`_pool_views`:
+        the slot axis local, a sharded ring gathered whole)."""
+        saved = []
+        for attn in attn_units(cache):
+            with _pool_views(attn, {}) as (pool, _, off):
+                for leaf in pool.values():
+                    ring = self._spec_ring(leaf, p[off:off + leaf.shape[1]])
+                    saved.append(leaf[(slice(None),) + ring])
+        return saved
 
     def _spec_restore(self, cache, saved, p, mask) -> None:
         """Write the saved columns back where ``mask`` (B, spec_k+1) is set,
-        in place; elsewhere a column keeps what it holds."""
-        for (_, leaf), sv in zip(cache_leaves(cache), saved):
-            ix = (slice(None),) + self._spec_ring(leaf, p)
-            m = mask.reshape((1,) + mask.shape + (1,) * (sv.dim() - 3))
-            leaf[ix] = torch.where(m, sv, leaf[ix])
+        in place; elsewhere a column keeps what it holds.  Under a mesh each
+        rank writes its own slots, with its rows of ``p`` and ``mask``."""
+        saved = iter(saved)
+        for attn in attn_units(cache):
+            with _pool_views(attn, {}) as (pool, _, off):
+                for leaf in pool.values():
+                    sv, rows = next(saved), slice(off, off + leaf.shape[1])
+                    ix = (slice(None),) + self._spec_ring(leaf, p[rows])
+                    m = mask[rows].reshape((1,) + mask[rows].shape + (1,) * (sv.dim() - 3))
+                    leaf[ix] = torch.where(m, sv, leaf[ix])
 
     def _accept_sampled(self, dlogits, vlogits, dtoks):
         """Rejection sampling (Leviathan et al.): accept draft ``d_j`` iff
@@ -329,6 +358,10 @@ class Executor:
 
         Returns (cache, state, packed (spec_k+1, 4, B) int32 of (token | -1,
         done, anomaly, accepted)); ``dcache`` is updated in place."""
+        with activate_plan(self._plan):
+            return self._spec_step(cache, state, dcache)
+
+    def _spec_step(self, cache, state, dcache):
         ecfg = self.ecfg
         K, B = ecfg.spec_k, ecfg.max_batch
         live, p, t0 = state["live"], state["pos"], state["tokens"]
@@ -341,8 +374,10 @@ class Executor:
         dc = cache if self_draft else dcache
         tok, dtoks, dlogits = t0, [], []
         for j in range(K):
-            logits, _ = T.decode_step(self.draft_params, self.draft_cfg, dc, tok,
-                                      torch.where(live, p + j, -1), impl=ecfg.impl)
+            with activate_plan(self._draft_plan):
+                logits, _ = T.decode_step(self.draft_params, self.draft_cfg, dc, tok,
+                                          torch.where(live, p + j, -1), impl=ecfg.impl)
+            logits = full(logits)
             tok = self._sample(logits)
             dtoks.append(tok)
             dlogits.append(logits)
@@ -357,6 +392,7 @@ class Executor:
         vpos = torch.where(live[:, None], p[:, None] + jidx[None], -1)
         vlogits, _ = T.verify_step(self.params, self.cfg, cache, vtoks, vpos,
                                    impl=ecfg.impl)
+        vlogits = full(vlogits)
         bad = ~torch.isfinite(vlogits).all(dim=2).all(dim=1)
         ok = live & ~bad
 
@@ -388,8 +424,9 @@ class Executor:
             # full acceptance leaves the draft pool one entry short (input
             # d_K at p+K was never drafted): one catch-up step writes it
             cu_pos = torch.where(ok & (m == K), p + K, -1)
-            T.decode_step(self.draft_params, self.draft_cfg, dcache, dtoks[:, K - 1],
-                          cu_pos, impl=ecfg.impl)
+            with activate_plan(self._draft_plan):
+                T.decode_step(self.draft_params, self.draft_cfg, dcache, dtoks[:, K - 1],
+                              cu_pos, impl=ecfg.impl)
             self._spec_restore(dcache, dsaved, p, mask)
 
         # -- state update ---------------------------------------------------------

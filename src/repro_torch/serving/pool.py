@@ -43,7 +43,7 @@ from repro_torch.parallel.api import full, is_dtensor
 class SlotPool:
     def __init__(self, cfg: ModelConfig, ecfg, *, device, shard_ctx=None):
         B, S = ecfg.max_batch, ecfg.kv_len
-        self.ecfg = ecfg
+        self.ecfg, self.shard_ctx = ecfg, shard_ctx
         self.cache = T.init_cache(cfg, B, S, dtype=torch.bfloat16, device=device,
                                   kv_bits=ecfg.kv_bits)
         if shard_ctx is not None:
@@ -70,9 +70,13 @@ class SlotPool:
     def init_draft(self, draft_cfg: ModelConfig) -> None:
         """Allocate the draft model's KV pool: the target pool's slots and
         depth in the draft config's geometry, always bf16 (the draft is
-        cheap by construction)."""
+        cheap by construction), placed as the target pool is."""
         self.draft_cache = T.init_cache(draft_cfg, self.ecfg.max_batch, self.ecfg.kv_len,
                                         dtype=torch.bfloat16, device=self.device)
+        if self.shard_ctx is not None:
+            self.draft_cache = SH.distribute_tree(
+                self.draft_cache, SH.cache_shardings(self.draft_cache, self.shard_ctx),
+                self.shard_ctx.mesh)
 
     def free_slots(self) -> list[int]:
         """Free slot indices, ascending (allocation order is index order)."""
@@ -203,8 +207,8 @@ def _zero_host(B: int) -> dict[str, np.ndarray]:
             "last_token": np.zeros(B, np.int32)}
 
 
-def cache_leaves(cache):
-    """(name, tensor) of every attention leaf of a slot pool
+def attn_units(cache):
+    """The attention leaves of each unit of a slot pool, a dict a unit
     (``T.init_cache``'s tree; ``None`` has none), in a fixed order.  Axis
     1 of every leaf is the slot, axis 2 the cache entry (ring index).  A
     recurrent unit's ``conv`` and ``state``/``h`` have no cache entries and
@@ -214,4 +218,11 @@ def cache_leaves(cache):
     for group in cache["stack"]:
         for unit in group.values():
             if "attn" in unit:
-                yield from unit["attn"].items()
+                yield unit["attn"]
+
+
+def cache_leaves(cache):
+    """(name, tensor) of every attention leaf of a slot pool
+    (:func:`attn_units`)."""
+    for attn in attn_units(cache):
+        yield from attn.items()

@@ -61,7 +61,7 @@ def _rel(a: float, b: float) -> float:
 # training
 # ---------------------------------------------------------------------------
 
-def _train_step_worker(rank, arch):
+def _train_step_worker(rank, arch, mostly_sharded=True):
     from repro_torch.launch.mesh import small_mesh
     from repro_torch.launch.steps import build_cell, make_train_step, place_args
     from repro_torch.models import transformer as T
@@ -97,7 +97,9 @@ def _train_step_worker(rank, arch):
     leaves = tree_leaves(p)
     assert all(m.placements == x.placements and v.placements == x.placements
                for x, m, v in zip(leaves, tree_leaves(o["m"]), tree_leaves(o["v"])))
-    assert sum(any(pl.is_shard() for pl in x.placements) for x in leaves) > len(leaves) // 2
+    if mostly_sharded:
+        assert sum(any(pl.is_shard() for pl in x.placements) for x in leaves) > \
+            len(leaves) // 2
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b",
@@ -109,6 +111,14 @@ def test_sharded_train_step_matches_single_device(tmp_path, arch):
     running, in f32; the MoE stacks' (gshard) against the single device
     under a role-less plan of the same shape."""
     _spawn(tmp_path, 4, _train_step_worker, arch)
+
+
+def test_sharded_ssm_train_step_matches_single_device(tmp_path):
+    """mamba2-130m's train step on the 2x2 mesh, its SSD scan on each
+    rank's batch rows (``ssm._planned_scan``), gives the single-device
+    step's loss and gradient norm, two steps running, in f32 (most of its
+    leaves are vectors the plan leaves whole)."""
+    _spawn(tmp_path, 4, _train_step_worker, "mamba2-130m", False)
 
 
 def _remesh_worker(rank, path):
@@ -343,3 +353,117 @@ def test_restore_across_meshes(tmp_path):
     """A snapshot taken mid-drain on a 1x2 mesh restores on 2x1 and with
     no mesh, and each drains to the uninterrupted run's streams."""
     _spawn(tmp_path, 2, _restore_worker, tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding under a mesh
+# ---------------------------------------------------------------------------
+
+SPEC_CASES = {"self": dict(spec_draft_bits=0), "self-w8": dict(spec_draft_bits=8),
+              "model": dict(spec_draft="model")}
+
+# The reference's spec engine under a forced 2-device mesh, in a process of
+# its own (the host device count is fixed at JAX's import): reduced
+# qwen2.5-3b (PRNGKey 0) and a 1-layer draft (PRNGKey 1), f32; it writes
+# both parameter trees for the port's ranks and its streams.
+_REFERENCE_SPEC = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import dataclasses, itertools, pickle
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh
+from repro.config import get_config, reduce_config
+from repro.models import transformer as T
+from repro.serving.engine import EngineConfig, ServingEngine
+params_path, out_path = sys.argv[1:3]
+cfg = reduce_config(get_config("qwen2.5-3b"))
+dcfg = dataclasses.replace(cfg, n_layers=1, name=cfg.name + "-draft")
+params = T.init_params(cfg, jax.random.PRNGKey(0), param_dtype=jnp.float32)
+dparams = T.init_params(dcfg, jax.random.PRNGKey(1), param_dtype=jnp.float32)
+with open(params_path, "wb") as f:
+    pickle.dump((jax.device_get(params), jax.device_get(dparams)), f)
+streams = []
+for shape, kw in itertools.product(((1, 2), (2, 1)), (
+        dict(spec_draft_bits=0), dict(spec_draft_bits=8), dict(spec_draft="model"))):
+    mesh = Mesh(np.asarray(jax.devices()).reshape(shape), ("data", "model"))
+    eng = ServingEngine(cfg, params, EngineConfig(max_batch=2, kv_len=48, max_new_tokens=5,
+                                                  prefill_chunk=16, spec_k=4, **kw),
+                        mesh=mesh, draft=(dcfg, dparams) if "spec_draft" in kw else None)
+    rng = np.random.default_rng(0)
+    for n in (4, 7, 23, 10):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=n))
+    eng.run_until_drained()
+    streams.append([r.output for r in sorted(eng.finished, key=lambda r: r.uid)])
+np.save(out_path, np.asarray(streams, np.int32))
+"""
+
+
+def _spec_models(params_path):
+    """The reference's trees (:data:`_REFERENCE_SPEC`) as the port's f32
+    parameters: (cfg, params, (draft cfg, draft params))."""
+    import dataclasses
+    import pickle
+
+    from repro_torch.convert import params_from_jax
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    dcfg = dataclasses.replace(cfg, n_layers=1, name=cfg.name + "-draft")
+    with open(params_path, "rb") as f:
+        tree, dtree = pickle.load(f)
+    return (cfg, params_from_jax(tree, cfg, device="cpu", dtype=torch.float32),
+            (dcfg, params_from_jax(dtree, dcfg, device="cpu", dtype=torch.float32)))
+
+
+def _spec_drain(cfg, params, draft, mesh, case):
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    kw = SPEC_CASES[case]
+    eng = ServingEngine(cfg, params, EngineConfig(**SERVE, spec_k=4, **kw), device="cpu",
+                        mesh=mesh, draft=draft if kw.get("spec_draft") == "model" else None)
+    return eng, _drain(eng, _prompts(cfg))
+
+
+def _spec_worker(rank, params_path, out_path):
+    import itertools
+
+    from repro_torch.launch.mesh import small_mesh
+    cfg, params, draft = _spec_models(params_path)
+    meshes = small_mesh(1, 2, device_type="cpu"), small_mesh(2, 1, device_type="cpu")
+    streams = []
+    for mesh, case in itertools.product(meshes, SPEC_CASES):
+        sharded, got = _spec_drain(cfg, params, draft, mesh, case)
+        if case == "model":
+            # the draft pool is placed as the target pool
+            d = sharded.pool.draft_cache["stack"][0]["u0"]["attn"]["k"]
+            t = sharded.pool.cache["stack"][0]["u0"]["attn"]["k"]
+            assert tuple(d.placements) == tuple(t.placements), (d.placements, t.placements)
+        plain, want = _spec_drain(cfg, params, draft, None, case)
+        assert got == want, (case, got, want)
+        for key in ("spec_steps", "spec_drafted", "spec_accepted", "spec_committed",
+                    "host_transfers", "decode_steps"):
+            assert getattr(sharded, key) == getattr(plain, key), (case, key)
+        assert sharded.stats()["finished"] == len(PROMPTS)
+        streams.append(got)
+    if rank == 0:
+        np.save(out_path, np.asarray(streams, np.int32))
+
+
+def test_spec_decoding_under_mesh(tmp_path):
+    """``ServingEngine(mesh=, spec_k=4)``, greedy, f32, on a 1x2 mesh (KV
+    heads over ``model``) and a 2x1 mesh (slots over ``data``), each with
+    a lossless self-draft, an 8-bit self-draft and a 1-layer draft
+    model: the streams, the speculative counters and the host transfers
+    equal the mesh-less spec engine's bit for bit, and the streams equal
+    the reference's spec engine under a forced 2-device mesh up to
+    near-ties (the target model's margin: it decides what a greedy stream
+    commits)."""
+    import os
+    import subprocess
+    import sys
+    params_path, ref = tmp_path / "params.pkl", tmp_path / "ref.npy"
+    subprocess.run([sys.executable, "-c", _REFERENCE_SPEC, str(params_path), str(ref)], check=True, timeout=JOIN_S,
+                   env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    out = tmp_path / "port.npy"
+    _spawn(tmp_path, 2, _spec_worker, str(params_path), str(out))
+    cfg, params, _ = _spec_models(params_path)
+    for want, got in zip(np.load(ref), np.load(out)):
+        _same_streams(params, cfg, _prompts(cfg), [list(x) for x in want],
+                      [list(x) for x in got])

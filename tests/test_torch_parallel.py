@@ -129,7 +129,7 @@ def test_plan_tables_equal_the_reference(arch, plan, shape):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_count_equals_the_reference(arch):
     """``_serving_fsdp`` reads it: the port counts its meta tree."""
-    assert SH.param_count(get_config(arch)) == jax_get_config(arch).param_count()
+    assert get_config(arch).param_count() == jax_get_config(arch).param_count()
 
 
 @pytest.mark.parametrize("shape", [(16, 16), (2, 16, 16), (4, 8)])
