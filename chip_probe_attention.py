@@ -5,6 +5,7 @@ prefill (``prefill.cu``) goes, on one NVIDIA card.
 
     python3 chip_probe_attention.py                  # the plans, as built
     python3 chip_probe_attention.py dc_nomerge ...   # and named variants
+    python3 chip_probe_attention.py --wide [pf_...]  # the wide-head prefills
 
 At the serving engine's shapes (decode: B = 8 slots, a 1024-entry pool,
 16 query heads over 2 KV heads, head_dim 128, bf16, kv8 and kv4; prefill: one
@@ -21,6 +22,16 @@ on purpose (what a part of the kernel costs).  The wrappers' plans are
 timed again at the end ("again"): calls made later in one process may read
 faster, so compare a variant with the timings around it.  Not part of the
 port's checks: ``chip_smoke.py`` is.
+
+``--wide`` studies the prefill's tensor-core design at the wide heads
+instead (hd 256: gemma2-9b's and gpt-j's 128-token packed streams and
+recurrentgemma-9b's 4608-token padded prompt at MQA rep 16; MLA's hd 192 /
+hdv 128 at deepseek-v2's 384-token prompt over 128 heads): ``ptxas``'s
+registers and spills of each ``prefill_tc_kernel`` instantiation, then
+each shape under the plan (checked against the plain version, timed
+beside it, ``scaled_dot_product_attention`` and the bound, as
+``chip_smoke.py`` times it) and under other blocks, then each ``pf_*``
+variant named at those shapes.
 """
 import pathlib
 import shutil
@@ -96,7 +107,122 @@ VARIANTS = {   # name: [(file of csrc/, its text, the replacement), ...]
                 "pack_bf16(o[n][2 * i] / (1.f / inv), o[n][2 * i + 1] / (1.f / inv));")],
     "pf_exp2": [("prefill.cu", "expf(sc[n][c] - m[c >> 1])",
                  "exp2f((sc[n][c] - m[c >> 1]) * 1.4426950408889634f)")],
+    # the wide heads' register choice undone: one warp a 16-row tile at hd
+    # 256 too, Q's 64 registers and O's 128 in it (ptxas spills); the plan
+    # is the wrapper's, so a block holds half as many warps
+    "pf_nosplit": [("prefill.cu", "return hd / 4 + hdv / 2 > 128 ? 2 : 1;", "return 1;")],
+    # the pair without the exchange: each warp sums the whole of S itself
+    # (all of Q's dims in its registers) and keeps its half of O's columns
+    "pf_dups": [("prefill.cu", "constexpr int kD = HD / kSplit,", "constexpr int kD = HD,"),
+                ("prefill.cu", "head * a.q_sh + half * kD;", "head * a.q_sh;"),
+                ("prefill.cu", "const int d0 = half * kD + kk * 16;", "const int d0 = kk * 16;"),
+                ("prefill.cu", "if constexpr (kSplit > 1) {\n        // the pair's halves",
+                 "if constexpr (false) {\n        // the pair's halves")],
+    # blocks of at most 4 warps (PLAN_PATCHES), three an SM: at most 168
+    # registers a thread
+    "pf_3blocks4": [("prefill.cu", "__launch_bounds__(32 * kMaxWarps) prefill_tc_kernel",
+                     "__launch_bounds__(128, 3) prefill_tc_kernel")],
 }
+# what a variant changes in the wrapper's plan while it is timed
+PLAN_PATCHES = {"pf_3blocks4": {"TC_MAX_WARPS": 4}}
+# --wide: name -> (chip_smoke's shape, timing iterations, other blocks
+# (query heads, query rows) to time beside the plan's)
+WIDE = {
+    "gemma2-9b S128 16/8 hd256": (cs.GEMMA2_PREFILL, 200, ((1, 16), (2, 32), (1, 64))),
+    "gpt-j S128 16/16 hd256": (cs.PAPER_PREFILL["gpt-j"], 200, ((1, 16), (1, 64))),
+    "recurrentgemma-9b S4608 16/1 hd256": (dict(cs.RGEMMA_PREFILL, S=4608), 20,
+                                           ((2, 16), (2, 32), (1, 64))),
+    "deepseek-v2 MLA S384 128/128 hd192/128": (dict(cs.MLA_PREFILL, S=384), 50,
+                                               ((1, 32), (1, 64))),
+}
+
+
+def rebuilt(name, build):
+    """The build of variant ``name``'s edited source (one edit of its
+    file under ``build/attention_probe/<name>``), loaded in place of the
+    source's until ``restore`` is called."""
+    source = SOURCES[name[:2]]
+    d = ROOT / "build" / "attention_probe" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    src = build.CSRC
+    for f in list(src.glob("*.cuh")) + [src / source]:
+        shutil.copy(f, d / f.name)
+    for file, old, new in VARIANTS[name]:
+        text = (d / file).read_text()
+        if old not in text:
+            raise SystemExit(f"variant {name}: its text is no longer in {file}")
+        (d / file).write_text(text.replace(old, new))
+    build.build.cache_clear()
+    build.bind.cache_clear()
+    build.CSRC, build.BUILD_ROOT = d, d / "out"
+    return build.build()
+
+
+def restore(build, src, root):
+    build.build.cache_clear()
+    build.bind.cache_clear()
+    build.CSRC, build.BUILD_ROOT = src, root
+
+
+def ptxas_lines(log, source="prefill.cu"):
+    """``ptxas -v``'s lines of one source: each entry function's name,
+    then its registers, stack and spills."""
+    part = log.split(f"== {source}")[-1].split("\n== ")[0]
+    return [ln.strip() for ln in part.splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
+
+
+def wide(torch, names):
+    """The tensor-core prefill at the wide heads (``WIDE``): registers and
+    spills, each shape checked and timed under the plan and other blocks,
+    then under each named ``pf_*`` variant."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as K
+    b = build.build()
+    print(f"build {b.seconds:.1f} s")
+    for ln in ptxas_lines(b.log):
+        print(ln)
+    rng = np.random.default_rng(30)
+    cases = {n: (cs.prefill_case(torch, rng, **kw), kw, it, blocks)
+             for n, (kw, it, blocks) in WIDE.items()}
+
+    def run(tag, name, blocks=None):
+        c, kw, iters, _ = cases[name]
+        args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"],
+                    causal=c["causal"])
+        out = K.flash_attention_fwd(c["q"], c["k"], c["v"], **args)
+        ref = K.flash_attention_plain(c["q"], c["k"], c["v"], **args)
+        err = float((out.float() - ref.float()).abs().max())
+        pad = "" if c["seg_np"] is None else \
+            f" pad_rows_zero={bool((out[:, :, torch.from_numpy(c['seg_np'][0] < 0).to(out.device)] == 0).all())}"
+        ms = cs.device_ms(lambda: K.flash_attention_fwd(c["q"], c["k"], c["v"], **args), iters)
+        print(f"{tag:12s} {name} block={blocks or 'plan'} ms={ms:.4f} "
+              f"max_abs_err={err:.2e}{pad}", flush=True)
+
+    for name, (c, kw, iters, blocks) in cases.items():
+        cs.prefill_timing(torch, np.random.default_rng(31), kw, iters=iters)
+        run("as built", name)
+        plan = K.prefill_plan
+        for h, r in blocks:
+            K.prefill_plan = lambda *a, h=h, r=r: K.Plan("tensor_core", h, r)
+            run(f"h{h}r{r}", name, (h, r))
+        K.prefill_plan = plan
+    src, root = build.CSRC, build.BUILD_ROOT
+    for name in names:
+        for ln in ptxas_lines(rebuilt(name, build).log):
+            print(f"{name} {ln}")
+        saved = {k: getattr(K, k) for k in PLAN_PATCHES.get(name, {})}
+        for k, v in PLAN_PATCHES.get(name, {}).items():
+            setattr(K, k, v)
+        for case in cases:
+            run(name, case)
+        for k, v in saved.items():
+            setattr(K, k, v)
+        restore(build, src, root)
+    for case in cases:
+        run("again", case)
+    return 0
 
 
 def main(names):
@@ -104,7 +230,9 @@ def main(names):
     if not torch.cuda.is_available():
         print("chip_probe_attention: no CUDA device", file=sys.stderr)
         return 1
-    unknown = [n for n in names if n not in VARIANTS]
+    is_wide = "--wide" in names
+    names = [n for n in names if n != "--wide"]
+    unknown = [n for n in names if n not in VARIANTS or (is_wide and not n.startswith("pf"))]
     if unknown:
         print(f"unknown variants {unknown}; known: {sorted(VARIANTS)}", file=sys.stderr)
         return 2
@@ -117,6 +245,8 @@ def main(names):
     print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                              "--format=csv,noheader"], capture_output=True, text=True,
                             check=True).stdout.strip())
+    if is_wide:
+        return wide(torch, names)
     sms = sm_count(torch.device("cuda"))
     rng = np.random.default_rng(0)
     decode = {}
@@ -183,25 +313,9 @@ def main(names):
 
     src, root = build.CSRC, build.BUILD_ROOT
     for name in names:
-        source = SOURCES[name[:2]]
-        d = ROOT / "build" / "attention_probe" / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for f in list(src.glob("*.cuh")) + [src / source]:
-            shutil.copy(f, d / f.name)
-        for file, old, new in VARIANTS[name]:
-            text = (d / file).read_text()
-            if old not in text:
-                raise SystemExit(f"variant {name}: its text is no longer in {file}")
-            (d / file).write_text(text.replace(old, new))
-        build.build.cache_clear()
-        build.bind.cache_clear()
-        build.CSRC, build.BUILD_ROOT = d, d / "out"
-        build.build()
+        rebuilt(name, build)
         {"dc": time_fp_decode, "dq": time_decode, "pf": time_prefill}[name[:2]](name)
-        build.build.cache_clear()
-        build.bind.cache_clear()
-        build.CSRC, build.BUILD_ROOT = src, root
+        restore(build, src, root)
     time_fp_decode("again")
     time_decode("again")
     time_prefill("again")

@@ -52,7 +52,7 @@ Phases, each of which must pass or the script exits non-zero:
              fused gate/up also beside the unfused composition of the new
              product; and the paper's Table 3 models' shapes (MHA: the decode
              over a 1024-entry pool and the 128-token packed prefill of
-             llama2-7b at head dim 128, gpt-j at 256 on CUDA cores, bert-large
+             llama2-7b at head dim 128, gpt-j at 256, bert-large
              and bert-base at 64; llama2-7b's kv8 and kv4 decode and its int8
              projections), each timed beside its plain version, its bound and
              the library call (but bert-base's, which times as bert-large's);
@@ -62,7 +62,7 @@ Phases, each of which must pass or the script exits non-zero:
              under window 2048, its int8 projections and the RG-LRU's
              ``w_gate`` at 8..4608 rows), each timed likewise; and
              deepseek-v2-236b's (MLA's prefill at q/k head dim 192 and v
-             128 over 128 heads on CUDA cores, in the layer's (B, S, H, d)
+             128 over 128 heads, in the layer's (B, S, H, d)
              layout: its padded prompts of 128..384 tokens, a packed
              stream, the buckets 32 and 64; its int8 ``wo``, dense MLP,
              shared experts and 102400-column lm_head at 1..384 rows; the
@@ -229,7 +229,7 @@ Phases, each of which must pass or the script exits non-zero:
              layer and 7 MoE layers, ~58 GB), serving the 16 requests
              (``kv_len`` 1024) through padded admission at fp and
              ``w8kv8``, replayed and eagerly (streams bit for bit, launches
-             equal and as reckoned: a prefill kernel a layer on CUDA cores,
+             equal and as reckoned: a prefill kernel a layer on tensor cores,
              no decode kernel, the absorbed decode being plain PyTorch);
              flash against ref logits under ``ForcedRouting``; a kill and
              restore mid-decode at fp and a snapshot's latent pool (bf16
@@ -780,7 +780,7 @@ def attention_kernel_name(k):
         return f"int{k.bits}/{dtype}/rows{k.rows}/dims{k.dims}/splits{k.splits}"
     if hasattr(k, "splits"):
         return f"{dtype}/rows{k.rows}/dims{k.dims}/splits{k.splits}"
-    return f"{k.design}/heads{k.heads}/rows{k.rows}/{dtype}"
+    return f"{k.design}/heads{k.heads}/rows{k.rows}/hd{k.hd}x{k.hdv}/{dtype}"
 
 
 def masked_splits(kv_pos, sp):
@@ -809,11 +809,13 @@ def two_streams(torch, calls):
 
 
 def expected_prefill_design(dtype, hd, hdv=None):
-    """Tensor cores for bf16 with q/k and v head dims equal, 64 or 128
-    (prefill.cu's plan); CUDA cores otherwise."""
+    """Tensor cores for bf16 at the (q/k, v) head dims prefill.cu has tiles
+    for (``TC_HEAD_DIMS``: 64/64, 128/128, 256/256 and MLA's 192/128;
+    ``hdv`` None: ``hd``); CUDA cores otherwise."""
     import torch
-    return "tensor_core" if dtype == torch.bfloat16 and hd in (64, 128) and \
-        hdv in (None, hd) else "cuda_core"
+    pairs = ((64, 64), (128, 128), (256, 256), (192, 128))
+    return "tensor_core" if dtype == torch.bfloat16 and \
+        (hd, hd if hdv is None else hdv) in pairs else "cuda_core"
 
 
 def check_attention_checked(what, kernels, checked):
@@ -1048,6 +1050,8 @@ def run_kernel_checks(torch):
         "rep1 Hq16 Hkv16": dict(Hkv=16),
         "rep8 hd256": dict(Hq=8, Hkv=1, hd=256),
         "f32 rep4": dict(Hq=8, Hkv=2, dtype=torch.float32),
+        # a head dim the tensor-core tiles do not take: bf16 on CUDA cores
+        "bf16 rep4 hd96 (CUDA cores)": dict(Hq=8, Hkv=2, hd=96),
         "no segments, causal S256": dict(S=256, segmented=False),
         "long stream S4096 rep8": dict(S=4096, lens=(1500, 2000, 500)),
         "rep1 S2048 Hq4": dict(S=2048, Hq=4, Hkv=4, lens=(2000,)),
@@ -1076,9 +1080,9 @@ def run_kernel_checks(torch):
     # attend causally like real ones and are never read), from rng_rg
     rg_cases = {f"non-segmented recurrentgemma-9b S{S} Hq16 Hkv1 hd256 window2048":
                 dict(RGEMMA_PREFILL, S=S) for S in RGEMMA_PREFILL_LENGTHS}
-    # deepseek-v2-236b's MLA prefills (hd 192, hdv 128, 128 heads: CUDA
-    # cores): its padded prompts, the logits phase's packed stream and its
-    # sequential buckets, from a generator of their own
+    # deepseek-v2-236b's MLA prefills (hd 192, hdv 128, 128 heads): its
+    # padded prompts, the logits phase's packed stream and its sequential
+    # buckets, from a generator of their own
     rng_mla = np.random.default_rng(15)
     mla_cases = {f"non-segmented deepseek-v2 MLA S{S} Hq128 hd192 hdv128": dict(MLA_PREFILL, S=S)
                  for S in (32, 64) + MLA_PREFILL_LENGTHS}
@@ -1143,6 +1147,14 @@ def run_kernel_checks(torch):
         **{what: prefill_timing(torch, rng_cross, kw, iters=50, windows=CROSS_TIMING_WINDOWS)
            for what, kw in cross_prefill_timed().items()},
         "cases": errs}
+    # the wide heads (hd 256, MLA's 192/128), on tensor cores: kernel,
+    # scaled_dot_product_attention and bound side by side
+    for what in ("gemma2_9b", "gpt_j", "recurrentgemma_9b", "deepseek_v2_236b"):
+        t = records["flash_prefill"][what]
+        print(f"kernel flash_prefill wide heads {what} shape={t['shape']} design={t['design']} "
+              f"ms={t['ms']:.4f} sdpa_ms={t['library_ms']:.4f} bound_ms={t['bound_ms']:.5f} "
+              f"ms/sdpa_ms={t['ms'] / t['library_ms']:.2f}")
+        check(t["design"] == "tensor_core", f"prefill timing {what} ran on {t['design']}")
     return records
 
 
@@ -2113,10 +2125,10 @@ def decode_attention_layers(cfg):
     return 0 if cfg.is_mla else attention_layers(cfg)
 
 
-def attention_head_dim(cfg):
-    """The q/k head dim of the prefill kernel's calls: MLA's carries its
-    RoPE dims (128 + 64 at deepseek-v2)."""
-    return cfg.head_dim + (cfg.rope_head_dim if cfg.is_mla else 0)
+def attention_head_dims(cfg):
+    """The (q/k, v) head dims of the prefill kernel's calls: MLA's q/k
+    carries its RoPE dims (128 + 64 at deepseek-v2, v 128)."""
+    return cfg.head_dim + (cfg.rope_head_dim if cfg.is_mla else 0), cfg.v_head_dim
 
 
 def projections(cfg):
@@ -2325,10 +2337,10 @@ def run_engine(torch, cfg, params, run="fp", kv_len=1024, long_prompts=(), eager
     n_attn = attention_layers(cfg)
     check((prefills > 0) == (n_attn > 0) and prefills % max(n_attn, 1) == 0,
           f"{label}: prefill kernel launches {launches['flash_prefill']}")
-    # every packed prefill on the design its head dim calls for (tensor cores
-    # at 64/128, CUDA cores at 256 and at MLA's 192/128), in kernels that
-    # phase 3 checked
-    want_pf = expected_prefill_design(torch.bfloat16, attention_head_dim(cfg))
+    # every packed prefill on the design its head dims call for (tensor
+    # cores at 64, 128, 256 and MLA's 192/128), in kernels that phase 3
+    # checked
+    want_pf = expected_prefill_design(torch.bfloat16, *attention_head_dims(cfg))
     on = sum(n for k, n in attn["prefill"].items() if k.design == want_pf)
     check(on == launches["flash_prefill"],
           f"{run}: {on} of {launches['flash_prefill']} prefill launches on {want_pf}")
@@ -4136,7 +4148,7 @@ def run_mla(torch, by_run):
     phase's 16 requests at fp and w8kv8 (``kv_len`` 1024) through padded
     admission, replayed and again eagerly (streams bit for bit, launches
     equal and as ``expected_launches`` reckons them: a prefill kernel a
-    layer on CUDA cores at head dims 192/128, no decode kernel, ``wo``, the
+    layer on tensor cores at head dims 192/128, no decode kernel, ``wo``, the
     dense MLP, the shared experts and ``lm_head`` on the dequant-matmul at
     w8kv8, the expert path in each MoE layer); flash against ref logits
     with the ref run's expert choices imposed (``ForcedRouting``); a kill
@@ -5296,7 +5308,7 @@ def main():
 
     b = build.build()
     ptxas = [ln.strip() for ln in b.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "entry function" in ln or "registers" in ln or "spill" in ln]
     print(f"build: {b.seconds:.2f} s, libraries {sorted(b.libs)}")
     for ln in ptxas:
         print(f"build ptxas: {ln}")

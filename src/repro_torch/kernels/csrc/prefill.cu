@@ -26,35 +26,52 @@
 // prefill_plan) picks one and passes it, and the source refuses a design
 // the inputs cannot take:
 //
-// 1. Tensor cores (bf16 q/k/v, hd == hdv == 64 or 128, rows 16-byte
-//    aligned), FlashAttention-2 style with mma.sync m16n8k16 bf16
-//    -> f32.  Each warp owns 16 query rows of one query head; a block is
-//    `heads` query heads of one KV head times `rows` 16-row tiles, which
-//    share each K/V tile: up to 4 warps, one an SM sub-partition, more
-//    while the blocks fill a wave (4 x 1 at the serving shape: 32 blocks,
-//    128 warps).  Q fragments
-//    stay in registers for the whole sweep.  K/V tiles of 32 keys come in
-//    through cp.async, double-buffered, and reach the mma through ldmatrix
-//    (K rows are the col operand as stored) and ldmatrix.trans (V).  The S
-//    accumulator's m16n8 layout is reused as the A fragment of P.V.  The
-//    reference multiplies P in f32: P is split into three bf16 terms, each
-//    the rounding of what the previous leave, whose sum is P exactly (24
+// 1. Tensor cores (bf16 q/k/v at (hd, hdv) = (64, 64), (128, 128),
+//    (256, 256) or MLA's (192, 128), rows 16-byte aligned),
+//    FlashAttention-2 style with mma.sync m16n8k16 bf16 -> f32, one
+//    template instantiation a pair.  Each warp owns 16 query rows of one
+//    query head; a block is `heads` query heads of one KV head times
+//    `rows` 16-row tiles, which share each K/V tile: up to 4 warps, one an
+//    SM sub-partition, more (up to 8) while the blocks fill a wave (4 x 1
+//    at the serving shape: 32 blocks, 128 warps).  Q fragments stay in
+//    registers for the whole sweep.  K/V tiles of 32 keys come in through
+//    cp.async, double-buffered, and reach the mma through ldmatrix (K rows
+//    are the col operand as stored) and ldmatrix.trans (V).  S = Q K^T
+//    takes hd / 16 k-steps, P.V hdv / 8 n-tiles.  The S accumulator's
+//    m16n8 layout is reused as the A fragment of P.V.  The reference
+//    multiplies P in f32: P is split into three bf16 terms, each the
+//    rounding of what the previous leave, whose sum is P exactly (24
 //    significant bits, 8 a term), and each P.V k-step issues three mmas.
 //    bf16 products are exact in f32, so S and P.V differ from the plain
 //    version only in the order of f32 sums.  (Two terms keep P to 2^-17
 //    of itself; on the H100 they left outputs in [1, 2) one bf16 ulp,
-//    7.8e-3, off the plain version, four times the CUDA-core design's
-//    largest error.)  Measured on the H100 at the serving shape
+//    7.8e-3, off the plain version at hd 128, four times the CUDA-core
+//    design's largest error; at hd 256 the three terms' order of sums
+//    leaves that ulp too.)  Measured on the H100 at the serving shape
 //    (chip_probe_attention.py): ~0.0097 ms with 4 warps a block, 0.0108
 //    with one (128 one-warp blocks), 0.0126 with 8; 0.0046 without the
 //    tiles' arithmetic; two P terms instead of three save ~0.0004 ms.
-//    The head dim is a template parameter and the mask has no branch an
+//    The head dims are template parameters and the mask has no branch an
 //    element: with run-time head-dim bounds in the unrolled loops and
 //    branches in the mask, one-warp blocks read 0.026 ms (0.016 without).
-// 2. CUDA cores (f32 inputs, or a head dim the tiles do not take): one
-//    block per (32-row query tile, query head, batch row), scalar f32 dot
-//    products and value sums out of shared memory, the port's first
-//    design.
+//    At hd 256 a warp would hold Q's 64 registers and O's 128 at once:
+//    two warps share each 16-row tile instead (warps_a_tile), each with
+//    half of Q's dims and of O's columns, and add each other's half of S
+//    out of shared memory (171 registers, no spill; one warp spilled at
+//    255 registers, Q in registers or in shared memory alike).  The pair
+//    is 25-30% faster at S 128 and ~45% slower at S 4608 than one warp a
+//    tile with its spill (its exchange, barrier and doubled softmax; 8
+//    warps an SM either way).  On an
+//    H100 80GB HBM3 at 700 W (chip_smoke.py phase kernels): gemma2-9b's
+//    and gpt-j's 128-token packed streams 0.0138 and 0.0115 ms
+//    (the CUDA-core design: 0.1505, 0.1483), recurrentgemma-9b's
+//    4608-token prompt (MQA rep 16, window 2048) 1.83 ms (57.81), and
+//    deepseek-v2's MLA prefill at S 384 over 128 heads 0.118 ms
+//    (2.357).
+// 2. CUDA cores (f32 inputs, a head-dim pair the tiles do not take, or
+//    rows not in whole 16-byte pieces): one block per (32-row query tile,
+//    query head, batch row), scalar f32 dot products and value sums out
+//    of shared memory, the port's first design.
 #include "common.cuh"
 
 namespace {
@@ -252,7 +269,7 @@ struct Args {
   const bf16* v;
   const int* seg;
   bf16* out;
-  int Sq, Skv, rep, hd;  // hd: q/k and v head dim alike
+  int Sq, Skv, rep;
   int heads, rows;  // a block: `heads` query heads of one KV head x `rows` 16-row tiles
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss;
   long long o_sb, o_ss, o_sh;
@@ -281,38 +298,63 @@ __device__ __forceinline__ void split3_bf16(float x0, float x1, uint32_t (&p)[3]
   }
 }
 
-__host__ __device__ constexpr int row_elems(int hd) { return hd + 8; }  // ldmatrix rows in distinct banks
+__host__ __device__ constexpr int row_elems(int d) { return d + 8; }  // ldmatrix rows in distinct banks
 __host__ __device__ inline int live_words(int Skv) { return ((Skv + kBK - 1) / kBK + 31) / 32; }
+// A thread holds Q's fragments (4 registers a k-step of 16 dims: hd / 4)
+// and O's f32 accumulators (4 an n-tile of 8 dims: hdv / 2) for the whole
+// sweep.  Where the two pass 128 registers (hd 256: 64 + 128), two warps
+// share a 16-row tile: each holds half of Q's dims and half of O's
+// columns, sums its half of S = Q K^T, and the two add each other's half
+// out of shared memory, so that both hold the whole S, in one order, and
+// the same P.  (With Q in shared memory instead and O whole in one warp,
+// ptxas gave the tile loop 255 registers and spilled its scalars: 108
+// bytes stored, 220 loaded.)
+__host__ __device__ constexpr int warps_a_tile(int hd, int hdv) {
+  return hd / 4 + hdv / 2 > 128 ? 2 : 1;
+}
 
-__host__ __device__ inline size_t smem_bytes(int hd, int rows, int Skv) {
-  return sizeof(bf16) * 2 * 2 * kBK * row_elems(hd)  // K and V, two buffers
+__host__ __device__ inline size_t smem_bytes(int hd, int hdv, int rows, int warps, int Skv) {
+  return sizeof(bf16) * 2 * kBK * (row_elems(hd) + row_elems(hdv))  // K and V, two buffers
+         + sizeof(float) * (warps_a_tile(hd, hdv) > 1 ? warps * 16 * 32 : 0)  // S halves
          + sizeof(int) * (2 * kBK + 16 * rows)       // key and query segments
          + sizeof(unsigned) * live_words(Skv);       // one bit a live key tile
 }
 
-// Grid (query blocks of 16 * rows, Hkv * ceil(rep / heads), B); a warp
-// each (head, 16-row tile) of the block.  A thread of a warp holds, as the
-// m16n8 layout has it, rows g = lane / 4 and g + 8 and columns 2t, 2t + 1
-// (t = lane % 4) of each 8-column tile.  HD, the head dim, is a template
-// parameter, so a tile's body is one straight run of code.
-template <int HD>
+// the two warps of a 16-row tile (unit u) wait for each other: named
+// barrier 1 + u of 64 threads (0 is __syncthreads')
+__device__ __forceinline__ void pair_sync(int unit) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + unit) : "memory");
+}
+
+// Grid (query blocks of 16 * rows, Hkv * ceil(rep / heads), B); a unit
+// of kSplit warps each (head, 16-row tile) of the block.  A thread of a
+// warp holds, as the m16n8 layout has it, rows g = lane / 4 and g + 8 and
+// columns 2t, 2t + 1 (t = lane % 4) of each 8-column tile.  HD and HDV,
+// the q/k and the v head dims, are template parameters, so a tile's body
+// is one straight run of code: S = Q K^T takes HD / 16 k-steps, P.V HDV /
+// 8 n-tiles, a warp kD / 16 and kDV / 8 of them.
+template <int HD, int HDV>
 __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a) {
-  constexpr int kRow = row_elems(HD);
+  constexpr int kRowK = row_elems(HD), kRowV = row_elems(HDV);
+  constexpr int kSplit = warps_a_tile(HD, HDV);
+  constexpr int kD = HD / kSplit, kDV = HDV / kSplit;  // a warp's q/k dims, O's columns
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int unit = warp / kSplit, half = warp % kSplit;  // (head, 16-row tile), its half
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);          // [2][kBK][kRow]
-  bf16* v_s = k_s + 2 * kBK * kRow;                   // [2][kBK][kRow]
-  int* kseg = reinterpret_cast<int*>(v_s + 2 * kBK * kRow);  // [2][kBK]
+  bf16* k_s = reinterpret_cast<bf16*>(smem);          // [2][kBK][kRowK]
+  bf16* v_s = k_s + 2 * kBK * kRowK;                  // [2][kBK][kRowV]
+  float* xs = reinterpret_cast<float*>(v_s + 2 * kBK * kRowV);  // [nwarps][16][32]: S halves
+  int* kseg = reinterpret_cast<int*>(xs + (kSplit > 1 ? nwarps * 16 * 32 : 0));  // [2][kBK]
   int* qseg = kseg + 2 * kBK;                         // [16 * rows]
   unsigned* live = reinterpret_cast<unsigned*>(qseg + 16 * a.rows);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int groups = (a.rep + a.heads - 1) / a.heads;
   const int hk = blockIdx.y / groups, b = blockIdx.z;
-  const int hr = (blockIdx.y % groups) * a.heads + warp / a.rows;  // head within hk's group
+  const int hr = (blockIdx.y % groups) * a.heads + unit / a.rows;  // head within hk's group
   const int qb0 = blockIdx.x * 16 * a.rows, qb1 = min(a.Sq, qb0 + 16 * a.rows);
-  const int q0 = qb0 + 16 * (warp % a.rows);  // the warp's first row
+  const int q0 = qb0 + 16 * (unit % a.rows);  // the unit's first row
   const bool active = hr < a.rep && q0 < a.Sq;
 
   // the block's key tiles: from the first the window reaches to the causal edge
@@ -321,14 +363,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
   const int ntile = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
   const int* sb = a.seg ? a.seg + b * a.g_sb : nullptr;
 
-  // Q fragments, in registers for the whole sweep (zero past Sq); loaded
-  // first, so that their latency overlaps what follows
+  // Q fragments of the warp's dims, in registers for the whole sweep (zero
+  // past Sq); loaded first, so that their latency overlaps what follows
   const long long head = (long long)hk * a.rep + hr;
-  const bf16* qb = a.q + b * a.q_sb + head * a.q_sh;
+  const bf16* qb = a.q + b * a.q_sb + head * a.q_sh + half * kD;
   const int r0 = q0 + g, r1 = q0 + g + 8;
-  uint32_t qf[HD / 16][4];
+  uint32_t qf[kD / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < kD / 16; ++kk) {
     const int d = kk * 16 + 2 * t;
     qf[kk][0] = load_pair(qb + r0 * a.q_ss + d, active && r0 < a.Sq);
     qf[kk][1] = load_pair(qb + r1 * a.q_ss + d, active && r1 < a.Sq);
@@ -377,15 +419,19 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
   const bf16* kb = a.k + b * a.k_sb + hk * a.k_sh;
   const bf16* vb = a.v + b * a.v_sb + hk * a.v_sh;
   auto load = [&](int tt, int s) {  // key tile tt into buffer s, zero past Skv
-    constexpr int kCh = HD / 8;     // 16-byte pieces a row
+    constexpr int kChK = HD / 8, kChV = HDV / 8;  // 16-byte pieces a row
     const int k0 = k_begin + tt * kBK;
-    bf16* kd = k_s + s * kBK * kRow;
-    bf16* vd = v_s + s * kBK * kRow;
-    for (int c = tid; c < kBK * kCh; c += nthreads) {
-      const int r = c / kCh, off = (c % kCh) * 8, j = k0 + r;
+    bf16* kd = k_s + s * kBK * kRowK;
+    bf16* vd = v_s + s * kBK * kRowV;
+    for (int c = tid; c < kBK * kChK; c += nthreads) {
+      const int r = c / kChK, off = (c % kChK) * 8, j = k0 + r;
       const bool ok = j < a.Skv;
-      cp_async16(kd + r * kRow + off, ok ? kb + j * a.k_ss + off : kb, ok);
-      cp_async16(vd + r * kRow + off, ok ? vb + j * a.v_ss + off : vb, ok);
+      cp_async16(kd + r * kRowK + off, ok ? kb + j * a.k_ss + off : kb, ok);
+    }
+    for (int c = tid; c < kBK * kChV; c += nthreads) {
+      const int r = c / kChV, off = (c % kChV) * 8, j = k0 + r;
+      const bool ok = j < a.Skv;
+      cp_async16(vd + r * kRowV + off, ok ? vb + j * a.v_ss + off : vb, ok);
     }
     if (sb && tid < kBK) {
       const int j = k0 + tid;
@@ -395,9 +441,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
   };
 
   float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l[2] = {0.f, 0.f};
-  float o[HD / 8][4];
+  float o[kDV / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < kDV / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
 
@@ -415,8 +461,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
     const bool need = active && (!a.causal || k0 <= min(q0 + 15, a.Sq - 1)) &&
                       (!a.window || q0 - (k0 + kBK - 1) < a.window);
     if (need) {
-      const bf16* kt = k_s + s * kBK * kRow;
-      const bf16* vt = v_s + s * kBK * kRow;
+      const bf16* kt = k_s + s * kBK * kRowK;
+      const bf16* vt = v_s + s * kBK * kRowV;
       // S = Q K^T: 16 rows x 32 keys, four n8 tiles
       float sc[4][4];
 #pragma unroll
@@ -424,15 +470,32 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
 #pragma unroll
         for (int c = 0; c < 4; ++c) sc[n][c] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int d0 = half * kD + kk * 16;  // the k-step's first q/k dim
 #pragma unroll
         for (int np = 0; np < 2; ++np) {  // keys np*16 .. +15: two n8 tiles
           uint32_t r[4];
-          ldmatrix_x4(r, kt + (np * 16 + ((lane >> 4) & 1) * 8 + (lane & 7)) * kRow +
-                             kk * 16 + ((lane >> 3) & 1) * 8);
+          ldmatrix_x4(r, kt + (np * 16 + ((lane >> 4) & 1) * 8 + (lane & 7)) * kRowK +
+                             d0 + ((lane >> 3) & 1) * 8);
           mma_bf16(sc[2 * np], qf[kk], r[0], r[1]);
           mma_bf16(sc[2 * np + 1], qf[kk], r[2], r[3]);
         }
+      }
+      if constexpr (kSplit > 1) {
+        // the pair's halves of S: this warp's to shared memory, then the
+        // other's added (a + b == b + a, so both warps hold the same S).
+        // The buffer is free again at the next tile's __syncthreads.
+        float* mine = xs + warp * 16 * 32;
+        const float* other = xs + (warp ^ 1) * 16 * 32;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mine[(4 * n + c) * 32 + lane] = sc[n][c];
+        pair_sync(unit);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sc[n][c] += other[(4 * n + c) * 32 + lane];
       }
       // scale and softcap, then the mask (no branch an element); row
       // maxima over the quad that shares a row
@@ -491,7 +554,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
         l[i] = l[i] * alpha[i] + sum[i];
       }
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
+      for (int n = 0; n < kDV / 8; ++n) {
         o[n][0] *= alpha[0];
         o[n][1] *= alpha[0];
         o[n][2] *= alpha[1];
@@ -511,10 +574,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
 #pragma unroll
           for (int j = 0; j < 4; ++j) pa[i][j] = f[j][i];
 #pragma unroll
-        for (int np = 0; np < HD / 16; ++np) {  // dims np*16 .. +15: two n8 tiles
+        for (int np = 0; np < kDV / 16; ++np) {  // the warp's dims np*16 .. +15: two n8 tiles
           uint32_t r[4];
-          ldmatrix_x4_trans(r, vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kRow +
-                                   np * 16 + ((lane >> 4) & 1) * 8);
+          ldmatrix_x4_trans(r, vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kRowV +
+                                   half * kDV + np * 16 + ((lane >> 4) & 1) * 8);
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
             mma_bf16(o[2 * np], pa[i], r[0], r[1]);
@@ -528,7 +591,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
   }
 
   if (!active) return;
-  bf16* ob = a.out + b * a.o_sb + head * a.o_sh;
+  bf16* ob = a.out + b * a.o_sb + head * a.o_sh + half * kDV;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qi = i ? r1 : r0;
@@ -537,26 +600,27 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
     // f32 division an element read 0.0044 ms slower (0.0141 against 0.0097)
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+    for (int n = 0; n < kDV / 8; ++n)
       *reinterpret_cast<uint32_t*>(ob + qi * a.o_ss + 8 * n + 2 * t) =
           pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
   }
 }
 
-template <int HD>
-cudaError_t launch_hd(const Args& a, int B, int Hkv, cudaStream_t stream) {
-  const size_t smem = smem_bytes(HD, a.rows, a.Skv);
-  cudaError_t err = repro_smem_limit<prefill_tc_kernel<HD>>(smem);
+template <int HD, int HDV>
+cudaError_t launch_dims(const Args& a, int B, int Hkv, cudaStream_t stream) {
+  const int warps = a.heads * a.rows * warps_a_tile(HD, HDV);
+  if (warps > kMaxWarps) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(HD, HDV, a.rows, warps, a.Skv);
+  cudaError_t err = repro_smem_limit<prefill_tc_kernel<HD, HDV>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + 16 * a.rows - 1) / (16 * a.rows),
                   Hkv * ((a.rep + a.heads - 1) / a.heads), B);
-  prefill_tc_kernel<HD><<<grid, 32 * a.heads * a.rows, smem, stream>>>(a);
+  prefill_tc_kernel<HD, HDV><<<grid, 32 * warps, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t launch(const Args& a, int hdv, int B, int Hkv, cudaStream_t stream) {
-  if (a.hd != hdv || a.heads < 1 || a.rows < 1 || a.heads * a.rows > kMaxWarps)
-    return cudaErrorInvalidValue;
+cudaError_t launch(const Args& a, int hd, int hdv, int B, int Hkv, cudaStream_t stream) {
+  if (a.heads < 1 || a.rows < 1) return cudaErrorInvalidValue;
   // 16-byte K/V copies and 4-byte Q and output pairs
   const long long st[] = {a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh,
                           a.v_sb, a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh};
@@ -565,11 +629,12 @@ cudaError_t launch(const Args& a, int hdv, int B, int Hkv, cudaStream_t stream) 
   const void* ptrs[] = {a.q, a.k, a.v, a.out};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
-  switch (a.hd) {
-    case 64: return launch_hd<64>(a, B, Hkv, stream);
-    case 128: return launch_hd<128>(a, B, Hkv, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  // the (q/k, v) head dims of flash_attention/kernel.py::TC_HEAD_DIMS
+  if (hd == 64 && hdv == 64) return launch_dims<64, 64>(a, B, Hkv, stream);
+  if (hd == 128 && hdv == 128) return launch_dims<128, 128>(a, B, Hkv, stream);
+  if (hd == 256 && hdv == 256) return launch_dims<256, 256>(a, B, Hkv, stream);
+  if (hd == 192 && hdv == 128) return launch_dims<192, 128>(a, B, Hkv, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace tensor_core
@@ -596,10 +661,10 @@ extern "C" int repro_prefill_attention(
     using tensor_core::bf16;
     const tensor_core::Args a{
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        seg, static_cast<bf16*>(out), Sq, Skv, Hq / Hkv, hd, heads, rows,
+        seg, static_cast<bf16*>(out), Sq, Skv, Hq / Hkv, heads, rows,
         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, o_sb, o_ss, o_sh,
         causal, window, softcap, scale};
-    return tensor_core::launch(a, hdv, B, Hkv, s);
+    return tensor_core::launch(a, hd, hdv, B, Hkv, s);
   }
   if (design != 0) return cudaErrorInvalidValue;
   if (dtype == REPRO_BF16)

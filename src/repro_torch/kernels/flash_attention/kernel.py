@@ -19,10 +19,16 @@ positional distance for the window.
 The public layout is the reference's ``(B, H, S, hd)``; the kernel reads
 its inputs through their strides, so transposed views cost no copy.
 
-The source has two designs, tensor cores (bf16) and CUDA cores (f32, or
-head dims the tensor-core tiles do not take): :func:`prefill_plan` picks
-one, with the block's shape, and :data:`kernel_launches` counts the
-launches of each (design, heads a block, query rows a block, dtype).
+The source has two designs, tensor cores (bf16 at the (q/k, v) head dims
+of :data:`TC_HEAD_DIMS`: 64/64, 128/128, 256/256 and MLA's 192/128) and CUDA
+cores (f32, other head dims, rows not in whole 16-byte pieces):
+:func:`prefill_plan` picks one, with the block's shape, and
+:data:`kernel_launches` counts the launches of each (design, heads a block,
+query rows a block, dtype, head dims).  On an H100 80GB HBM3 at 700 W the
+tensor cores take recurrentgemma-9b's S 4608 (16/1 heads, hd 256, window
+2048) in 1.83 ms where the CUDA cores took 57.81, and deepseek-v2's MLA
+prefill (S 384, 128 heads, hd 192 / hdv 128) in 0.118 ms where they took
+2.357 (``chip_smoke.py`` phase ``kernels``; ``PERF.md`` has every shape).
 """
 from __future__ import annotations
 
@@ -41,13 +47,17 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _ARGTYPES = ((_P,) * 5 + (_I,) * 7 + (_L,) * 14 + (_I, _I, _F, _F, _I, _I, _I, _I, _P))
 
 DESIGNS = ("cuda_core", "tensor_core")   # by the code prefill.cu reads
-TC_HEAD_DIMS = (64, 128)  # head dims (q/k and v alike) the tensor-core design takes
+# the (q/k, v) head dims the tensor-core design takes: prefill.cu has an
+# instantiation of each
+TC_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 TC_MAX_WARPS = 8          # warps a block of the tensor-core design
 
 # the block of a call: its design, query heads (of one KV head) and query
 # rows; CUDA cores always take one head and 32 rows
 Plan = collections.namedtuple("Plan", "design heads rows")
-Kernel = collections.namedtuple("Kernel", "design heads rows dtype")
+# a launch: its plan, dtype and (q/k, v) head dims (the tensor-core
+# design's instantiation)
+Kernel = collections.namedtuple("Kernel", "design heads rows dtype hd hdv")
 
 # launches of each Kernel
 kernel_launches: collections.Counter = collections.Counter()
@@ -59,24 +69,32 @@ def _aligned(*tensors) -> bool:
                for t in tensors)
 
 
+def warps_a_tile(hd: int, hdv: int) -> int:
+    """Warps of the tensor-core design that share a 16-row tile
+    (``prefill.cu``'s ``warps_a_tile``): two where Q's fragments and O's
+    accumulators would take more than 128 registers a thread together
+    (hd 256), each with half of Q's dims and of O's columns."""
+    return 2 if hd // 4 + hdv // 2 > 128 else 1
+
+
 def prefill_plan(B: int, Sq: int, Hq: int, Hkv: int, hd: int, hdv: int,
                  dtype: torch.dtype, aligned: bool, sms: int) -> Plan:
-    """What ``prefill.cu`` runs: tensor cores for bf16 with one head dim
-    of ``TC_HEAD_DIMS`` for q/k and v and 16-byte aligned rows, else CUDA
-    cores.  A tensor-core warp takes 16 query rows of one head; a block
-    shares its K/V tiles among more query heads of its KV head, then more
-    16-row tiles: up to 4 warps, which an SM runs on its 4 sub-partitions
-    side by side, and up to 8 while the blocks still make a wave of the
-    card's ``sms`` SMs."""
-    if dtype != torch.bfloat16 or hd != hdv or hd not in TC_HEAD_DIMS or not aligned:
+    """What ``prefill.cu`` runs: tensor cores for bf16 with (q/k, v) head
+    dims of ``TC_HEAD_DIMS`` and 16-byte aligned rows, else CUDA cores.
+    A tensor-core warp (or two: :func:`warps_a_tile`) takes 16 query rows
+    of one head; a block shares its K/V tiles among more query heads of
+    its KV head, then more 16-row tiles: up to 4 warps, which an SM runs on
+    its 4 sub-partitions side by side, and up to 8 while the blocks still
+    make a wave of the card's ``sms`` SMs."""
+    if dtype != torch.bfloat16 or (hd, hdv) not in TC_HEAD_DIMS or not aligned:
         return Plan("cuda_core", 1, 32)
-    rep = Hq // Hkv
+    rep, split = Hq // Hkv, warps_a_tile(hd, hdv)
 
     def blocks(heads, tiles):
         return -(-Sq // (16 * tiles)) * Hkv * -(-rep // heads) * B
 
     def grows(heads, tiles):
-        warps = heads * tiles
+        warps = heads * tiles * split
         return warps <= 4 or (warps <= TC_MAX_WARPS and blocks(heads, tiles) >= sms)
 
     heads = tiles = 1
@@ -172,7 +190,7 @@ def flash_attention_fwd(q, k, v, *, segments=None, causal: bool = True,
              plan.rows // 16, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"prefill attention kernel launch failed: cudaError {err}")
-    kernel_launches[Kernel(*plan, str(q.dtype))] += 1
+    kernel_launches[Kernel(*plan, str(q.dtype), hd, hdv)] += 1
     flash_attention_fwd.launches += 1
     return out.transpose(1, 2)
 

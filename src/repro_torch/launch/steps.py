@@ -14,7 +14,8 @@ import torch
 from repro_torch.config import ModelConfig, ShapeSpec
 from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding as SH
-from repro_torch.parallel.api import Plan, activate_plan, full, is_dtensor
+from repro_torch.parallel.api import (Plan, activate_plan, full, is_dtensor, sharded_over,
+                                      to_placements)
 from repro_torch.training.optimizer import OptConfig, adamw_apply_, adamw_init, adamw_prepare
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -62,6 +63,31 @@ def _meta_batch(cfg, shape):
 # steps
 # ---------------------------------------------------------------------------
 
+def micro_batches(v, accum: int) -> list:
+    """``v`` cut along its first axis into ``accum`` contiguous
+    micro-batches, as the reference's reshape cuts it.  DTensor splits a
+    sharded dim only into factors its shard count divides (XLA reshards
+    instead), so a DTensor sharded along the batch first moves those
+    shards to another dim they divide (an all-to-all: no rank holds the
+    whole batch; replicated where no dim takes them), is cut there, and
+    each micro-batch comes back to the batch's own placements."""
+    shape = (accum, v.shape[0] // accum) + tuple(v.shape[1:])
+    over = sharded_over(v.placements, 0) if is_dtensor(v) else []
+    if not over:
+        return list(v.reshape(shape))
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, n = v.device_mesh, 1
+    for i in over:
+        n *= mesh.size(i)
+    taken = {p.dim for p in v.placements if p.is_shard()}
+    d = next((d for d in range(1, v.dim()) if d not in taken and v.shape[d] % n == 0), None)
+    moved = list(v.placements)
+    for i in over:
+        moved[i] = Replicate() if d is None else Shard(d)
+    cut = to_placements(v, mesh, moved).reshape(shape)
+    return [to_placements(cut[i], mesh, v.placements) for i in range(accum)]
+
+
 class CommitError(RuntimeError):
     """A fault inside a train step's in-place update: some leaves of the
     parameters and moments may hold the new step and others the old."""
@@ -98,8 +124,7 @@ def make_train_step(cfg: ModelConfig, plan: Optional[Plan] = None, *,
         if accum == 1:
             loss, grads = grads_of(params, batch)
         else:
-            micro = {k: v.reshape((accum, v.shape[0] // accum) + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
+            micro = {k: micro_batches(v, accum) for k, v in batch.items()}
             grads = adamw_init(params)["m"]                  # f32 zeros, placed alike
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             for i in range(accum):

@@ -64,7 +64,8 @@ import torch
 from repro_torch.kernels.flash_attention.common import NEG_INF
 from repro_torch.kernels.flash_attention.ops import attention as flash_attention
 from repro_torch.models.modules import apply_rope, dense_init, rmsnorm
-from repro_torch.parallel.api import (constrain, local_views, planned_mesh,
+from repro_torch.parallel.api import (constrain, current_plan, even, is_dtensor, local_views,
+                                      mesh_shape, placements, planned_mesh,
                                       region_placements, sharded_over, to_placements)
 from repro_torch.quant.core import (dequantize_kv, kv_cache_bits, quantize_kv,
                                     quantize_kv_cache)
@@ -317,6 +318,23 @@ def _commit_kv(cache, new_k, new_v, pos):
     return _ring_write(cache, {"k": new_k, "v": new_v}, pos)
 
 
+def _heads(x, n: int, d: int, role: str):
+    """A flat projection (B, S, n * d) as heads (B, S, n, d).  DTensor
+    splits a dim sharded over a mesh axis only into factors the axis
+    divides (XLA reshards instead): where ``n`` does not divide the
+    ``model`` axis, the projection (its last dim split over ``model`` by
+    the weight) is brought to ``role``'s placement first, the head dim's
+    entry left out; the plan keeps such heads whole on every rank.
+    Elsewhere, and with no plan, the view is a plain ``reshape``."""
+    B, S = x.shape[:2]
+    plan = current_plan()
+    if is_dtensor(x) and plan is not None and n % mesh_shape(plan.mesh).get("model", 1):
+        spec = plan.spec(role)
+        spec = (None, None, None) if spec is None else spec[:3]
+        x = to_placements(x, plan.mesh, even(placements(spec, plan.mesh), x.shape, plan.mesh))
+    return x.reshape(B, S, n, d)
+
+
 # ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
@@ -337,7 +355,7 @@ def apply_cross_attention(p, x, *, cfg, mode: str, cache=None, cross_src=None,
     q = qdense(x, p["wq"], dt, "weight_full", impl=impl)
     if "bq" in p:
         q = q + p["bq"].to(dt)
-    q = constrain(q.reshape(B, S, Hq, hd), "act_heads")
+    q = constrain(_heads(q, Hq, hd, "act_heads"), "act_heads")
     if mode in ("decode", "chunk"):
         k, v = cache["k"], cache["v"]
         Skv = k.shape[1]
@@ -353,7 +371,7 @@ def apply_cross_attention(p, x, *, cfg, mode: str, cache=None, cross_src=None,
         if "bk" in p:
             k = k + p["bk"].to(dt)
             v = v + p["bv"].to(dt)
-        k, v = k.reshape(B, -1, Hkv, hd), v.reshape(B, -1, Hkv, hdv)
+        k, v = _heads(k, Hkv, hd, "kv_heads"), _heads(v, Hkv, hdv, "kv_heads")
         out = flash_attention(q, k, v, causal=False, softcap=cfg.attn_softcap, impl=impl)
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
     return qdense(out.reshape(B, S, Hq * hdv), p["wo"], dt, impl=impl), new_cache
@@ -387,12 +405,12 @@ def apply_attention(p, x, *, cfg, kind: str, mode: str, pos, cache=None,
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q, k = q.reshape(B, S, Hq, hd), k.reshape(B, S, Hkv, hd)
+    q, k = _heads(q, Hq, hd, "act_heads"), _heads(k, Hkv, hd, "kv_heads")
     if cfg.qk_norm:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
     if cfg.use_rope:
         q, k = apply_rope(q, pos, theta), apply_rope(k, pos, theta)
-    v = v.reshape(B, S, Hkv, hdv)
+    v = _heads(v, Hkv, hdv, "kv_heads")
     q, k, v = constrain(q, "act_heads"), constrain(k, "kv_heads"), constrain(v, "kv_heads")
 
     if mode in ("train", "encode"):
@@ -460,7 +478,6 @@ def _mla_q(p, x, pos, cfg):
     """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)): the low-rank query
     (normed latent, then per-head up-projection), or the full-rank one
     (``wq`` (D, H, dn + dr)), RoPE on its last dims."""
-    B, S, _ = x.shape
     dt = x.dtype
     H, dn, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     if "wq_a" in p:
@@ -468,7 +485,7 @@ def _mla_q(p, x, pos, cfg):
         w = p["wq_b"].to(dt)
     else:
         w = p["wq"].to(dt)
-    q = qdense(x, w.reshape(w.shape[0], -1)).reshape(B, S, H, dn + dr)
+    q = _heads(qdense(x, w.reshape(w.shape[0], -1)), H, dn + dr, "act_heads")
     return q[..., :dn], apply_rope(q[..., dn:], pos, cfg.rope_theta)
 
 
@@ -509,7 +526,7 @@ def apply_mla(p, x, *, cfg, mode: str, pos, cache=None, impl: str = "flash",
     wkv_b = p["wkv_b"].to(dt)                           # (kvr, H, dn + dv)
 
     if mode in ("train", "prefill"):
-        kv = qdense(ckv, wkv_b.reshape(wkv_b.shape[0], -1)).reshape(B, S, H, dn + dv)
+        kv = _heads(qdense(ckv, wkv_b.reshape(wkv_b.shape[0], -1)), H, dn + dv, "kv_heads")
         kv = constrain(kv, "kv_heads")
         k = torch.cat([kv[..., :dn], kr[:, :, None].expand(B, S, H, dr)], dim=-1)
         # the value block as rows of its own (the kernel's input, contiguous)

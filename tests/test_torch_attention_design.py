@@ -11,8 +11,9 @@ seeded numpy inputs.
   kernels' names are checked here too.
 - ``kernels/csrc/prefill.cu``'s tensor-core design: bf16 Q.K^T products
   summed in f32, an online softmax over 32-key tiles, and P split into
-  three bf16 terms, whose sum is P exactly, for the P.V product.  Its plan,
-  ``prefill_plan``, is checked here too.
+  three bf16 terms, whose sum is P exactly, for the P.V product, at the
+  (q/k, v) head dims it takes (64, 128, 256, and MLA's 192 / 128).  Its
+  plan, ``prefill_plan``, is checked here too.
 
 Tolerances: 2e-5 in f32 (the reference's own decode-kernel pin).  The CUDA
 kernels themselves are held against the plain versions on the card by
@@ -360,9 +361,9 @@ def tensor_core_prefill_rendering(q, k, v, *, segments=None, causal=True, window
                                   softcap=0.0, scale=None, terms=3):
     """The tensor-core design's order of operations, for each 16-row tile
     of each query head: the 32-key tiles of its block's range in order,
-    S = q . k^T of bf16 values summed in f32, scale, softcap, mask; an
-    online-softmax update per tile; O += P_1 . V + P_2 . V + P_3 . V, P's
-    bf16 terms (``terms`` of them)."""
+    S = q . k^T of bf16 values summed in f32 over q/k's head dim, scale,
+    softcap, mask; an online-softmax update per tile; O += P_1 . V + P_2 .
+    V + P_3 . V over v's own head dim, P's bf16 terms (``terms`` of them)."""
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, hdv = v.shape
     rep = Hq // Hkv
@@ -412,13 +413,17 @@ def _segments(S, lens):
     return seg
 
 
-_PREFILL_CASES = {  # name: (S, Hq, Hkv, hd, lens or None, causal, window, softcap)
-    "segmented rep8": (64, 8, 1, 32, (20, 25, 10), True, 0, 0.0),
-    "pad-only tiles": (128, 4, 2, 32, (40, 30), True, 0, 0.0),
-    "ragged S rep1": (75, 2, 2, 48, (30, 33), True, 0, 0.0),
-    "window softcap": (96, 4, 2, 32, (50, 40), True, 20, 10.0),
-    "no segments causal": (80, 8, 1, 16, None, True, 0, 0.0),
-    "no segments full": (48, 2, 2, 32, None, False, 0, 0.0),
+_PREFILL_CASES = {  # name: (S, Hq, Hkv, hd, hdv, lens or None, causal, window, softcap, scale)
+    "segmented rep8": (64, 8, 1, 32, 32, (20, 25, 10), True, 0, 0.0, None),
+    "pad-only tiles": (128, 4, 2, 32, 32, (40, 30), True, 0, 0.0, None),
+    "ragged S rep1": (75, 2, 2, 48, 48, (30, 33), True, 0, 0.0, None),
+    "window softcap": (96, 4, 2, 32, 32, (50, 40), True, 20, 10.0, None),
+    "no segments causal": (80, 8, 1, 16, 16, None, True, 0, 0.0, None),
+    "no segments full": (48, 2, 2, 32, 32, None, False, 0, 0.0, None),
+    # recurrentgemma-9b's heads: MQA rep 16 at hd 256, a window, a softcap
+    "hd256 MQA rep16 window softcap": (80, 16, 1, 256, 256, (45, 30), True, 24, 20.0, None),
+    # deepseek-v2's MLA prefill: hd 192 for q/k, 128 for v, its own scale
+    "hd192 hdv128 causal scale": (72, 4, 4, 192, 128, None, True, 0, 0.0, 0.0625),
 }
 
 
@@ -428,20 +433,21 @@ def test_tensor_core_prefill_rendering_matches_plain_and_pallas(case):
     32-key tiles and P as three bf16 terms: the plain version's function
     and the TPU kernel's, within f32 rounding; one bf16 P would miss by
     far more."""
-    S, Hq, Hkv, hd, lens, causal, window, softcap = _PREFILL_CASES[case]
+    S, Hq, Hkv, hd, hdv, lens, causal, window, softcap, scale = _PREFILL_CASES[case]
     rng = np.random.default_rng(zlib.crc32(case.encode()))
     bf = lambda a: T(a).to(torch.bfloat16).float().numpy()  # noqa: E731
     q = bf(rng.standard_normal((1, Hq, S, hd)).astype(np.float32))
     k = bf(rng.standard_normal((1, Hkv, S, hd)).astype(np.float32))
-    v = bf(rng.standard_normal((1, Hkv, S, hd)).astype(np.float32) * 4)
+    v = bf(rng.standard_normal((1, Hkv, S, hdv)).astype(np.float32) * 4)
     seg = None if lens is None else _segments(S, lens)
     tseg = None if seg is None else T(seg)
-    kw = dict(causal=causal, window=window, softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     got = tensor_core_prefill_rendering(T(q), T(k), T(v), segments=tseg, **kw)
     plain = K.flash_attention_plain(T(q), T(k), T(v), segments=tseg, **kw)
     ref = jax_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                       segments=None if seg is None else jnp.asarray(seg), interpret=True, **kw)
     tol = F32_TOL
+    assert got.shape == (1, Hq, S, hdv)
     for want in (plain.numpy(), np.asarray(ref)):
         np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=0)
     if seg is not None:
@@ -470,7 +476,7 @@ def test_three_bf16_terms_are_p_exactly():
     (4096, 16, 2, 128, torch.bfloat16, True, ("tensor_core", 8, 16)),
     (4096, 16, 16, 128, torch.bfloat16, True, ("tensor_core", 1, 128)),
     (128, 16, 16, 128, torch.bfloat16, True, ("tensor_core", 1, 64)),
-    (128, 8, 1, 256, torch.bfloat16, True, ("cuda_core", 1, 32)),
+    (128, 8, 1, 256, torch.bfloat16, True, ("tensor_core", 2, 16)),
     (128, 8, 2, 128, torch.float32, True, ("cuda_core", 1, 32)),
     (128, 8, 2, 64, torch.bfloat16, True, ("tensor_core", 4, 16)),
     (128, 8, 2, 96, torch.bfloat16, True, ("cuda_core", 1, 32)),
@@ -478,16 +484,52 @@ def test_three_bf16_terms_are_p_exactly():
     (128, 8, 2, 128, torch.bfloat16, False, ("cuda_core", 1, 32)),
 ])
 def test_prefill_plan(S, Hq, Hkv, hd, dtype, aligned, want):
-    """Tensor cores for bf16 with head dim 64 or 128 and aligned rows;
+    """Tensor cores for bf16 with head dim 64, 128 or 256 and aligned rows;
     a block shares its K/V tiles among up to 4 warps (one an SM
     sub-partition), more while the blocks still fill a wave; the engine's
     packed stream (S = 128, 16 heads) puts 128 warps on the card."""
-    plan = K.prefill_plan(1, S, Hq, Hkv, hd, hd, dtype, aligned, H100_SMS)
+    _check_prefill_plan(S, Hq, Hkv, hd, hd, dtype, aligned, want)
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,hd,hdv,dtype,aligned,want", [
+    # recurrentgemma-9b's padded prompt: MQA rep 16 at hd 256, 4 heads of 2
+    # warps a block
+    (4608, 16, 1, 256, 256, torch.bfloat16, True, ("tensor_core", 4, 16)),
+    # gemma2-9b's packed stream (rep 2) and gpt-j's (MHA) at hd 256
+    (128, 16, 8, 256, 256, torch.bfloat16, True, ("tensor_core", 2, 16)),
+    (128, 16, 16, 256, 256, torch.bfloat16, True, ("tensor_core", 1, 32)),
+    # deepseek-v2's MLA prefill: 128 heads, hd 192 / hdv 128
+    (384, 128, 128, 192, 128, torch.bfloat16, True, ("tensor_core", 1, 128)),
+    (128, 128, 128, 192, 128, torch.bfloat16, True, ("tensor_core", 1, 64)),
+    # CUDA cores: rows not in 16-byte pieces, f32, pairs without tiles
+    (4608, 16, 1, 256, 256, torch.bfloat16, False, ("cuda_core", 1, 32)),
+    (384, 128, 128, 192, 128, torch.bfloat16, False, ("cuda_core", 1, 32)),
+    (128, 16, 8, 256, 256, torch.float32, True, ("cuda_core", 1, 32)),
+    (384, 128, 128, 192, 128, torch.float32, True, ("cuda_core", 1, 32)),
+    (128, 8, 2, 96, 96, torch.bfloat16, True, ("cuda_core", 1, 32)),
+    (128, 8, 2, 192, 192, torch.bfloat16, True, ("cuda_core", 1, 32)),
+    (128, 8, 2, 128, 64, torch.bfloat16, True, ("cuda_core", 1, 32)),
+])
+def test_prefill_plan_head_dim_pairs(S, Hq, Hkv, hd, hdv, dtype, aligned, want):
+    """Tensor cores for bf16 at the (q/k, v) head dims of ``TC_HEAD_DIMS``
+    (hd 256 and MLA's 192 / 128 among them) with aligned rows; at hd 256
+    two warps share a 16-row tile, and MQA rep 16 shares each K/V tile
+    among 8 warps; CUDA cores for any other pair, f32 and rows not in whole
+    16-byte pieces."""
+    assert (hd, hdv) in K.TC_HEAD_DIMS or want[0] == "cuda_core"
+    if (hd, hdv) in K.TC_HEAD_DIMS:
+        assert K.warps_a_tile(hd, hdv) == (2 if (hd, hdv) == (256, 256) else 1)
+    _check_prefill_plan(S, Hq, Hkv, hd, hdv, dtype, aligned, want)
+
+
+def _check_prefill_plan(S, Hq, Hkv, hd, hdv, dtype, aligned, want):
+    plan = K.prefill_plan(1, S, Hq, Hkv, hd, hdv, dtype, aligned, H100_SMS)
     assert tuple(plan) == want
     if plan.design == "tensor_core":
-        warps = plan.heads * plan.rows // 16
+        units = plan.heads * plan.rows // 16              # (head, 16-row tile)s a block
+        warps = units * K.warps_a_tile(hd, hdv)
         blocks = -(-S // plan.rows) * Hkv * -(-(Hq // Hkv) // plan.heads)
-        assert warps <= K.TC_MAX_WARPS and blocks * warps == -(-S // 16) * Hq
+        assert warps <= K.TC_MAX_WARPS and blocks * units == -(-S // 16) * Hq
         assert warps <= 4 or blocks >= H100_SMS
         if (S, Hq) == (128, 16):
             assert blocks * warps >= 128

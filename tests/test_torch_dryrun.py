@@ -136,3 +136,32 @@ def test_argument_bytes_equal_xla_on_a_2x2_mesh():
     # the update writes the parameters and moments in place, and they come
     # back: all but AdamW's count (int32) and a rank's 2 rows of 32 tokens
     assert cost.argument_bytes - cost.alias_bytes == 4 + 2 * 32 * 4
+
+
+def test_decode_traces_with_kv_heads_that_do_not_divide_the_model_axis():
+    """Reduced qwen2.5-3b's decode (4 query heads over 2 KV heads) on a
+    1x4 fake mesh: 2 KV heads do not divide ``model`` 4, so the plan keeps
+    them whole, and the K/V projections, column-sharded by their weights,
+    are brought to that role before their heads are split out (DTensor
+    splits a sharded dim only evenly)."""
+    from repro_torch.launch.mesh import small_mesh
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    assert (cfg.n_heads, cfg.n_kv_heads) == (4, 2)
+    with D.fake_group(4):
+        cost = D.trace_cell(cfg, ShapeSpec("d", "decode", 64, 8),
+                            small_mesh(1, 4, device_type="cpu"))
+    assert cost.flops > 0 and cost.n_ops > 0
+
+
+def test_accum_cuts_a_batch_sharded_over_two_axes():
+    """Reduced qwen2.5-3b's train step with ``accum`` 2 on a 2x2 fake mesh
+    whose two axes (``pod``, ``data``) both shard the batch, 8 rows: the
+    contiguous micro-batches of 4 rows (the reference's reshape) cannot be
+    cut from a dim sharded 4 ways into (2, 4), so the step moves the
+    batch's shards to its sequence dim first."""
+    from repro_torch.launch.mesh import _mesh
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    with D.fake_group(4):
+        mesh = _mesh((2, 2, 1), ("pod", "data", "model"), range(4), "cpu")
+        cost = D.trace_cell(cfg, ShapeSpec("t", "train", 32, 8), mesh, accum=2)
+    assert cost.flops > 0 and cost.n_ops > 0
