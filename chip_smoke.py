@@ -69,7 +69,7 @@ Phases, each of which must pass or the script exits non-zero:
              expert path at 160 experts top-6, K 5120 N 1536 and back, T
              48, 768 and 2304, the combine at k 6), each timed likewise;
 4. engine  — the port's serving engine on full-width qwen2.5-3b and
-             gemma2-9b (its depth cut to 12 of 42 layers for the script's
+             gemma2-9b (its depth cut to 8 of 42 layers for the script's
              time; local 4096-entry rings and global layers, head dim 256)
              with random bf16 weights, fp and then quantised
              (``w8kv8``, ``w4kv4``): 16 requests (prompts of 4..384 tokens,
@@ -152,8 +152,8 @@ Phases, each of which must pass or the script exits non-zero:
              steps (8 rows of a 128-token chunk), fp and ``w8kv8``, of
              qwen2.5-3b and gemma2-9b, replayed and eager: device busy time,
              wall time and kernels launched per step (read, not checked);
-7a. paper — the paper's Table 3 models at full width and depth with
-             random bf16 weights: llama2-7b (32 layers, MHA 32/32), gpt-j (28,
+7a. paper — the paper's Table 3 models at full width with random bf16
+             weights: llama2-7b (16 of 32 layers, MHA 32/32), gpt-j (14 of 28,
              the parallel block, head dim 256), bert-large (24, LayerNorm,
              biases, learned positions) and bert-base (12), each serving the
              engine phase's 16 requests with ``kv_len`` 1024 at fp (llama2-7b
@@ -188,8 +188,8 @@ Phases, each of which must pass or the script exits non-zero:
              bert-base whose ``cosim_from_engine`` carries the measured
              step time; each kind's smallest case against its plain
              version;
-8. moe     — full-width qwen3-moe-30b-a3b (cut to 24 of 48 layers, 128
-             experts top-8, 30.6 GB of random bf16 weights) built once every
+8. moe     — full-width qwen3-moe-30b-a3b (cut to 16 of 48 layers, 128
+             experts top-8, 20.4 GB of random bf16 weights) built once every
              earlier model is freed (the memory still allocated printed and
              bounded), serving the engine phase's 16 requests at fp and
              ``w8kv8``: each prompt admitted alone, padded to a chunk
@@ -205,9 +205,9 @@ Phases, each of which must pass or the script exits non-zero:
              time);
 9. recurrent — once every earlier model is freed: full-width, full-depth
              mamba2-130m (24 SSD layers; no attention, no quantised
-             projection, so no kernel of the port runs) and
-             recurrentgemma-9b (26 RG-LRU and 12 local MQA layers, 9.4 B
-             parameters), each serving the engine phase's 16 requests and
+             projection, so no kernel of the port runs) and full-width
+             recurrentgemma-9b cut to 20 of 38 layers (14 RG-LRU and 6
+             local MQA), each serving the engine phase's 16 requests and
              a 4600-token prompt (``kv_len`` 5120) through padded
              admission, replayed and eagerly (streams bit for bit,
              launches equal and as reckoned: attention kernels in the
@@ -308,7 +308,17 @@ Phases, each of which must pass or the script exits non-zero:
              launches and kernels those of phase spec's drain; and eager,
              the model cut to 4 layers, against the mesh-less replayed
              drain of the same cut.
-14. roofline — once phase mesh's state is freed: full-width qwen2.5-3b,
+14. examples — the four ``examples/*_torch.py`` on the card, each a
+             subprocess with a time limit (three at once, the training
+             example's two runs after each other): ``quickstart_torch.py``
+             (Plane B, reduced gemma2-9b's loss and train step, prefill.cu
+             and qmatmul.cu's crossbar route against their plain versions
+             within the f32 tolerances), ``serve_e2e_torch.py`` (must print
+             ``MATCH``), ``train_lm_torch.py --tiny`` for 10 steps and again
+             to 20, the second run resuming from the first's checkpoint
+             (under ``build/examples``) with its last loss under the first
+             run's first, and ``noi_design_torch.py``;
+15. roofline — once phase mesh's state is freed: full-width qwen2.5-3b,
              ``impl="ref"``: a decode step (8 rows over a 1024-entry
              cache), a prefill step (8 x 1024 tokens) and phase train's
              step (4 x 1024, f32 master weights, remat), each counted by
@@ -396,7 +406,7 @@ SLO_REQUESTS, SLO_OVERLOAD, SLO_MAX_QUEUE, SLO_DEADLINE_BUDGETS = 48, 2.0, 4, 1.
 # phase moe joined it, its phases 299 s of 580 at full depth; 12 once phase
 # train did: at 22 its phases took 207 s of a 1188 s run on a slow host)
 SERVED = {"qwen2.5-3b": dict(kv_len=1024, long_prompts=(), logits_row=0, layers=0),
-          "gemma2-9b": dict(kv_len=5120, long_prompts=(4600,), logits_row=4200, layers=12)}
+          "gemma2-9b": dict(kv_len=5120, long_prompts=(4600,), logits_row=4200, layers=8)}
 # logits only, full width at a cut depth: one pattern period plus the
 # remainder (gemma3-27b: qk-norm at head dim 128; minitron-8b: the untied
 # 256000-column lm_head, ReLU^2 without GLU)
@@ -408,12 +418,13 @@ GEMMA2_DECODE = dict(B=8, Skv=5120, Hq=16, Hkv=8, hd=256, softcap=50.0)
 GEMMA2_RING = dict(B=8, Skv=4096, Hq=16, Hkv=8, hd=256, window=4096, softcap=50.0,
                    ring=True)
 GEMMA2_PREFILL = dict(S=128, Hq=16, Hkv=8, hd=256, window=4096, softcap=50.0)
-# the MoE phase: qwen3-moe-30b-a3b at full width, its depth cut to 24 of 48
-# layers (every layer MoE; 30.6 GB of bf16 weights) for the script's time
-# once phase train joined it (no check of the phase depends on depth), its
+# the MoE phase: qwen3-moe-30b-a3b at full width, its depth cut to 16 of 48
+# layers (every layer MoE; 20.4 GB of bf16 weights) for the script's time
+# once phases train and examples joined it (no check of the phase depends
+# on depth), its
 # pool's length and the precisions it serves at; the memory the earlier
 # phases may leave allocated when its model is built
-MOE_ARCH, MOE_LAYERS, MOE_KV_LEN, MOE_RUNS = "qwen3-moe-30b-a3b", 24, 1024, ("fp", "w8kv8")
+MOE_ARCH, MOE_LAYERS, MOE_KV_LEN, MOE_RUNS = "qwen3-moe-30b-a3b", 16, 1024, ("fp", "w8kv8")
 MOE_FREE_BEFORE_GIB = 2.0
 # qwen3-moe-30b-a3b's attention as the engine runs it: 8 slots, 32 query
 # heads over 4 KV heads of dim 128, a 1024-entry pool; its prefills are
@@ -429,10 +440,13 @@ MOE_GMM_SHAPES = {"gate/up": (2048, 768), "down": (768, 2048)}
 MOE_GMM_ROWS = {"decode": 64, "prefill128": 1024, "prefill384": 3072}
 QWEN3_GMM = dict(label="qwen3-moe", experts=MOE_EXPERTS, k=MOE_TOP_K, shapes=MOE_GMM_SHAPES,
                  rows=MOE_GMM_ROWS)
-# the paper's Table 3 models (phase paper), full width and depth, in the
-# order served; the precisions each serves at, those whose flash logits are
-# held against ref, and the drains fed to Plane B's cosim_from_engine
+# the paper's Table 3 models (phase paper), full width and depth (but
+# llama2-7b and gpt-j at half depth since phase examples joined: the
+# script's time), in the order served; the precisions each serves at,
+# those whose flash logits are held against ref, and the drains fed to
+# Plane B's cosim_from_engine (on the configs as served, depth cut alike)
 PAPER_MODELS = ("llama2-7b", "gpt-j", "bert-large", "bert-base")
+PAPER_LAYERS = {"llama2-7b": 16, "gpt-j": 14}
 PAPER_KV_LEN = 1024
 PAPER_RUNS = {"llama2-7b": ("fp", "w8kv8")}
 PAPER_LOGITS = {"llama2-7b": ("fp", "w8kv8"), "gpt-j": ("fp",), "bert-large": ("fp",)}
@@ -518,12 +532,17 @@ PAPER_DECODE = {"llama2-7b": LLAMA_DECODE, "gpt-j": GPTJ_DECODE,
 PAPER_PREFILL = {arch: dict(S=128, Hq=kw["Hq"], Hkv=kw["Hkv"], hd=kw["hd"])
                  for arch, kw in PAPER_DECODE.items()}
 # phase recurrent: mamba2-130m (24 SSD layers) and recurrentgemma-9b (38
-# layers, 12 x (rec, rec, local) + 2 rec) at full width and depth, each
+# layers, 12 x (rec, rec, local) + 2 rec; cut to RGEMMA_LAYERS) at full
+# width, each
 # serving the engine phase's 16 requests and one of 4600 tokens (one prompt
 # a call, padded to a chunk multiple: 4608 tokens, 18 SSD chunks of 256)
 # over 5120-entry pools, whose 2048-entry local rings the long prompt wraps;
 # the precisions recurrentgemma-9b serves at
 MAMBA_ARCH, RGEMMA_ARCH = "mamba2-130m", "recurrentgemma-9b"
+# recurrentgemma-9b's depth since phase examples joined (the script's
+# time): 6 x (rec, rec, local) + 2 rec, the full stack's pattern and
+# remainder
+RGEMMA_LAYERS = 20
 RECURRENT_KV_LEN, RECURRENT_LONG = 5120, (4600,)
 RGEMMA_RUNS = ("fp", "w8kv8")
 # recurrentgemma-9b's attention as the engine runs it: 8 slots, 16 query
@@ -634,6 +653,8 @@ MESH_SPEC_EAGER_LAYERS = 4         # its eager drain's depth (36 took 78 s: DTen
 # the libraries' workspaces), the dry run's cell and how long to wait for it
 ROOFLINE_ARCH, ROOFLINE_BATCH, ROOFLINE_KV = "qwen2.5-3b", 8, 1024
 ROOFLINE_PEAK_REL, ROOFLINE_PEAK_ABS = 0.05, 64 << 20
+EXAMPLE_TIMEOUT_S = 300            # each example's subprocess
+EXAMPLE_TRAIN_STEPS = (10, 20)     # train_lm_torch.py --tiny: a run, then its resume
 ROOFLINE_DRYRUN = ("mamba2-130m", "train_4k", "single")
 ROOFLINE_DRYRUN_WAIT_S = 400
 MESH_MOE_LAYERS = 4
@@ -3199,10 +3220,11 @@ def run_logits(torch, cfg, params, run="fp", long_row=0, routing=None):
 
 
 def run_paper(torch, by_run):
-    """Phase paper: the paper's Table 3 models at full width and depth,
-    random bf16 weights (seed 0), each freed before the next, serving the
-    engine phase's 16 requests (``kv_len`` 1024): each run replayed from
-    its graphs and again eagerly (streams bit for bit, launches equal, as
+    """Phase paper: the paper's Table 3 models at full width and depth
+    (``PAPER_LAYERS`` cut two), random bf16 weights (seed 0), each freed
+    before the next, serving the engine phase's 16 requests (``kv_len``
+    1024): each run replayed from its graphs and again eagerly (streams
+    bit for bit, launches equal, as
     ``expected_launches`` reckons them, every kernel one that phase 3
     held), its decode step profiled; flash against ref logits; Plane B's
     ``cosim_from_engine`` after the drains ``PAPER_COSIM`` names, and the
@@ -3210,6 +3232,8 @@ def run_paper(torch, by_run):
     from repro_torch.config import get_config
     for arch in PAPER_MODELS:
         cfg = get_config(arch)
+        if arch in PAPER_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=PAPER_LAYERS[arch])
         params = make_params(torch, cfg)
         for run in PAPER_RUNS.get(arch, ("fp",)):
             after = functools.partial(paper_cosim, cfg, run) \
@@ -3243,10 +3267,11 @@ def run_paper(torch, by_run):
 
 def paper_cosim(cfg, run, engine):
     """Plane B on the card's host: ``cosim_from_engine`` of a drained
-    engine on its (full-size) config and the same mix single-streamed,
-    turned into ``benchmarks/perf_cosim.py``'s per-architecture rows; every
-    key there and every value finite, printed beside the engine's measured
-    step time."""
+    engine on the config it served (its depth as cut, so that Plane B's
+    step and the measured one are of one model) and the same mix
+    single-streamed, turned into ``benchmarks/perf_cosim.py``'s
+    per-architecture rows; every key there and every value finite, printed
+    beside the engine's measured step time."""
     from repro_torch.core.cosim import ARCHS, cosim_from_engine, cosim_mix, mix_from_stats
     t0 = time.perf_counter()
     rec = cosim_from_engine(engine, cfg=cfg, n_chiplets=PAPER_CHIPLETS)
@@ -3269,7 +3294,8 @@ def paper_cosim(cfg, run, engine):
               f"cosim ({cfg.name} {run} {arch}): a value is not finite: {rows[arch]}")
     check(mix["requests"] == engine.stats()["finished"] and mix["measured_step_s"] > 0,
           f"cosim ({cfg.name} {run}): mix {mix}")
-    print(f"paper cosim arch={cfg.name} run={run} chiplets={PAPER_CHIPLETS} "
+    print(f"paper cosim arch={cfg.name} layers={cfg.n_layers} run={run} "
+          f"chiplets={PAPER_CHIPLETS} "
           f"requests={mix['requests']} prefill_tokens={mix['prefill_tokens']} "
           f"decode_tokens={mix['decode_tokens']} effective_batch={mix['effective_batch']} "
           f"weight_bits={mix['weight_bits']} kv_bits={mix['kv_bits']} "
@@ -3991,8 +4017,8 @@ def print_recurrent_profile(torch, cfg, params, run, r, ops):
 
 
 def run_recurrent(torch, by_run):
-    """Phase recurrent: mamba2-130m and recurrentgemma-9b at full width and
-    depth, random bf16 weights (seed 0), once every earlier model is freed,
+    """Phase recurrent: mamba2-130m and recurrentgemma-9b at full width
+    (recurrentgemma-9b at ``RGEMMA_LAYERS`` of 38 layers), random bf16 weights (seed 0), once every earlier model is freed,
     each serving the engine phase's 16 requests and a 4600-token prompt
     (``kv_len`` 5120) through padded admission.
 
@@ -4007,7 +4033,7 @@ def run_recurrent(torch, by_run):
 
     recurrentgemma-9b: fp and w8kv8, replayed and eagerly (streams bit for
     bit, launches equal and as ``expected_launches`` reckons them: the
-    decodes and prefills in its 12 local layers, the RG-LRU's ``w_gate``
+    decodes and prefills in its local layers, the RG-LRU's ``w_gate``
     among the quantised projections), the long prompt's rings wrapped;
     flash against ref logits at both; a profiled decode step at both.
 
@@ -4055,7 +4081,7 @@ def run_recurrent(torch, by_run):
     collect(torch)
     print(f"recurrent arch={MAMBA_ARCH} done at {time.perf_counter() - t0:.1f} s")
 
-    cfg = get_config(RGEMMA_ARCH)
+    cfg = dataclasses.replace(get_config(RGEMMA_ARCH), n_layers=RGEMMA_LAYERS)
     params = make_params(torch, cfg)
     ops = recurrent_ops_ms(torch, cfg, params)
     for run in RGEMMA_RUNS:
@@ -5110,6 +5136,99 @@ def run_mesh(torch, by_run):
 
 
 # ---------------------------------------------------------------------------
+# phase examples
+# ---------------------------------------------------------------------------
+
+def start_example(root, name, *args):
+    """``examples/<name>_torch.py`` in a process of its own, on the card (its
+    default; ``--device cpu`` where ``DEVICE`` is the CPU, but for the NoI
+    walkthrough, which runs numpy alone), its output into a log under
+    ``root``.  Returns (name, process, log path, start time)."""
+    script = os.path.join(os.path.dirname(SRC), "examples", f"{name}_torch.py")
+    device = ("--device", "cpu") if DEVICE == "cpu" and name != "noi_design" else ()
+    log = os.path.join(root, f"{name}{len(os.listdir(root))}.txt")
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, script, *map(str, args), *device],
+                                stdout=out, stderr=subprocess.STDOUT, cwd=root,
+                                env=dict(os.environ, PYTHONPATH=SRC))
+    return name, proc, log, time.perf_counter()
+
+
+def finish_example(started):
+    """Wait for an example's process (its time limit counted from its
+    start); it must exit 0.  Returns its output."""
+    name, proc, log, t0 = started
+    try:
+        rc = proc.wait(timeout=max(EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    with open(log) as f:
+        out = f.read()
+    print(f"examples {name} rc={rc} s={time.perf_counter() - t0:.1f}")
+    check(rc == 0, f"examples: {name} exited {rc}: {out[-3000:]}")
+    return out
+
+
+def example_lines(out, prefix):
+    return [ln for ln in out.splitlines() if ln.startswith(prefix)]
+
+
+def run_examples(torch):
+    """Phase examples: the four example scripts of the port run on the card
+    as a user runs them, each checked by what it prints."""
+    collect(torch)
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(SRC), "build", "examples")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ckpt = os.path.join(root, "train_ckpt")
+    train = ("train_lm", "--tiny", "--ckpt-dir", ckpt, "--steps")
+    running = [start_example(root, "quickstart"), start_example(root, "serve_e2e"),
+               start_example(root, "noi_design"), start_example(root, *train,
+                                                                EXAMPLE_TRAIN_STEPS[0])]
+    try:
+        quick, serve, noi, first = (finish_example(r) for r in running[:4])
+        running.append(start_example(root, *train, EXAMPLE_TRAIN_STEPS[1]))
+        second = finish_example(running[-1])
+    finally:
+        for _, proc, _, _ in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for ln in quick.splitlines():
+        print(f"examples quickstart | {ln}")
+    planes = example_lines(quick, "[plane ")
+    check(len(example_lines(quick, "  ")) >= 3 and len(planes) == 3,
+          f"examples: quickstart printed {quick[-2000:]}")
+    attn = example_lines(quick, "[kernels] flash attention")
+    pim = example_lines(quick, "[kernels] PIM-MVM int8-crossbar kernel rel err vs plain")
+    attn_err = float(attn[0].split()[-1]) if attn else float("nan")
+    pim_err = float(pim[0].split()[-1].rstrip("%")) / 100 if pim else float("nan")
+    if DEVICE != "cpu":
+        check(len(attn) == 1 and "vs plain version" in attn[0]
+              and attn_err <= TOL["torch.float32"],
+              f"examples: quickstart's prefill kernel against its plain version: {attn}")
+        check(len(pim) == 1 and pim_err <= MATMUL_TOL["torch.float32"],
+              f"examples: quickstart's crossbar kernel against its plain version: {pim}")
+    print(f"examples serve_e2e | {serve.strip().splitlines()[-1]}")
+    check(serve.rstrip().endswith("incremental-vs-teacher-forced greedy decode: MATCH"),
+          f"examples: serve_e2e printed {serve[-2000:]}")
+    check("min-EDP design" in noi and "3D-HI stack peak temp" in noi,
+          f"examples: noi_design printed {noi[-2000:]}")
+    done = [example_lines(out, "done: loss") for out in (first, second)]
+    resumed = f"resumed from checkpoint at step {EXAMPLE_TRAIN_STEPS[0]}"
+    check(all(len(d) == 1 for d in done) and resumed in second and resumed not in first,
+          f"examples: train_lm printed {first[-1500:]} then {second[-1500:]}")
+    losses = [[float(x) for x in d[0].split()[2:5:2]] for d in done]
+    print(f"examples train_lm first_run={losses[0]} resumed_run={losses[1]}")
+    check(losses[1][1] < losses[0][0],
+          f"examples: train_lm's loss did not fall: {losses[0]} then {losses[1]}")
+    print(f"phase examples done in {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase roofline
 # ---------------------------------------------------------------------------
 
@@ -5397,6 +5516,8 @@ def smoke(torch, get_config, dryrun):
     print(f"phases of training done at {time.perf_counter() - start:.1f} s")
     run_mesh(torch, by_run)
     print(f"phase mesh done at {time.perf_counter() - start:.1f} s")
+    run_examples(torch)
+    print(f"phase examples done at {time.perf_counter() - start:.1f} s")
     run_roofline(torch, by_run, dryrun)
     print(f"phase roofline done at {time.perf_counter() - start:.1f} s")
 

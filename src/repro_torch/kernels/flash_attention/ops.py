@@ -26,12 +26,16 @@ q's dtype and proceeds as fp.
 Under a plan (:mod:`repro_torch.parallel`) the inputs are DTensors, and
 the call runs through ``local_map``: each rank runs the route above on
 its own batch rows and heads, at the placements the plan's ``act_heads``
-role gives the batch and head dims (a role that shards the sequence is
-gathered at the boundary: a kernel attends over whole rows).  The kernels
+role gives the batch and head dims.  A role that shards the sequence
+keeps q's rows split under ``impl="ref"`` (the train step, the dry run):
+each rank attends its own rows, at their true positions, over K/V whole
+along the sequence.  Under ``impl="flash"`` such a role is gathered at the
+boundary, since a kernel attends whole rows from position 0.  The kernels
 never see a DTensor.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -41,7 +45,7 @@ from repro_torch.kernels.flash_attention.decode import (flash_decode_fwd,
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.parallel.api import (current_plan, even, local_call, placements, planned_mesh,
-                                      region_placements, sharded_over)
+                                      region_placements, shard_index, sharded_over)
 from repro_torch.quant.core import dequantize_kv
 
 
@@ -106,10 +110,14 @@ def _planned(mesh, q, k, v, rows, scales, kw):
     """:func:`attention` on each rank's local shards: q/k/v (and the
     scales) sharded on their batch and head dims as the plan's
     ``act_heads`` role shards them, positions, masks and segments on their
-    batch dim; the output as q."""
+    batch dim; the output as q.  Where the role splits the sequence over
+    mesh dims of more than one rank, ``impl="ref"`` keeps q's rows split
+    (:func:`_planned_rows`) and ``impl="flash"`` gathers them."""
     spec = current_plan().spec("act_heads") or (None,) * 4
     role = even(placements(spec, mesh), q.shape, mesh)
-    batch, heads = sharded_over(role, 0), sharded_over(role, 2)
+    batch, heads, seq = sharded_over(role, 0), sharded_over(role, 2), sharded_over(role, 1)
+    if kw["impl"] == "ref" and math.prod(mesh.size(i) for i in seq) > 1:
+        return _planned_rows(mesh, q, k, v, rows, scales, kw, batch, heads, seq)
     bh = region_placements(mesh, {0: batch, 2: heads})
     b = region_placements(mesh, {0: batch})
     args = (q, k, v, *rows, *scales)
@@ -119,3 +127,40 @@ def _planned(mesh, q, k, v, rows, scales, kw):
         return attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, kv_valid=kv_valid,
                          segments=segments, k_scale=k_scale, v_scale=v_scale, **kw)
     return local_call(local, args, ins, bh, mesh)
+
+
+def _planned_rows(mesh, q, k, v, rows, scales, kw, batch, heads, seq):
+    """Sequence-split attention (the reference's Megatron-SP ``act_heads``):
+    each rank keeps its own rows of q and attends them, at their true
+    positions (the rank's offset along the sequence plus ``arange``), over
+    K/V whole along the sequence: gathered where ``kv_heads`` splits them,
+    as they are where the plan replicates them.  Causal, window, softcap
+    and segments stay exact across shard boundaries; the output keeps q's
+    placement, and the local dK/dV, each rank's part of a sum over its own
+    queries, go back to the ``kv_heads`` placement as partial sums."""
+    from torch.distributed.tensor import Partial
+    q_pos, kv_pos, kv_valid, segments = rows
+    k_scale, v_scale = scales
+    first = shard_index(mesh, seq) * (q.shape[1] // math.prod(mesh.size(i) for i in seq))
+    bsh = region_placements(mesh, {0: batch, 1: seq, 2: heads})
+    bh = region_placements(mesh, {0: batch, 2: heads})
+    bs = region_placements(mesh, {0: batch, 1: seq})
+    b = region_placements(mesh, {0: batch})
+    kv_grad = tuple(Partial() if i in seq else p for i, p in enumerate(bh))
+    args = (q, k, v, q_pos, kv_pos, kv_valid, segments, segments, k_scale, v_scale)
+    ins = (bsh, bh, bh, bs, b, b, bs, b, bh, bh)
+    grads = (bsh, kv_grad, kv_grad, bs, b, b, bs, b, kv_grad, kv_grad)
+    ins, grads = ([None if a is None else p for a, p in zip(args, pl)] for pl in (ins, grads))
+
+    def local(q, k, v, q_pos, kv_pos, kv_valid, q_seg, kv_seg, k_scale, v_scale):
+        B, Sq, Skv = q.shape[0], q.shape[1], k.shape[1]
+        if q_pos is None:
+            q_pos = (first + torch.arange(Sq, dtype=torch.int32, device=q.device)).expand(B, Sq)
+            kv_pos = torch.arange(Skv, dtype=torch.int32, device=q.device).expand(B, Skv)
+        if k_scale is not None:
+            k = dequantize_kv(k, k_scale, kw["kv_bits"]).to(q.dtype)
+            v = dequantize_kv(v, v_scale, kw["kv_bits"]).to(q.dtype)
+        return attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos, kv_valid=kv_valid,
+                             q_seg=q_seg, kv_seg=kv_seg, causal=kw["causal"],
+                             window=kw["window"], softcap=kw["softcap"], scale=kw["scale"])
+    return local_call(local, args, ins, bsh, mesh, grad_placements=grads)

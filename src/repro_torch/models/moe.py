@@ -29,6 +29,7 @@ planned call reaches the grouped matmul.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -144,11 +145,12 @@ def _apply_capacity(p, x, gates, idx, cfg):
     mesh = planned_mesh("moe dispatch", x)
     rows = None if mesh is None else region_placements(
         mesh, {0: sharded_over(even(x.placements, x.shape, mesh), 0)})
-    dispatched = _rows(mesh, rows, lambda x, g, i: _dispatch(x, g, i, E, C), (x, gates, idx), 5)
+    dispatched = _rows(mesh, (rows,) * 3, (rows,) * 5, lambda x, g, i: _dispatch(x, g, i, E, C),
+                       (x, gates, idx))
     buf, slot, tok, keep, gate_sorted = dispatched
     ye = _expert_ffn(p, buf.reshape(B, E, C, D), dt, act)
-    return _rows(mesh, rows, lambda ye, *d: _combine(ye.reshape(ye.shape[0], E * C, D), *d, S),
-                 (ye, slot, tok, keep, gate_sorted), 1)
+    return _rows(mesh, (rows,) * 5, rows, lambda ye, *d: _combine(
+        ye.reshape(ye.shape[0], E * C, D), *d, S), (ye, slot, tok, keep, gate_sorted))
 
 
 def _expert_ffn(p, xe, dt, act):
@@ -180,13 +182,12 @@ def _expert_ffn(p, xe, dt, act):
                       grad_placements=(bx, gw, gw, gw))
 
 
-def _rows(mesh, rows, fn, args, n_out: int):
-    """``fn(*args)``, or under a plan on each rank's own batch rows
-    (placements ``rows`` for every input and output)."""
+def _rows(mesh, ins, out, fn, args):
+    """``fn(*args)``, or under a plan on each rank's own shards (placements
+    ``ins`` for the inputs, ``out`` for the output)."""
     if mesh is None:
         return fn(*args)
-    out = rows if n_out == 1 else (rows,) * n_out
-    return local_call(fn, args, (rows,) * len(args), out, mesh)
+    return local_call(fn, args, ins, out, mesh)
 
 
 def _combine(ye, slot, tok, keep, gate_sorted, S: int):
@@ -244,15 +245,45 @@ def _apply_gshard(p, x, gates, idx, cfg):
     disp_sum = disp.sum(3).to(dt)                                # (B,G,Sg,E,Cg)
     comb = (disp * wg[..., None, None].float()).sum(3).to(dt)    # (B,G,Sg,E,Cg)
 
+    # under a plan each rank dispatches and combines its own batch rows and
+    # its own groups, where the sequence's split is the groups'; its slots
+    # of the expert buffer are its groups' (dim 2 of (B, E, G*Cg, D))
     mesh = planned_mesh("moe gshard", x)
-    rows = None if mesh is None else region_placements(
-        mesh, {0: sharded_over(even(x.placements, x.shape, mesh), 0)})
-    xe = _rows(mesh, rows, lambda d, xg: torch.einsum("bgsec,bgsd->begcd", d, xg).reshape(
-        d.shape[0], E, G * Cg, D), (disp_sum, xg), 1)
+    rows = bufs = None
+    if mesh is not None:
+        pl = even(x.placements, x.shape, mesh)
+        batch, seq = sharded_over(pl, 0), sharded_over(pl, 1)
+        if G == 1 or math.prod(mesh.size(i) for i in seq) != G:
+            seq = []
+        rows = region_placements(mesh, {0: batch, 1: seq})
+        bufs = region_placements(mesh, {0: batch, 2: seq})
+    xe = _rows(mesh, (rows, rows), bufs, lambda d, xg: torch.einsum(
+        "bgsec,bgsd->begcd", d, xg).reshape(d.shape[0], E, d.shape[1] * Cg, D), (disp_sum, xg))
     ye = _expert_ffn(p, xe, dt, act)
-    return _rows(mesh, rows, lambda c, ye: torch.einsum(
-        "bgsec,begcd->bgsd", c, ye.reshape(c.shape[0], E, G, Cg, D)).reshape(c.shape[0], S, D),
-        (comb, ye), 1)
+
+    def combine_(c, ye):
+        with combine_product():
+            y = torch.einsum("bgsec,begcd->bgsd", c, ye.reshape(c.shape[0], E, c.shape[1], Cg, D))
+        return y.reshape(c.shape[0], c.shape[1] * Sg, D)
+    return _rows(mesh, (rows, bufs), rows, combine_, (comb, ye))
+
+
+# open GShard combine products: a remat'd layer keeps their outputs (no
+# gradient reads them, so the backward pass need not compute them again)
+_combining = [0]
+
+
+@contextlib.contextmanager
+def combine_product():
+    _combining[0] += 1
+    try:
+        yield
+    finally:
+        _combining[0] -= 1
+
+
+def in_combine_product() -> bool:
+    return _combining[0] > 0
 
 
 def router_aux_loss(p, x, cfg):

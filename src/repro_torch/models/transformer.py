@@ -56,11 +56,12 @@ from repro_torch.models import modules as M
 from repro_torch.models.attention import (apply_attention, apply_cross_attention,
                                           apply_mla, init_attention, init_kv_cache,
                                           init_mla)
-from repro_torch.models.moe import apply_moe, init_moe, router_aux_loss
+from repro_torch.models.moe import apply_moe, in_combine_product, init_moe, router_aux_loss
 from repro_torch.models.rglru import apply_rglru, init_rglru, init_rglru_cache
 from repro_torch.models.ssm import apply_mamba, init_mamba, init_ssm_cache
-from repro_torch.parallel.api import (constrain, even, gather_dim, local_call, planned_mesh,
-                                      region_placements, sharded_over)
+from repro_torch.parallel.api import (constrain, current_plan, even, gather_dim, local_call,
+                                      placements, planned_mesh, region_placements, replicated,
+                                      shard_index, sharded_over, to_placements)
 from repro_torch.quant.core import QuantTensor
 from repro_torch.quant.ops import qdense
 from repro_torch.tree import tree_map
@@ -371,13 +372,18 @@ def _unstack(tree, repeats: int) -> list:
     return [{k: v[r] for k, v in per_key.items()} for r in range(repeats)]
 
 
-def _save_dots(ctx, op, *args, **kwargs):
-    """The ``"dots"`` remat policy: keep the outputs of matrix products
-    with no batch axis (the reference's ``dots_with_no_batch_dims_saveable``),
-    recompute the rest."""
-    if op is torch.ops.aten.mm.default:
-        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
-    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+def _remat_policy(dots: bool):
+    """The remat's selective policy: keep the outputs of a GShard combine
+    product (:func:`moe.in_combine_product`: the layer's last product, read
+    by no gradient), and with ``dots`` (the ``"dots"`` policy) those of
+    matrix products with no batch axis (the reference's
+    ``dots_with_no_batch_dims_saveable``); recompute the rest."""
+    def policy(ctx, op, *args, **kwargs):
+        if (dots and op is torch.ops.aten.mm.default) or \
+                (op is torch.ops.aten.bmm.default and in_combine_product()):
+            return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+        return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
 
 
 def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
@@ -395,8 +401,10 @@ def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
 
     In the cache-free modes ``remat`` runs each layer under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are
-    recomputed in the backward pass, all but the outputs of plain matrix
-    products with ``remat_policy="dots"``.  The numbers are the same."""
+    recomputed in the backward pass, all but a MoE stack's GShard combine
+    products under a plan (:func:`_remat_policy`) and the outputs of plain
+    matrix products with ``remat_policy="dots"``.  The numbers are the
+    same."""
     cache_free = mode in CACHE_FREE
     new_caches = []
     aux_total = 0.0
@@ -415,8 +423,12 @@ def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
             if remat:
                 if remat_policy not in (None, "dots"):
                     raise ValueError(f"unknown remat policy {remat_policy!r}")
-                ctx = {} if remat_policy is None else dict(context_fn=functools.partial(
-                    torch_checkpoint.create_selective_checkpoint_contexts, _save_dots))
+                # a MoE stack's GShard combine runs only under a plan
+                gshard = cfg.is_moe and current_plan() is not None
+                ctx = {} if remat_policy is None and not gshard else dict(
+                    context_fn=functools.partial(
+                        torch_checkpoint.create_selective_checkpoint_contexts,
+                        _remat_policy(remat_policy == "dots")))
                 block = functools.partial(torch_checkpoint.checkpoint, block,
                                           use_reentrant=False, **ctx)
             for p_blk in _unstack(gp, spec.repeats):
@@ -509,18 +521,43 @@ def unembed(params, cfg, h, impl="flash"):
     """Logits from the tied embedding table or the untied ``lm_head`` (a
     projection like any other: ``weight_bits`` quantises it), then the
     final softcap: tanh in f32, rounded to the logits' dtype, then
-    scaled."""
+    scaled.  Under a plan whose ``logits`` role splits the vocab, an fp
+    table comes to each rank as its own vocab columns over the whole of
+    ``d_model`` (:func:`_vocab_columns`), so the logits come out split over
+    the vocab and no rank forms a whole-vocab partial sum."""
     h = constrain(h, "pre_logits")
     if cfg.tie_embeddings:
-        logits = qdense(h, params["embed"]["tok"].T, h.dtype)
+        logits = qdense(h, _vocab_columns(params["embed"]["tok"].T, h), h.dtype)
     else:
         w = params["lm_head"]
-        logits = qdense(h, w.tensor() if isinstance(w, QuantWeight) else w, h.dtype,
-                        impl=impl)
+        w = w.tensor() if isinstance(w, QuantWeight) else w
+        logits = qdense(h, w if isinstance(w, QuantTensor) else _vocab_columns(w, h),
+                        h.dtype, impl=impl)
     if cfg.final_softcap:
         cap = cfg.final_softcap
         logits = cap * torch.tanh(logits.float() / cap).to(logits.dtype)
     return constrain(logits, "logits")
+
+
+def _vocab_columns(w, h):
+    """The (D, V) table ``w`` with its vocab split over the mesh dims that
+    the plan's ``logits`` role splits the vocab on and its ``d_model``
+    whole: each rank's own columns (``w`` itself with no plan, or a role
+    that keeps the vocab whole).  The vocab shards are cut first, locally,
+    so that the gather over ``d_model`` moves only a rank's columns."""
+    mesh = planned_mesh("unembed", h, w)
+    spec = None if mesh is None else current_plan().spec("logits")
+    if spec is None:
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    cols = [i for i in sharded_over(even(placements(spec, mesh), (*h.shape[:-1], w.shape[-1]),
+                                         mesh), 2) if mesh.size(i) > 1]
+    if not cols:
+        return w
+    w = replicated(w, mesh)
+    w = to_placements(w, mesh, [Shard(1) if i in cols else p for i, p in enumerate(w.placements)])
+    return to_placements(w, mesh, [Shard(1) if i in cols else Replicate()
+                                   for i in range(mesh.ndim)])
 
 
 # ---------------------------------------------------------------------------
@@ -614,9 +651,8 @@ def loss_fn(params, cfg: ModelConfig, batch, *, impl="ref", compute_dtype=torch.
                           mode="train" if causal else "encode", pos=pos, impl=impl,
                           cross_src=cross_src, remat=remat, remat_policy=remat_policy)
     h = M.apply_norm(params["final_norm"], h)
-    # the vocab whole on each rank under a plan (the target's logit is read
-    # by index); batch and sequence stay as the plan put them
-    lf = gather_dim(unembed(params, cfg, h, impl).float(), -1)
+    # batch, sequence and vocab stay as the plan put them
+    lf = unembed(params, cfg, h, impl).float()
     targets = tokens.long()
     if causal:
         # each position scores the next token, the last position masked:
@@ -641,15 +677,57 @@ def _nll(lf, targets):
 
 def _rows_nll(lf, targets):
     """Each position's NLL of its target under the f32 logits ``lf``.
-    Under a plan each rank scores its own batch rows and positions
-    (``local_map``), the target's logit read by index off DTensor's
-    sharding rules."""
+    Under a plan each rank scores its own batch rows and positions over its
+    own vocab columns (``local_map``, :class:`_VocabNLL`): the vocab is
+    never gathered."""
     mesh = planned_mesh("loss", lf)
     if mesh is None:
         return _nll(lf, targets)
     placed = even(lf.placements, lf.shape, mesh)
-    rows = region_placements(mesh, {0: sharded_over(placed, 0), 1: sharded_over(placed, 1)})
-    return local_call(_nll, (lf, targets), (rows, rows), rows, mesh)
+    batch, seq, cols = (sharded_over(placed, d) for d in range(3))
+    rows = region_placements(mesh, {0: batch, 1: seq})
+    cols = [i for i in cols if mesh.size(i) > 1]
+    if not cols:
+        return local_call(_nll, (lf, targets), (rows, rows), rows, mesh)
+    groups = [mesh.get_group(i) for i in cols]
+    first = shard_index(mesh, cols) * (lf.shape[-1] // math.prod(mesh.size(i) for i in cols))
+    return local_call(lambda l, t: _VocabNLL.apply(l, t, first, groups), (lf, targets),
+                      (region_placements(mesh, {0: batch, 1: seq, 2: cols}), rows), rows, mesh)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """``logsumexp - gold`` per position of a rank's vocab columns ``lf``
+    (its first column ``first`` of the whole vocab): the columns' max, sum
+    of ``exp(l - max)`` and the target's logit (zero where the target is
+    another rank's column) are each reduced over ``groups`` (the vocab's
+    mesh dims).  The gradient is ``softmax - onehot`` on the rank's own
+    columns."""
+
+    @staticmethod
+    def forward(ctx, lf, targets, first, groups):
+        from torch.distributed import _functional_collectives as funcol
+        m = lf.amax(dim=-1)
+        for g in groups:
+            m = funcol.wait_tensor(funcol.all_reduce(m, "max", g))
+        z = torch.exp(lf - m[..., None]).sum(dim=-1)
+        idx = targets - first
+        mine = (idx >= 0) & (idx < lf.shape[-1])
+        gold = torch.where(mine, torch.gather(lf, -1, idx.clamp(0, lf.shape[-1] - 1)[..., None])
+                           [..., 0], 0.0)
+        for g in groups:
+            z = funcol.wait_tensor(funcol.all_reduce(z, "sum", g))
+            gold = funcol.wait_tensor(funcol.all_reduce(gold, "sum", g))
+        logz = torch.log(z) + m
+        ctx.save_for_backward(lf, logz, idx, mine)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, grad):
+        lf, logz, idx, mine = ctx.saved_tensors
+        g = torch.exp(lf - logz[..., None])
+        g.scatter_add_(-1, idx.clamp(0, lf.shape[-1] - 1)[..., None],
+                       -mine.to(g.dtype)[..., None])
+        return g * grad[..., None], None, None, None
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, impl="flash",

@@ -265,6 +265,17 @@ def sharded_over(placements_, dim: int) -> list[int]:
     return [i for i, p in enumerate(placements_) if p.is_shard(dim)]
 
 
+def shard_index(mesh, dims) -> int:
+    """This rank's shard, counted from 0, of a tensor dim split evenly over
+    the mesh dims ``dims`` (major to minor, as DTensor splits a dim over
+    several mesh dims)."""
+    coord = mesh.get_coordinate()
+    index = 0
+    for i in dims:
+        index = index * mesh.size(i) + coord[i]
+    return index
+
+
 @contextlib.contextmanager
 def local_views(mesh, tensors: dict, targets: dict):
     """Local tensors of ``tensors`` (name → DTensor or plain) at

@@ -165,3 +165,59 @@ def test_accum_cuts_a_batch_sharded_over_two_axes():
         mesh = _mesh((2, 2, 1), ("pod", "data", "model"), range(4), "cpu")
         cost = D.trace_cell(cfg, ShapeSpec("t", "train", 32, 8), mesh, accum=2)
     assert cost.flops > 0 and cost.n_ops > 0
+
+
+_REFERENCE_FLOPS = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, numpy as np
+from jax.sharding import Mesh
+from repro.config import ShapeSpec, get_config, reduce_config
+from repro.launch.steps import build_cell
+from repro.roofline.hlo import analyze_hlo_text
+out = {}
+for arch in sys.argv[1].split(","):
+    for m in json.loads(sys.argv[2]):
+        mesh = Mesh(np.asarray(jax.devices()).reshape(*m), ("data", "model"))
+        jfn, args, _ = build_cell(reduce_config(get_config(arch)),
+                                  ShapeSpec("t", "train", 128, 4), mesh)
+        out[f"{arch} {m[0]}x{m[1]}"] = analyze_hlo_text(jfn.lower(*args).compile().as_text()).flops
+print(json.dumps(out))
+"""
+
+RANK_ARCHS = ("qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b")
+RANK_MESHES = ((2, 2), (1, 4))
+
+
+@pytest.fixture(scope="module")
+def reference_rank_flops():
+    """The reference's per-device FLOPs (its compiled HLO walked) of every
+    case below: one subprocess on 4 forced host devices, one JAX import."""
+    r = subprocess.run([sys.executable, "-c", _REFERENCE_FLOPS, ",".join(RANK_ARCHS),
+                        json.dumps(RANK_MESHES)],
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.split("\n")[-2])
+
+
+@pytest.mark.parametrize("mesh_shape", RANK_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch", RANK_ARCHS)
+def test_rank_flops_equal_the_reference_on_multi_rank_meshes(arch, mesh_shape,
+                                                             reference_rank_flops):
+    """A reduced train step (S 128, B 4) on 2x2 and 1x4 fake meshes: each
+    rank counts the FLOPs of the reference's partitioned HLO, within 2%
+    for the dense stacks and :data:`MOE_REMAT_TOL` for the MoE.  A rank
+    attends only its own rows of a sequence-split q, forms only its own
+    vocab columns of the logits and the loss, and dispatches only its own
+    GShard groups; a step that computed any of these whole on every
+    ``model`` rank would count up to 2.3x the reference's here."""
+    from repro_torch.launch.mesh import small_mesh
+    from test_torch_roofline import MOE_REMAT_TOL, WHOLE_STEP_TOL
+    cfg = reduce_config(get_config(arch))
+    with D.fake_group(4):
+        got = D.trace_cell(cfg, ShapeSpec("t", "train", 128, 4),
+                           small_mesh(*mesh_shape, device_type="cpu")).flops
+    want = reference_rank_flops[f"{arch} {mesh_shape[0]}x{mesh_shape[1]}"]
+    tol = MOE_REMAT_TOL if cfg.is_moe else WHOLE_STEP_TOL
+    assert abs(got - want) <= tol * want, (arch, mesh_shape, got, want, got / want)

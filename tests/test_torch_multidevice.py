@@ -8,7 +8,12 @@ equal to an uninterrupted run, the ring collective matmuls, int8
 compressed gradients, the sharded slot pool serving the unsharded
 engine's streams, and a snapshot restored on another mesh.  Asserts run in
 the ranks; a failing rank fails the test with its traceback."""
+import dataclasses
 import functools
+import os
+import pickle
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -61,7 +66,7 @@ def _rel(a: float, b: float) -> float:
 # training
 # ---------------------------------------------------------------------------
 
-def _train_step_worker(rank, arch, mostly_sharded=True):
+def _train_step_worker(rank, arch, mostly_sharded=True, mesh_shape=(2, 2), kv_heads=None):
     from repro_torch.launch.mesh import small_mesh
     from repro_torch.launch.steps import build_cell, make_train_step, place_args
     from repro_torch.models import transformer as T
@@ -69,8 +74,10 @@ def _train_step_worker(rank, arch, mostly_sharded=True):
     from repro_torch.training.optimizer import adamw_init
     _f32_loss()
     cfg = reduce_config(get_config(arch))
+    if kv_heads is not None:
+        cfg = dataclasses.replace(cfg, n_kv_heads=kv_heads)
     shape = ShapeSpec("t", "train", 32, 4)
-    mesh = small_mesh(2, 2, device_type="cpu")
+    mesh = small_mesh(*mesh_shape, device_type="cpu")
     fn, (pspecs, ospecs, bspecs), plan = build_cell(cfg, shape, mesh)
     assert all(t.is_meta for t in (pspecs["embed"]["tok"], ospecs["m"]["embed"]["tok"],
                                    bspecs["tokens"]))
@@ -85,7 +92,7 @@ def _train_step_worker(rank, arch, mostly_sharded=True):
     p, o, b = place_args(cfg, shape, mesh, *fresh(), batch)
     # the single-device step under a plan of the mesh's shape with no roles:
     # its MoE layers take gshard in groups of the model axis, as the mesh's
-    single = make_train_step(cfg, Plan(AbstractMesh((2, 2), ("data", "model")), {}))
+    single = make_train_step(cfg, Plan(AbstractMesh(mesh_shape, ("data", "model")), {}))
     p1, o1 = fresh()
     for step in range(2):          # the second loss reads the first update
         p, o, m = fn(p, o, b)
@@ -111,6 +118,111 @@ def test_sharded_train_step_matches_single_device(tmp_path, arch):
     running, in f32; the MoE stacks' (gshard) against the single device
     under a role-less plan of the same shape."""
     _spawn(tmp_path, 4, _train_step_worker, arch)
+
+
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_sequence_split_train_step_matches_single_device(tmp_path, kv_heads):
+    """Reduced gemma2-9b's train step on a 1x4 mesh at S 32: the residual
+    is split into 8-token shards over ``model``, so its window-16 local
+    layers, attention softcap and final softcap cross shard boundaries.
+    With 4 KV heads attention is head-parallel; with 2 (full gemma2-9b's
+    two query heads a KV head) the plan splits q's rows over the sequence
+    and each rank attends its own rows at their true positions
+    (``flash_attention.ops._planned_rows``).  The logits and the loss stay
+    split over the vocab.  Loss and gradient norm equal the single-device
+    step's, two steps running, in f32."""
+    _spawn(tmp_path, 4, _train_step_worker, "gemma2-9b", True, (1, 4), kv_heads)
+
+
+# The reference's loss and gradients of reduced gemma2-9b (n_kv_heads
+# given) under its own 1x4 train plan, in f32, on 4 forced host devices:
+# one subprocess, one JAX import, for every case below.
+_REFERENCE_GRADS = r"""
+import dataclasses, os, pickle, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh
+from repro.ckpt import flatten_tree
+from repro.config import ShapeSpec, get_config, reduce_config
+from repro.models import transformer as T
+from repro.parallel import sharding as SH
+from repro.parallel.api import activate_plan
+mesh = Mesh(np.asarray(jax.devices()).reshape(1, 4), ("data", "model"))
+out = {}
+for kv in map(int, sys.argv[1].split(",")):
+    cfg = dataclasses.replace(reduce_config(get_config("gemma2-9b")), n_kv_heads=kv)
+    plan, ctx = SH.build_plan(cfg, ShapeSpec("t", "train", 32, 4), mesh, mode="train")
+    params = jax.device_get(T.init_params(cfg, jax.random.PRNGKey(0)))
+    batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 32))
+             .astype(np.int32)}
+    def loss_f(p, b):
+        with activate_plan(plan):
+            return T.loss_fn(p, cfg, b, impl="ref", compute_dtype=jnp.float32, remat=True)
+    shard = (SH.params_shardings(params, ctx), SH.batch_shardings(batch, ctx))
+    (loss, _), grads = jax.jit(jax.value_and_grad(loss_f, has_aux=True),
+                               in_shardings=shard)(params, batch)
+    out[kv] = dict(params=params, batch=batch, loss=float(loss),
+                   grads=flatten_tree(jax.device_get(grads)))
+with open(sys.argv[2], "wb") as f:
+    pickle.dump(out, f)
+"""
+SEQ_SPLIT_KV = (4, 2)
+
+
+@pytest.fixture(scope="module")
+def reference_seq_split_grads(tmp_path_factory):
+    path = tmp_path_factory.mktemp("ref") / "grads.pkl"
+    r = subprocess.run([sys.executable, "-c", _REFERENCE_GRADS,
+                        ",".join(map(str, SEQ_SPLIT_KV)), str(path)],
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert r.returncode == 0, r.stderr[-4000:]
+    return path
+
+
+def _reference_grads_worker(rank, path, kv_heads):
+    from repro_torch.ckpt import flatten_tree
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import small_mesh
+    from repro_torch.launch.steps import build_cell, place_args
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.api import activate_plan, full
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    with open(path, "rb") as f:
+        ref = pickle.load(f)[kv_heads]
+    cfg = dataclasses.replace(reduce_config(get_config("gemma2-9b")), n_kv_heads=kv_heads)
+    shape = ShapeSpec("t", "train", 32, 4)
+    mesh = small_mesh(1, 4, device_type="cpu")
+    _, _, plan = build_cell(cfg, shape, mesh)
+    params = T.trainable(params_from_jax(ref["params"], cfg, device="cpu",
+                                         dtype=torch.float32))
+    params, batch = place_args(cfg, shape, mesh, params,
+                               {k: torch.from_numpy(v) for k, v in ref["batch"].items()})
+    leaves = tree_leaves(params)
+    with activate_plan(plan):
+        loss, _ = T.loss_fn(params, cfg, batch, compute_dtype=torch.float32, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+    got = flatten_tree(tree_unflatten(params, [full(g).numpy() for g in grads]))
+    want = ref["grads"]
+    assert _rel(float(full(loss.detach())), ref["loss"]) <= 1e-5, (float(full(loss)), ref["loss"])
+    assert set(got) == set(want)
+    # train parity's f32 bound: each leaf within 1e-4 of its scale
+    for key, w in want.items():
+        err, scale = float(np.abs(got[key] - w).max()), float(np.abs(w).max())
+        assert err <= 1e-4 * scale, (key, err, scale)
+
+
+@pytest.mark.parametrize("kv_heads", SEQ_SPLIT_KV)
+def test_sequence_split_train_grads_match_the_reference(tmp_path, kv_heads,
+                                                         reference_seq_split_grads):
+    """The case above held to the reference's own sharded step: the same
+    parameters and batch, the reference's loss and gradients under its 1x4
+    train plan (its Megatron-SP attention, vocab-split logits and loss)
+    against the port's under its plan, every leaf within train parity's
+    f32 bound (1e-4 of the leaf's scale), the loss within 1e-5.  This
+    holds the sequence-split attention's backward (dK/dV as partial sums)
+    and the vocab-parallel NLL's ``softmax - onehot`` leaf by leaf."""
+    _spawn(tmp_path, 4, _reference_grads_worker, str(reference_seq_split_grads), kv_heads)
 
 
 def test_sharded_ssm_train_step_matches_single_device(tmp_path):
@@ -288,19 +400,21 @@ def _drain(eng, prompts):
     return [r.output for r in sorted(eng.finished, key=lambda r: r.uid)]
 
 
-def _serving_worker(rank, arch, dtype, kw):
+def _serving_worker(rank, arch, dtype, kw, model=2):
     from repro_torch.launch.mesh import small_mesh
     from repro_torch.models import transformer as T
     cfg = reduce_config(get_config(arch))
     params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
                            dtype=getattr(torch, dtype))
     prompts = _prompts(cfg)
-    mesh = small_mesh(1, 2, device_type="cpu")
+    mesh = small_mesh(1, model, device_type="cpu")
     sharded = _engine(cfg, params, mesh, **kw)
-    # the pool is sharded: its KV heads over model
+    # the pool is sharded: its KV heads over model where they divide it,
+    # else its sequence
     k = sharded.pool.cache["stack"][0]["u0"]["attn"]
     leaf = k["k"] if "k" in k else k["k_q"]
-    assert leaf.placements[1].is_shard(3), leaf.placements
+    assert leaf.placements[1].is_shard(3 if cfg.n_kv_heads % model == 0 else 2), \
+        leaf.placements
     b = _drain(sharded, prompts)
     plain = _engine(cfg, params, None, **kw)
     a = _drain(plain, prompts)
@@ -320,6 +434,15 @@ def test_sharded_slot_pool_serving_matches_single_device(tmp_path, arch, dtype, 
     with the same host transfers: reduced qwen2.5-3b in f32 (the
     reference's case), gemma2-9b (local rings, softcaps) and w8kv8."""
     _spawn(tmp_path, 2, _serving_worker, arch, dtype, kw)
+
+
+def test_sequence_split_prefill_serving_matches_single_device(tmp_path):
+    """Reduced qwen2.5-3b (2 KV heads) on a 1x4 mesh: its heads do not
+    divide ``model``, so the prefill plan splits q's rows over the
+    sequence with K/V replicated, and ``impl="flash"`` gathers them for
+    the kernel (``flash_attention.ops._planned``).  The engine serves the
+    unsharded engine's streams, with the same host transfers."""
+    _spawn(tmp_path, 4, _serving_worker, "qwen2.5-3b", "float32", {}, 4)
 
 
 def _restore_worker(rank, path):

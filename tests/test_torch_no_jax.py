@@ -17,7 +17,9 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / name for name in ("chip_smoke.py", "chip_probe_attention.py",
                               "chip_probe_grouped.py", "chip_probe_qmatmul.py",
-                              "chip_probe_cross_source.py", "chip_probe_calib.py")]
+                              "chip_probe_cross_source.py", "chip_probe_calib.py")] + \
+    [REPO / "examples" / f"{name}_torch.py"
+     for name in ("quickstart", "serve_e2e", "train_lm", "noi_design")]
 
 
 def _imports(path):

@@ -250,11 +250,12 @@ def test_dispatch_bytes_agree_with_traffic_phase_bytes(arch):
 STEP_SHAPES = {"train": (32, 2), "prefill": (32, 2), "decode": (64, 2)}
 WHOLE_STEP_TOL = 0.02
 # A MoE train step under remat: torch.utils.checkpoint recomputes each
-# layer's whole forward in the backward pass, where XLA's dead-code
-# elimination drops the recomputed einsums (the GShard combine among them)
-# whose outputs no gradient reads.  Measured: +3.05% on qwen3-moe, +2.30%
-# on deepseek-v2 (reduced, S 32, B 2); without remat the gap is the
-# router product alone (test below).
+# layer's forward in the backward pass, where XLA's dead-code elimination
+# drops the recomputed einsums whose outputs no gradient reads.  The port
+# keeps the GShard combine's output (a selective checkpoint), the largest
+# of them.  Measured: +0.51% on qwen3-moe, +1.15% on deepseek-v2
+# (reduced, S 32, B 2; +3.05% and +2.30% with the combine recomputed);
+# without remat the gap is the router product alone (test below).
 MOE_REMAT_TOL = 0.035
 
 
