@@ -52,7 +52,7 @@ VARIANTS = {   # name: [(file of csrc/, its text, the replacement), ...]
     # fp decode ablations (wrong results): the merge, every tile, the
     # tiles' arithmetic, the scores, the values; and blocks of 4 warps (2
     # query rows each at rep 8)
-    "dc_nomerge": [("decode.cu", "  split_kv_merge<T>(p.split, unit, ob, p.o_sh, nrows);", "")],
+    "dc_nomerge": [("decode.cu", "  split_kv_merge<T>(p.split, unit, ob, p.o_sh, nrows, -1, lb);", "")],
     "dc_notiles": [("decode.cu", "    int cur = next_live(0), s = 0;", "    int cur = cn, s = 0;")],
     "dc_nocompute": [("decode.cu", "      if (active) {\n        const bool valid",
                       "      if (false) {\n        const bool valid")],
@@ -70,7 +70,7 @@ VARIANTS = {   # name: [(file of csrc/, its text, the replacement), ...]
     # decode ablations (wrong results): the merge, every tile, the tiles'
     # arithmetic, the scores, the values
     "dq_nomerge": [("decode_quant.cu",
-                    "  split_kv_merge<T>(p.split, unit, ob, p.o_sh, nrows, p.hdv);", "")],
+                    "  split_kv_merge<T>(p.split, unit, ob, p.o_sh, nrows, p.hdv, lb);", "")],
     "dq_notiles": [("decode_quant.cu", "  int cur = next_live(0), s = 0;",
                     "  int cur = nt, s = 0;")],
     "dq_nocompute": [("decode_quant.cu", "    if (active) {\n      const unsigned vmask",

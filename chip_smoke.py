@@ -68,6 +68,17 @@ Phases, each of which must pass or the script exits non-zero:
              shared experts and 102400-column lm_head at 1..384 rows; the
              expert path at 160 experts top-6, K 5120 N 1536 and back, T
              48, 768 and 2304, the combine at k 6), each timed likewise;
+             and the outputs the split routes launch them with
+             (``run_split_checks``): the fp and quantised (kv8, kv4)
+             decodes with their log-sum-exp at qwen2.5-3b's pool and
+             gemma2-9b's ring, an empty slot's rows exact zeros and
+             ``NEG_INF``, the pool cut in two halves, each launched with
+             its LSE and merged in torch against the whole-pool launch
+             (one card standing in for two ranks); the prefill at a query
+             row offset, each quarter of a stream against the same rows
+             of the whole launch, on tensor cores at hd 128 and 256 and
+             on CUDA cores in f32; the LSE launch and an offset quarter
+             timed, and the main-path rows read beside PERF.md's;
 4. engine  — the port's serving engine on full-width qwen2.5-3b and
              gemma2-9b (its depth cut to 8 of 42 layers for the script's
              time; local 4096-entry rings and global layers, head dim 256)
@@ -1278,6 +1289,203 @@ def cycler(items):
     with a cold L2: each layer's weights and pool are read once a step)."""
     it = iter(range(1 << 30))
     return lambda: items[next(it) % len(items)]
+
+
+# the split routes' kernel cases (ops._planned_split_kv, ops._planned_rows):
+# the decodes with their log-sum-exp, fp and quantised, at qwen2.5-3b's pool
+# and gemma2-9b's ring (window, softcap), slot 3 empty; the prefill at a
+# query row offset, a rank's quarter of a causal stream against the whole
+# launch, on tensor cores at hd 128 and 256 (window, softcap, segments) and
+# on CUDA cores in f32
+SPLIT_DECODE = {"qwen2.5-3b B8 Skv1024 Hq16 Hkv2 hd128": dict(empty=(3,), timed=True),
+                "qwen2.5-3b B8 Skv1024 Hq16 Hkv2 hd128, q x40 (scores past 88)":
+                dict(empty=(3,), q_scale=40.0),
+                "gemma2-9b ring B8 Skv4096 Hq16 Hkv8 hd256 window4096 softcap50":
+                dict(GEMMA2_RING, empty=(3,))}
+SPLIT_PREFILL = {
+    "bf16 hd128 S1024 Hq16 Hkv2, 3 prompts + pad (tensor cores)":
+        dict(S=1024, lens=(300, 500, 200)),
+    "bf16 hd128 S1024 Hq16 Hkv2, causal (tensor cores)": dict(S=1024, segmented=False),
+    "bf16 hd256 S1024 Hq16 Hkv8 window300 softcap50, 3 prompts + pad (tensor cores)":
+        dict(GEMMA2_PREFILL, S=1024, window=300, lens=(300, 500, 200)),
+    "f32 hd128 S512 Hq8 Hkv2 window100 softcap50, 3 prompts + pad (CUDA cores)":
+        dict(S=512, Hq=8, Hkv=2, window=100, softcap=50.0, lens=(200, 150, 100),
+             dtype="float32"),
+}
+SPLIT_RANKS = 4            # the ranks a prefill stream is cut across
+LSE_TOL = 1e-4             # a log-sum-exp against the plain version's (abs and rel)
+# the merged halves (the merge kept in f32) against the whole launch, in bf16
+# ulps of each row's largest value: each launch rounds its rows to bf16 once;
+# the bf16 cases read 1e-3 abs on an H100, where TOL's 1e-2 would pass a
+# merge with slightly wrong weights
+MERGE_ULPS = 2
+# PERF.md section 6's main-path rows (H100 80GB HBM3, 700 W): qwen2.5-3b's
+# decode, kv8 decode and packed prefill, read with no LSE and q_off 0
+PERF_MD_MS = {"flash_decode": 0.0193, "flash_decode_quant": 0.0153, "flash_prefill": 0.0102}
+
+
+def run_split_checks(torch, records):
+    """The outputs the split routes launch the kernels with, each against
+    its plain version: decode.cu and decode_quant.cu (kv8, kv4) with their
+    log-sum-exp (``return_lse``), the pool cut in two halves, each launched
+    with its LSE and merged in torch (``ops.merge_splits``'s formula, one
+    card standing in for two ranks) against the whole-pool launch, once
+    with q scaled so that the scores pass 88 (where ``exp`` overflows f32
+    without the merge's max), an empty slot's rows exact zeros and
+    ``NEG_INF``; prefill.cu at a query row offset
+    (``q_offset``), each quarter of a stream against the same rows of the
+    whole launch.  Times the LSE launches and an offset quarter beside the
+    plain launches, and reads the main-path rows beside PERF.md's."""
+    from repro_torch.kernels.flash_attention.common import NEG_INF
+    from repro_torch.kernels.flash_attention.decode import (flash_decode_fwd,
+                                                            flash_decode_plain,
+                                                            flash_decode_quant_fwd,
+                                                            flash_decode_quant_plain)
+    from repro_torch.kernels.flash_attention.decode import kernel_launches as decode_launches
+    from repro_torch.kernels.flash_attention.decode import quant_kernel_launches
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_fwd,
+                                                            flash_attention_plain)
+    from repro_torch.kernels.flash_attention.kernel import kernel_launches as prefill_launches
+    from repro_torch.kernels.flash_attention.ops import _merged, _weighed
+    from repro_torch.quant.core import quantize_kv
+    rng = np.random.default_rng(23)
+    out = {"flash_decode": [], "flash_decode_quant": [], "flash_prefill": []}
+    def merge_parts(outs, lses):      # ops.merge_splits's sums, in one process, kept in f32
+        m = torch.stack(lses).amax(dim=0)
+        return _merged(sum(_weighed(o, l, m) for o, l in zip(outs, lses)), torch.float32)
+
+    for name, kw in SPLIT_DECODE.items():
+        kw = dict(kw)
+        timed, q_scale = kw.pop("timed", False), kw.pop("q_scale", 1.0)
+        c = decode_case(torch, rng, **kw)
+        c["q"] = c["q"] * q_scale
+        k, v = c["pools"][0]
+        for bits in (0, 8, 4):
+            if bits:
+                pool = (*quantize_kv(k, bits), *quantize_kv(v, bits))   # k_q, k_s, v_q, v_s
+
+                def fwd(p, kv_pos, **a):
+                    return flash_decode_quant_fwd(c["q"], p[0], p[1], p[2], p[3], kv_bits=bits,
+                                                  q_pos=c["q_pos"], kv_pos=kv_pos,
+                                                  window=c["window"], softcap=c["softcap"], **a)
+
+                def plain(p, kv_pos, **a):
+                    return flash_decode_quant_plain(c["q"], p[0], p[1], p[2], p[3],
+                                                    kv_bits=bits, q_pos=c["q_pos"],
+                                                    kv_pos=kv_pos, window=c["window"],
+                                                    softcap=c["softcap"], **a)
+                counter, rec = quant_kernel_launches, "flash_decode_quant"
+            else:
+                pool = (k, v)
+
+                def fwd(p, kv_pos, **a):
+                    return flash_decode_fwd(c["q"], *p, q_pos=c["q_pos"], kv_pos=kv_pos,
+                                            window=c["window"], softcap=c["softcap"], **a)
+
+                def plain(p, kv_pos, **a):
+                    return flash_decode_plain(c["q"], *p, q_pos=c["q_pos"], kv_pos=kv_pos,
+                                              window=c["window"], softcap=c["softcap"], **a)
+                counter, rec = decode_launches, "flash_decode"
+            half = k.shape[1] // 2
+            cut = [(tuple(t[:, :half] for t in pool), c["kv_pos"][:, :half]),
+                   (tuple(t[:, half:] for t in pool), c["kv_pos"][:, half:])]
+            before = sum(counter.values())
+            (whole, lse), kernel = ran_one(counter, lambda: fwd(pool, c["kv_pos"],
+                                                                return_lse=True), "decode")
+            alone = fwd(pool, c["kv_pos"])
+            parts = [fwd(p, kp, return_lse=True) for p, kp in cut]
+            launches = sum(counter.values()) - before
+            merged = merge_parts([o[:, 0] for o, _ in parts], [l for _, l in parts])
+            ref, ref_lse = plain(pool, c["kv_pos"], return_lse=True)
+            torch.cuda.synchronize()
+            tol = TOL[str(c["q"].dtype)]
+            err = (whole.float() - ref.float()).abs().max().item()
+            lse_err = ((lse - ref_lse).abs() / (1 + ref_lse.abs())).max().item()
+            w = whole[:, 0].float()
+            ulp = torch.exp2(torch.floor(torch.log2(w.abs().amax(-1, keepdim=True)
+                                                    .clamp_min(2.0 ** -10))) - 7)
+            merge_err = ((merged - w).abs() / ulp).max().item()
+            top = lse.max().item()
+            empty = bool((whole[3] == 0).all() and (lse[3] == NEG_INF).all()
+                         and (merged[3] == 0).all())
+            same = torch.equal(whole, alone)
+            what = f"{name} {'kv%d' % bits if bits else 'fp'}"
+            print(f"kernel {rec} lse case={what!r} kernel={attention_kernel_name(kernel)} "
+                  f"max_abs_err={err:.3e} lse_rel_err={lse_err:.3e} max_lse={top:.1f} "
+                  f"merged_halves_ulps={merge_err:.3f} tol={tol:g} "
+                  f"out_as_without_lse={same} empty_slot_zeros_and_neg_inf={empty} "
+                  f"launches={launches}")
+            check(err <= tol and lse_err <= LSE_TOL,
+                  f"{rec} with its log-sum-exp disagrees with its plain version ({what})")
+            check(merge_err <= MERGE_ULPS, f"{rec}: the merged halves disagree with the whole "
+                  f"pool's launch ({what})")
+            check(same, f"{rec}: the rows with the LSE differ from those without ({what})")
+            check(empty, f"{rec}: the empty slot is not zeros and NEG_INF ({what})")
+            check(q_scale == 1.0 or top > 88.0, f"{rec}: the scaled case's scores stay "
+                  f"below 88 ({what})")
+            row = {"case": what, "max_abs_err": err, "lse_rel_err": lse_err,
+                   "merged_halves_ulps": merge_err, "tol": tol, "launches": launches}
+            if timed:                        # the LSE launch timed beside the plain one
+                row["ms"] = device_ms(lambda: fwd(pool, c["kv_pos"], return_lse=True), 200)
+                row["ms_without_lse"] = device_ms(lambda: fwd(pool, c["kv_pos"]), 200)
+                print(f"kernel {rec} lse timing case={what!r} ms={row['ms']:.4f} "
+                      f"ms_without_lse={row['ms_without_lse']:.4f} card={CARD}")
+            out[rec].append(row)
+
+    for name, kw in SPLIT_PREFILL.items():
+        kw = dict(kw)
+        if kw.pop("dtype", None) == "float32":
+            kw["dtype"] = torch.float32
+        c = prefill_case(torch, rng, **kw)
+        S = c["q"].shape[2]
+        args = dict(segments=c["segments"], window=c["window"], softcap=c["softcap"],
+                    causal=c["causal"])
+        before = sum(prefill_launches.values())
+        whole = flash_attention_fwd(c["q"], c["k"], c["v"], **args)
+        tol = TOL[str(c["q"].dtype)]
+        n = S // SPLIT_RANKS
+        errs, same = [], []
+        for r in range(SPLIT_RANKS):
+            rows = c["q"][:, :, r * n:(r + 1) * n]
+            got, kernel = ran_one(prefill_launches, lambda: flash_attention_fwd(
+                rows, c["k"], c["v"], q_offset=r * n, **args), "prefill")
+            ref = flash_attention_plain(rows, c["k"], c["v"], q_offset=r * n, **args)
+            torch.cuda.synchronize()
+            errs.append(max((got.float() - ref.float()).abs().max().item(),
+                            (got.float() - whole[:, :, r * n:(r + 1) * n].float())
+                            .abs().max().item()))
+            same.append(torch.equal(got, whole[:, :, r * n:(r + 1) * n]))
+        launches = sum(prefill_launches.values()) - before
+        want = expected_prefill_design(c["q"].dtype, c["q"].shape[-1], c["v"].shape[-1])
+        print(f"kernel flash_prefill q_offset case={name!r} design={kernel.design} "
+              f"kernel={attention_kernel_name(kernel)} quarters={SPLIT_RANKS} "
+              f"max_abs_err={max(errs):.3e} tol={tol:g} rows_of_the_whole_launch_bit_for_bit="
+              f"{all(same)} launches={launches}")
+        check(max(errs) <= tol, f"prefill at a row offset disagrees ({name})")
+        check(all(same), f"prefill's rows at an offset differ from the whole launch's ({name})")
+        check(kernel.design == want, f"prefill at a row offset ({name}) ran on {kernel.design}")
+        row = {"case": name, "design": kernel.design, "max_abs_err": max(errs), "tol": tol,
+               "bit_for_bit": all(same), "launches": launches}
+        if S == 1024 and kernel.design == "tensor_core" and c["segments"] is None:
+            rows = c["q"][:, :, 3 * n:]          # the last quarter: the most keys
+            row["ms"] = device_ms(lambda: flash_attention_fwd(
+                rows, c["k"], c["v"], q_offset=3 * n, **args), 200)
+            row["ms_whole_stream"] = device_ms(lambda: flash_attention_fwd(
+                c["q"], c["k"], c["v"], **args), 200)
+            row["plain_ms"] = device_ms(lambda: flash_attention_plain(
+                rows, c["k"], c["v"], q_offset=3 * n, **args), 20)
+            print(f"kernel flash_prefill q_offset timing case={name!r} last quarter "
+                  f"ms={row['ms']:.4f} whole_stream_ms={row['ms_whole_stream']:.4f} "
+                  f"plain_ms={row['plain_ms']:.4f} card={CARD}")
+        out["flash_prefill"].append(row)
+
+    for rec, rows in out.items():
+        records[rec]["split_routes"] = rows
+        records[rec]["max_abs_err"] = max(records[rec]["max_abs_err"],
+                                          *(r["max_abs_err"] for r in rows))
+        print(f"kernel {rec} main row ms={records[rec]['ms']:.4f} "
+              f"perf_md_ms={PERF_MD_MS[rec]} ratio={records[rec]['ms'] / PERF_MD_MS[rec]:.3f} "
+              f"card={CARD}")
 
 
 def run_quant_decode_checks(torch):
@@ -5446,6 +5654,7 @@ def smoke(torch, get_config, dryrun):
     t_kernels = time.perf_counter()
     records = run_kernel_checks(torch)
     records.update(run_quant_decode_checks(torch))
+    run_split_checks(torch, records)
     records.update(run_matmul_checks(torch))
     records.update(run_grouped_checks(torch))
     print(f"phase kernels done in {time.perf_counter() - t_kernels:.1f} s")

@@ -75,6 +75,7 @@ struct Params {
   const int* q_pos;
   const int* kv_pos;
   void* out;
+  float* lse;     // (B, Hq) f32 log-sum-exp of each query row, or null
   SplitKV split;  // workspace, tickets, splits, rows of a group, hdv
   int Skv, Hkv, rep, groups, hd, hdv, tiles;  // tiles: 32-entry tiles a split
   long long q_sb, q_sh;
@@ -318,6 +319,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
 
   T* ob = static_cast<T*>(p.out) + b * p.o_sb + (long long)(h * p.rep + row0) * p.o_sh;
   const int d0 = lane * DPL;
+  float* lb = p.lse ? p.lse + ((long long)b * p.Hkv + h) * p.rep + row0 : nullptr;
   if (p.split.splits == 1) {  // the whole pool: finish here
     if (active && d0 < p.hdv) {
 #pragma unroll
@@ -328,6 +330,14 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
           ob[row * p.o_sh + d0 + i] = repro_from_f32<T>(acc[r][i] / lr);
+      }
+    }
+    if (lb && active && lane == 0) {  // each row's log-sum-exp; an empty slot's NEG_INF
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        const int row = warp * RPW + r;
+        if (row >= nrows) break;
+        lb[row] = l[r] == 0.f ? REPRO_NEG_INF : m[r] + logf(l[r]);
       }
     }
     return;
@@ -354,7 +364,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
     }
   }
   if (!split_kv_last(p.split, unit)) return;
-  split_kv_merge<T>(p.split, unit, ob, p.o_sh, nrows);
+  split_kv_merge<T>(p.split, unit, ob, p.o_sh, nrows, -1, lb);
 }
 
 template <typename T, int RPW, int DPL>
@@ -409,11 +419,13 @@ cudaError_t launch(Params p, int B, cudaStream_t stream) {
 // blocks a (slot, KV head, group), each over `tiles` 32-entry tiles of the
 // pool (splits * tiles * 32 >= Skv); with splits > 1, ws holds B * Hkv *
 // groups * splits parts of rows * hdv + 2 * rows f32 (rounded up to 4) and
-// tickets B * Hkv * groups zeros of this stream.  Returns the launch's
-// cudaError_t.
+// tickets B * Hkv * groups zeros of this stream.  lse, when not null,
+// takes each query row's log-sum-exp, (B, Hq) f32 contiguous.  Returns the
+// launch's cudaError_t.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* q_pos, const void* kv_pos,
-    void* out, void* ws, void* tickets, int B, int Skv, int Hq, int Hkv, int hd, int hdv,
+    void* out, void* lse, void* ws, void* tickets, int B, int Skv, int Hq, int Hkv, int hd,
+    int hdv,
     int rows, int splits, int tiles, long long q_sb, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long qp_sb, long long kp_sb, long long kp_ss, long long o_sb, long long o_sh,
@@ -428,7 +440,7 @@ extern "C" int repro_decode_attention(
       rows > rep)
     return cudaErrorInvalidValue;
   Params p{q, k, v, static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos), out,
-           SplitKV{static_cast<float*>(ws), static_cast<int*>(tickets), splits, rows, hdv},
+           static_cast<float*>(lse), SplitKV{static_cast<float*>(ws), static_cast<int*>(tickets), splits, rows, hdv},
            Skv, Hkv, rep, groups, hd, hdv, tiles, q_sb, q_sh,
            k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, qp_sb, kp_sb, kp_ss, o_sb, o_sh,
            window, softcap, scale, 0, 0, 0};

@@ -131,6 +131,7 @@ struct Params {
   const int* q_pos;
   const int* kv_pos;
   void* out;
+  float* lse;     // (B, Hq) f32 log-sum-exp of each query row, or null
   SplitKV split;  // workspace, tickets, splits, rows of a group, hdv rounded up to 8
   int Skv, Hkv, rep, groups, hd, hdv, tiles;  // tiles: 32-entry tiles a split
   long long q_sb, q_sh;
@@ -356,6 +357,7 @@ __global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) 
 
   T* ob = static_cast<T*>(p.out) + b * p.o_sb + (long long)(h * p.rep + row0) * p.o_sh;
   const int d0 = lane * DPL;
+  float* lb = p.lse ? p.lse + ((long long)b * p.Hkv + h) * p.rep + row0 : nullptr;
   if (p.split.splits == 1) {  // the whole pool: finish here
     if (active && d0 < p.hdv) {
 #pragma unroll
@@ -366,6 +368,14 @@ __global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) 
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
           if (d0 + i < p.hdv) ob[row * p.o_sh + d0 + i] = repro_from_f32<T>(acc[r][i] / lr);
+      }
+    }
+    if (lb && active && lane == 0) {  // each row's log-sum-exp; an empty slot's NEG_INF
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        const int row = warp * RPW + r;
+        if (row >= nrows) break;
+        lb[row] = l[r] == 0.f ? REPRO_NEG_INF : m[r] + logf(l[r]);
       }
     }
     return;
@@ -393,7 +403,7 @@ __global__ void __launch_bounds__(kThreads) decode_quant_kernel(const Params p) 
     }
   }
   if (!split_kv_last(p.split, unit)) return;
-  split_kv_merge<T>(p.split, unit, ob, p.o_sh, nrows, p.hdv);
+  split_kv_merge<T>(p.split, unit, ob, p.o_sh, nrows, p.hdv, lb);
 }
 
 template <typename T, int BITS, int RPW, int DPL>
@@ -446,7 +456,7 @@ int piece_bytes(const void* base, const long long* st, int bytes) {
 // repro_decode_attention.
 extern "C" int repro_decode_attention_quant(
     const void* q, const void* k_q, const void* k_s, const void* v_q, const void* v_s,
-    const void* q_pos, const void* kv_pos, void* out, void* ws, void* tickets, int B,
+    const void* q_pos, const void* kv_pos, void* out, void* lse, void* ws, void* tickets, int B,
     int Skv, int Hq, int Hkv, int hd, int hdv, int rows, int splits, int tiles,
     long long q_sb, long long q_sh, const long long* strides, long long qp_sb,
     long long kp_sb, long long kp_ss, long long o_sb, long long o_sh, int window,
@@ -466,7 +476,7 @@ extern "C" int repro_decode_attention_quant(
   Params p{q, static_cast<const int8_t*>(k_q), static_cast<const int8_t*>(v_q),
            static_cast<const float*>(k_s), static_cast<const float*>(v_s),
            static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos), out,
-           SplitKV{static_cast<float*>(ws), static_cast<int*>(tickets), splits, rows,
+           static_cast<float*>(lse), SplitKV{static_cast<float*>(ws), static_cast<int*>(tickets), splits, rows,
                    (hdv + 7) & ~7},
            Skv, Hkv, rep, groups, hd, hdv, tiles, q_sb, q_sh,
            st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],

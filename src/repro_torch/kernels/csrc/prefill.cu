@@ -7,7 +7,11 @@
 // segments (B, S) (prompt id per token, -1 = pad) a same-segment predicate,
 // so a query never attends across a prompt boundary and a pad query row
 // gives exact zeros.  Scores and probabilities are f32 and the output is
-// rounded once to the input dtype.  Q/K/V are read through their strides,
+// rounded once to the input dtype.  A query row offset q_off places query
+// row i at position q_off + i over keys 0..Skv-1 (the causal edge, the
+// window, and q's segment read at q_off + i of one (B, Skv) segment row):
+// a rank of a sequence-split prefill attends its own rows over K/V whole.
+// q_off = 0 is the self-attention of rows 0..Sq-1.  Q/K/V are read through their strides,
 // so the (B, S, H, hd) activations need no transpose; ragged Sq and Skv are
 // masked, so no shape falls back.  Key tiles of 32 that the causal edge or
 // the window rules out are never visited, and with segments a tile whose
@@ -86,15 +90,15 @@ constexpr int kBQ = 32;  // query rows per block
 constexpr int kBK = 32;  // keys per tile == warp size (row update)
 
 struct Masker {
-  int Sq, Skv, causal, window;
+  int Sq, Skv, causal, window, q_off;
   const int* qseg;  // shared, kBQ entries (nullptr when not segmented)
   const int* kseg;  // shared, kBK entries
   int q0, k0;
   __device__ __forceinline__ bool operator()(int i, int j) const {
-    const int qi = q0 + i, kj = k0 + j;
+    const int qi = q0 + i, kj = k0 + j, pi = q_off + qi;  // row, key, row's position
     bool m = qi < Sq && kj < Skv;
-    if (causal) m = m && kj <= qi;
-    if (window) m = m && qi - kj < window;
+    if (causal) m = m && kj <= pi;
+    if (window) m = m && pi - kj < window;
     if (qseg) m = m && qseg[i] == kseg[j] && qseg[i] >= 0;
     return m;
   }
@@ -108,7 +112,7 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long g_sb, long long g_ss,
     long long o_sb, long long o_ss, long long o_sh, int causal, int window,
-    float softcap, float scale) {
+    float softcap, float scale, int q_off) {
   extern __shared__ float smem[];
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;  // query head
@@ -138,18 +142,18 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
   if (tid < kBQ) {
     m_s[tid] = REPRO_NEG_INF;
     l_s[tid] = 0.f;
-    if (seg) qseg[tid] = tid < nq ? seg[b * g_sb + (long long)(q0 + tid) * g_ss] : -1;
+    if (seg) qseg[tid] = tid < nq ? seg[b * g_sb + (long long)(q_off + q0 + tid) * g_ss] : -1;
   }
 
   // key range: from the first tile the window reaches to the causal edge
   int k_end = Skv;
-  if (causal) k_end = min(Skv, q0 + nq);
+  if (causal) k_end = min(Skv, q_off + q0 + nq);
   int k_begin = 0;
-  if (window) k_begin = max(0, q0 - window + 1) / kBK * kBK;
+  if (window) k_begin = max(0, q_off + q0 - window + 1) / kBK * kBK;
 
   const T* kb = k + b * k_sb + hk * k_sh;
   const T* vb = v + b * v_sb + hk * v_sh;
-  Masker mask{Sq, Skv, causal, window, seg ? qseg : nullptr, kseg, q0, 0};
+  Masker mask{Sq, Skv, causal, window, q_off, seg ? qseg : nullptr, kseg, q0, 0};
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     mask.k0 = k0;
@@ -235,7 +239,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
                    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                    long long v_ss, long long v_sh, long long g_sb, long long g_ss,
                    long long o_sb, long long o_ss, long long o_sh, int causal,
-                   int window, float softcap, float scale, cudaStream_t stream) {
+                   int window, float softcap, float scale, int q_off, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kBQ * (hd + 1) + (size_t)kBK * (hd + 1) +
                        (size_t)kBK * hdv + (size_t)kBQ * kBK + (size_t)kBQ * hdv +
@@ -248,7 +252,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       seg, static_cast<T*>(out), Sq, Skv, Hq / Hkv, hd, hdv, q_sb, q_ss, q_sh,
       k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, o_sb, o_ss, o_sh, causal,
-      window, softcap, scale);
+      window, softcap, scale, q_off);
   return cudaGetLastError();
 }
 
@@ -275,6 +279,7 @@ struct Args {
   long long o_sb, o_ss, o_sh;
   int causal, window;
   float softcap, scale;
+  int q_off;  // the position of query row 0
 };
 
 __device__ __forceinline__ uint32_t load_pair(const bf16* p, bool ok) {
@@ -357,9 +362,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
   const int q0 = qb0 + 16 * (unit % a.rows);  // the unit's first row
   const bool active = hr < a.rep && q0 < a.Sq;
 
-  // the block's key tiles: from the first the window reaches to the causal edge
-  const int k_end = a.causal ? min(a.Skv, qb1) : a.Skv;
-  const int k_begin = a.window ? max(0, qb0 - a.window + 1) / kBK * kBK : 0;
+  // the block's key tiles: from the first the window reaches to the causal
+  // edge, at its rows' positions q_off + row
+  const int k_end = a.causal ? min(a.Skv, a.q_off + qb1) : a.Skv;
+  const int k_begin = a.window ? max(0, a.q_off + qb0 - a.window + 1) / kBK * kBK : 0;
   const int ntile = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
   const int* sb = a.seg ? a.seg + b * a.g_sb : nullptr;
 
@@ -380,7 +386,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
 
   if (sb) {  // which tiles hold an unmasked (row, key) pair: lane = key
     for (int i = tid; i < 16 * a.rows; i += nthreads)
-      qseg[i] = qb0 + i < a.Sq ? sb[(long long)(qb0 + i) * a.g_ss] : -1;
+      qseg[i] = qb0 + i < a.Sq ? sb[(long long)(a.q_off + qb0 + i) * a.g_ss] : -1;
     for (int w = tid; w < (ntile + 31) / 32; w += nthreads) live[w] = 0u;
     __syncthreads();
     for (int t0 = warp; t0 < ntile; t0 += 4 * nwarps) {  // four tiles a pass
@@ -397,7 +403,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
         if (sk[u] >= 0) {
 #pragma unroll 8
           for (int i = 0; i < qb1 - qb0; ++i) {
-            const int qi = qb0 + i;
+            const int qi = a.q_off + qb0 + i;  // the row's position
             any |= (qseg[i] == sk[u]) & ((!a.causal) | (kj <= qi)) &
                    ((!a.window) | (qi - kj < a.window));
           }
@@ -458,8 +464,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
     cp_async_commit();
     const int k0 = k_begin + cur * kBK;
     // the warp's rows reach this tile (its own causal edge and window)
-    const bool need = active && (!a.causal || k0 <= min(q0 + 15, a.Sq - 1)) &&
-                      (!a.window || q0 - (k0 + kBK - 1) < a.window);
+    const bool need = active && (!a.causal || k0 <= a.q_off + min(q0 + 15, a.Sq - 1)) &&
+                      (!a.window || a.q_off + q0 - (k0 + kBK - 1) < a.window);
     if (need) {
       const bf16* kt = k_s + s * kBK * kRowK;
       const bf16* vt = v_s + s * kBK * kRowV;
@@ -521,8 +527,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps) prefill_tc_kernel(const Args a
         for (int c = 0; c < 4; ++c) {
           const int i = c >> 1, col = 8 * n + 2 * t + (c & 1);
           const int qi = i ? r1 : r0, kj = k0 + col, qs = i ? qs1 : qs0;
-          const bool ok = (qi < a.Sq) & (kj < a.Skv) & ((!causal) | (kj <= qi)) &
-                          ((!windowed) | (qi - kj < a.window)) &
+          const int pi = a.q_off + qi;  // the row's position
+          const bool ok = (qi < a.Sq) & (kj < a.Skv) & ((!causal) | (kj <= pi)) &
+                          ((!windowed) | (pi - kj < a.window)) &
                           ((!segmented) | ((qs >= 0) & (qs == kst[col])));
           sc[n][c] = ok ? sc[n][c] : REPRO_NEG_INF;
           okb |= (unsigned)ok << (4 * n + c);
@@ -645,17 +652,20 @@ cudaError_t launch(const Args& a, int hd, int hdv, int B, int Hkv, cudaStream_t 
 // q (B, Sq, Hq, hd): q_sb, q_ss, q_sh.  k/v (B, Skv, Hkv, hd): *_sb, *_ss,
 // *_sh.  segments (B, S) int32 or null: g_sb, g_ss.  out (B, Sq, Hq, hdv):
 // o_sb, o_ss, o_sh.  design: 0 CUDA cores, 1 tensor cores (bf16 only),
-// with a block of `heads` query heads x `rows` 16-row tiles.  Returns the
-// launch's cudaError_t.
+// with a block of `heads` query heads x `rows` 16-row tiles.  q_off >= 0:
+// query row i at position q_off + i (segments then hold Skv entries a row).
+// Returns the launch's cudaError_t.
 extern "C" int repro_prefill_attention(
     const void* q, const void* k, const void* v, const void* segments, void* out,
     int B, int Sq, int Skv, int Hq, int Hkv, int hd, int hdv, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long g_sb, long long g_ss,
     long long o_sb, long long o_ss, long long o_sh, int causal, int window,
-    float softcap, float scale, int dtype, int design, int heads, int rows, void* stream) {
+    float softcap, float scale, int dtype, int design, int heads, int rows, int q_off,
+    void* stream) {
   const int* seg = static_cast<const int*>(segments);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_off < 0) return cudaErrorInvalidValue;
   if (design == 1) {
     if (dtype != REPRO_BF16) return cudaErrorInvalidValue;
     using tensor_core::bf16;
@@ -663,7 +673,7 @@ extern "C" int repro_prefill_attention(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         seg, static_cast<bf16*>(out), Sq, Skv, Hq / Hkv, heads, rows,
         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, o_sb, o_ss, o_sh,
-        causal, window, softcap, scale};
+        causal, window, softcap, scale, q_off};
     return tensor_core::launch(a, hd, hdv, B, Hkv, s);
   }
   if (design != 0) return cudaErrorInvalidValue;
@@ -671,11 +681,11 @@ extern "C" int repro_prefill_attention(
     return cuda_core::launch<__nv_bfloat16>(q, k, v, seg, out, B, Sq, Skv, Hq, Hkv, hd, hdv,
                                             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
                                             v_sh, g_sb, g_ss, o_sb, o_ss, o_sh, causal,
-                                            window, softcap, scale, s);
+                                            window, softcap, scale, q_off, s);
   if (dtype == REPRO_F32)
     return cuda_core::launch<float>(q, k, v, seg, out, B, Sq, Skv, Hq, Hkv, hd, hdv, q_sb,
                                     q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb,
                                     g_ss, o_sb, o_ss, o_sh, causal, window, softcap, scale,
-                                    s);
+                                    q_off, s);
   return cudaErrorInvalidValue;
 }

@@ -12,7 +12,10 @@
 //   out = (sum_s f_s acc_s) / (sum_s f_s l_s),   with l == 0 -> 1,
 //
 // so the result does not depend on which block finished last, and a unit
-// whose every entry is masked (an empty slot) gives exact zeros.  A split
+// whose every entry is masked (an empty slot) gives exact zeros.  Given an
+// LSE output, the merge also writes each row's M + log L (REPRO_NEG_INF
+// where L == 0): the log-sum-exp of the row's masked scores, which a merge
+// across ranks of a sequence-split pool weighs the rows by.  A split
 // with no valid entry carries m = REPRO_NEG_INF, l = 0, acc = 0 and adds
 // nothing.  The tickets belong to the stream: launches on one stream run
 // one after another and find them at zero.
@@ -53,14 +56,16 @@ __device__ __forceinline__ bool split_kv_last(const SplitKV& kv, int unit) {
 // The merge, by the last block: out row r at out + r * o_sr (the rows of
 // one unit; only the first `nrows` when given, for a unit of fewer rows
 // than its part holds; only the first `ncols` columns when given, for
-// parts whose rows are padded past the output's).  hdv is a multiple of 4.  Parts are read through
+// parts whose rows are padded past the output's), and row r's log-sum-exp
+// at lse[r] when `lse` is given.  hdv is a multiple of 4.  Parts are read through
 // L2 (__ldcg): other blocks wrote them.  A thread takes a float4 of acc and the m, l of
 // its row from kChunk splits at once, all loads in flight together (one
 // trip to L2 when splits <= kChunk; else a first pass finds M), and adds
 // them in split order.
 template <typename T>
 __device__ void split_kv_merge(const SplitKV& kv, int unit, T* __restrict__ out,
-                               long long o_sr, int nrows = -1, int ncols = -1) {
+                               long long o_sr, int nrows = -1, int ncols = -1,
+                               float* __restrict__ lse = nullptr) {
   constexpr int kChunk = 16;
   const int rows = kv.rows, hdv = kv.hdv, splits = kv.splits;
   const int n = nrows < 0 ? rows : nrows, cols = ncols < 0 ? hdv : ncols;
@@ -103,6 +108,7 @@ __device__ void split_kv_merge(const SplitKV& kv, int unit, T* __restrict__ out,
         o.w = fmaf(av[u].w, f, o.w);
       }
     }
+    if (lse && d == 0) lse[r] = L == 0.f ? REPRO_NEG_INF : M + logf(L);
     if (L == 0.f) L = 1.f;  // empty unit -> exact zeros
     T* p = out + r * o_sr + d;
     const float v[4] = {o.x / L, o.y / L, o.z / L, o.w / L};

@@ -19,7 +19,12 @@ so ring-buffer caches work unmodified.  An empty slot gives exact zeros.
 
 Both kernels split the pool across blocks (split-KV, merged in the same
 launch): :func:`decode_splits` is their plan and :func:`split_scratch`
-makes it with its workspace and tickets.  :data:`kernel_launches` (fp) and
+makes it with its workspace and tickets.  ``return_lse`` adds each query
+row's log-sum-exp of its masked scores, ``(B, Hq)`` f32 (``NEG_INF`` for
+a row with no valid entry): a rank of a sequence-split pool attends its
+own entries and hands its rows and their LSE to the merge across ranks
+(``ops.merge_splits``).  Without it the kernels write no LSE and run as
+they did before it existed.  :data:`kernel_launches` (fp) and
 :data:`quant_kernel_launches` count launches by kernel (q's dtype, [code
 bits,] query rows a warp, value dims a lane, splits).
 """
@@ -38,8 +43,8 @@ from repro_torch.parallel.api import refuse_dtensor
 from repro_torch.quant.core import dequantize_kv
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = ((_P,) * 8 + (_I,) * 9 + (_L,) * 13 + (_I, _F, _F, _I, _P))
-_QUANT_ARGTYPES = ((_P,) * 10 + (_I,) * 9 + (_L,) * 2 + (_P,) + (_L,) * 5
+_ARGTYPES = ((_P,) * 9 + (_I,) * 9 + (_L,) * 13 + (_I, _F, _F, _I, _P))
+_QUANT_ARGTYPES = ((_P,) * 11 + (_I,) * 9 + (_L,) * 2 + (_P,) + (_L,) * 5
                    + (_I, _F, _F, _I, _I, _P))
 
 TILE = 32              # pool entries a tile of decode.cu and decode_quant.cu
@@ -127,7 +132,8 @@ def quant_kernel(bits: int, dtype: torch.dtype, rep: int, hdv: int, splits: int)
 
 
 def flash_decode_plain(q, k, v, *, q_pos, kv_pos, window: int = 0,
-                       softcap: float = 0.0, scale: float | None = None):
+                       softcap: float = 0.0, scale: float | None = None,
+                       return_lse: bool = False):
     """The plain PyTorch version of the decode kernel (same arguments)."""
     B, _, Hq, hd = q.shape
     _, Skv, Hkv, hdv = v.shape
@@ -146,15 +152,22 @@ def flash_decode_plain(q, k, v, *, q_pos, kv_pos, window: int = 0,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    l = torch.where(l == 0.0, 1.0, l)                   # empty slot -> zeros
+    empty = l == 0.0
+    l = torch.where(empty, 1.0, l)                      # empty slot -> zeros
     out = torch.einsum("bhrk,bkhd->bhrd", p, v.float()) / l
-    return out.reshape(B, 1, Hq, hdv).to(q.dtype)
+    out = out.reshape(B, 1, Hq, hdv).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(empty, NEG_INF, m + torch.log(l))
+    return out, lse.reshape(B, Hq)
 
 
 def flash_decode_fwd(q, k, v, *, q_pos, kv_pos, window: int = 0,
-                     softcap: float = 0.0, scale: float | None = None):
+                     softcap: float = 0.0, scale: float | None = None,
+                     return_lse: bool = False):
     """q (B, 1, Hq, hd), pool k/v (B, Skv, Hkv, hd|hdv), q_pos (B, 1) and
-    kv_pos (B, Skv) int32 -> (B, 1, Hq, hdv) in q's dtype."""
+    kv_pos (B, Skv) int32 -> (B, 1, Hq, hdv) in q's dtype; with
+    ``return_lse`` also its rows' log-sum-exp (B, Hq) f32."""
     refuse_dtensor("flash_decode_fwd", q, k, v)
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, hdv = v.shape
@@ -168,8 +181,8 @@ def flash_decode_fwd(q, k, v, *, q_pos, kv_pos, window: int = 0,
                          f"v {tuple(v.shape)} q_pos {tuple(q_pos.shape)} "
                          f"kv_pos {tuple(kv_pos.shape)}")
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                                  window=window, softcap=softcap, scale=scale)
+        return flash_decode_plain(q, k, v, q_pos=q_pos, kv_pos=kv_pos, window=window,
+                                  softcap=softcap, scale=scale, return_lse=return_lse)
     check_cuda(q, k, v, q_pos, kv_pos)
     if max(hd, hdv) > MAX_HEAD_DIM or hd % 8 or hdv % 8:
         raise ValueError(f"head dims must be multiples of 8 up to "
@@ -179,11 +192,13 @@ def flash_decode_fwd(q, k, v, *, q_pos, kv_pos, window: int = 0,
         raise ValueError("the decode kernel needs 16-byte aligned K rows")
     scale = scale if scale is not None else hd ** -0.5
     out = torch.empty((B, 1, Hq, hdv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device) if return_lse else None
     groups, rows = row_groups(Hq // Hkv)
     sp, ws, tickets = split_scratch(q, B * Hkv * groups, Skv, rows, hdv)
     fn = build.bind("decode", "repro_decode_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-             kv_pos.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+             kv_pos.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+             None if ws is None else ws.data_ptr(),
              None if tickets is None else tickets.data_ptr(), B, Skv, Hq, Hkv, hd, hdv,
              rows, sp.splits, sp.tiles, q.stride(0), q.stride(2), k.stride(0),
              k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
@@ -194,7 +209,7 @@ def flash_decode_fwd(q, k, v, *, q_pos, kv_pos, window: int = 0,
         raise RuntimeError(f"decode attention kernel launch failed: cudaError {err}")
     kernel_launches[decode_kernel(q.dtype, Hq // Hkv, hdv, sp.splits)] += 1
     flash_decode_fwd.launches += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 flash_decode_fwd.launches = 0
@@ -202,22 +217,23 @@ flash_decode_fwd.launches = 0
 
 def flash_decode_quant_plain(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos,
                              window: int = 0, softcap: float = 0.0,
-                             scale: float | None = None):
+                             scale: float | None = None, return_lse: bool = False):
     """The plain PyTorch version of the quantised-pool decode kernel: the
     fp plain version over the f32-dequantised pool."""
     return flash_decode_plain(q, dequantize_kv(k_q, k_s, kv_bits),
                               dequantize_kv(v_q, v_s, kv_bits), q_pos=q_pos,
                               kv_pos=kv_pos, window=window, softcap=softcap,
-                              scale=scale)
+                              scale=scale, return_lse=return_lse)
 
 
 def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos,
                            window: int = 0, softcap: float = 0.0,
-                           scale: float | None = None):
+                           scale: float | None = None, return_lse: bool = False):
     """q (B, 1, Hq, hd); codes k_q/v_q (B, Skv, Hkv, hd/pack) int8 (two int4
     codes a byte, packed along the head dim, for ``kv_bits=4``); scales
     k_s/v_s (B, Skv, Hkv) f32; q_pos (B, 1) and kv_pos (B, Skv) int32 ->
-    (B, 1, Hq, hdv) in q's dtype."""
+    (B, 1, Hq, hdv) in q's dtype; with ``return_lse`` also its rows'
+    log-sum-exp (B, Hq) f32."""
     refuse_dtensor("flash_decode_quant_fwd", q, k_q, k_s, v_q, v_s)
     if kv_bits not in (4, 8):
         raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
@@ -239,7 +255,7 @@ def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos
                          f"v_s {tuple(v_s.shape)} q_pos {tuple(q_pos.shape)} "
                          f"kv_pos {tuple(kv_pos.shape)}")
     args = dict(kv_bits=kv_bits, q_pos=q_pos, kv_pos=kv_pos, window=window,
-                softcap=softcap, scale=scale)
+                softcap=softcap, scale=scale, return_lse=return_lse)
     if q.device.type == "cpu":
         return flash_decode_quant_plain(q, k_q, k_s, v_q, v_s, **args)
     if q.device.type != "cuda":
@@ -261,6 +277,7 @@ def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos
         raise ValueError(f"head dims up to {MAX_HEAD_DIM}, got {hd}/{hdv}")
     scale = scale if scale is not None else hd ** -0.5
     out = torch.empty((B, 1, Hq, hdv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device) if return_lse else None
     groups, rows = row_groups(Hq // Hkv)
     sp, ws, tickets = split_scratch(q, B * Hkv * groups, Skv, rows, part_hdv(hdv))
     strides = (ctypes.c_longlong * 12)(*k_q.stride()[:3], *v_q.stride()[:3],
@@ -268,7 +285,7 @@ def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos
     fn = build.bind("decode_quant", "repro_decode_attention_quant", _QUANT_ARGTYPES)
     err = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
              v_s.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
-             None if ws is None else ws.data_ptr(),
+             None if lse is None else lse.data_ptr(), None if ws is None else ws.data_ptr(),
              None if tickets is None else tickets.data_ptr(),
              B, Skv, Hq, Hkv, hd, hdv, rows, sp.splits, sp.tiles, q.stride(0), q.stride(2),
              ctypes.cast(strides, ctypes.c_void_p), q_pos.stride(0),
@@ -280,7 +297,7 @@ def flash_decode_quant_fwd(q, k_q, k_s, v_q, v_s, *, kv_bits: int, q_pos, kv_pos
                            f"cudaError {err}")
     quant_kernel_launches[quant_kernel(kv_bits, q.dtype, Hq // Hkv, hdv, sp.splits)] += 1
     flash_decode_quant_fwd.launches += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 flash_decode_quant_fwd.launches = 0

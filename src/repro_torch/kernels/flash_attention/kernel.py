@@ -19,6 +19,12 @@ positional distance for the window.
 The public layout is the reference's ``(B, H, S, hd)``; the kernel reads
 its inputs through their strides, so transposed views cost no copy.
 
+``q_offset`` places query row ``i`` at position ``q_offset + i`` over keys
+``0..Skv-1`` (the causal edge, the window, and with ``segments`` (B, Skv)
+q's segment read at ``q_offset + i``): a rank of a sequence-split prefill
+attends its own rows over K/V whole (``ops._planned_rows``).  At 0 it is
+the self-attention of rows ``0..Sq-1``.
+
 The source has two designs, tensor cores (bf16 at the (q/k, v) head dims
 of :data:`TC_HEAD_DIMS`: 64/64, 128/128, 256/256 and MLA's 192/128) and CUDA
 cores (f32, other head dims, rows not in whole 16-byte pieces):
@@ -44,7 +50,7 @@ from repro_torch.kernels.scratch import sm_count
 from repro_torch.parallel.api import refuse_dtensor
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = ((_P,) * 5 + (_I,) * 7 + (_L,) * 14 + (_I, _I, _F, _F, _I, _I, _I, _I, _P))
+_ARGTYPES = ((_P,) * 5 + (_I,) * 7 + (_L,) * 14 + (_I, _I, _F, _F, _I, _I, _I, _I, _I, _P))
 
 DESIGNS = ("cuda_core", "tensor_core")   # by the code prefill.cu reads
 # the (q/k, v) head dims the tensor-core design takes: prefill.cu has an
@@ -105,9 +111,10 @@ def prefill_plan(B: int, Sq: int, Hq: int, Hkv: int, hd: int, hdv: int,
     return Plan("tensor_core", heads, 16 * tiles)
 
 
-def _mask(Sq, Skv, segments, causal, window, device):
-    """(B or 1, Sq, Skv) bool on packed token indices — True = attend."""
-    qi = torch.arange(Sq, device=device)[:, None]
+def _mask(Sq, Skv, segments, causal, window, device, q_offset=0):
+    """(B or 1, Sq, Skv) bool on packed token indices, query row ``i`` at
+    ``q_offset + i`` — True = attend."""
+    qi = q_offset + torch.arange(Sq, device=device)[:, None]
     kj = torch.arange(Skv, device=device)[None, :]
     m = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     if causal:
@@ -116,14 +123,14 @@ def _mask(Sq, Skv, segments, causal, window, device):
         m &= qi - kj < window
     m = m[None]
     if segments is not None:
-        qs = segments[:, :, None]
+        qs = segments[:, q_offset:q_offset + Sq, None]
         m = m & (qs == segments[:, None, :]) & (qs >= 0)   # pad q rows -> 0
     return m
 
 
 def flash_attention_plain(q, k, v, *, segments=None, causal: bool = True,
                           window: int = 0, softcap: float = 0.0,
-                          scale: float | None = None):
+                          scale: float | None = None, q_offset: int = 0):
     """The plain PyTorch version of the prefill kernel (same arguments)."""
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, hdv = v.shape
@@ -133,7 +140,7 @@ def flash_attention_plain(q, k, v, *, segments=None, causal: bool = True,
     s = torch.einsum("bhrqd,bhkd->bhrqk", qf, k.float()) * scale
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    mask = _mask(Sq, Skv, segments, causal, window, q.device)[:, None, None]
+    mask = _mask(Sq, Skv, segments, causal, window, q.device, q_offset)[:, None, None]
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -145,9 +152,10 @@ def flash_attention_plain(q, k, v, *, segments=None, causal: bool = True,
 
 def flash_attention_fwd(q, k, v, *, segments=None, causal: bool = True,
                         window: int = 0, softcap: float = 0.0,
-                        scale: float | None = None):
+                        scale: float | None = None, q_offset: int = 0):
     """q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd|hdv), optional segments
-    (B, S) int32 -> (B, Hq, Sq, hdv) in q's dtype."""
+    (B, Skv) int32 -> (B, Hq, Sq, hdv) in q's dtype; query row ``i`` at
+    position ``q_offset + i``."""
     refuse_dtensor("flash_attention_fwd", q, k, v)
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, hdv = v.shape
@@ -156,15 +164,18 @@ def flash_attention_fwd(q, k, v, *, segments=None, causal: bool = True,
     if k.shape != (B, Hkv, Skv, hd):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
+    if q_offset < 0 or (q_offset and q_offset + Sq > Skv):
+        raise ValueError(f"query rows {q_offset}..{q_offset + Sq} past {Skv} keys")
     if segments is not None:
-        if Sq != Skv:
-            raise ValueError("packed-segment attention is self-attention: "
-                             "Sq must equal Skv")
-        if tuple(segments.shape) != (B, Sq):
-            raise ValueError(f"segments {tuple(segments.shape)} != ({B}, {Sq})")
+        if q_offset + Sq > Skv:
+            raise ValueError("packed-segment attention is self-attention: the query "
+                             "rows must be keys too")
+        if tuple(segments.shape) != (B, Skv):
+            raise ValueError(f"segments {tuple(segments.shape)} != ({B}, {Skv})")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, segments=segments, causal=causal,
-                                     window=window, softcap=softcap, scale=scale)
+                                     window=window, softcap=softcap, scale=scale,
+                                     q_offset=q_offset)
     check_cuda(q, k, v, *(() if segments is None else (segments,)))
     if max(hd, hdv) > MAX_HEAD_DIM or hd % 8 or hdv % 8:
         raise ValueError(f"head dims must be multiples of 8 up to "
@@ -187,7 +198,7 @@ def flash_attention_fwd(q, k, v, *, segments=None, causal: bool = True,
              out.stride(0), out.stride(1), out.stride(2),
              int(causal), int(window), float(softcap), float(scale),
              DTYPE_CODES[q.dtype], DESIGNS.index(plan.design), plan.heads,
-             plan.rows // 16, torch.cuda.current_stream(q.device).cuda_stream)
+             plan.rows // 16, int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"prefill attention kernel launch failed: cudaError {err}")
     kernel_launches[Kernel(*plan, str(q.dtype), hd, hdv)] += 1

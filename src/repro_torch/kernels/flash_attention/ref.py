@@ -11,6 +11,11 @@ attention (``Sq > 1`` with explicit positions) runs here on the card too,
 as the reference sends it to its oracle on a TPU — there is no kernel to
 port for that route.  Like the reference, the probabilities are cast to
 ``v.dtype`` before the value product.
+
+``return_lse`` adds each row's log-sum-exp of its masked scores (f32,
+``NEG_INF`` for a row with no valid entry): what a split of the keys
+hands to the merge of :func:`.ops.merge_splits`, where each rank of a
+sequence-split KV cache attends its own entries.
 """
 from __future__ import annotations
 
@@ -19,6 +24,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.common import NEG_INF
+
+# the most bytes of one chunk's f32 scores (B x Hq x rows x Skv) that the
+# oracle holds at once: a long sequence's rows run in chunks of whole rows
+# (halved from ``q_chunk`` until they fit), as the reference's compiled
+# program never holds its 1024-row chunks' scores at 32768 keys
+SCORE_BLOCK_BYTES = 256 << 20
 
 
 def _mask(q_pos, kv_pos, kv_valid, causal, window, q_seg=None, kv_seg=None):
@@ -52,11 +63,14 @@ def attention_ref(
     softcap: float = 0.0,
     scale: Optional[float] = None,
     q_chunk: int = 1024,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """``q_chunk``: where it divides ``Sq`` and ``Sq`` is longer, the
     queries run in chunks of that many rows, each over every key, so the
     scores of one chunk (not all ``Sq x Skv``) are alive at a time, as the
-    reference does; the result is the same."""
+    reference does; a chunk whose f32 scores pass
+    :data:`SCORE_BLOCK_BYTES` is halved while its rows stay whole.  The
+    result is the same.  ``return_lse``: (out, lse (B, Sq, Hq) f32)."""
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
     scale = scale if scale is not None else hd ** -0.5
@@ -71,17 +85,31 @@ def attention_ref(
     def attend(rows):
         qs = None if q_seg is None else q_seg[:, rows]
         mask = _mask(q_pos[:, rows], kv_pos, kv_valid, causal, window, qs, kv_seg)
-        return _attend_block(q[:, rows], k, v, mask, scale, softcap)
+        return _attend_block(q[:, rows], k, v, mask, scale, softcap, return_lse)
 
-    if q_chunk and Sq > q_chunk and Sq % q_chunk == 0:
-        return torch.cat([attend(slice(i, i + q_chunk)) for i in range(0, Sq, q_chunk)],
-                         dim=1)
-    return attend(slice(None))
+    rows = chunk_rows(B, Sq, Hq, Skv, q_chunk)
+    if rows == Sq:
+        return attend(slice(None))
+    parts = [attend(slice(i, i + rows)) for i in range(0, Sq, rows)]
+    if return_lse:
+        return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+    return torch.cat(parts, dim=1)
 
 
-def _attend_block(q, k, v, mask, scale, softcap):
+def chunk_rows(B: int, Sq: int, Hq: int, Skv: int, q_chunk: int) -> int:
+    """The rows of one chunk of :func:`attention_ref`: ``q_chunk`` where it
+    divides a longer ``Sq`` (else ``Sq``), halved while its f32 scores pass
+    :data:`SCORE_BLOCK_BYTES` and it stays an even number of rows."""
+    rows = q_chunk if q_chunk and Sq > q_chunk and Sq % q_chunk == 0 else Sq
+    while rows % 2 == 0 and 4 * B * Hq * rows * Skv > SCORE_BLOCK_BYTES:
+        rows //= 2
+    return rows
+
+
+def _attend_block(q, k, v, mask, scale, softcap, return_lse=False):
     """Masked softmax attention of q (B, Sq, Hq, hd) over k/v; ``mask``
-    (B, Sq, Skv)."""
+    (B, Sq, Skv); with ``return_lse`` also each row's log-sum-exp (B, Sq,
+    Hq) f32, ``NEG_INF`` where no entry is valid."""
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
     qr = q.reshape(B, Sq, Hkv, Hq // Hkv, hd)
@@ -93,4 +121,8 @@ def _attend_block(q, k, v, mask, scale, softcap):
     # fully-masked rows (no valid kv) must produce zeros, not NaN
     w = torch.where(mask.any(dim=-1)[:, None, None, :, None], w, 0.0)
     out = torch.einsum("bhrqk,bkhd->bqhrd", w.to(v.dtype), v)
-    return out.reshape(B, Sq, Hq, v.shape[-1])
+    out = out.reshape(B, Sq, Hq, v.shape[-1])
+    if not return_lse:
+        return out
+    lse = torch.where(mask.any(dim=-1)[:, None, None], torch.logsumexp(logits, dim=-1), NEG_INF)
+    return out, lse.permute(0, 3, 1, 2).reshape(B, Sq, Hq)

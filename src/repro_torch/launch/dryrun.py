@@ -134,6 +134,40 @@ def _strided_offsets_unfaked():
         cls.local_shard_size_and_offset = orig
 
 
+@contextlib.contextmanager
+def _alltoall_as_on_a_card():
+    """DTensor moves a shard from one tensor dim to another (``Shard(a)``
+    -> ``Shard(b)`` on one mesh dim) by an all-to-all on a card, but on a
+    CPU mesh by gathering the whole dim and keeping a chunk, which a rank
+    of the card never holds: run it as the card's all-to-all where the dim
+    divides evenly, so that the cell counts the card's step."""
+    from torch.distributed.tensor import placement_types as P
+    orig = getattr(P, "shard_dim_alltoall", None)
+    if orig is None:
+        raise RuntimeError("this torch's DTensor has no placement_types.shard_dim_alltoall: "
+                           "the dry run cannot count a shard moved between tensor dims as "
+                           "the card's all-to-all")
+
+    def alltoall(x, gather_dim, shard_dim, mesh, mesh_dim):
+        from torch.distributed import _functional_collectives as funcol
+        n = mesh.size(mesh_dim)
+        if x.shape[shard_dim] % n:
+            return orig(x, gather_dim, shard_dim, mesh, mesh_dim)
+        # part j of shard_dim to rank j; the parts received joined along
+        # gather_dim in rank order
+        parts = x.movedim(shard_dim, 0)
+        parts = parts.reshape(n, parts.shape[0] // n, *parts.shape[1:]).contiguous()
+        got = funcol.wait_tensor(funcol.all_to_all_single(
+            parts.flatten(0, 1), None, None, mesh.get_group(mesh_dim)))
+        got = got.reshape(parts.shape).movedim(1, shard_dim + 1)     # (rank, *x's dims)
+        return torch.cat(got.unbind(0), dim=gather_dim)
+    P.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        P.shard_dim_alltoall = orig
+
+
 def trace_cell(cfg, shape, mesh, *, accum: int = 1, record_ops: bool = False,
                remat: bool = True):
     """The cell's step run once on fake CPU tensors placed on ``mesh`` (a
@@ -143,7 +177,7 @@ def trace_cell(cfg, shape, mesh, *, accum: int = 1, record_ops: bool = False,
     backward pass, the default)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     fn, args, _ = build_cell(cfg, shape, mesh, accum=accum, impl="ref", remat=remat)
-    with FakeTensorMode(), _strided_offsets_unfaked():
+    with FakeTensorMode(), _strided_offsets_unfaked(), _alltoall_as_on_a_card():
         args = _fake_tree(args)
         if shape.kind == "train":
             args[0] = tree_map(lambda t: t.requires_grad_(True), args[0])

@@ -7,6 +7,8 @@ meta-device tensors, and the plan.
 """
 from __future__ import annotations
 
+import functools
+
 from typing import Optional
 
 import torch
@@ -150,14 +152,19 @@ def make_train_step(cfg: ModelConfig, plan: Optional[Plan] = None, *,
 
 
 def make_prefill_step(cfg: ModelConfig, plan: Optional[Plan] = None, *,
-                      impl: str = "flash", kv_cap: int = 0):
+                      impl: str = "flash", kv_cap: int = 0, ctx=None):
     """``prefill_step(params, batch) -> (last-token logits, cache)`` under
     ``plan``: the source keys of ``batch`` go to :func:`T.prefill` by
-    name."""
+    name.  With the plan's ``ctx`` each layer's cache comes out at the
+    specs of :func:`~repro_torch.parallel.sharding.cache_shardings`, the
+    reference's ``out_shardings``."""
+    place = None if ctx is None else functools.partial(SH.place_layer_cache, ctx=ctx)
+
     def prefill_step(params, batch):
         src = {k: v for k, v in batch.items() if k != "tokens"}
         with activate_plan(plan):
-            return T.prefill(params, cfg, batch["tokens"], impl=impl, kv_cap=kv_cap, **src)
+            return T.prefill(params, cfg, batch["tokens"], impl=impl, kv_cap=kv_cap,
+                             place_cache=place, **src)
     return prefill_step
 
 
@@ -196,7 +203,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *, accum: int = 1,
     pspecs = params_specs(cfg, torch.bfloat16)
     impl = impl or "flash"
     if mode == "prefill":
-        return make_prefill_step(cfg, plan, impl=impl, kv_cap=shape.seq_len), \
+        return make_prefill_step(cfg, plan, impl=impl, kv_cap=shape.seq_len, ctx=ctx), \
             (pspecs, batch), plan
     return make_decode_step(cfg, plan, impl=impl), \
         (pspecs, cache_specs(cfg, shape), batch["tokens"], batch["pos"]), plan

@@ -59,6 +59,8 @@ DTensor has no sharding rule for an indexed write.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels.flash_attention.common import NEG_INF
@@ -66,7 +68,8 @@ from repro_torch.kernels.flash_attention.ops import attention as flash_attention
 from repro_torch.models.modules import apply_rope, dense_init, rmsnorm
 from repro_torch.parallel.api import (constrain, current_plan, even, is_dtensor, local_views,
                                       mesh_shape, placements, planned_mesh,
-                                      region_placements, sharded_over, to_placements)
+                                      region_placements, shard_index, sharded_over,
+                                      to_placements)
 from repro_torch.quant.core import (dequantize_kv, kv_cache_bits, quantize_kv,
                                     quantize_kv_cache)
 from repro_torch.quant.ops import qdense
@@ -241,38 +244,54 @@ def put_unique(pool, sel, tgt, keep, vals, lead: int = 0):
     flat[ix + (tgt,)] = torch.where(k, vals[ix + (sel,)].to(flat.dtype), flat[ix + (tgt,)])
 
 
-def _ring_write(cache, new_leaves: dict, pos):
+def _ring_write(cache, new_leaves: dict, pos, span=None):
     """Write S tokens at per-(row, token) ``pos`` into the cache in place
     (ring for local, direct for global).  ``new_leaves`` maps cache leaf
     names to the (B, S, ...) values to commit: k/v, or the code and scale
     planes.  ``pos < 0`` entries are dropped:
     dead pool slots and chunk pads never touch the cache.  Within one call
     only the last ``cap`` positions of a row survive the ring, so those are
-    the only ones written (each row's targets stay unique)."""
+    the only ones written (each row's targets stay unique).  ``span``
+    (cap, {leaf: its first entry}): ``cache`` holds a rank's slice of a
+    pool of ``cap`` entries split along them (:func:`_planned`), and a
+    leaf takes only the writes that land in its slice."""
     if _planned(_ring_write, cache, new_leaves, pos) is not None:
         return cache
-    cap = cache["pos"].shape[1]
+    cap = cache["pos"].shape[1] if span is None else span[0]
+    first = {} if span is None else span[1]
     B, S = pos.shape
     row_max = torch.where(pos >= 0, pos, -1).amax(dim=1, keepdim=True)
     valid = (pos >= 0) & (pos > row_max - cap)
     slot = torch.remainder(pos, cap)
     leaves = dict(new_leaves, pos=pos)
-    if S == 1:
-        # decode, the hot path, in fewer launches: one target per row, so a
-        # row without a valid write rewrites what its target holds
-        bidx = torch.arange(B, device=pos.device)
-        s = torch.where(valid[:, 0], slot[:, 0], 0)
-        for name, leaf in leaves.items():
-            pool = cache[name]
-            keep = valid[:, 0].reshape((B,) + (1,) * (pool.dim() - 2))
-            pool[bidx, s] = torch.where(keep, leaf[:, 0].to(pool.dtype), pool[bidx, s])
-    else:
-        row = torch.arange(B, device=pos.device)[:, None]
-        sel, tgt, keep = unique_targets((row * cap + slot).reshape(-1), valid.reshape(-1),
-                                        B * cap)
-        for name, leaf in leaves.items():
-            put_unique(cache[name], sel, tgt, keep,
-                       leaf.reshape((B * S,) + tuple(leaf.shape[2:])))
+    targets = {}                          # (first entry, entries) -> where its leaves write
+
+    def where(pool, f):
+        n = pool.shape[1]
+        if (f, n) not in targets:
+            ok, loc = valid, slot
+            if (f, n) != (0, cap):        # a slice: the writes that land in it
+                loc = slot - f
+                ok = valid & (loc >= 0) & (loc < n)
+            if S == 1:
+                # decode, the hot path, in fewer launches: one target per
+                # row, so a row without a valid write rewrites what its
+                # target holds
+                targets[f, n] = (ok[:, 0], torch.where(ok[:, 0], loc[:, 0], 0))
+            else:
+                row = torch.arange(B, device=pos.device)[:, None]
+                targets[f, n] = unique_targets((row * n + loc).reshape(-1), ok.reshape(-1),
+                                               B * n)
+        return targets[f, n]
+    bidx = torch.arange(B, device=pos.device) if S == 1 else None
+    for name, leaf in leaves.items():
+        pool = cache[name]
+        t = where(pool, first.get(name, 0))
+        if S == 1:
+            keep = t[0].reshape((B,) + (1,) * (pool.dim() - 2))
+            pool[bidx, t[1]] = torch.where(keep, leaf[:, 0].to(pool.dtype), pool[bidx, t[1]])
+        else:
+            put_unique(pool, *t, leaf.reshape((B * S,) + tuple(leaf.shape[2:])))
     return cache
 
 
@@ -281,41 +300,51 @@ HEAD_LEAVES = ("k", "v", "k_q", "v_q", "k_s", "v_s")
 
 
 def _planned(write, cache, values: dict, pos):
-    """``write(cache, values, pos)`` on each rank's local shards of a
-    sharded pool: its slots (axis 0 of a layer's leaves), and its KV heads
-    (axis 2 of K/V leaves) where the pool shards them, with the values and
-    positions cut to the same rows.  A pool sharded along its entries is
-    written through a gathered copy (:func:`local_views`).  None when the
-    pool is not a DTensor."""
+    """``write(cache, values, pos, span)`` on each rank's local shards of a
+    sharded pool: its slots (axis 0 of a layer's leaves), its KV heads
+    (axis 2 of K/V leaves) where the pool shards them, and its entries
+    (axis 1) where the pool splits them along the sequence, with the
+    values and positions cut to the same slots and heads: a rank writes
+    only the entries it holds (``span``), so a sequence-split pool is never
+    gathered.  A pool split otherwise is written through a gathered copy
+    (:func:`local_views`).  None when the pool is not a DTensor."""
     mesh = planned_mesh("cache write", *cache.values())
     if mesh is None:
         return None
     batch = sharded_over(cache["pos"].placements, 0)
     heads = next((sharded_over(cache[n].placements, 2) for n in HEAD_LEAVES if n in cache), [])
+    entries = {n: [i for i in sharded_over(even(t.placements, t.shape, mesh), 1)
+                   if mesh.size(i) > 1 and i not in batch + heads] for n, t in cache.items()}
 
-    def target(name):
-        return region_placements(mesh, {0: batch, 2: heads} if name in HEAD_LEAVES
-                                 else {0: batch})
+    def target(name, split=True):
+        dims = {0: batch, 2: heads} if name in HEAD_LEAVES else {0: batch}
+        if split and entries[name]:
+            dims[1] = entries[name]
+        return region_placements(mesh, dims)
+    cap = cache["pos"].shape[1]
+    first = {n: shard_index(mesh, e) * (cache[n].shape[1] // math.prod(mesh.size(i) for i in e))
+             for n, e in entries.items() if e}
     with local_views(mesh, dict(cache), {n: target(n) for n in cache}) as local:
-        write(local, {n: to_placements(v, mesh, target(n)).to_local()
+        write(local, {n: to_placements(v, mesh, target(n, False)).to_local()
                       for n, v in values.items()},
-              to_placements(pos, mesh, target("pos")).to_local())
+              to_placements(pos, mesh, target("pos", False)).to_local(), (cap, first))
     return cache
 
 
-def _commit_kv(cache, new_k, new_v, pos):
+def _commit_kv(cache, new_k, new_v, pos, span=None):
     """Commit fresh K/V rows into the slot pool (in place): a quantised pool
     quantises them on commit (one scale per (token, head) row), so an fp
-    copy of the pool never exists between steps."""
-    if _planned(lambda c, kv, p: _commit_kv(c, kv["k"], kv["v"], p), cache,
+    copy of the pool never exists between steps.  ``span`` as
+    :func:`_ring_write`'s."""
+    if _planned(lambda c, kv, p, sp: _commit_kv(c, kv["k"], kv["v"], p, sp), cache,
                 {"k": new_k, "v": new_v}, pos) is not None:
         return cache
     if "k_q" in cache:
         bits = kv_cache_bits(cache, new_k.shape[-1])
         k_q, k_s = quantize_kv(new_k, bits)
         v_q, v_s = quantize_kv(new_v, bits)
-        return _ring_write(cache, {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}, pos)
-    return _ring_write(cache, {"k": new_k, "v": new_v}, pos)
+        return _ring_write(cache, {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}, pos, span)
+    return _ring_write(cache, {"k": new_k, "v": new_v}, pos, span)
 
 
 def _heads(x, n: int, d: int, role: str):

@@ -247,7 +247,8 @@ def _apply_gshard(p, x, gates, idx, cfg):
 
     # under a plan each rank dispatches and combines its own batch rows and
     # its own groups, where the sequence's split is the groups'; its slots
-    # of the expert buffer are its groups' (dim 2 of (B, E, G*Cg, D))
+    # of the expert buffer are its groups' (dim 2 of (B, E, G*Cg, D)), which
+    # ``expert_buf`` trades for the experts (dim 1) between the regions
     mesh = planned_mesh("moe gshard", x)
     rows = bufs = None
     if mesh is not None:

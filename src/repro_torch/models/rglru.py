@@ -15,8 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.modules import dense_init
-from repro_torch.models.ssm import causal_conv
-from repro_torch.parallel.api import constrain
+from repro_torch.models.ssm import _GatherChunks, _Tied, causal_conv, planned_conv
+from repro_torch.parallel.api import (constrain, even, local_call, planned_mesh,
+                                      region_placements, shard_index, sharded_over)
 from repro_torch.quant.ops import qdense
 
 _C = 8.0  # RG-LRU temperature (Griffin paper)
@@ -69,18 +70,47 @@ def _rglru_core(u, p):
     return a, mult * (i * uf)
 
 
-def linear_scan(a, b):
+def linear_scan(a, b, split=None):
     """Inclusive scan of ``h_t = a_t h_{t-1} + b_t`` from h = 0 over axis 1,
     by doubling: after the step of offset d each position holds the
     composition of its last 2d elements, ``(a1, b1) then (a2, b2) = (a1 a2,
-    a2 b1 + b2)``.  Returns h (the scanned b)."""
+    a2 b1 + b2)``.  Returns h (the scanned b).
+
+    ``split`` (groups, index): ``a``, ``b`` are this rank's part, the
+    ``index``-th, of a sequence split over the process ``groups``; every
+    rank's whole composition (its product of ``a``, its last state) is
+    gathered, the state entering this rank's part composed from the ranks
+    before it, and carried through the part's prefix products."""
     S, d = a.shape[1], 1
     while d < S:
         a_prev, b_prev = a[:, :-d], b[:, :-d]
         b = torch.cat([b[:, :d], a[:, d:] * b_prev + b[:, d:]], dim=1)
         a = torch.cat([a[:, :d], a_prev * a[:, d:]], dim=1)
         d *= 2
-    return b
+    if split is None:
+        return b
+    groups, index = split
+    ends = _GatherChunks.apply(torch.stack([a[:, -1], b[:, -1]], dim=1), 1, groups)
+    h = torch.zeros_like(b[:, 0])
+    for r in range(index):                   # the ranks before this one, in order
+        h = ends[:, 2 * r] * h + ends[:, 2 * r + 1]
+    return _Tied.apply(b + a * h[:, None], ends)
+
+
+def _planned_linear_scan(a, b):
+    """:func:`linear_scan` under a plan on each rank's own rows and widths,
+    and on its own part of the sequence where ``a``'s placement splits it
+    over mesh dims of more than one rank (``split``), so that no rank scans
+    the whole sequence."""
+    mesh = planned_mesh("rg-lru scan", a, b)
+    if mesh is None:
+        return linear_scan(a, b)
+    pl = even(a.placements, a.shape, mesh)
+    batch, width = sharded_over(pl, 0), sharded_over(pl, 2)
+    seq = [i for i in sharded_over(pl, 1) if mesh.size(i) > 1]
+    place = region_placements(mesh, {0: batch, 1: seq, 2: width})
+    split = ([mesh.get_group(i) for i in seq], shard_index(mesh, seq)) if seq else None
+    return local_call(lambda a, b: linear_scan(a, b, split), (a, b), (place, place), place, mesh)
 
 
 def apply_rglru(p, x, *, cfg, mode, cache=None, length=None, impl="flash"):
@@ -101,9 +131,10 @@ def apply_rglru(p, x, *, cfg, mode, cache=None, length=None, impl="flash"):
 
     g = F.gelu(qdense(x, p["w_gate"], dt, impl=impl), approximate="tanh")
     u = qdense(x, p["w_branch"], dt)
-    u, new_conv = causal_conv(u, p["conv_w"], p["conv_b"],
-                              cache["conv"] if decode else None,
-                              length=None if decode else length)
+    if decode:
+        u, new_conv = causal_conv(u, p["conv_w"], p["conv_b"], cache["conv"])
+    else:
+        u, new_conv = planned_conv(u, p["conv_w"], p["conv_b"], length=length)
     u = constrain(u, "act_ff")
     a, b = _rglru_core(u, p)
     if length is not None and not decode:
@@ -118,7 +149,7 @@ def apply_rglru(p, x, *, cfg, mode, cache=None, length=None, impl="flash"):
         cache["h"].copy_(h)
         new_cache = cache
     else:
-        hs = linear_scan(a, b)                                # zero initial state
+        hs = _planned_linear_scan(a, b)                       # zero initial state
         new_cache = {"conv": new_conv, "h": hs[:, -1]} if mode == "prefill" else None
 
     y = qdense(g * hs.to(dt), p["w_out"], dt)

@@ -16,8 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.modules import dense_init, rmsnorm
-from repro_torch.parallel.api import (constrain, even, local_call, planned_mesh,
-                                      region_placements, sharded_over)
+from repro_torch.parallel.api import (constrain, current_plan, even, local_call, placements,
+                                      planned_mesh, region_placements, shard_index, sharded_over)
 from repro_torch.quant.ops import qdense
 
 NEG_INF = -1e30
@@ -52,6 +52,47 @@ def causal_conv(x, w, b, state=None, length=None):
     return y, new_state.to(x.dtype)
 
 
+def planned_conv(x, w, b, length=None):
+    """:func:`causal_conv` from a zero state (a prefill or train stream),
+    under a plan on each rank's own rows and channels, and on its own part
+    of the sequence where ``x``'s placement splits it over mesh dims of
+    more than one rank: each rank takes the ``W-1`` inputs before its part
+    from the rank before it (every rank's last ``W-1`` inputs gathered, a
+    few rows a rank), and the new state is the last rank's last ``W-1``
+    inputs, on every rank.  A ``length`` short of the stream, or parts
+    shorter than ``W-1``, take the unsplit conv."""
+    mesh = planned_mesh("causal conv", x)
+    if mesh is None:
+        return causal_conv(x, w, b, None, length=length)
+    from torch.distributed.tensor import Partial
+    W = w.shape[0]
+    pl = even(x.placements, x.shape, mesh)
+    batch, chans = sharded_over(pl, 0), sharded_over(pl, 2)
+    seq = [i for i in sharded_over(pl, 1) if mesh.size(i) > 1]
+    ranks = math.prod(mesh.size(i) for i in seq)
+    if not seq or W < 2 or (length is not None and length != x.shape[1]) \
+            or x.shape[1] // ranks < W - 1:
+        return causal_conv(x, w, b, None, length=length)
+    groups, index = [mesh.get_group(i) for i in seq], shard_index(mesh, seq)
+    rows = region_placements(mesh, {0: batch, 1: seq, 2: chans})
+    state = region_placements(mesh, {0: batch, 2: chans})
+    taps, bias = region_placements(mesh, {1: chans}), region_placements(mesh, {0: chans})
+    summed = set(batch + seq)
+
+    def grads(pl_):
+        return tuple(Partial() if i in summed else p for i, p in enumerate(pl_))
+
+    def local(x, w, b):
+        tails = _GatherChunks.apply(x[:, x.shape[1] - (W - 1):], 1, groups)
+        before = x.new_zeros((x.shape[0], W - 1, x.shape[2])) if index == 0 else \
+            tails[:, (index - 1) * (W - 1):index * (W - 1)]
+        y, _ = causal_conv(x, w, b, before)
+        return _Tied.apply(y, tails), tails[:, tails.shape[1] - (W - 1):]
+    ins = (rows, taps, None if b is None else bias)
+    return local_call(local, (x, w, b), ins, (rows, state), mesh,
+                      grad_placements=(rows, grads(taps), None if b is None else grads(bias)))
+
+
 # ---------------------------------------------------------------------------
 # SSD chunked scan (Dao & Gu 2024, alg. 1)
 # ---------------------------------------------------------------------------
@@ -66,11 +107,21 @@ def _segsum(x):
     return torch.where(mask, d, NEG_INF)
 
 
-def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, init_state=None, split=None):
     """Chunked SSD.  x (b, l, h, p); dt (b, l, h) f32 (post-softplus); A
     (h,) f32 (negative); Bm, Cm (b, l, g, n).  Returns (y (b, l, h, p) in
     x's dtype, final_state (b, h, p, n) f32).  A length that ``chunk`` does
-    not divide is one chunk of that length, as in the reference."""
+    not divide is one chunk of that length, as in the reference.
+
+    ``split`` (groups, index): the inputs are this rank's slice, the
+    ``index``-th, of a sequence split over the process ``groups`` (major
+    to minor) in whole chunks.  The intra-chunk products and the chunk
+    states are the rank's own; the chunk states and decays of every rank
+    are gathered (:class:`_GatherChunks`), so that each rank runs the
+    small inter-chunk recurrence over the whole sequence, in the same
+    order as unsplit, and takes the states before its own chunks.  The
+    final state is then every rank's, without a gradient (a cache, which
+    nothing trains through)."""
     b, l, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     rep = h // g
@@ -97,22 +148,73 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
     states = torch.einsum("bckhn,bhck,bckhp->bchpn", Bc, decay, xf)
 
     # 3. inter-chunk recurrence over the nc chunk states, each chunk given
-    #    the state before it
+    #    the state before it (over every rank's chunks under ``split``)
     chunk_decay = torch.exp(dA_cs[..., -1])                    # (b,h,c)
+    c0 = 0
+    if split is not None:
+        groups, index = split
+        c0 = index * nc
+        states = _GatherChunks.apply(states, 1, groups)
+        chunk_decay = _GatherChunks.apply(chunk_decay, 2, groups)
+        gathered = (states, chunk_decay)
     s = x.new_zeros((b, h, p, n), dtype=torch.float32) if init_state is None \
         else init_state.float()
     prev = []
-    for c in range(nc):
+    for c in range(states.shape[1]):
         prev.append(s)
         s = s * chunk_decay[:, :, c, None, None] + states[:, c]
-    prev_states = torch.stack(prev, dim=1)                     # (b,c,h,p,n)
+    prev_states = torch.stack(prev[c0:c0 + nc], dim=1)         # (b,c,h,p,n)
 
     # 4. inter-chunk contribution
     state_decay = torch.exp(dA_cs)                             # (b,h,c,q)
     y_off = torch.einsum("bcqhn,bchpn,bhcq->bcqhp", Cc, prev_states, state_decay)
 
     y = (y_diag + y_off).reshape(b, l, h, p)
-    return y.to(x.dtype), s
+    if split is None:
+        return y.to(x.dtype), s
+    y = _Tied.apply(_Tied.apply(y, gathered[0]), gathered[1])
+    return y.to(x.dtype), s.detach()
+
+
+class _GatherChunks(torch.autograd.Function):
+    """``x``'s dim ``d`` gathered over the process ``groups`` (major to
+    minor: the minor group first), every rank's chunks in sequence order;
+    the gradient reduced and scattered back (each rank's part of the sum
+    over every rank that read its chunks).  Every rank must run the
+    backward, a collective: a rank whose output does not read what was
+    gathered ties it to its output (:class:`_Tied`)."""
+
+    @staticmethod
+    def forward(ctx, x, d, groups):
+        from torch.distributed import _functional_collectives as funcol
+        ctx.d, ctx.groups = d, groups
+        for g in reversed(groups):
+            x = funcol.wait_tensor(funcol.all_gather_tensor(x.contiguous(), d, g))
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed import _functional_collectives as funcol
+        for g in ctx.groups:
+            grad = funcol.wait_tensor(funcol.reduce_scatter_tensor(grad.contiguous(), "sum",
+                                                                   ctx.d, g))
+        return grad, None, None
+
+
+class _Tied(torch.autograd.Function):
+    """``y`` as it is, tied to ``x`` in the autograd graph with a zero
+    gradient, so that every rank runs the backward of ``x``'s gather (a
+    collective every rank must join), whether or not its output read it."""
+
+    @staticmethod
+    def forward(ctx, y, x):
+        ctx.like = (x.shape, x.dtype)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        shape, dtype = ctx.like
+        return grad, grad.new_zeros(shape, dtype=dtype)
 
 
 def ssd_step(x, dt, A, Bm, Cm, state):
@@ -182,21 +284,33 @@ def init_ssm_cache(cfg, batch, dtype, device):
 
 def _planned_scan(x, dt, A, Bm, Cm, *, chunk: int):
     """:func:`ssd_scan`, under a plan on each rank's own batch rows
-    (``local_map``), the sequence and heads whole: the scan runs along the
-    whole sequence, and its einsums' batched products would flatten a
-    batch dim sharded over ``data`` with a chunk or head dim sharded over
-    ``model``, which DTensor refuses (torch 2.11) or meets by replicating
-    every operand.  ``A`` is replicated into the region; its gradient is
-    each rank's part of a sum over the batch rows."""
+    (``local_map``), and on its own part of the sequence where the plan's
+    ``residual`` role splits the sequence over mesh dims of more than one
+    rank in whole chunks (``split``: the reference's partitioned program
+    splits the chunks' products the same way), the heads whole: its
+    einsums' batched products would flatten a batch dim sharded over
+    ``data`` with a chunk or head dim sharded over ``model``, which
+    DTensor refuses (torch 2.11) or meets by replicating every operand.
+    ``A`` is replicated into the region; its gradient is each rank's part
+    of a sum over the batch rows and chunks."""
     mesh = planned_mesh("ssd scan", x, dt, Bm, Cm)
     if mesh is None:
         return ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     from torch.distributed.tensor import Partial
     batch = sharded_over(even(x.placements, x.shape, mesh), 0)
-    rows, whole = region_placements(mesh, {0: batch}), region_placements(mesh, {})
-    a_grad = tuple(Partial() if i in batch else p for i, p in enumerate(whole))
-    return local_call(lambda *t: ssd_scan(*t, chunk=chunk), (x, dt, A, Bm, Cm),
-                      (rows, rows, whole, rows, rows), (rows, rows), mesh,
+    spec = current_plan().spec("residual") or (None,)
+    seq = [i for i in sharded_over(even(placements(spec, mesh), (*x.shape[:2], 1), mesh), 1)
+           if mesh.size(i) > 1 and i not in batch]
+    ranks = math.prod(mesh.size(i) for i in seq)
+    if x.shape[1] % (chunk * ranks):
+        seq = []                            # the sequence is not whole chunks a rank
+    rows = region_placements(mesh, {0: batch, 1: seq})
+    whole = region_placements(mesh, {})
+    state = region_placements(mesh, {0: batch})
+    a_grad = tuple(Partial() if i in batch + seq else p for i, p in enumerate(whole))
+    split = ([mesh.get_group(i) for i in seq], shard_index(mesh, seq)) if seq else None
+    return local_call(lambda *t: ssd_scan(*t, chunk=chunk, split=split), (x, dt, A, Bm, Cm),
+                      (rows, rows, whole, rows, rows), (rows, state), mesh,
                       grad_placements=(rows, rows, a_grad, rows, rows))
 
 
@@ -223,9 +337,10 @@ def apply_mamba(p, x, *, cfg, mode, cache=None, length=None):
     dt_raw = zxbcdt[..., -H:]
 
     decode = mode == "decode"
-    xBC, new_conv = causal_conv(xBC, p["conv_w"], p["conv_b"],
-                                cache["conv"] if decode else None,
-                                length=None if decode else length)
+    if decode:
+        xBC, new_conv = causal_conv(xBC, p["conv_w"], p["conv_b"], cache["conv"])
+    else:
+        xBC, new_conv = planned_conv(xBC, p["conv_w"], p["conv_b"], length=length)
     xBC = F.silu(xBC)
 
     x_ssm = xBC[..., :d_inner].reshape(B, S, H, P)

@@ -59,9 +59,9 @@ from repro_torch.models.attention import (apply_attention, apply_cross_attention
 from repro_torch.models.moe import apply_moe, in_combine_product, init_moe, router_aux_loss
 from repro_torch.models.rglru import apply_rglru, init_rglru, init_rglru_cache
 from repro_torch.models.ssm import apply_mamba, init_mamba, init_ssm_cache
-from repro_torch.parallel.api import (constrain, current_plan, even, gather_dim, local_call,
-                                      placements, planned_mesh, region_placements, replicated,
-                                      shard_index, sharded_over, to_placements)
+from repro_torch.parallel.api import (AbstractMesh, constrain, current_plan, even, gather_dim,
+                                      local_call, placements, planned_mesh, region_placements,
+                                      replicated, shard_index, sharded_over, to_placements)
 from repro_torch.quant.core import QuantTensor
 from repro_torch.quant.ops import qdense
 from repro_torch.tree import tree_map
@@ -388,7 +388,7 @@ def _remat_policy(dots: bool):
 
 def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
               impl="flash", segments=None, kv_bits=0, kv_cap=0, length=None,
-              cross_src=None, remat=False, remat_policy=None):
+              cross_src=None, remat=False, remat_policy=None, place_cache=None):
     """Run every layer: (x, caches, aux).  ``prefill`` returns the per-layer
     caches stacked as ``(repeats, ...)`` per group (quantised with
     ``kv_bits``): raw per-token with ``segments``, else exact at ``length``
@@ -404,7 +404,7 @@ def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
     recomputed in the backward pass, all but a MoE stack's GShard combine
     products under a plan (:func:`_remat_policy`) and the outputs of plain
     matrix products with ``remat_policy="dots"``.  The numbers are the
-    same."""
+    same.  ``place_cache`` as :func:`prefill`'s, on each layer's new cache."""
     cache_free = mode in CACHE_FREE
     new_caches = []
     aux_total = 0.0
@@ -445,7 +445,7 @@ def run_stack(stack, x, *, cfg, groups, mode, pos, caches=None,
                 x, c_out[f"u{ui}"], _ = _apply_layer(
                     p_blk[f"u{ui}"], x, kind=kind, use_moe=use_moe,
                     cache=None if c_blk is None else c_blk[f"u{ui}"], **kw)
-            outs.append(c_out)
+            outs.append(c_out if place_cache is None or gc is not None else place_cache(c_out))
         new_caches.append(gc if gc is not None else _stack_trees(outs))
     return x, (None if cache_free else new_caches), aux_total
 
@@ -484,18 +484,46 @@ def take_rows(table, idx):
     return torch.where(inside[..., None], rows_of(table, idx.clamp(0, n - 1)), float("nan"))
 
 
+def residual_rows(x):
+    """``x`` (B, S, ...) at the active plan's ``residual`` placement of its
+    batch and sequence dims (the rows a rank holds of the residual stream),
+    its other dims whole; ``x`` itself with no plan on a DeviceMesh.  From
+    a whole tensor each rank keeps its own rows: nothing is sent."""
+    plan = current_plan()
+    spec = None if plan is None or isinstance(plan.mesh, AbstractMesh) \
+        else plan.spec("residual")
+    if spec is None:
+        return x
+    return to_placements(x, plan.mesh, even(placements(spec[:2], plan.mesh), x.shape[:2],
+                                            plan.mesh))
+
+
 def rows_of(table, idx):
-    """``table[idx]``.  Under a plan (a DTensor table) each rank gathers
-    every row of its own columns (``local_map``: the vocab whole, the
-    indices whole), so that no indexed op or its scatter-add backward goes
-    through DTensor's sharding rules."""
+    """``table[idx]``.  Under a plan (a DTensor table) each rank looks up
+    the indices of its own rows (``idx`` as :func:`residual_rows` places
+    them) on its own columns of the table (the reference's ``P(None,
+    fsdp)``: the vocab whole, ``d_model`` split), in a ``local_map``, so no
+    indexed op or its scatter-add backward goes through DTensor's sharding
+    rules.  A mesh dim that splits the columns looks up the rows of every
+    rank along it (the indices gathered: a few bytes a row), and the rows
+    come out split over it along ``d_model``, for the ``residual`` role to
+    trade back for rows (an all-to-all).  The table's gradient lands on
+    its own placement, a partial sum over the mesh dims that split only
+    the rows."""
     mesh = planned_mesh("embedding", table)
     if mesh is None:
         return table[idx]
-    cols = sharded_over(table.placements, 1)
-    return local_call(lambda t, i: t[i], (table, idx),
-                      (region_placements(mesh, {1: cols}), region_placements(mesh, {})),
-                      region_placements(mesh, {idx.dim(): cols}), mesh)
+    from torch.distributed.tensor import Partial
+    idx = replicated(residual_rows(idx), mesh)
+    cols = sharded_over(even(table.placements, table.shape, mesh), 1)
+    ipl = even(idx.placements, idx.shape, mesh)
+    rows = {d: [i for i in sharded_over(ipl, d) if i not in cols] for d in range(idx.dim())}
+    only_rows = {i for dims in rows.values() for i in dims}
+    tab = region_placements(mesh, {1: cols})
+    grad = tuple(Partial() if i in only_rows else p for i, p in enumerate(tab))
+    return local_call(lambda t, i: t[i], (table, idx), (tab, region_placements(mesh, rows)),
+                      region_placements(mesh, {**rows, idx.dim(): cols}), mesh,
+                      grad_placements=(grad, region_placements(mesh, rows)))
 
 
 def embed_tokens(params, cfg, tokens, pos, dtype):
@@ -505,7 +533,9 @@ def embed_tokens(params, cfg, tokens, pos, dtype):
     position table's rows at ``pos`` (:func:`take_rows`: a position past
     the table gives NaN, and its request fails as the reference's does), or
     where there is no table (mamba2), the reference's sinusoidal
-    embedding of ``pos``."""
+    embedding of ``pos``.  Under a plan each rank embeds only its own rows
+    of the residual stream (:func:`residual_rows`)."""
+    tokens, pos = residual_rows(tokens), residual_rows(pos)
     h = rows_of(params["embed"]["tok"], tokens).to(dtype)
     if cfg.embed_scale:
         h = h * round_to(math.sqrt(cfg.d_model), dtype)
@@ -584,8 +614,8 @@ def run_encoder(params, cfg: ModelConfig, *, frames=None, encoder_tokens=None,
         h = frames.to(compute_dtype)
         B, S = h.shape[:2]
         pos = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
-        h = constrain(h + M.sinusoidal_positions(pos, cfg.d_model).to(compute_dtype),
-                      "residual")
+        h = constrain(h + M.sinusoidal_positions(residual_rows(pos), cfg.d_model).to(
+            compute_dtype), "residual")
     else:
         if encoder_tokens is None:
             raise ValueError(f"{cfg.name}: prefill needs encoder_tokens= (B, S_src)")
@@ -732,7 +762,8 @@ class _VocabNLL(torch.autograd.Function):
 
 def prefill(params, cfg: ModelConfig, tokens, *, impl="flash",
             compute_dtype=torch.bfloat16, kv_cap: int = 0, length=None,
-            kv_bits: int = 0, frames=None, encoder_tokens=None, image_embeds=None):
+            kv_bits: int = 0, frames=None, encoder_tokens=None, image_embeds=None,
+            place_cache=None):
     """One right-padded prompt a row: ``tokens`` (B, S) at positions
     ``arange(S)``, ``length`` (an int, default S) of them real.  Returns
     (logits (B, V) at position ``length - 1``, cache): per group the
@@ -747,17 +778,22 @@ def prefill(params, cfg: ModelConfig, tokens, *, impl="flash",
     (bart) or ``image_embeds`` (the vision stack); without it this raises.
     Its cross caches are the source's keys and values in the compute dtype
     at every ``kv_bits``, which :func:`decode_step` reads and never
-    writes."""
+    writes.  ``place_cache`` (a layer's cache tree -> the tree), under a
+    plan, places each layer's cache as it is made (the reference's prefill
+    step gives its cache out at the cache's shardings), so that no rank
+    holds the stack's whole cache.  Under a plan each rank takes its own
+    rows' positions (:func:`residual_rows`)."""
     B, S = tokens.shape
     length = S if length is None else length
     cross_src = cross_source(params, cfg, frames=frames, encoder_tokens=encoder_tokens,
                              image_embeds=image_embeds, impl=impl,
                              compute_dtype=compute_dtype)
-    pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    pos = residual_rows(torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S))
     h = embed_tokens(params, cfg, tokens, pos, compute_dtype)
     h, caches, _ = run_stack(params["stack"], h, cfg=cfg, groups=build_groups(cfg),
                              mode="prefill", pos=pos, impl=impl, kv_bits=kv_bits,
-                             kv_cap=kv_cap, length=length, cross_src=cross_src)
+                             kv_cap=kv_cap, length=length, cross_src=cross_src,
+                             place_cache=place_cache)
     h = M.apply_norm(params["final_norm"], h)
     logits = unembed(params, cfg, h[:, length - 1:length], impl)[:, 0]
     return logits, {"stack": caches}

@@ -365,6 +365,18 @@ def cache_shardings(cache, ctx: PlanContext):
     return walk(cache, "")
 
 
+def place_layer_cache(tree, ctx: PlanContext):
+    """One layer's cache tree (leaves (B, ...), as a prefill makes them) at
+    the specs :func:`cache_shardings` gives the stacked cache, less its
+    leading repeats dim: each rank keeps its own slice of a leaf the plan
+    splits, nothing is sent."""
+    def walk(t, name):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        return distribute(t, ctx.mesh, _cache_spec(name, (1, *t.shape), ctx)[1:])
+    return walk(tree, "")
+
+
 # ---------------------------------------------------------------------------
 # batch shardings + plan assembly
 # ---------------------------------------------------------------------------

@@ -182,19 +182,46 @@ for arch in sys.argv[1].split(","):
         jfn, args, _ = build_cell(reduce_config(get_config(arch)),
                                   ShapeSpec("t", "train", 128, 4), mesh)
         out[f"{arch} {m[0]}x{m[1]}"] = analyze_hlo_text(jfn.lower(*args).compile().as_text()).flops
+# the split cells on 1x4: per-device FLOPs, live bytes (arguments + outputs
+# - aliases + temporaries, as the reference's dry run sums them) and
+# all-gather bytes
+for name, (arch, kind, S, B) in json.loads(sys.argv[3]).items():
+    mesh = Mesh(np.asarray(jax.devices()).reshape(1, 4), ("data", "model"))
+    jfn, args, _ = build_cell(reduce_config(get_config(arch)), ShapeSpec("t", kind, S, B), mesh)
+    c = jfn.lower(*args).compile()
+    ma = c.memory_analysis()
+    h = analyze_hlo_text(c.as_text())
+    out[name] = [h.flops, ma.argument_size_in_bytes + ma.output_size_in_bytes
+                 - ma.alias_size_in_bytes + ma.temp_size_in_bytes,
+                 h.collective_bytes.get("all-gather", 0.0)]
 print(json.dumps(out))
 """
 
 RANK_ARCHS = ("qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b")
 RANK_MESHES = ((2, 2), (1, 4))
+# reduced cells on a 1x4 mesh whose every rank must keep a split the
+# reference keeps: a decode over a sequence-split cache (qwen2.5-3b's 2 KV
+# heads do not divide ``model`` 4), a prefill (each rank's own embedding
+# rows and query rows), mamba2-130m's train step (its SSD scan's chunks) and
+# deepseek-v2-236b's prefill (its GShard expert buffer, moved between dims by
+# an all-to-all)
+SPLIT_CELLS = {"decode over a sequence-split cache": ("qwen2.5-3b", "decode", 64, 8),
+               "prefill": ("qwen2.5-3b", "prefill", 128, 4),
+               "mamba2 train": ("mamba2-130m", "train", 128, 4),
+               "moe prefill": ("deepseek-v2-236b", "prefill", 128, 4)}
+SPLIT_LIVE_TOL = 3.0      # the port's live bytes against the reference's
+# the cells whose all-gather bytes a rank holds to the reference's (a train
+# step's weight and gradient collectives are not the reference's)
+GATHER_HELD = ("decode over a sequence-split cache", "prefill", "moe prefill")
 
 
 @pytest.fixture(scope="module")
 def reference_rank_flops():
     """The reference's per-device FLOPs (its compiled HLO walked) of every
-    case below: one subprocess on 4 forced host devices, one JAX import."""
+    case below, and its live and all-gather bytes of :data:`SPLIT_CELLS`:
+    one subprocess on 4 forced host devices, one JAX import."""
     r = subprocess.run([sys.executable, "-c", _REFERENCE_FLOPS, ",".join(RANK_ARCHS),
-                        json.dumps(RANK_MESHES)],
+                        json.dumps(RANK_MESHES), json.dumps(SPLIT_CELLS)],
                        capture_output=True, text=True, timeout=600,
                        env=dict(os.environ, JAX_PLATFORMS="cpu"))
     assert r.returncode == 0, r.stderr[-4000:]
@@ -221,3 +248,36 @@ def test_rank_flops_equal_the_reference_on_multi_rank_meshes(arch, mesh_shape,
     want = reference_rank_flops[f"{arch} {mesh_shape[0]}x{mesh_shape[1]}"]
     tol = MOE_REMAT_TOL if cfg.is_moe else WHOLE_STEP_TOL
     assert abs(got - want) <= tol * want, (arch, mesh_shape, got, want, got / want)
+
+
+@pytest.mark.parametrize("cell", SPLIT_CELLS)
+def test_split_cells_count_the_reference_on_1x4(cell, reference_rank_flops, monkeypatch):
+    """The reduced cells of :data:`SPLIT_CELLS` on a 1x4 fake mesh: each
+    rank counts the reference's per-device FLOPs within
+    ``WHOLE_STEP_TOL``, holds at most :data:`SPLIT_LIVE_TOL` times its
+    live bytes, and in :data:`GATHER_HELD` gathers no more bytes than its
+    ranks do.  A decode that
+    gathered the sequence-split cache counts 1.5x the FLOPs here, as does a
+    scan run whole on every ``model`` rank; a prefill's embedding lookup
+    holds only the rank's own rows of the batch (a lookup of the global
+    batch's rows on every rank was 4 GiB a rank at qwen2.5-3b's
+    prefill_32k); the MoE prefill's expert buffer goes from its group dim
+    to its expert dim by an all-to-all, as on a card, where DTensor on a
+    CPU mesh gathers it whole (6x the reference's all-gather bytes here)."""
+    from repro_torch.launch.mesh import small_mesh
+    from repro_torch.roofline import dispatch
+    from test_torch_roofline import WHOLE_STEP_TOL
+    arch, kind, S, B = SPLIT_CELLS[cell]
+    monkeypatch.setattr(dispatch, "LARGEST", 10 ** 6)     # every tensor of the step
+    with D.fake_group(4):
+        cost = D.trace_cell(reduce_config(get_config(arch)), ShapeSpec("t", kind, S, B),
+                            small_mesh(1, 4, device_type="cpu"))
+    flops, live, gathered = reference_rank_flops[cell]
+    got = cost.argument_bytes + cost.output_bytes - cost.alias_bytes + cost.temp_bytes
+    assert abs(cost.flops - flops) <= WHOLE_STEP_TOL * flops, (cost.flops, flops)
+    assert got <= SPLIT_LIVE_TOL * live, (got, live)
+    if cell in GATHER_HELD:
+        assert cost.collective_bytes.get("all-gather", 0.0) <= gathered, \
+            (cost.collective_bytes, gathered)
+    lookups = [shape for _, name, shape, _ in cost.largest_tensors if name == "aten::index.Tensor"]
+    assert all(shape[:2] != (B, S) for shape in lookups), lookups

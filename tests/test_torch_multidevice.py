@@ -7,7 +7,10 @@ a sharded train step equal to the single-device one, an elastic re-mesh
 equal to an uninterrupted run, the ring collective matmuls, int8
 compressed gradients, the sharded slot pool serving the unsharded
 engine's streams, and a snapshot restored on another mesh.  Asserts run in
-the ranks; a failing rank fails the test with its traceback."""
+the ranks; a failing rank fails the test with its traceback.  Cases of one
+world size that need no state of their own share a spawn (a module-scoped
+fixture runs them one after another, :func:`_run_cases`): a spawn and its
+first DTensor calls cost several seconds, most of such a case's time."""
 import dataclasses
 import functools
 import os
@@ -38,24 +41,44 @@ def _entry(rank, world, store, fn, args):
         dist.destroy_process_group()
 
 
-def _spawn(tmp_path, world: int, fn, *args):
+def _spawn(tmp_path, world: int, fn, *args, join_s: float = JOIN_S):
     """Run ``fn(rank, *args)`` on ``world`` gloo ranks; fail on any rank's
-    error or after ``JOIN_S`` seconds (the ranks are then terminated)."""
+    error or after ``join_s`` seconds (the ranks are then terminated)."""
     ctx = mp.start_processes(_entry, args=(world, str(tmp_path / "store"), fn, args),
                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + JOIN_S
+    deadline = time.monotonic() + join_s
     while not ctx.join(timeout=5):
         if time.monotonic() > deadline:
             for p in ctx.processes:
                 p.terminate()
-            pytest.fail(f"{fn.__name__} did not finish in {JOIN_S} s")
+            pytest.fail(f"{fn.__name__} did not finish in {join_s} s")
+
+
+def _cases_worker(rank, cases, done):
+    for name, (fn, args) in cases.items():
+        globals()[fn](rank, *args)
+        if rank == 0:
+            with open(done, "a") as f:
+                f.write(name + "\n")
+
+
+def _run_cases(tmp_path, cases: dict) -> list:
+    """Run ``cases`` (name -> (the name of a worker of this module, its
+    arguments after the rank)) one after another in one spawn of 4 ranks,
+    ``JOIN_S`` seconds a case: the names of those that ran to their end
+    on every rank.  A rank's failure fails the spawn, and every case of
+    the group with it."""
+    done = tmp_path / "done"
+    _spawn(tmp_path, 4, _cases_worker, cases, str(done), join_s=JOIN_S * len(cases))
+    return done.read_text().split("\n")
 
 
 def _f32_loss():
     """Both steps in f32 (the tolerance is f32's): loss_fn's compute dtype
     patched, as the port's train-parity tests patch it."""
     from repro_torch.models import transformer as T
-    T.loss_fn = functools.partial(T.loss_fn, compute_dtype=torch.float32)
+    if not isinstance(T.loss_fn, functools.partial):
+        T.loss_fn = functools.partial(T.loss_fn, compute_dtype=torch.float32)
 
 
 def _rel(a: float, b: float) -> float:
@@ -109,19 +132,33 @@ def _train_step_worker(rank, arch, mostly_sharded=True, mesh_shape=(2, 2), kv_he
             len(leaves) // 2
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b",
-                                  "deepseek-v2-236b"])
-def test_sharded_train_step_matches_single_device(tmp_path, arch):
+SHARDED_TRAIN_ARCHS = ["qwen2.5-3b", "gemma2-9b", "qwen3-moe-30b-a3b", "deepseek-v2-236b"]
+# the train steps' cases, one spawn of 4 ranks (:func:`_run_cases`)
+TRAIN_CASES = {
+    **{f"2x2 {arch}": ("_train_step_worker", (arch,)) for arch in SHARDED_TRAIN_ARCHS},
+    **{f"1x4 gemma2-9b kv{h}": ("_train_step_worker", ("gemma2-9b", True, (1, 4), h))
+       for h in (4, 2)},
+    "2x2 mamba2-130m": ("_train_step_worker", ("mamba2-130m", False)),
+}
+
+
+@pytest.fixture(scope="module")
+def train_steps(tmp_path_factory):
+    return _run_cases(tmp_path_factory.mktemp("train_steps"), TRAIN_CASES)
+
+
+@pytest.mark.parametrize("arch", SHARDED_TRAIN_ARCHS)
+def test_sharded_train_step_matches_single_device(train_steps, arch):
     """``build_cell``'s train step on a 2x2 mesh (FSDP over ``data``,
     tensor and sequence parallel over ``model``, experts over ``model``)
     gives the single-device step's loss and gradient norm, two steps
     running, in f32; the MoE stacks' (gshard) against the single device
     under a role-less plan of the same shape."""
-    _spawn(tmp_path, 4, _train_step_worker, arch)
+    assert f"2x2 {arch}" in train_steps
 
 
 @pytest.mark.parametrize("kv_heads", [4, 2])
-def test_sequence_split_train_step_matches_single_device(tmp_path, kv_heads):
+def test_sequence_split_train_step_matches_single_device(train_steps, kv_heads):
     """Reduced gemma2-9b's train step on a 1x4 mesh at S 32: the residual
     is split into 8-token shards over ``model``, so its window-16 local
     layers, attention softcap and final softcap cross shard boundaries.
@@ -131,7 +168,7 @@ def test_sequence_split_train_step_matches_single_device(tmp_path, kv_heads):
     (``flash_attention.ops._planned_rows``).  The logits and the loss stay
     split over the vocab.  Loss and gradient norm equal the single-device
     step's, two steps running, in f32."""
-    _spawn(tmp_path, 4, _train_step_worker, "gemma2-9b", True, (1, 4), kv_heads)
+    assert f"1x4 gemma2-9b kv{kv_heads}" in train_steps
 
 
 # The reference's loss and gradients of reduced gemma2-9b (n_kv_heads
@@ -225,12 +262,81 @@ def test_sequence_split_train_grads_match_the_reference(tmp_path, kv_heads,
     _spawn(tmp_path, 4, _reference_grads_worker, str(reference_seq_split_grads), kv_heads)
 
 
-def test_sharded_ssm_train_step_matches_single_device(tmp_path):
+def test_sharded_ssm_train_step_matches_single_device(train_steps):
     """mamba2-130m's train step on the 2x2 mesh, its SSD scan on each
-    rank's batch rows (``ssm._planned_scan``), gives the single-device
+    rank's batch rows and its own chunks of the sequence, the chunk states
+    gathered for the inter-chunk recurrence (``ssm._planned_scan``), gives
+    the single-device
     step's loss and gradient norm, two steps running, in f32 (most of its
     leaves are vectors the plan leaves whole)."""
-    _spawn(tmp_path, 4, _train_step_worker, "mamba2-130m", False)
+    assert "2x2 mamba2-130m" in train_steps
+
+
+def _recurrent_prefill_case(rank, arch):
+    from repro_torch.models import transformer as T
+    prefill = T.prefill
+    T.prefill = functools.partial(prefill, compute_dtype=torch.float32)
+    try:
+        _recurrent_prefill(arch)
+    finally:
+        T.prefill = prefill
+
+
+def _recurrent_prefill(arch):
+    from repro_torch.launch.mesh import small_mesh
+    from repro_torch.launch.steps import build_cell, place_args
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.api import full
+    cfg = reduce_config(get_config(arch))
+    shape = ShapeSpec("p", "prefill", 64, 2)
+    mesh = small_mesh(1, 4, device_type="cpu")
+    fn, _, plan = build_cell(cfg, shape, mesh)
+    assert plan.spec("residual")[1] == "model"            # the sequence split 4 ways
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                           dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    p, b = place_args(cfg, shape, mesh, params, {"tokens": tokens})
+    logits, cache = fn(p, b)
+    want, want_cache = T.prefill(params, cfg, tokens, kv_cap=64)
+    assert torch.allclose(full(logits), want, atol=1e-5, rtol=1e-5)
+    for (path, got), (_, leaf) in zip(_leaves(cache), _leaves(want_cache)):
+        assert torch.allclose(full(got).float(), leaf.float(), atol=1e-5, rtol=1e-5), path
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree) for x in _leaves(t, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+# the sequence-split routes' cases on 1x4, one spawn of 4 ranks (:func:`_run_cases`)
+SPLIT_ROUTE_CASES = {
+    "prefill mamba2-130m": ("_recurrent_prefill_case", ("mamba2-130m",)),
+    "prefill recurrentgemma-9b": ("_recurrent_prefill_case", ("recurrentgemma-9b",)),
+    "prefill serving": ("_serving_worker", ("qwen2.5-3b", "float32", {}, 4)),
+    "split-kv decode fp": ("_split_kv_case", (0, 100.0)),
+    "split-kv decode kv8": ("_split_kv_case", (8, 100.0)),
+}
+
+
+@pytest.fixture(scope="module")
+def split_routes(tmp_path_factory):
+    return _run_cases(tmp_path_factory.mktemp("split_routes"), SPLIT_ROUTE_CASES)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
+def test_sequence_split_recurrent_prefill_matches_single_device(split_routes, arch):
+    """A prefill step of the recurrent kinds on a 1x4 mesh, in f32: the
+    plan splits the stream's 64 tokens 4 ways, and each rank runs the
+    causal conv (``ssm.planned_conv``: the 3 inputs before its part from
+    the rank before it) and the scan (mamba2's chunks, ``ssd_scan``'s
+    ``split``; the RG-LRU's ``linear_scan``'s ``split``) on its own part.
+    The logits and every cache leaf (the conv and recurrent states, the
+    local layers' rings) are the single-device prefill's."""
+    assert f"prefill {arch}" in split_routes
 
 
 def _remesh_worker(rank, path):
@@ -436,13 +542,63 @@ def test_sharded_slot_pool_serving_matches_single_device(tmp_path, arch, dtype, 
     _spawn(tmp_path, 2, _serving_worker, arch, dtype, kw)
 
 
-def test_sequence_split_prefill_serving_matches_single_device(tmp_path):
+def test_sequence_split_prefill_serving_matches_single_device(split_routes):
     """Reduced qwen2.5-3b (2 KV heads) on a 1x4 mesh: its heads do not
     divide ``model``, so the prefill plan splits q's rows over the
-    sequence with K/V replicated, and ``impl="flash"`` gathers them for
-    the kernel (``flash_attention.ops._planned``).  The engine serves the
+    sequence with K/V replicated, each rank's rows going to the prefill
+    kernel at their offset (``flash_attention.ops._planned_rows``), and the
+    decode plan keeps the pool split along its entries
+    (``ops._planned_split_kv``).  The engine serves the unsharded engine's
+    streams, with the same host transfers."""
+    assert "prefill serving" in split_routes
+
+
+def _split_kv_case(rank, kv_bits, q_gain):
+    from repro_torch.kernels.flash_attention import ops
+    routed = []
+    split_kv = ops._planned_split_kv
+    ops._planned_split_kv = lambda *a: routed.append(a[2].shape) or split_kv(*a)
+    try:
+        _split_kv_serving(kv_bits, q_gain, routed)
+    finally:
+        ops._planned_split_kv = split_kv
+
+
+def _split_kv_serving(kv_bits, q_gain, routed):
+    from repro_torch.launch.mesh import small_mesh
+    from repro_torch.models import transformer as T
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                           dtype=torch.float32)
+    with torch.no_grad():                # scores past 88, where exp overflows f32
+        for name in ("wq", "bq"):
+            params["stack"][0]["u0"]["attn"][name].mul_(q_gain)
+    prompts = _prompts(cfg)
+    sharded = _engine(cfg, params, small_mesh(1, 4, device_type="cpu"), kv_bits=kv_bits)
+    pool = sharded.pool.cache["stack"][0]["u0"]["attn"]
+    for leaf in ("k_q", "k_s", "v_q", "v_s") if kv_bits else ("k", "v"):
+        assert pool[leaf].placements[1].is_shard(2), (leaf, pool[leaf].placements)
+    got = _drain(sharded, prompts)
+    plain = _engine(cfg, params, None, kv_bits=kv_bits)
+    want = _drain(plain, prompts)
+    _same_streams(params, cfg, prompts, want, got)
+    assert sharded.host_transfers == plain.host_transfers
+    # every decode step's layers attended the split pool (its whole 48
+    # entries, each rank its 12), never a gathered copy
+    assert routed and all(shape[1] == SERVE["kv_len"] for shape in routed), routed
+    assert len(routed) >= sharded.stats()["decode_steps"] * cfg.n_layers
+
+
+@pytest.mark.parametrize("kv", ["fp", "kv8"])
+def test_sequence_split_kv_decode_serving_matches_single_device(split_routes, kv):
+    """Reduced qwen2.5-3b on a 1x4 mesh, fp and at ``kv_bits=8``: the pool
+    (its code and scale planes too) is split along its entries, and every
+    decode step attends it split, each rank its own entries, the ranks'
+    rows merged by their log-sum-exp (``ops._planned_split_kv``).  Its
+    queries are scaled up so that the scores pass 88, where a merge
+    without its max overflows (queries x100).  The engine serves the
     unsharded engine's streams, with the same host transfers."""
-    _spawn(tmp_path, 4, _serving_worker, "qwen2.5-3b", "float32", {}, 4)
+    assert f"split-kv decode {kv}" in split_routes
 
 
 def _restore_worker(rank, path):
